@@ -1,0 +1,52 @@
+"""Architecture config schema + registry (the port's own copy of
+``repro.configs.base``: the port never imports the JAX package).
+
+One module per ported architecture lives next to this file; each exposes
+``CONFIG`` (the exact published shape) and ``SMOKE`` (a reduced same-family
+config for CPU tests).  ``get(name)`` resolves either.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                 # dense (the only family ported so far)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0           # 0 -> d_model // n_heads
+    sliding_window: int = 0
+    rope_theta: float = 10000.0
+    kv_chunk: int = 1024        # KV chunk of the online-softmax attention
+
+    @property
+    def hd(self):
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // self.n_heads if self.n_heads else 0
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+# canonical external ids -> module names
+ALIASES = {
+    "yi-9b": "yi_9b",
+}
+
+
+def get(name: str, smoke: bool = False) -> ArchConfig:
+    mod_name = ALIASES.get(name, name).replace("-", "_").replace(".", "p")
+    if mod_name not in ALIASES.values():
+        raise KeyError(f"architecture {name!r} is not ported yet "
+                       f"(ported: {sorted(ALIASES)})")
+    mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
+    return mod.SMOKE if smoke else mod.CONFIG

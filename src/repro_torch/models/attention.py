@@ -1,0 +1,156 @@
+"""GQA attention: KV-chunked online softmax for prefill, the direct cached
+step for decode.  All four projections (wq/wk/wv/wo) go through
+``layers.linear``, so layers compiled by ``serve.compile`` run on the BCS
+kernel transparently.  The attention math itself is plain PyTorch, as the
+reference leaves it to XLA."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import layers as L
+
+NEG_INF = -1e30
+
+
+def _proj(params, name, x, masks):
+    return L.linear(params[name], x, masks.get(name))
+
+
+def attn_init(d_model, n_heads, n_kv, head_dim, generator, n=None,
+              dtype=torch.bfloat16, device="cpu"):
+    kw = dict(n=n, dtype=dtype, device=device)
+    return {
+        "wq": L.linear_init(d_model, n_heads * head_dim, generator, **kw),
+        "wk": L.linear_init(d_model, n_kv * head_dim, generator, **kw),
+        "wv": L.linear_init(d_model, n_kv * head_dim, generator, **kw),
+        "wo": L.linear_init(n_heads * head_dim, d_model, generator, **kw),
+    }
+
+
+def _grouped(q, n_kv):
+    """(B,S,H,hd) -> (B,S,KV,G,hd): head h reads KV head h // G."""
+    B, S, H, hd = q.shape
+    return q.reshape(B, S, n_kv, H // n_kv, hd)
+
+
+def _expand_kv(k, n_heads):
+    """(B,S,KV,hd) -> (B,S,H,hd) by repeating each KV head G times."""
+    B, S, KV, hd = k.shape
+    G = n_heads // KV
+    if G == 1:
+        return k
+    return k[:, :, :, None, :].expand(B, S, KV, G, hd).reshape(
+        B, S, n_heads, hd)
+
+
+def _mask(q_pos, k_pos, causal, window):
+    mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    return mask
+
+
+def attend(q, k, v, q_pos, k_pos, causal=True, window=0, kv_chunk=1024):
+    """Online-softmax attention over KV chunks.
+
+    q: (B, Sq, H, hd); k, v: (B, Sk, H, hd) (KV already expanded);
+    positions int.  Returns (B, Sq, H, hd).  A single chunk
+    (kv_chunk >= Sk) is a direct softmax."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    scale = hd ** -0.5
+    kv_chunk = min(kv_chunk, Sk)
+    n_chunks = Sk // kv_chunk
+    assert Sk % kv_chunk == 0, (Sk, kv_chunk)
+    qf = q.float() * scale
+
+    if n_chunks == 1:
+        s = torch.einsum("bqhe,bshe->bhqs", qf, k.float())
+        s = torch.where(_mask(q_pos, k_pos, causal, window), s,
+                        torch.tensor(NEG_INF, device=s.device))
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhqs,bshe->bqhe", p, v.float())
+        return out.to(q.dtype)
+
+    m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, Sq, hd), dtype=torch.float32, device=q.device)
+    for c in range(n_chunks):
+        sl = slice(c * kv_chunk, (c + 1) * kv_chunk)
+        s = torch.einsum("bqhe,bshe->bhqs", qf, k[:, sl].float())
+        s = torch.where(_mask(q_pos, k_pos[sl], causal, window), s,
+                        torch.tensor(NEG_INF, device=s.device))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqs,bshe->bhqe", p, v[:, sl].float())
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)                  # (B,Sq,H,hd)
+
+
+def attend_cached(q, k_cache, v_cache, q_pos, k_pos, window=0):
+    """Single-token decode over a KV cache with batch-shared positions.
+
+    q: (B, Q, KV, G, hd); caches: (B, Sk, KV, hd); q_pos (Q,), k_pos (Sk,).
+    Entries whose position is after the query's fail the causal mask."""
+    hd = q.shape[-1]
+    s = torch.einsum("bqkgh,bskh->bkgqs", q.float() * hd ** -0.5,
+                     k_cache.float())
+    mask = k_pos[None, :] <= q_pos[:, None]                     # (Q, Sk)
+    if window > 0:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    s = torch.where(mask, s, torch.tensor(NEG_INF, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p, v_cache.float())
+    return out.to(q.dtype)
+
+
+def mha(params, x, positions, n_heads, n_kv, head_dim, *, causal=True,
+        window=0, rope_theta=10000.0, masks=None, kv_chunk=1024):
+    """Full-sequence self-attention (prefill).  Returns (out, (k, v)) with
+    k, v the roped (B, S, KV, hd) keys and values the cache keeps."""
+    m = masks or {}
+    B, S, _ = x.shape
+    q = _proj(params, "wq", x, m).reshape(B, S, n_heads, head_dim)
+    k = _proj(params, "wk", x, m).reshape(B, S, n_kv, head_dim)
+    v = _proj(params, "wv", x, m).reshape(B, S, n_kv, head_dim)
+    q = L.apply_rotary(q, positions, rope_theta)
+    k = L.apply_rotary(k, positions, rope_theta)
+    out = attend(q, _expand_kv(k, n_heads), _expand_kv(v, n_heads),
+                 positions, positions, causal=causal, window=window,
+                 kv_chunk=kv_chunk)
+    out = out.reshape(B, S, n_heads * head_dim)
+    return _proj(params, "wo", out, m), (k, v)
+
+
+def mha_decode(params, x, cache, pos, n_heads, n_kv, head_dim, *,
+               window=0, rope_theta=10000.0, masks=None):
+    """One-token decode.  cache = dict(k=(B,S,KV,hd), v=..., pos=(S,)).
+    The new token overwrites ring slot ``pos % S`` (the oldest position
+    once the ring is full) and then attends over the cache.  The cache
+    tensors are updated IN PLACE (no per-step copy of the cache); the
+    returned dict holds the same tensors."""
+    m = masks or {}
+    B = x.shape[0]
+    q = _proj(params, "wq", x, m).reshape(B, 1, n_heads, head_dim)
+    k = _proj(params, "wk", x, m).reshape(B, 1, n_kv, head_dim)
+    v = _proj(params, "wv", x, m).reshape(B, 1, n_kv, head_dim)
+    q = L.apply_rotary(q, pos, rope_theta)
+    k = L.apply_rotary(k, pos, rope_theta)
+
+    S = cache["k"].shape[1]
+    slot = torch.remainder(pos[0, :1], S).long()             # (1,)
+    cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+    cache["pos"].index_copy_(0, slot, pos[0, :1].to(cache["pos"].dtype))
+
+    out = attend_cached(_grouped(q, n_kv), cache["k"], cache["v"],
+                        pos[0, 0:1], cache["pos"], window=window)
+    out = out.reshape(B, 1, n_heads * head_dim)
+    return _proj(params, "wo", out, m), cache

@@ -1,0 +1,121 @@
+"""Shared layer primitives: RMSNorm, rotary embeddings, linear (dense,
+masked, or packed BCS-sparse), embedding tables, SwiGLU FFN."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models import module as M
+
+
+# -- RMSNorm ----------------------------------------------------------------
+
+def rmsnorm_init(dim, dtype=torch.bfloat16, device="cpu"):
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params, x, eps=1e-6):
+    """fp32 math, one rounding back to x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * params["scale"].float()).to(dt)
+
+
+# -- Rotary -----------------------------------------------------------------
+
+def rotary_freqs(head_dim, theta=10000.0, device="cpu"):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rotary(x, positions, theta=10000.0):
+    """x: (..., seq, heads, head_dim); positions: (..., seq).  Half-split
+    (not interleaved) rotation in fp32."""
+    hd = x.shape[-1]
+    freqs = rotary_freqs(hd, theta, x.device)                 # (hd/2,)
+    angles = positions[..., :, None].float() * freqs          # (..., seq, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# -- Linear (dense, masked-sparse, or packed BCS-sparse) ---------------------
+
+def linear_init(in_dim, out_dim, generator, n=None, dtype=torch.bfloat16,
+                device="cpu"):
+    shape = (in_dim, out_dim) if n is None else (n, in_dim, out_dim)
+    return {"w": M.dense_init(shape, generator, dtype, device)}
+
+
+def _apply_act(y, act):
+    if act == "silu":
+        return F.silu(y)
+    if act == "relu":
+        return torch.clamp_min(y, 0)
+    return y
+
+
+def linear(params, x, mask=None, act="none"):
+    """y = act(x @ W + b) through whichever executor applies.
+
+    A layer carrying a packed layout (``params["packed"]``, installed by
+    ``serve.compile.compile_model``) runs the BCS kernel — one launch per
+    degree bin, bias + activation fused into its epilogue; any ``mask`` is
+    ignored there (it was baked in at pack time).  Otherwise a dense
+    matmul runs, with an optional pruning ``mask``."""
+    packed = params.get("packed")
+    if packed is not None:
+        return ops.sparse_linear(x, packed=packed, bias=params.get("b"),
+                                 act=act)
+    w = params["w"]
+    if mask is not None:
+        w = w * mask.to(w.dtype)
+    y = torch.matmul(x, w)
+    if "b" in params:
+        y = y + params["b"]
+    return _apply_act(y, act)
+
+
+# -- Embedding ---------------------------------------------------------------
+
+def embedding_init(vocab, dim, generator, dtype=torch.bfloat16,
+                   device="cpu"):
+    return {"table": M.embed_init((vocab, dim), generator, dtype, device)}
+
+
+def embed(params, tokens):
+    return params["table"][tokens]
+
+
+def unembed(params, x):
+    """Logits against the (separate) output head table: (..., d) ->
+    (..., vocab)."""
+    return torch.matmul(x, params["table"].t())
+
+
+# -- SwiGLU FFN ---------------------------------------------------------------
+
+def ffn_init(d_model, d_ff, generator, n=None, dtype=torch.bfloat16,
+             device="cpu"):
+    return {
+        "gate": linear_init(d_model, d_ff, generator, n, dtype, device),
+        "up": linear_init(d_model, d_ff, generator, n, dtype, device),
+        "down": linear_init(d_ff, d_model, generator, n, dtype, device),
+    }
+
+
+def ffn(params, x, masks=None):
+    """SwiGLU with silu requested as the gate projection's epilogue, so the
+    packed path fuses it into the kernel's final store.  Under bf16 the
+    fused path applies silu to the fp32 accumulator before the one
+    rounding, so packed and dense outputs may differ by ~1 bf16 ulp; in
+    fp32 they agree tightly."""
+    m = masks or {}
+    g = linear(params["gate"], x, m.get("gate"), act="silu")
+    u = linear(params["up"], x, m.get("up"))
+    return linear(params["down"], g * u, m.get("down"))

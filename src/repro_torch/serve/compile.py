@@ -1,0 +1,222 @@
+"""Model "codegen" (paper §4.3): pruning masks + per-layer scheme mapping
+-> packed execution params.
+
+``compile_model`` packs every block-pruned linear layer of a param tree
+into a ``core.packed.PackedLayout`` and installs it as
+``params[...]["packed"]``, so ``models.layers.linear`` runs it on the BCS
+kernel.  Row reordering for load balance (Fig 4) happens here by default
+(``reorder=True``).  Stacked layer weights are packed slice by slice and
+every slice's per-bin degree is padded to the stack max (``_pack_stacked``)
+so one layout serves the whole stack.
+
+This port has the linear producer only; conv/pattern producers, int8
+values, tensor-parallel shards and the artifact store come with later
+slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.core import reweighted as RW
+from repro_torch.core.packed import PackedLayout
+from repro_torch.kernels import ops
+from repro_torch.models import module as M
+
+BLOCK_SCHEMES = ("block", "block_row", "block_col")
+
+
+@dataclasses.dataclass(frozen=True)
+class CompileSpec:
+    """The ``compile_model`` knobs.
+
+    keep_dense : keep "w" next to "packed"; False drops it.
+    reorder : degree-sort + bin block columns before padding (Fig 4).
+    n_bins : number of degree bins when reordering (None = 4).
+    block_override : one (bk, bn) packing block for every layer
+        (otherwise each layer uses its mapped ``choice.block``).
+    min_saving : skip packing when the skipped-FLOP fraction is not above
+        this.
+    exclude : path substrings never packed (embeddings/head, §5.2.4).
+    """
+    keep_dense: bool = True
+    reorder: bool = True
+    n_bins: int | None = None
+    block_override: tuple | None = None
+    min_saving: float = 0.0
+    exclude: tuple = ("router", "embed", "head")
+
+    def __post_init__(self):
+        if self.block_override is not None:
+            bo = tuple(int(b) for b in self.block_override)
+            if len(bo) != 2:
+                raise ValueError(f"block_override must be (bk, bn), got "
+                                 f"{self.block_override!r}")
+            object.__setattr__(self, "block_override", bo)
+        object.__setattr__(self, "exclude", tuple(self.exclude))
+        if self.n_bins is not None:
+            object.__setattr__(self, "n_bins", int(self.n_bins))
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerReport:
+    """One layer's line of the compile log: the layout geometry and the
+    load-balance lever (pre-reorder padded degree ``L`` -> post-reorder
+    ``L_reordered`` of ``Kb`` column blocks) for packed rows, the
+    ``reason`` for skipped ones."""
+    path: str
+    packed: bool
+    kind: str | None = None
+    scheme: str | None = None
+    reason: str | None = None
+    block: tuple | None = None
+    shape: tuple | None = None
+    L: int | None = None
+    Kb: int | None = None
+    L_reordered: float | None = None
+    reorder_gain: float | None = None
+    density: float | None = None
+    flops_saved: float | None = None
+    layers: int | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class CompileReport:
+    """The per-layer rows ``compile_model`` returns, plus its spec."""
+    rows: tuple = ()
+    spec: CompileSpec | None = None
+
+    def __iter__(self):
+        return iter(self.rows)
+
+    @property
+    def packed(self) -> tuple:
+        return tuple(r for r in self.rows if r.packed)
+
+
+def _pack_stacked(w, mask, block, *, reorder=True, n_bins=4):
+    """Pack (..., K, N) weights slice by slice, pad every slice's per-bin
+    column degree to the stack max, and restack -> a ``PackedLayout``
+    whose leaves carry the leading stack dims.  Returns (layout, stats)."""
+    mask = mask.expand(w.shape) if mask.ndim else mask
+    lead = tuple(w.shape[:-2])
+    K, N = w.shape[-2:]
+    bk, bn = block
+    wf = w.reshape(-1, K, N)
+    mf = mask.reshape(-1, K, N)
+    layouts = [ops.pack(wf[i], mf[i], block, reorder=reorder, n_bins=n_bins)
+               for i in range(wf.shape[0])]
+    values, k_idx = [], []
+    for b in range(layouts[0].n_bins):          # identical across slices
+        Lb = max(lay.bin_degrees[b] for lay in layouts)
+
+        def pad(t):
+            return torch.nn.functional.pad(
+                t, (0,) * (2 * (t.ndim - 2)) + (0, Lb - t.shape[1]))
+        v = torch.stack([pad(lay.values[b]) for lay in layouts])
+        k = torch.stack([pad(lay.k_idx[b]) for lay in layouts])
+        values.append(v.reshape(lead + (-1, Lb, bk, bn)))
+        k_idx.append(k.reshape(lead + (-1, Lb)))
+
+    def restack(get):
+        a = torch.stack([get(lay) for lay in layouts])
+        return a.reshape(lead + tuple(a.shape[1:]))
+
+    nnz = restack(lambda lay: lay.nnz)
+    stacked = PackedLayout(
+        values=tuple(values), k_idx=tuple(k_idx), nnz=nnz,
+        perm=restack(lambda lay: lay.perm) if reorder else None,
+        inv_perm=restack(lambda lay: lay.inv_perm) if reorder else None,
+        block=tuple(block), shape=(K, N))
+    L_pre = max(1, int(nnz.max()))
+    L_eff = stacked.L_effective
+    stats = {
+        "block": tuple(block), "shape": (K, N), "L": L_pre, "Kb": K // bk,
+        "L_reordered": round(L_eff, 2),
+        "reorder_gain": round(L_pre / max(L_eff, 1e-9), 2),
+        "density": stacked.density,
+        "flops_saved": stacked.flops_saved,
+        "layers": math.prod(lead),
+    }
+    return stacked, stats
+
+
+def compile_model(params, masks=None, mapping=(), spec=None, device="cuda"):
+    """Pack every block-pruned linear layer of ``params`` for sparse
+    execution on ``device``.  Returns (exec_params, CompileReport).
+
+    params  : model param tree (nested dicts; linear nodes hold "w").
+    masks   : mask tree matching ``params`` (scalar sentinels on unpruned
+              leaves, as ``core.reweighted`` builds them).  None derives the
+              masks from the zeros already baked into ``w``.
+    mapping : [(path_regex, SchemeChoice)] — only paths mapped to a block
+              scheme are packed.
+    spec    : ``CompileSpec``.
+    """
+    spec = spec if spec is not None else CompileSpec()
+    dev = M.resolve_device(device)
+    n_bins = 4 if spec.n_bins is None else spec.n_bins
+    rows = []
+
+    def walk(p, m, path):
+        if not isinstance(p, dict):
+            return p.to(dev) if isinstance(p, torch.Tensor) else p
+        out = {k: walk(v, m.get(k) if isinstance(m, dict) else None,
+                       f"{path}/{k}" if path else k)
+               for k, v in p.items()}
+        w = out.get("w")
+        if not isinstance(w, torch.Tensor) or w.ndim < 2:
+            return out
+        wpath = f"{path}/w" if path else "w"
+
+        def skip(reason):
+            rows.append(LayerReport(path=wpath, packed=False, reason=reason))
+            return out
+
+        if any(e in wpath for e in spec.exclude):
+            return skip("excluded")
+        choice = RW.match(list(mapping), wpath)
+        if choice is None or choice.scheme not in BLOCK_SCHEMES:
+            return skip("no block scheme mapped")
+        mask = m.get("w") if isinstance(m, dict) else None
+        if masks is None:
+            mask = w != 0
+        elif mask is None or mask.ndim == 0:
+            return skip("no mask (layer not pruned)")
+        block = tuple(spec.block_override or choice.block)
+        K, N = w.shape[-2:]
+        if K % block[0] or N % block[1]:
+            return skip(f"block {block} does not divide ({K}, {N})")
+        packed, stats = _pack_stacked(w, mask.to(dev), block,
+                                      reorder=spec.reorder, n_bins=n_bins)
+        if stats["flops_saved"] <= spec.min_saving:
+            return skip(f"no effective saving (L={stats['L']} of "
+                        f"Kb={stats['Kb']} column blocks survive)")
+        out["packed"] = packed
+        if not spec.keep_dense:
+            del out["w"]
+        rows.append(LayerReport(path=wpath, packed=True, kind="linear",
+                                scheme=choice.scheme, **stats))
+        return out
+
+    exec_params = walk(params, masks, "")
+    return exec_params, CompileReport(rows=tuple(rows), spec=spec)
+
+
+def compiled_summary(report) -> str:
+    """One line per layer: the load-balance lever (pre-reorder L ->
+    post-reorder effective L and the gain) or the skip reason."""
+    lines = []
+    for r in report:
+        if r.packed:
+            lines.append(
+                f"  pack {r.path:<28s} [{r.kind}] block={r.block} "
+                f"density={r.density:.2f} "
+                f"L={r.L}->{r.L_reordered}/{r.Kb} "
+                f"(reorder_gain={r.reorder_gain:.2f}x) "
+                f"flops_saved={r.flops_saved:.2f}")
+        else:
+            lines.append(f"  skip {r.path:<28s} ({r.reason})")
+    return "\n".join(lines)

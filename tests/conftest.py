@@ -14,3 +14,9 @@ _FLAG = "--xla_force_host_platform_device_count"
 if _FLAG not in os.environ.get("XLA_FLAGS", ""):
     os.environ["XLA_FLAGS"] = (
         os.environ.get("XLA_FLAGS", "") + f" {_FLAG}=8").strip()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (CUDA kernels have no CPU "
+        "mode); skipped where there is none")
