@@ -4,7 +4,8 @@
   python3 chip_smoke.py [--layers 8]
 
 1. Print the card (nvidia-smi name and power limit) and build every CUDA
-   kernel of the main path from ``src/repro_torch/kernels/csrc``.
+   kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source,
+   all started together).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it (yi-9b full width, (16, 16) blocks, decode
    M = 4 and prefill M = 128, bf16 and fp32, reordered into 4 bins and not,
@@ -19,6 +20,20 @@
    the packed prefill logits against the same weights run masked-dense,
    with planted faults showing that the bound catches a broken packed
    path.
+4. Conv kernels: every packed layer of ``VGG_TINY`` under the
+   block-punched and the pattern mapping at B = 256, 32x32, and
+   ``MOBILE_TINY``'s 5x5 ``c4``, in fp32 and bf16, reordered and not, bias
+   + relu and none, implicit and materialized forced: kernel vs plain
+   version, implicit == materialized and reordered == unreordered
+   bitwise; times of each mode, the plain version, ``F.conv2d`` on the
+   masked dense weight (TF32 off; a yardstick the port never calls) and
+   the bound.
+5. Serve ``VGG_TINY`` at its published widths (fp32, seed 0, B = 256
+   synthetic 32x32x3 images, 10 classes) under both mappings through
+   ``compile_model`` and ``convnet_apply``: the launches of one forward
+   per kernel equal what the layouts imply, the logits agree with the
+   masked-dense run on the card (TF32 off), a planted fault breaks that
+   bound; ms per forward, images/s and the card's busy share.
 
 No phase is caught: any failure exits non-zero.  The last two lines are
 the kernels JSON and ``{"ok": true, "device": {...}}``.  Full detail goes
@@ -41,9 +56,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, dense bf16
-# tensor-core FLOP/s (the timed calls are bf16)
+# tensor-core FLOP/s (the timed yi-9b calls are bf16), fp32 outside the
+# tensor cores (the conv kernels' fp32 FMAs)
 HBM_BYTES_PER_S = 3.35e12
 BF16_PEAK_FLOPS = 989e12
+FP32_PEAK_FLOPS = 67e12
 
 # (name, K, N, epilogue activation) of the 7 projections of a yi-9b layer
 D, DKV, DFF = 4096, 512, 11008
@@ -62,6 +79,16 @@ FP32_TOL = 1e-4          # rtol = atol for fp32 outputs vs the plain version
 LOGIT_MAX_REL = 0.05     # max |diff| <= this * max |dense logit|
 LOGIT_MEAN_REL = 0.02    # mean |diff| <= this * mean |dense logit|
 B, S, N_NEW = 4, 32, 16  # prompts, prompt length, new tokens
+
+# the CNN path: VGG_TINY on CIFAR-10-shaped images
+CONV_RE = r"(^|/)(c|pw|dw)\d+/w"
+CONV_B, CONV_HW = 256, 32
+# fp32 logits, packed vs masked-dense on the card (TF32 off on both): the
+# two differ only in the fp32 summation order; a fault (a dropped bin of
+# c6) moves them by a sizeable share of max |logit| (PERF.md)
+CONV_LOGIT_REL = 1e-3    # max |diff| <= this * max |dense logit|
+KERNEL_FILES = {"bsr_matmul": "bsr_matmul.cu", "tap_gather": "tap_gather.cu"}
+DEV = "cuda"             # the conv phases' device
 
 
 def smi_line() -> str:
@@ -268,8 +295,9 @@ def planted_faults(params):
 def device_time(fn):
     """Trace ``fn`` with ``torch.profiler``: the card's busy milliseconds
     (union of the intervals of every kernel and copy it ran), the share of
-    them in ``bsr_matmul`` kernels, and the number of device events; None
-    when the profiler saw no device activity."""
+    them in ``bsr_matmul`` kernels (kernels 1 and 3) and in ``tap_gather``
+    kernels (2 and 4), and the number of device events; None when the
+    profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -289,7 +317,8 @@ def device_time(fn):
         hi = max(hi, b)
     busy += hi - lo
     bsr = sum(b - a for a, b, n in spans if "bsr_matmul" in n)
-    return {"busy_ms": busy / 1e3, "bsr_ms": bsr / 1e3,
+    tap = sum(b - a for a, b, n in spans if "tap_gather" in n)
+    return {"busy_ms": busy / 1e3, "bsr_ms": bsr / 1e3, "tap_ms": tap / 1e3,
             "events": len(spans)}
 
 
@@ -425,6 +454,410 @@ def serve_phase(mods, args):
         raise AssertionError(f"the logit bound does not catch: {missed}")
     return e2e, launches
 
+# -- the CNN path: kernels 2-4 (and kernel 1 on im2col patches) ------------
+
+def conv_mappings(RW):
+    """(name, prune spec) of the two mappings of the CNN path."""
+    return [
+        ("punched", [(CONV_RE, RW.SchemeChoice("block_punched", (8, 8)))]),
+        ("pattern", [(CONV_RE, RW.SchemeChoice("pattern",
+                                               connectivity=0.5))])]
+
+
+def conv_masks(RW, name, params, spec):
+    if name == "punched":
+        return RW.punched_conv_masks(params, spec, (8, 8), rate=0.5)
+    return RW.masks_for_spec(params, spec)
+
+
+def layer_inputs(arch, hw, B, C=3):
+    """(name, kh, kw, stride, input shape (B, H, W, C)) of each layer of a
+    conv arch at an hw x hw input."""
+    from repro_torch.kernels.bsr_matmul import conv_geometry
+    out, H = [], hw
+    for (name, cout, kh, kw, stride, dw) in arch:
+        out.append((name, kh, kw, stride, (B, H, H, C)))
+        _, _, H, _ = conv_geometry(H, H, kh, kw, stride, "SAME")
+        C = C if dw else cout
+    return out
+
+
+def conv_kernel_keys(layout):
+    """(implicit kernel, materialized kernel) of a packed conv layout."""
+    from repro_torch.core.packed import TapLayout
+    if isinstance(layout, TapLayout):
+        return "tap_gather_conv_implicit", "tap_gather_conv"
+    return "bsr_conv2d_implicit", "bsr_matmul"
+
+
+def conv_cases(mods):
+    """Every packed conv layer of the CNN path: (label, weight * mask,
+    mask, kh, kw, stride, input shape, scheme) for VGG_TINY under both
+    mappings and MOBILE_TINY's 5x5 c4 (connectivity 0.5)."""
+    RW, CN = mods["RW"], mods["CN"]
+    from repro_torch.train.trainer import apply_masks
+    cases = []
+    params = CN.convnet_init(CN.VGG_TINY, seed=0, device=DEV)
+    for name, spec in conv_mappings(RW):
+        masks = conv_masks(RW, name, params, spec)
+        pm = apply_masks(params, masks)
+        for lname, kh, kw, stride, shape in layer_inputs(CN.VGG_TINY,
+                                                          CONV_HW, CONV_B):
+            if masks[lname]["w"].ndim:
+                cases.append((f"vgg/{lname}/{name}", pm[lname]["w"],
+                              masks[lname]["w"], kh, kw, stride, shape,
+                              name))
+    mob = CN.convnet_init(CN.MOBILE_TINY, seed=0, device=DEV)
+    spec = conv_mappings(RW)[1][1]
+    masks = conv_masks(RW, "pattern", mob, spec)
+    lname, kh, kw, stride, shape = layer_inputs(CN.MOBILE_TINY, 16,
+                                                CONV_B)[-1]
+    cases.append((f"mobile/{lname}/pattern", mob[lname]["w"] *
+                  masks[lname]["w"], masks[lname]["w"], kh, kw, stride,
+                  (CONV_B, 16, 16, 128), "pattern"))
+    return cases
+
+
+def conv_layouts(ops, BCS, wm, mask, kh, kw, scheme, reorder, dtype):
+    w = wm.to(dtype)
+    if scheme == "pattern":
+        return ops.pack_taps(w, mask, reorder=reorder)
+    P, Q = w.shape[:2]
+    return ops.pack(BCS.conv_lower(w), BCS.conv_lower(mask), (8, 8),
+                    reorder=reorder, n_bins=4, conv=(kh, kw, Q))
+
+
+def conv_plain(ref, K, x, lay, kh, kw, stride, bias, act):
+    """The plain (implicit) version on the card, fp32 inputs, NHWC out."""
+    from repro_torch.core.packed import TapLayout
+    xp, (Ho, Wo) = K.pad_image(x.float(), kh, kw, stride)
+    b = None if bias is None else bias.float()
+    if isinstance(lay, TapLayout):
+        y = ref.tap_gather_implicit_ref(xp, lay, kw, (Ho, Wo, stride), b,
+                                        act)
+    else:
+        y = ref.bsr_conv2d_implicit_ref(xp, lay, lay.conv_taps_t,
+                                        (Ho, Wo, stride), b, act)
+    return y.reshape(x.shape[0], Ho, Wo, -1)
+
+
+def conv_kernel_phase(mods, flush):
+    """Kernels 1-4 on the CNN path's shapes vs their plain versions, the
+    bitwise identities, and timings (fp32, reordered, bias + relu)."""
+    ops, ref, K, BCS = mods["ops"], mods["ref"], mods["K"], mods["BCS"]
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(1)
+    max_err = {k: 0.0 for k in K.LAUNCHES}
+    checks = 0
+    rows = []
+    for (label, wm, mask, kh, kw, stride, shape,
+         scheme) in conv_cases(mods):
+        conv = (ops.sparse_conv2d_pattern if scheme == "pattern"
+                else ops.sparse_conv2d)
+        P = wm.shape[0]
+        x32 = torch.randn(shape, generator=gen, device=DEV)
+        b32 = torch.randn(P, generator=gen, device=DEV) * 0.1
+        for dtype in (torch.float32, torch.bfloat16):
+            lays = [conv_layouts(ops, BCS, wm, mask, kh, kw, scheme, r,
+                                 dtype) for r in (True, False)]
+            x, b = x32.to(dtype), b32.to(dtype)
+            k_imp, k_mat = conv_kernel_keys(lays[0])
+            for act, bias in (("none", None), ("relu", b)):
+                ys = [conv(x, lay, kh=kh, kw=kw, stride=stride, bias=bias,
+                           act=act, implicit=imp)
+                      for lay in lays for imp in (True, False)]
+                sync()
+                for y in ys[1:]:
+                    if not torch.equal(y, ys[0]):
+                        raise AssertionError(
+                            f"{label} {dtype} act={act}: implicit / "
+                            f"materialized / reordered / unreordered "
+                            f"outputs differ bitwise")
+                want = conv_plain(ref, K, x, lays[0], kh, kw, stride, bias,
+                                  act)
+                err = (ys[0].float() - want).abs()
+                if dtype == torch.float32:
+                    tol = FP32_TOL + FP32_TOL * want.abs()
+                else:
+                    tol = bf16_ulp(want) + FP32_TOL * (1 + want.abs())
+                bad = err > tol
+                if bad.any():
+                    i = int(bad.flatten().nonzero()[0])
+                    raise AssertionError(
+                        f"conv kernel vs plain at {label} {dtype} act={act}:"
+                        f" {int(bad.sum())} elements out of tolerance, first"
+                        f" {err.flatten()[i].item()} > "
+                        f"{tol.flatten()[i].item()}")
+                if dtype == torch.float32:
+                    e = err.max().item()
+                    max_err[k_imp] = max(max_err[k_imp], e)
+                    max_err[k_mat] = max(max_err[k_mat], e)
+                checks += 1
+            del ys, want, err
+
+        # timings: fp32, the reordered layout, bias + relu (the served
+        # configuration), L2 flushed before each run
+        lay = conv_layouts(ops, BCS, wm, mask, kh, kw, scheme, True,
+                           torch.float32)
+        k_imp, k_mat = conv_kernel_keys(lay)
+        x = x32
+        B_, H, W, C = shape
+        _, _, Ho, Wo = K.conv_geometry(H, W, kh, kw, stride)
+        M = B_ * Ho * Wo
+        if scheme == "pattern":
+            imp_fn = (lambda: K.tap_gather_conv_implicit(
+                x, lay, kh=kh, kw=kw, stride=stride, bias=b32, act="relu"))
+            band = ops.im2col(x, kh, kw, stride).reshape(M, -1)
+            if lay.n_alive < band.shape[1]:
+                band = band.index_select(1, lay.alive.long()).contiguous()
+            mat_fn = (lambda: K.tap_gather_conv_packed(band, lay, b32,
+                                                       "relu"))
+            live = lay.nnz_taps * lay.group
+            w_bytes = sum(v.numel() * 4 + t.numel() * 4
+                          for v, t in zip(lay.values, lay.t_idx))
+            executed = lay.executed_taps * lay.group
+        else:
+            imp_fn = (lambda: K.bsr_conv2d_implicit(
+                x, lay, kh=kh, kw=kw, stride=stride, bias=b32, act="relu"))
+            band = ops.im2col(x, kh, kw, stride).reshape(M, -1)
+            mat_fn = (lambda: K.bsr_matmul_packed(band, lay, b32, "relu"))
+            bk, bn = lay.block
+            live = lay.nnzb * bk * bn
+            w_bytes = sum(v.numel() * 4 + k.numel() * 4
+                          for v, k in zip(lay.values, lay.k_idx))
+            executed = lay.executed_blocks * bk * bn
+        call_fn = (lambda: conv(x, lay, kh=kh, kw=kw, stride=stride,
+                                bias=b32, act="relu", implicit=False))
+        plain_fn = (lambda: conv_plain(ref, K, x, lay, kh, kw, stride, b32,
+                                       "relu"))
+        dense = (wm * mask).float()
+        xp, _ = K.pad_image(x, kh, kw, stride)
+        xn = xp.permute(0, 3, 1, 2).contiguous()
+        lib_fn = (lambda: torch.relu(F.conv2d(xn, dense, b32,
+                                              stride=stride)))
+        imp_ms = time_ms(imp_fn, 20, flush)
+        mat_ms = time_ms(mat_fn, 20, flush)
+        call_ms = time_ms(call_fn, 20, flush)
+        plain_ms = time_ms(plain_fn, 3, flush)
+        lib_ms = time_ms(lib_fn, 20, flush)
+        img_bytes = xp.numel() * 4
+        out_bytes = M * P * 4
+        flops = 2 * M * live
+        t_ops = flops / FP32_PEAK_FLOPS * 1e3
+        b_imp = (img_bytes + w_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+        b_mat = (band.numel() * 4 + w_bytes + out_bytes) / \
+            HBM_BYTES_PER_S * 1e3
+        rows.append({
+            "layer": label, "kernel_implicit": k_imp,
+            "kernel_materialized": k_mat, "M": M, "K": lay.shape[0],
+            "N": P, "bins": lay.n_bins, "L_max": lay.L_max,
+            "executed_frac": 1 - lay.flops_saved,
+            "live_flops": flops, "executed_flops": 2 * M * executed,
+            "implicit_ms": imp_ms, "materialized_ms": mat_ms,
+            "materialized_call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms,
+            "bound_implicit_ms": max(b_imp, t_ops),
+            "bound_materialized_ms": max(b_mat, t_ops),
+            "bound_by_implicit": "bytes" if b_imp >= t_ops else "operations",
+            "bound_by_materialized": ("bytes" if b_mat >= t_ops
+                                      else "operations"),
+            "ops_ms": t_ops, "bytes_implicit_ms": b_imp,
+            "bytes_materialized_ms": b_mat,
+            "patch_bytes": band.numel() * 4, "image_bytes": img_bytes})
+        del band, lay, xp, xn
+    print(f"conv kernels vs plain: {checks} cases over "
+          f"{len(rows)} layers (VGG_TINY punched + pattern at B={CONV_B} "
+          f"{CONV_HW}x{CONV_HW}, MOBILE_TINY c4 5x5), fp32 + bf16, bias + "
+          f"relu and none; implicit == materialized and reordered == "
+          f"unreordered bitwise; max abs err (fp32) " + ", ".join(
+              f"{k} {v:.2e}" for k, v in max_err.items() if v))
+    print("conv timings (fp32, reordered, bias + relu, L2 flushed, median "
+          "ms by CUDA-graph replay; materialized = kernel on a prebuilt "
+          "patch band, call = im2col + kernel):")
+    print(f"  {'layer':24s} {'M':>7s} {'K':>5s} {'N':>4s} {'implicit':>9s} "
+          f"{'mat':>9s} {'call':>9s} {'bound':>9s} {'plain':>9s} "
+          f"{'conv2d':>9s}  bound_by")
+    for r in rows:
+        print(f"  {r['layer']:24s} {r['M']:7d} {r['K']:5d} {r['N']:4d} "
+              f"{r['implicit_ms']:9.4f} {r['materialized_ms']:9.4f} "
+              f"{r['materialized_call_ms']:9.4f} "
+              f"{r['bound_implicit_ms']:9.4f} {r['plain_ms']:9.4f} "
+              f"{r['library_ms']:9.4f}  {r['bound_by_implicit']}")
+    return rows, max_err
+
+
+def expected_conv_launches(ops, arch, exec_p, hw, B):
+    """Launches of one ``convnet_apply`` per kernel, from the layouts: a
+    packed layer launches its kernel once per bin, the implicit or the
+    materialized one as ``ops._pick_implicit`` picks at its input."""
+    want = {}
+    for name, kh, kw, stride, shape in layer_inputs(arch, hw, B):
+        lay = exec_p[name].get("packed")
+        if lay is None:
+            continue
+        k_imp, k_mat = conv_kernel_keys(lay)
+        x = torch.empty(shape, dtype=torch.float32, device="meta")
+        bk = None if k_imp == "tap_gather_conv_implicit" else lay.block[0]
+        key = (k_imp if ops._pick_implicit(None, x, kh, kw, stride, "SAME",
+                                           bk=bk) else k_mat)
+        want[key] = want.get(key, 0) + lay.n_bins
+    return want
+
+
+def conv_logit_gap(dense, packed):
+    return ((dense - packed).abs().max() / dense.abs().max()).item()
+
+
+def conv_serve_phase(mods):
+    """VGG_TINY at its published widths through the port's entry points,
+    under both mappings."""
+    RW, CN, C, K, ops = (mods["RW"], mods["CN"], mods["C"], mods["K"],
+                         mods["ops"])
+    from repro_torch.train.trainer import apply_masks
+    params = CN.convnet_init(CN.VGG_TINY, seed=0, device=DEV)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    x, labels = CN.synthetic_images(gen, CONV_B, size=CONV_HW)
+    print(f"VGG_TINY at its published widths (32-64-64-128-128-128), fp32, "
+          f"seed 0; B = {CONV_B} synthetic {CONV_HW}x{CONV_HW}x3 images, 10 "
+          f"classes")
+    out, launches_all = {}, {}
+    for name, spec in conv_mappings(RW):
+        masks = conv_masks(RW, name, params, spec)
+        pm = apply_masks(params, masks)
+        sync()
+        t0 = time.perf_counter()
+        exec_p, report = C.compile_model(
+            pm, masks, spec, spec=C.CompileSpec(keep_dense=False),
+            device=DEV)
+        sync()
+        compile_s = time.perf_counter() - t0
+        print(f"[{name}] compile_model {compile_s:.2f}s:")
+        print(C.compiled_summary(report))
+        want = expected_conv_launches(ops, CN.VGG_TINY, exec_p, CONV_HW,
+                                      CONV_B)
+        # the main path, counted: counts to 0 just before, read just after
+        K.reset_launches()
+        sync()
+        with torch.no_grad():
+            logits = CN.convnet_apply(exec_p, x, CN.VGG_TINY)
+        sync()
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        print(f"[{name}] one forward: launches {launches} (from the "
+              f"layouts: {want})")
+        if launches != want:
+            raise AssertionError(f"[{name}] the forward did not go through "
+                                 f"the kernels the layouts imply")
+        for k, v in launches.items():
+            launches_all[k] = launches_all.get(k, 0) + v
+        with torch.no_grad():
+            dense = CN.convnet_apply(pm, x, CN.VGG_TINY)   # TF32 off
+            gap = conv_logit_gap(dense, logits)
+            agree = (dense.argmax(-1) == logits.argmax(-1)).float().mean()
+            c6 = exec_p["c6"]["packed"]
+            broken = dataclasses.replace(
+                c6, values=c6.values[:-1] + (torch.zeros_like(c6.values[-1]),))
+            fault = conv_logit_gap(dense, CN.convnet_apply(
+                dict(exec_p, c6=dict(exec_p["c6"], packed=broken)), x,
+                CN.VGG_TINY))
+            for _ in range(2):
+                CN.convnet_apply(exec_p, x, CN.VGG_TINY)
+            sync()
+            n_fw = 10
+            t0 = time.perf_counter()
+            for _ in range(n_fw):
+                CN.convnet_apply(exec_p, x, CN.VGG_TINY)
+            sync()
+            fw_ms = (time.perf_counter() - t0) * 1e3 / n_fw
+            dev = device_time(lambda: CN.convnet_apply(exec_p, x,
+                                                       CN.VGG_TINY))
+        acc = (logits.argmax(-1) == labels).float().mean().item()
+        print(f"[{name}] logits packed vs masked-dense (fp32, TF32 off): "
+              f"max|diff| {gap:.2e} of max|logit| (bound {CONV_LOGIT_REL});"
+              f" argmax agree {agree.item():.3f}; planted fault (c6's last "
+              f"bin dropped): {fault:.3f}; accuracy of the random-weight "
+              f"net {acc:.3f}")
+        busy = None
+        if dev is None:
+            print(f"[{name}] device busy share: not measured (the profiler "
+                  f"saw no device activity)")
+        else:
+            busy = dev["busy_ms"] / fw_ms
+            print(f"[{name}] forward {fw_ms:.3f} ms warm (mean of {n_fw}) ="
+                  f" {CONV_B / fw_ms * 1e3:.0f} images/s; device busy "
+                  f"{dev['busy_ms']:.3f} ms ({dev['bsr_ms']:.3f} in "
+                  f"bsr_matmul kernels, {dev['tap_ms']:.3f} in tap_gather "
+                  f"kernels) = {busy:.3f} of the forward's wall time")
+        if not (torch.isfinite(logits).all()
+                and tuple(logits.shape) == (CONV_B, 10)
+                and gap <= CONV_LOGIT_REL and agree.item() == 1.0):
+            raise AssertionError(f"[{name}] packed logits disagree with the "
+                                 f"masked-dense ones beyond the bound")
+        if fault <= CONV_LOGIT_REL:
+            raise AssertionError(f"[{name}] the logit bound does not catch "
+                                 f"a dropped bin of c6")
+        out[name] = {"compile_s": compile_s, "launches": launches,
+                     "logit_gap": gap, "argmax_agree": agree.item(),
+                     "fault_gap": fault, "forward_ms": fw_ms,
+                     "images_per_s": CONV_B / fw_ms * 1e3,
+                     "device": dev, "busy_share": busy,
+                     "report": C.compiled_summary(report)}
+    return out, launches_all
+
+
+def conv_shape_row(r, mode):
+    """One conv layer's row for the kernels JSON line (ms)."""
+    return {"layer": r["layer"], "M": r["M"], "K": r["K"], "N": r["N"],
+            "mode": mode, "ms": r[f"{mode}_ms"],
+            "bound_ms": r[f"bound_{mode}_ms"],
+            "bound_by": r[f"bound_by_{mode}"], "plain_ms": r["plain_ms"],
+            "library_ms": r["library_ms"]}
+
+
+def conv_entries(rows, max_err, launches):
+    """The JSON entries of kernels 2-4: their work in one VGG_TINY forward
+    (the layers that run them on the served path), summed."""
+    spec = [
+        ("tap_gather_conv", "tap_gather.cu",
+         "src/repro/kernels/bsr_matmul.py:314",
+         lambda r: r["layer"] == "vgg/c5/pattern", "materialized"),
+        ("bsr_conv2d_implicit", "bsr_matmul.cu",
+         "src/repro/kernels/bsr_matmul.py:483",
+         lambda r: r["layer"].startswith("vgg/") and
+         r["layer"].endswith("/punched") and r["layer"] != "vgg/c5/punched",
+         "implicit"),
+        ("tap_gather_conv_implicit", "tap_gather.cu",
+         "src/repro/kernels/bsr_matmul.py:613",
+         lambda r: r["layer"].startswith("vgg/") and
+         r["layer"].endswith("/pattern") and r["layer"] != "vgg/c5/pattern",
+         "implicit"),
+    ]
+    out = []
+    for name, src, replaces, pick, mode in spec:
+        sel = [r for r in rows if pick(r)]
+        t_ops = sum(r["ops_ms"] for r in sel)
+        t_bytes = sum(r[f"bytes_{mode}_ms"] for r in sel)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": launches.get(name, 0),
+            "max_abs_err": max_err[name],
+            "ms": sum(r[f"{mode}_ms"] for r in sel),
+            "plain_ms": sum(r["plain_ms"] for r in sel),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": sum(r["library_ms"] for r in sel),
+            "shapes": [conv_shape_row(r, mode) for r in sel],
+            "measured_at": f"sum over VGG_TINY layers "
+                           f"{[r['layer'] for r in sel]} at B={CONV_B} "
+                           f"{CONV_HW}x{CONV_HW}, fp32, {mode} mode, bias "
+                           f"+ relu; library = F.conv2d + relu on the "
+                           f"masked dense weight, TF32 off",
+        })
+    return out
+
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
@@ -438,9 +871,11 @@ def main(argv=None):
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     try:
+        from repro_torch.core import bcs as BCS
         from repro_torch.core import reweighted as RW
         from repro_torch.kernels import _build, ops, ref
         from repro_torch.kernels import bsr_matmul as K
+        from repro_torch.models import convnet as CN
         from repro_torch.models import transformer as T
         from repro_torch.serve import compile as C
         from repro_torch.serve import engine as E
@@ -448,7 +883,10 @@ def main(argv=None):
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 2
-    mods = dict(RW=RW, ops=ops, ref=ref, K=K, T=T, C=C, E=E)
+    mods = dict(RW=RW, ops=ops, ref=ref, K=K, T=T, C=C, E=E, CN=CN,
+                BCS=BCS)
+    # the oracles (masked-dense matmul and F.conv2d) run in full fp32: a
+    # float32 conv goes through cuDNN in TF32 unless told otherwise
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -458,19 +896,27 @@ def main(argv=None):
           f"python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    _build.load("bsr_matmul")
-    info = _build.BUILD_INFO["bsr_matmul"]
-    print(f"built bsr_matmul.cu for sm_90a in {time.perf_counter() - t0:.2f}s"
-          f" (nvcc {info['seconds']:.2f}s)")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    _build.build_all(KERNEL_FILES)
+    for lib in KERNEL_FILES:
+        _build.load(lib)
+    print(f"built {', '.join(KERNEL_FILES.values())} for sm_90a in "
+          f"{time.perf_counter() - t0:.2f}s (nvcc "
+          + ", ".join(f"{_build.BUILD_INFO[n]['seconds']:.2f}s"
+                      for n in KERNEL_FILES) + ", in parallel)")
+    for lib in KERNEL_FILES:
+        for line in _build.BUILD_INFO[lib]["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {lib}:", line.strip())
 
-    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=DEV)
     rows, max_err = kernel_phase(mods, flush)
-    del flush
     torch.cuda.empty_cache()
     e2e, launches = serve_phase(mods, args)
+    torch.cuda.empty_cache()
+    conv_rows, conv_err = conv_kernel_phase(mods, flush)
+    del flush
+    torch.cuda.empty_cache()
+    conv_e2e, conv_launches = conv_serve_phase(mods)
 
     decode_rows = [r for r in rows if r["M"] == 4]
     t_bytes = sum(r["bytes_ms"] for r in decode_rows)
@@ -479,7 +925,13 @@ def main(argv=None):
         "name": "bsr_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bsr_matmul.cu",
         "replaces": "src/repro/kernels/bsr_matmul.py:143",
-        "launches": launches["bsr_matmul"], "max_abs_err": max_err,
+        # the yi-9b generate and the block-punched VGG_TINY forward
+        "launches": (launches["bsr_matmul"]
+                     + conv_launches.get("bsr_matmul", 0)),
+        "launches_by_path": {"yi-9b generate": launches["bsr_matmul"],
+                             "VGG_TINY forwards": conv_launches.get(
+                                 "bsr_matmul", 0)},
+        "max_abs_err": max(max_err, conv_err["bsr_matmul"]),
         # one decode step's 7 projections of one layer (M = 4), summed
         "ms": sum(r["ms"] for r in decode_rows),
         "plain_ms": sum(r["plain_ms"] for r in decode_rows),
@@ -489,16 +941,26 @@ def main(argv=None):
         "measured_at": "sum over one yi-9b layer's 7 projections at decode "
                        "M=4, bf16, (16,16) blocks, rate 0.6, 4 bins",
     }
+    entry["shapes"] = [
+        {"layer": f"yi-9b/{r['proj']}", "M": r["M"], "K": r["K"],
+         "N": r["N"], "ms": r["ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "plain_ms": r["plain_ms"],
+         "library_ms": r["library_ms"]} for r in rows] + [
+        conv_shape_row(r, "materialized") for r in conv_rows
+        if r["layer"] == "vgg/c5/punched"]
+    entries = [entry] + conv_entries(conv_rows, conv_err, conv_launches)
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__,
-         "cuda": torch.version.cuda, "build": info["seconds"],
-         "ptxas": info["log"], "kernels": [dict(entry, shapes=rows)],
-         "serve": e2e},
+         "cuda": torch.version.cuda,
+         "build": {n: _build.BUILD_INFO[n]["seconds"] for n in KERNEL_FILES},
+         "ptxas": {n: _build.BUILD_INFO[n]["log"] for n in KERNEL_FILES},
+         "kernels": entries, "yi9b_shapes": rows,
+         "conv_shapes": conv_rows, "serve": e2e, "conv_serve": conv_e2e},
         indent=1))
     print(f"card: {card}")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

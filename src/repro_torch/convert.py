@@ -4,16 +4,19 @@ port's tree of tensors on ``device``.
 
 A packed layout crosses as a dict of its leaves plus ``block``/``shape``
 (``values``/``k_idx`` lists per bin, ``nnz``, ``perm``/``inv_perm`` or
-None) under a ``"packed"`` key.  bf16 arrays arrive as ``ml_dtypes``
-bfloat16, which ``torch.from_numpy`` rejects: they cross bit for bit as an
-int16 view, recognised by ``dtype.name``.
+None, optionally ``conv_taps``) under a ``"packed"`` key; a dict carrying
+``t_idx`` is a tap layout (``values``/``t_idx``/``k_full`` lists per bin,
+``nnz``, ``alive``, ``perm``/``inv_perm``, ``group``, ``shape``).  bf16
+arrays arrive as ``ml_dtypes`` bfloat16, which ``torch.from_numpy``
+rejects: they cross bit for bit as an int16 view, recognised by
+``dtype.name``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.packed import PackedLayout
+from repro_torch.core.packed import PackedLayout, TapLayout
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -25,16 +28,30 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
-def layout_from_numpy(d, device) -> PackedLayout:
-    """A packed-layout dict (see module docstring) -> ``PackedLayout``."""
+def layout_from_numpy(d, device):
+    """A layout dict (see module docstring) -> ``PackedLayout``, or
+    ``TapLayout`` when it carries ``t_idx``."""
     def opt(k):
         return None if d.get(k) is None else tensor_from_numpy(d[k], device)
+
+    def bins(k):
+        return tuple(tensor_from_numpy(v, device) for v in d[k])
+    if "t_idx" in d:
+        return TapLayout(
+            values=bins("values"), t_idx=bins("t_idx"),
+            k_full=bins("k_full") if d.get("k_full") is not None else None,
+            nnz=tensor_from_numpy(d["nnz"], device),
+            alive=tensor_from_numpy(d["alive"], device), perm=opt("perm"),
+            inv_perm=opt("inv_perm"), group=int(d["group"]),
+            shape=tuple(d["shape"]))
+    taps = d.get("conv_taps")
     return PackedLayout(
-        values=tuple(tensor_from_numpy(v, device) for v in d["values"]),
-        k_idx=tuple(tensor_from_numpy(k, device) for k in d["k_idx"]),
+        values=bins("values"), k_idx=bins("k_idx"),
         nnz=tensor_from_numpy(d["nnz"], device), perm=opt("perm"),
         inv_perm=opt("inv_perm"), block=tuple(d["block"]),
-        shape=tuple(d["shape"]))
+        shape=tuple(d["shape"]),
+        conv_taps=None if taps is None else tuple(
+            tuple(int(v) for v in t) for t in taps))
 
 
 def params_from_numpy(tree, device):

@@ -1,5 +1,8 @@
-"""``PackedLayout``: the block-sparse interchange format (paper §4.3 Fig 4,
-CSC orientation — see ``core.bcs``), as a frozen dataclass of tensors.
+"""``PackedLayout`` and ``TapLayout``: the sparse interchange formats, as
+frozen dataclasses of tensors.
+
+``PackedLayout`` is the block-sparse format (paper §4.3 Fig 4, CSC
+orientation — see ``core.bcs``).
 
 The dense weight is (K, N); each block COLUMN j (an output tile of width
 bn) stores the list of its surviving K-block indices.  With row reordering
@@ -9,8 +12,16 @@ permutation.  Per-column accumulation order is untouched by the reorder,
 so reordered and unreordered layouts execute to bit-identical outputs.
 
 Leaves may carry leading stack dims (the layer axis of a model's stacked
-params); ``layer(i)`` slices one layer out.  This port holds float values
-only: no int8 scales and no tensor-parallel shards yet.
+params); ``layer(i)`` slices one layer out.  An im2col-lowered conv weight
+also carries ``conv_taps``, the static K-block -> (dy, dx, c0) table the
+implicit conv kernel gathers through.
+
+``TapLayout`` is the sibling for pattern/connectivity-pruned convolutions
+(paper §2.1.1): per filter group, the list of surviving rows ("taps") of
+the im2col band, degree-sorted and binned the same way.
+
+This port holds float values only: no int8 scales and no tensor-parallel
+shards yet.
 """
 from __future__ import annotations
 
@@ -18,6 +29,15 @@ from dataclasses import dataclass, replace
 from functools import cached_property
 
 import torch
+
+
+def _bin_slices(t, sizes):
+    """Consecutive slices of ``t`` of the given lengths (one per bin)."""
+    out, start = [], 0
+    for n in sizes:
+        out.append(t[start:start + n])
+        start += n
+    return tuple(out)
 
 
 @dataclass(frozen=True, eq=False)
@@ -34,7 +54,9 @@ class PackedLayout:
                  or None (identity)
 
     Static geometry: ``block`` (bk, bn) and ``shape`` (K, N) of one dense
-    weight slice.  Padding slots (column degree below the bin max) carry
+    weight slice; ``conv_taps`` is None, or for an im2col-lowered conv
+    weight a tuple of (dy, dx, c0) per K-block (``core.bcs.
+    conv_tap_table``).  Padding slots (column degree below the bin max) carry
     ``k_idx`` 0 and all-zero values, so they multiply to nothing.
     """
 
@@ -45,6 +67,7 @@ class PackedLayout:
     inv_perm: torch.Tensor | None = None
     block: tuple = (128, 128)
     shape: tuple = (0, 0)
+    conv_taps: tuple | None = None
 
     # -- static geometry ------------------------------------------------------
 
@@ -135,11 +158,18 @@ class PackedLayout:
         cols = (self.perm if self.perm is not None else
                 torch.arange(self.Nb, dtype=torch.int32,
                              device=self.nnz.device))
-        out, start = [], 0
-        for s in self.bin_sizes:
-            out.append(cols[start:start + s])
-            start += s
-        return tuple(out)
+        return _bin_slices(cols, self.bin_sizes)
+
+    @cached_property
+    def conv_taps_t(self) -> torch.Tensor:
+        """``conv_taps`` as a (Kb, 3) int32 tensor on the layout's device
+        — what the implicit conv kernel reads.  Computed once per layout
+        object."""
+        if self.conv_taps is None:
+            raise ValueError("this layout carries no conv_taps (pack it "
+                             "with ops.pack(..., conv=(kh, kw, cin)))")
+        return torch.tensor(self.conv_taps, dtype=torch.int32,
+                            device=self.nnz.device).reshape(-1, 3)
 
     def unpermute_cols(self, y):
         """Gather a (..., M, N) output from layout column order back to the
@@ -192,3 +222,180 @@ class PackedLayout:
                              accumulate=True)
             start += nb_b
         return dense.permute(0, 2, 1, 3).reshape(K, N)
+
+
+@dataclass(frozen=True, eq=False)
+class TapLayout:
+    """Per-filter tap lists over the im2col band — the pattern-conv layout
+    (``core.bcs.pattern_lower`` builds it; ``kernels.ops.
+    sparse_conv2d_pattern`` runs it).
+
+    The dense object is the im2col-lowered conv weight (K, P), K =
+    Kh*Kw*Q rows ("taps": input channel q at kernel position (i, j)).  Each
+    GROUP of ``group`` consecutive filters stores the taps any of its
+    filters survives at.
+
+    Tensor leaves (single slice — conv layers are not stacked):
+      values   : tuple of per-bin (G_b, L_b, group) tensors (zero on
+                 padding slots and where a filter prunes the tap)
+      t_idx    : tuple of per-bin (G_b, L_b) int32 — slot -> row of the
+                 ALIVE band (position in ``alive``); padding slots 0
+      k_full   : tuple of per-bin (G_b, L_b) int32 — slot -> row of the
+                 FULL im2col band (``alive[t_idx]`` = tap*C + channel),
+                 from which the implicit kernel derives its input offsets
+      nnz      : (G,) int32 true tap degree per group, in LAYOUT order
+      alive    : (R,) int32 rows of the full band live for at least one
+                 group, ascending
+      perm     : (G,) int32 layout position -> original group, or None
+      inv_perm : (G,) int32 original group -> layout position, or None
+
+    Static: ``group`` (filters per tap list) and ``shape`` (K, P).  Within
+    a group the live slots are in ascending band-row order
+    (``np.nonzero`` order) and the padding slots come last.
+    """
+
+    values: tuple
+    t_idx: tuple
+    nnz: torch.Tensor
+    alive: torch.Tensor
+    perm: torch.Tensor | None = None
+    inv_perm: torch.Tensor | None = None
+    group: int = 1
+    shape: tuple = (0, 0)
+    k_full: tuple | None = None
+    scales: tuple | None = None
+    n_shards: int = 0
+
+    def __post_init__(self):
+        if self.scales is not None or self.n_shards:
+            raise NotImplementedError(
+                "TapLayout: int8 scales and tensor-parallel shards are not "
+                "ported yet (slices 5 and 7)")
+
+    # -- static geometry ------------------------------------------------------
+
+    @property
+    def n_groups(self) -> int:
+        """Number of filter groups (P // group)."""
+        return self.shape[1] // self.group
+
+    @property
+    def n_alive(self) -> int:
+        """Rows of the im2col band live for at least one group."""
+        return self.alive.shape[-1]
+
+    @property
+    def n_bins(self) -> int:
+        """Number of degree bins (1 for an unreordered layout)."""
+        return len(self.values)
+
+    @property
+    def bin_sizes(self) -> tuple:
+        """Filter groups per bin."""
+        return tuple(v.shape[-3] for v in self.values)
+
+    @property
+    def bin_degrees(self) -> tuple:
+        """Padded tap degree L_b of each bin."""
+        return tuple(v.shape[-2] for v in self.values)
+
+    @property
+    def L_max(self) -> int:
+        """Worst padded tap degree across bins."""
+        return max(self.bin_degrees)
+
+    @property
+    def executed_taps(self) -> int:
+        """Tap slots the kernel gathers and multiplies (padding included):
+        sum over bins of G_b * L_b."""
+        return sum(s * d for s, d in zip(self.bin_sizes, self.bin_degrees))
+
+    @property
+    def L_effective(self) -> float:
+        """Mean executed tap degree under the binned layout."""
+        return self.executed_taps / max(self.n_groups, 1)
+
+    @property
+    def flops_saved(self) -> float:
+        """Fraction of dense conv-GEMM FLOPs the tap kernel skips: 1 -
+        executed / (K * n_groups), padding included."""
+        K = self.shape[0]
+        return max(0.0, 1.0 - self.executed_taps / (K * self.n_groups))
+
+    # -- data-dependent stats (host sync; report/test time only) -------------
+
+    @property
+    def nnz_taps(self) -> int:
+        """True surviving tap-list entries (union over each group)."""
+        return int(self.nnz.sum())
+
+    @property
+    def density(self) -> float:
+        """Surviving tap-list fraction of the K x n_groups tap grid."""
+        return self.nnz_taps / (self.shape[0] * self.n_groups)
+
+    @property
+    def padding_overhead(self) -> float:
+        """Executed-tap overhead of bin padding vs exact tap lists."""
+        return self.executed_taps / max(self.nnz_taps, 1)
+
+    # -- helpers -------------------------------------------------------------
+
+    @cached_property
+    def bin_cols(self) -> tuple:
+        """Per-bin (G_b,) int32 ORIGINAL filter group of each layout group
+        — where the tap kernels write each group's outputs, so no
+        un-permute gather is needed.  Computed once per layout object."""
+        groups = (self.perm if self.perm is not None else
+                  torch.arange(self.n_groups, dtype=torch.int32,
+                               device=self.nnz.device))
+        return _bin_slices(groups, self.bin_sizes)
+
+    def unpermute_cols(self, y):
+        """Gather a (..., M, P) output from layout group order back to the
+        original filter order (identity when unreordered)."""
+        if self.inv_perm is None:
+            return y
+        yb = y.reshape(y.shape[:-1] + (self.n_groups, self.group))
+        yb = torch.index_select(yb, -2, self.inv_perm.long())
+        return yb.reshape(y.shape)
+
+    def permute_bias(self, bias):
+        """Gather a (P,) bias into layout group order."""
+        if bias is None or self.perm is None:
+            return bias
+        pb = torch.index_select(bias.reshape(self.n_groups, self.group), 0,
+                                self.perm.long())
+        return pb.reshape(-1)
+
+    def bin_bias(self, bias):
+        """Per-bin (G_b * group,) bias slices in layout order (or Nones)."""
+        if bias is None:
+            return (None,) * self.n_bins
+        pb = self.permute_bias(bias).reshape(-1, self.group)
+        return tuple(t.reshape(-1) for t in _bin_slices(pb, self.bin_sizes))
+
+    def bin_k_full(self) -> tuple:
+        """Per-bin (G_b, L_b) FULL-band row ids (tap*C + channel): the
+        stored ``k_full``, else ``alive[t_idx]``."""
+        if self.k_full is not None:
+            return self.k_full
+        return tuple(self.alive[t.long()] for t in self.t_idx)
+
+    def to_dense(self):
+        """Reconstruct the dense lowered (K, P) weight — the round-trip
+        oracle: equals ``core.bcs.conv_lower(w * mask)``."""
+        K, P = self.shape
+        dev = self.values[0].device
+        dense = torch.zeros((K, self.n_groups, self.group),
+                            dtype=self.values[0].dtype, device=dev)
+        start = 0
+        for vals, tidx, cols in zip(self.values, self.t_idx, self.bin_cols):
+            G_b, L_b = tidx.shape
+            deg = self.nnz[start:start + G_b].long()
+            live = torch.arange(L_b, device=dev)[None, :] < deg[:, None]
+            rows = self.alive.long()[tidx.long()][live]
+            g = cols.long()[:, None].expand(G_b, L_b)[live]
+            dense.index_put_((rows, g), vals[live], accumulate=True)
+            start += G_b
+        return dense.reshape(K, P)

@@ -1,9 +1,11 @@
-"""Scheme choices and the one-shot whole-block masks (paper §4.2's
-structured collapse, as the serving path uses it).
+"""Scheme choices and the one-shot masks the serving paths use: whole
+blocks of FC weights (paper §4.2's structured collapse), block-punched
+conv kernels (§4.1.2) and pattern/connectivity conv masks (§2.1.1).
 
 A prune spec is an ordered list of (path-regex, SchemeChoice); the first
 match wins and non-matching leaves are never pruned.  Mask trees mirror the
-param tree: a bool mask for each pruned leaf, a scalar 1.0 sentinel
+param tree: a {0, 1} mask for each pruned leaf (bool for whole FC blocks,
+float32 for conv masks, as in the reference), a scalar 1.0 sentinel
 elsewhere (so ``train.trainer.apply_masks`` is a plain tree map).
 """
 from __future__ import annotations
@@ -13,6 +15,8 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.core import regularity as R
+from repro_torch.core.regularity import quantile  # noqa: F401 (re-export)
 from repro_torch.models import module as M
 
 
@@ -21,6 +25,7 @@ class SchemeChoice:
     scheme: str = "block"
     block: tuple = (64, 128)
     rate: float | None = None        # target rate for one-shot mode
+    connectivity: float = 0.0        # pattern-based extra kernel pruning
 
 
 def match(spec, path: str) -> SchemeChoice | None:
@@ -54,22 +59,6 @@ def block_masks_from(params, spec, block, keep_fn):
     return M.tree_map_with_path(build, params)
 
 
-def quantile(x, q: float):
-    """``jnp.quantile(x, q)`` over all of ``x`` (method "linear"), with the
-    reference's float32 interpolation arithmetic."""
-    v = torch.sort(x.reshape(-1).float()).values
-    n = v.numel()
-    pos = torch.tensor(q, dtype=torch.float32) * torch.tensor(
-        float(n - 1), dtype=torch.float32)
-    lo = torch.floor(pos)
-    hi = torch.ceil(pos)
-    hw = pos - lo
-    lw = torch.tensor(1.0, dtype=torch.float32) - hw
-    lo_i = int(min(max(int(lo), 0), n - 1))
-    hi_i = int(min(max(int(hi), 0), n - 1))
-    return v[lo_i] * lw.to(v.device) + v[hi_i] * hw.to(v.device)
-
-
 def magnitude_block_masks(params, spec, block=(16, 16), rate=0.5):
     """One-shot magnitude pruning at whole-block granularity: the
     ``rate``-fraction of blocks with the smallest L2 norms die outright.
@@ -84,3 +73,51 @@ def magnitude_block_masks(params, spec, block=(16, 16), rate=0.5):
         return g > quantile(g, rate)
 
     return block_masks_from(params, spec, block, keep_fn)
+
+
+def masks_for_spec(params, spec, threshold=None, default_rate=None):
+    """Full-structure mask tree: float32 {0, 1} masks for prunable leaves,
+    scalar sentinels elsewhere.  A ``pattern`` choice gives 3x3 conv
+    kernels ``pattern_mask`` (with the choice's connectivity), other 4-D
+    kernels ``connectivity_mask`` when ``connectivity > 0``, and leaves
+    the rest unpruned; other schemes go through ``regularity.make_mask``
+    at ``choice.rate`` (else ``default_rate``)."""
+    if threshold is not None:
+        raise NotImplementedError(
+            "masks_for_spec(threshold=...) (group_sqnorms / "
+            "global_threshold) comes with port slice 6")
+
+    def build(s, leaf):
+        choice = match(spec, s)
+        if choice is None or choice.scheme == "none" or leaf.ndim < 2:
+            return _sentinel(leaf)
+        if choice.scheme == "pattern":
+            if leaf.ndim == 4 and tuple(leaf.shape[-2:]) == (3, 3):
+                return R.pattern_mask(leaf, choice.connectivity)
+            if leaf.ndim == 4 and choice.connectivity > 0:
+                return R.connectivity_mask(leaf, rate=choice.connectivity)
+            return _sentinel(leaf)
+        rate = choice.rate if choice.rate is not None else default_rate
+        return R.make_mask(leaf, choice.scheme, choice.block, rate=rate,
+                           connectivity_rate=choice.connectivity)
+
+    return M.tree_map_with_path(build, params)
+
+
+def punched_conv_masks(params, spec, block=(8, 8), rate=0.5):
+    """One-shot magnitude block-punched masks (§4.1.2) on spec-matched 4-D
+    (P, Q, Kh, Kw) conv leaves, scalar sentinels elsewhere.  ``block=None``
+    punches each leaf at its matched rule's own ``choice.block``.  Leaves
+    the block cannot tile (e.g. a 3-channel stem) stay unpruned."""
+
+    def build(s, leaf):
+        choice = match(spec, s)
+        if choice is None or leaf.ndim != 4:
+            return _sentinel(leaf)
+        bp, bq = block if block is not None else choice.block
+        P, Q = leaf.shape[:2]
+        if P % bp or Q % bq:
+            return _sentinel(leaf)
+        return R.block_punched_mask(leaf, (bp, bq), rate=rate)
+
+    return M.tree_map_with_path(build, params)

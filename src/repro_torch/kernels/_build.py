@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -74,3 +75,12 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)))
         _LIBS[name] = lib
     return lib
+
+
+def build_all(names) -> dict:
+    """Build several sources at once: one ``nvcc`` each, all started
+    together (a build waits on its compiler process, not on Python)."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as ex:
+        futures = {n: ex.submit(build, n) for n in names}
+        return {n: f.result() for n, f in futures.items()}

@@ -31,6 +31,23 @@
 // to the fp32 sum, followed by one rounding to the output type.  Ragged M
 // is masked here: rows >= M are never loaded or stored.
 //
+// The implicit-GEMM conv (bsr_conv2d_implicit_launch) is the same kernel
+// with another x loader.  It replaces the Pallas TPU kernel
+// `_conv_implicit_bin` (body `_conv_kernel`) in
+// src/repro/kernels/bsr_matmul.py:444 (launch :483, wrapper
+// `bsr_conv2d_implicit` :542).  The TPU kernel pins a whole padded image in
+// VMEM; here each block gathers its rows straight from the padded NHWC
+// image in global memory (through L1/L2): x row m is output position
+// (b, ho, wo) = decode(m), and K-block kb of the lowered weight reads
+// channels [c0, c0 + bk) of kernel tap (dy, dx) = conv_taps[kb], i.e.
+// xp[b, ho*s + dy, wo*s + dx, c0 + kk].  The patch tensor never exists.
+// Bound on an H100: for the fp32 convs of the CNN path, the executed FLOPs
+// at the CUDA-core fp32 rate (the live blocks are small, (8, 8)); the
+// materialized mode adds the patch tensor's bytes, which the implicit mode
+// does not move.  The design does nothing more about the FLOP rate yet
+// (no tensor cores): it keeps the accumulation code of kernel 1 unchanged,
+// so implicit and materialized convs give bit-identical outputs.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (see repro_torch/kernels/_build.py); bound with ctypes.
 
@@ -83,19 +100,39 @@ __device__ __forceinline__ void load_f32(float* dst, const T* __restrict__ src,
   }
 }
 
-// act: 0 none, 1 silu, 2 relu
-template <typename T, int RPT>
+// Geometry of the implicit conv: x is the padded image (B, Hp, Wp, C),
+// row m of the lowered GEMM is output position (b, ho, wo), and taps is
+// the (Kb, 3) int32 (dy, dx, c0) table of the K-blocks.
+struct ConvGeom {
+  const int* taps;
+  int C, Wp, HpWp, Ho, Wo, stride;
+};
+
+// element offset of output position m's top-left input pixel
+__device__ __forceinline__ size_t conv_row_base(int m, const ConvGeom& g) {
+  const int howo = g.Ho * g.Wo;
+  const int b = m / howo;
+  const int p = m - b * howo;
+  const int ho = p / g.Wo;
+  const int wo = p - ho * g.Wo;
+  return ((size_t)b * g.HpWp + (size_t)ho * g.stride * g.Wp +
+          (size_t)wo * g.stride) * g.C;
+}
+
+// act: 0 none, 1 silu, 2 relu.  CONV selects the x loader: false reads
+// row m of the (M, K) matrix x; true gathers it from the padded image.
+template <typename T, int RPT, bool CONV>
 __global__ void __launch_bounds__(kThreads)
 bsr_matmul_kernel(const T* __restrict__ x, const T* __restrict__ values,
                   const int* __restrict__ k_idx, const int* __restrict__ cols,
                   const T* __restrict__ bias, T* __restrict__ out, int M,
                   int ldx, int L, int bk_log2, int bn, int ldo, int kc,
-                  int act) {
+                  int act, ConvGeom geom) {
   extern __shared__ float smem[];
   const int G = kThreads / bn;             // reduction groups
   const int bk = 1 << bk_log2;
-  const int j = blockIdx.x;
-  const int m0 = blockIdx.y * RPT;
+  const int j = blockIdx.y;
+  const int m0 = blockIdx.x * RPT;
   const int rows = min(RPT, M - m0);
   const int tid = threadIdx.x;
   const int c = tid % bn;
@@ -107,7 +144,13 @@ bsr_matmul_kernel(const T* __restrict__ x, const T* __restrict__ values,
   const int R = L * bk;                    // reduction length of column j
   const T* vals_j = values + (size_t)j * R * bn;
   const int* kidx_j = k_idx + (size_t)j * L;
-  const T* x0 = x + (size_t)m0 * ldx;
+  // start of each row's x: row m of x, or its input pixel in the image
+  size_t xrow[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+    xrow[i] = (i < rows) ? (CONV ? conv_row_base(m0 + i, geom)
+                                 : (size_t)(m0 + i) * ldx)
+                         : 0;
 
   float acc[RPT];
 #pragma unroll
@@ -117,13 +160,22 @@ bsr_matmul_kernel(const T* __restrict__ x, const T* __restrict__ values,
     const int n = min(kc, R - q0);
     // rows q0 .. q0+n of column j's (L*bk, bn) value run are contiguous
     load_f32(vs, vals_j + (size_t)q0 * bn, n * bn, tid);
-    // the matching x columns, gathered through k_idx
-    for (int r = 0; r < rows; ++r) {
-      for (int q = tid; q < n; q += kThreads) {
-        const int gq = q0 + q;
-        const int col = kidx_j[gq >> bk_log2] * bk + (gq & (bk - 1));
-        xs[r * xs_ld + q] = to_f32(x0[(size_t)r * ldx + col]);
+    // the matching x columns, gathered through k_idx (and, for the
+    // implicit conv, through the K-block's tap offsets)
+    for (int q = tid; q < n; q += kThreads) {
+      const int gq = q0 + q;
+      const int kb = kidx_j[gq >> bk_log2];
+      const int kk = gq & (bk - 1);
+      int col;
+      if (CONV) {
+        const int* tp = geom.taps + 3 * kb;
+        col = (tp[0] * geom.Wp + tp[1]) * geom.C + tp[2] + kk;
+      } else {
+        col = kb * bk + kk;
       }
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+        if (r < rows) xs[r * xs_ld + q] = to_f32(x[xrow[r] + col]);
     }
     __syncthreads();
     for (int q = g; q < n; q += G) {
@@ -156,11 +208,11 @@ bsr_matmul_kernel(const T* __restrict__ x, const T* __restrict__ values,
   }
 }
 
-template <typename T>
+template <typename T, bool CONV>
 cudaError_t launch_typed(const void* x, const void* values, const int* k_idx,
                          const int* cols, const void* bias, void* out, int M,
                          int ldx, int nb, int L, int bk, int bn, int ldo,
-                         int act, cudaStream_t stream) {
+                         int act, const ConvGeom& geom, cudaStream_t stream) {
   const int G = kThreads / bn;
   int rpt = 1;
   while (rpt < kMaxRows && rpt < M) rpt *= 2;
@@ -179,14 +231,17 @@ cudaError_t launch_typed(const void* x, const void* values, const int* k_idx,
   const size_t red = (size_t)G * rpt * bn;
   if (floats < red) floats = red;
   const size_t smem = floats * sizeof(float);
-  const dim3 grid(nb, (M + rpt - 1) / rpt);
+  // M tiles on x (no 65535 cap), block columns on y
+  if (nb > 65535) return cudaErrorInvalidConfiguration;
+  const dim3 grid((M + rpt - 1) / rpt, nb);
   const T* xt = static_cast<const T*>(x);
   const T* vt = static_cast<const T*>(values);
   const T* bt = static_cast<const T*>(bias);
   T* ot = static_cast<T*>(out);
 #define BSR_LAUNCH(RPT_)                                                  \
-  bsr_matmul_kernel<T, RPT_><<<grid, kThreads, smem, stream>>>(           \
-      xt, vt, k_idx, cols, bt, ot, M, ldx, L, bk_log2, bn, ldo, kc, act)
+  bsr_matmul_kernel<T, RPT_, CONV><<<grid, kThreads, smem, stream>>>(     \
+      xt, vt, k_idx, cols, bt, ot, M, ldx, L, bk_log2, bn, ldo, kc, act,  \
+      geom)
   switch (rpt) {
     case 1: BSR_LAUNCH(1); break;
     case 2: BSR_LAUNCH(2); break;
@@ -195,6 +250,30 @@ cudaError_t launch_typed(const void* x, const void* values, const int* k_idx,
   }
 #undef BSR_LAUNCH
   return cudaGetLastError();
+}
+
+bool bad_args(int nb, int L, int bk, int bn, int act) {
+  return nb <= 0 || bn <= 0 || bn > kThreads || kThreads % bn != 0 ||
+         bk <= 0 || (bk & (bk - 1)) != 0 || L <= 0 || act < 0 || act > 2;
+}
+
+template <bool CONV>
+int launch(const void* x, const void* values, const void* k_idx,
+           const void* cols, const void* bias, void* out, int M, int ldx,
+           int nb, int L, int bk, int bn, int ldo, int act, int dtype,
+           const ConvGeom& geom, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* ki = static_cast<const int*>(k_idx);
+  const int* co = static_cast<const int*>(cols);
+  if (dtype == 0)
+    return (int)launch_typed<float, CONV>(x, values, ki, co, bias, out, M,
+                                          ldx, nb, L, bk, bn, ldo, act, geom,
+                                          s);
+  if (dtype == 1)
+    return (int)launch_typed<__nv_bfloat16, CONV>(x, values, ki, co, bias,
+                                                  out, M, ldx, nb, L, bk, bn,
+                                                  ldo, act, geom, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -208,23 +287,28 @@ extern "C" int bsr_matmul_launch(const void* x, const void* values,
                                  const void* bias, void* out, int M, int ldx,
                                  int nb, int L, int bk, int bn, int ldo,
                                  int act, int dtype, void* stream) {
-  if (M <= 0 || nb <= 0) return 0;
-  if (bn <= 0 || bn > kThreads || kThreads % bn != 0 || bk <= 0 ||
-      (bk & (bk - 1)) != 0 || L <= 0)
+  if (M <= 0) return 0;
+  if (bad_args(nb, L, bk, bn, act)) return (int)cudaErrorInvalidValue;
+  const ConvGeom none{nullptr, 0, 0, 0, 1, 1, 1};
+  return launch<false>(x, values, k_idx, cols, bias, out, M, ldx, nb, L, bk,
+                       bn, ldo, act, dtype, none, stream);
+}
+
+// The implicit conv: xp is the padded NHWC image (B, Hp, Wp, C) with
+// HpWp = Hp * Wp, taps the (Kb, 3) int32 (dy, dx, c0) table, and out the
+// (M, N) output with M = B * Ho * Wo rows in (b, ho, wo) order.  bk must
+// divide C (every K-block inside one tap).
+extern "C" int bsr_conv2d_implicit_launch(
+    const void* xp, const void* values, const void* k_idx, const void* cols,
+    const void* taps, const void* bias, void* out, int M, int nb, int L,
+    int bk, int bn, int ldo, int act, int dtype, int C, int Wp, int HpWp,
+    int Ho, int Wo, int stride, void* stream) {
+  if (M <= 0) return 0;
+  if (bad_args(nb, L, bk, bn, act) || C <= 0 || C % bk != 0 || Ho <= 0 ||
+      Wo <= 0 || stride <= 0 || taps == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (act < 0 || act > 2) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* ki = static_cast<const int*>(k_idx);
-  const int* co = static_cast<const int*>(cols);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = launch_typed<float>(x, values, ki, co, bias, out, M, ldx, nb, L,
-                              bk, bn, ldo, act, s);
-  } else if (dtype == 1) {
-    err = launch_typed<__nv_bfloat16>(x, values, ki, co, bias, out, M, ldx,
-                                      nb, L, bk, bn, ldo, act, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return (int)err;
+  const ConvGeom geom{static_cast<const int*>(taps), C, Wp, HpWp, Ho, Wo,
+                      stride};
+  return launch<true>(xp, values, k_idx, cols, bias, out, M, 0, nb, L, bk,
+                      bn, ldo, act, dtype, geom, stream);
 }

@@ -6,28 +6,62 @@ a pruned layer:
                           masked inside the kernel, so the packed path never
                           falls back to dense)
   dense weight (+mask) -> masked-dense plain version
-``pack`` converts a pruned weight into a ``PackedLayout``, optionally
-degree-sorted and binned (``reorder``).
+``sparse_conv2d`` runs a block-punched conv as one BCS GEMM (over im2col
+patches, or implicit: gathered from the padded image in the kernel) and
+``sparse_conv2d_pattern`` a pattern/connectivity conv through the
+tap-gather kernels.  ``pack`` / ``pack_taps`` build the layouts.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import torch
+
 from repro_torch.core import bcs as BCS
-from repro_torch.core.packed import PackedLayout
+from repro_torch.core.packed import PackedLayout, TapLayout
 from repro_torch.kernels import ref
-from repro_torch.kernels.bsr_matmul import bsr_matmul_packed
+from repro_torch.kernels.bsr_matmul import (bsr_conv2d_implicit,
+                                            bsr_matmul_packed, conv_geometry,
+                                            pad_image,
+                                            tap_gather_conv_implicit,
+                                            tap_gather_conv_packed)
+
+# auto-selection floor for the implicit conv mode: below it the patch
+# tensor is too small for its bytes to matter.  The reference also caps
+# the padded image at what one TPU core's fast memory holds; the CUDA
+# kernels gather per tile from global memory, so the port has no such cap
+# (at every shape of the CNN path the cap never binds, so both pick the
+# same mode).  The floor is still the reference's, to be re-derived from
+# card timings.
+_IMPLICIT_MIN_PATCH_BYTES = 1 << 20
 
 
-def pack(w, mask, block=(128, 128), *, reorder=False, n_bins=4
+def pack(w, mask, block=(128, 128), *, reorder=False, n_bins=4, conv=None
          ) -> PackedLayout:
     """Pack a pruned (K, N) weight into the kernel layout on its device.
     With ``reorder`` the block columns are degree-sorted and split into
     ``n_bins`` bins (``core.bcs.pack_csc_reordered``); without it the layout
-    is one bin in original column order."""
+    is one bin in original column order.  ``conv=(kh, kw, cin)`` marks an
+    im2col-lowered conv weight and attaches its ``conv_taps`` table."""
     if reorder:
-        return BCS.pack_csc_reordered(w, mask, block, n_bins=n_bins)
-    values, k_idx, nnz, _ = BCS.pack_csc(w, mask, block)
-    return PackedLayout(values=(values,), k_idx=(k_idx,), nnz=nnz,
-                        block=tuple(block), shape=tuple(w.shape))
+        out = BCS.pack_csc_reordered(w, mask, block, n_bins=n_bins)
+    else:
+        values, k_idx, nnz, _ = BCS.pack_csc(w, mask, block)
+        out = PackedLayout(values=(values,), k_idx=(k_idx,), nnz=nnz,
+                           block=tuple(block), shape=tuple(w.shape))
+    if conv is not None:
+        kh, kw, cin = conv
+        out = dataclasses.replace(
+            out, conv_taps=BCS.conv_tap_table(kh, kw, cin, block[0]))
+    return out
+
+
+def pack_taps(w, mask, *, group=1, reorder=True, n_bins=8) -> TapLayout:
+    """Pack a pattern/connectivity-pruned (P, Q, Kh, Kw) conv weight into
+    the tap-gather layout (``core.bcs.pattern_lower``), degree-sorted into
+    ``n_bins`` bins when ``reorder`` is set."""
+    return BCS.pattern_lower(w, mask, group=group, n_bins=n_bins,
+                             reorder=reorder)
 
 
 def sparse_linear(x, packed: PackedLayout | None = None, w=None, mask=None,
@@ -43,6 +77,90 @@ def sparse_linear(x, packed: PackedLayout | None = None, w=None, mask=None,
             x2, w, mask if mask is not None else w.new_ones(()),
             bias=bias, act=act)
     return y.reshape(*lead, y.shape[-1])
+
+
+def im2col(x, kh, kw, stride=1, padding="SAME"):
+    """x (B, H, W, C) -> patches (B, Ho, Wo, kh*kw*C), feature r =
+    (i*kw + j)*C + c (``core.bcs.conv_lower``'s row order).  The
+    MATERIALIZED path: it allocates the whole patch tensor."""
+    xp, (Ho, Wo) = pad_image(x, kh, kw, stride, padding)
+    taps = [xp[:, i:i + stride * (Ho - 1) + 1:stride,
+               j:j + stride * (Wo - 1) + 1:stride, :]
+            for i in range(kh) for j in range(kw)]
+    return torch.cat(taps, dim=-1) if len(taps) > 1 else taps[0]
+
+
+def patch_bytes(x, kh, kw, stride=1, padding="SAME"):
+    """Bytes of the patch tensor the materialized path allocates."""
+    B, H, W, C = x.shape
+    _, _, Ho, Wo = conv_geometry(H, W, kh, kw, stride, padding)
+    return B * Ho * Wo * kh * kw * C * x.element_size()
+
+
+def _pick_implicit(implicit, x, kh, kw, stride, padding, bk=None):
+    """Resolve the ``implicit=`` tri-state.  None picks the implicit mode
+    when the patch tensor is a real blow-up (kh*kw > 1) of at least
+    ``_IMPLICIT_MIN_PATCH_BYTES``; the BCS path also needs its packing
+    block inside one tap (bk | Cin), which an explicit ``implicit=True``
+    requires instead of falling back."""
+    C = x.shape[-1]
+    if implicit is None:
+        if bk is not None and C % bk:
+            return False
+        return (kh * kw > 1 and patch_bytes(x, kh, kw, stride, padding)
+                >= _IMPLICIT_MIN_PATCH_BYTES)
+    if implicit and bk is not None and C % bk:
+        raise ValueError(f"implicit conv needs bk={bk} | Cin={C} (K-blocks "
+                         f"must not straddle kernel taps)")
+    return bool(implicit)
+
+
+def sparse_conv2d(x, packed: PackedLayout, *, kh, kw, stride=1,
+                  padding="SAME", bias=None, act="none", implicit=None):
+    """x (B, H, W, Cin) * packed im2col-lowered conv weight -> (B, Ho, Wo,
+    Cout) as one BCS GEMM, bias + activation fused in the kernel.
+    ``implicit`` picks the x operand (None = auto, ``_pick_implicit``):
+    im2col patches through kernel 1, or the padded image through kernel 3;
+    bit-identical outputs either way."""
+    B, H, W, C = x.shape
+    if packed.shape[0] != kh * kw * C:
+        raise ValueError(f"layout K={packed.shape[0]} != kh*kw*Cin="
+                         f"{kh * kw * C}")
+    if _pick_implicit(implicit, x, kh, kw, stride, padding,
+                      bk=packed.block[0]):
+        return bsr_conv2d_implicit(x, packed, kh=kh, kw=kw, stride=stride,
+                                   padding=padding, bias=bias, act=act)
+    patches = im2col(x, kh, kw, stride, padding)
+    _, Ho, Wo, K = patches.shape
+    y = bsr_matmul_packed(patches.reshape(B * Ho * Wo, K), packed,
+                          bias=bias, act=act)
+    return y.reshape(B, Ho, Wo, y.shape[-1])
+
+
+def sparse_conv2d_pattern(x, tap: TapLayout, *, kh, kw, stride=1,
+                          padding="SAME", bias=None, act="none",
+                          implicit=None):
+    """x (B, H, W, Cin) * tap-lowered conv weight -> (B, Ho, Wo, Cout).
+    Materialized: im2col, the patch matrix gathered down to ``tap.alive``
+    (rows pruned in every filter are dropped), then kernel 2.  Implicit
+    (``implicit=True`` or auto by patch size): kernel 4 straight off the
+    padded image.  Bit-identical outputs either way."""
+    B, H, W, C = x.shape
+    if tap.shape[0] != kh * kw * C:
+        raise ValueError(f"layout K={tap.shape[0]} != kh*kw*Cin="
+                         f"{kh * kw * C}")
+    if _pick_implicit(implicit, x, kh, kw, stride, padding):
+        return tap_gather_conv_implicit(x, tap, kh=kh, kw=kw, stride=stride,
+                                        padding=padding, bias=bias, act=act)
+    patches = im2col(x, kh, kw, stride, padding)
+    _, Ho, Wo, K = patches.shape
+    band = patches.reshape(B * Ho * Wo, K)
+    if tap.n_alive < K:
+        # alive is ascending, so a full-size alive index is arange(K):
+        # gather only when rows are dead everywhere
+        band = band.index_select(1, tap.alive.long())
+    y = tap_gather_conv_packed(band, tap, bias=bias, act=act)
+    return y.reshape(B, Ho, Wo, y.shape[-1])
 
 
 def flops_saved(packed: PackedLayout) -> float:

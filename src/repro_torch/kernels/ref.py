@@ -1,6 +1,14 @@
-"""Plain PyTorch versions of the BCS block-sparse matmul: the oracle the
-kernel is held against on the card, and what the kernel wrapper runs for
-CPU tensors."""
+"""Plain PyTorch versions of the sparse kernels: the oracles the kernels
+are held against on the card, and what the kernel wrappers run for CPU
+tensors.
+
+Every version sums an output's products slot by slot in slot order and
+applies the epilogue once over the whole output, so an output's value does
+not depend on the binning (padding slots add exact zeros).  The implicit
+conv versions gather their inputs from the padded image through the same
+offset tables the kernels read (``conv_taps`` for the BCS conv, ``k_full``
+for the tap conv), never through ``im2col``; they sum in the same order as
+the materialized versions, so implicit and materialized agree bitwise."""
 from __future__ import annotations
 
 import torch
@@ -31,17 +39,24 @@ def _epilogue(y, bias, act):
     return y
 
 
-def _bsr_sums(x, values, k_idx):
+def _x_blocks(x, bk):
+    """The K-block gather of a (M, K) matrix: kb (nb,) -> (nb, M, bk)."""
+    M, K = x.shape
+    xb = x.float().reshape(M, K // bk, bk).transpose(0, 1).contiguous()
+    return lambda kb: xb[kb.long()]
+
+
+def _bsr_sums(x_blocks, values, k_idx, M):
     """fp32 (M, nb * bn) products of one bin, in layout column order,
     summed slot by slot in slot order (one batched (M, bk) @ (bk, bn)
     product per slot): like the kernel's, a column's sum does not depend
-    on which bin it sits in, and padding slots add exact zeros."""
-    M, K = x.shape
+    on which bin it sits in, and padding slots add exact zeros.
+    ``x_blocks(kb)`` gives the (nb, M, bk) x rows of K-blocks kb."""
     nb, L, bk, bn = values.shape
-    xb = x.float().reshape(M, K // bk, bk).transpose(0, 1).contiguous()
-    acc = torch.zeros((nb, M, bn), dtype=torch.float32, device=x.device)
+    acc = torch.zeros((nb, M, bn), dtype=torch.float32,
+                      device=values.device)
     for l in range(L):
-        acc += torch.bmm(xb[k_idx[:, l].long()], values[:, l].float())
+        acc += torch.bmm(x_blocks(k_idx[:, l]), values[:, l].float())
     return acc.transpose(0, 1).reshape(M, nb * bn)
 
 
@@ -49,7 +64,8 @@ def bsr_matmul_ref(x, values, k_idx, bias=None, act="none", out_dtype=None):
     """x (M, K) @ one bin of BCS W -> (M, nb * bn) in layout column order:
     fp32 product, bias + activation on the fp32 result, one rounding to
     ``out_dtype`` (default x.dtype)."""
-    y = _epilogue(_bsr_sums(x, values, k_idx), bias, act)
+    y = _epilogue(_bsr_sums(_x_blocks(x, values.shape[2]), values, k_idx,
+                            x.shape[0]), bias, act)
     return y.to(out_dtype or x.dtype)
 
 
@@ -59,15 +75,112 @@ def bsr_matmul_packed_ref(x, layout, bias=None, act="none"):
     same place whatever the binning, and reordered and unreordered layouts
     give bit-identical outputs (vectorized CPU math otherwise treats the
     ragged tail of each bin differently)."""
-    M = x.shape[0]
+    return _bsr_packed(_x_blocks(x, layout.block[0]), x.shape[0], layout,
+                       bias, act).to(x.dtype)
+
+
+def _bsr_packed(x_blocks, M, layout, bias, act):
+    """fp32 (M, N) of every bin at its original columns, one epilogue."""
     bn = layout.block[1]
     acc = torch.empty((M, layout.shape[1]), dtype=torch.float32,
-                      device=x.device)
+                      device=layout.nnz.device)
     for vals, kidx, cols in zip(layout.values, layout.k_idx,
                                 layout.bin_cols):
         acc.view(M, -1, bn)[:, cols.long()] = _bsr_sums(
-            x, vals, kidx).view(M, -1, bn)
-    return _epilogue(acc, bias, act).to(x.dtype)
+            x_blocks, vals, kidx, M).view(M, -1, bn)
+    return _epilogue(acc, bias, act)
+
+
+def _conv_rows(xp, Ho, Wo, stride):
+    """(M,) flat offset of each output position's top-left input pixel in
+    the padded image xp (B, Hp, Wp, C), positions in (b, ho, wo) order."""
+    B, Hp, Wp, C = xp.shape
+    dev = xp.device
+    b = torch.arange(B, device=dev)[:, None, None]
+    ho = torch.arange(Ho, device=dev)[None, :, None]
+    wo = torch.arange(Wo, device=dev)[None, None, :]
+    return ((b * Hp * Wp + ho * stride * Wp + wo * stride) * C).reshape(-1)
+
+
+def bsr_conv2d_implicit_ref(xp, layout, taps, geom, bias=None, act="none"):
+    """Padded image xp (B, Hp, Wp, C) * im2col-lowered PackedLayout ->
+    (B*Ho*Wo, N): K-block kb of output position m reads channels
+    [c0, c0 + bk) of tap (dy, dx) = ``taps[kb]`` at the position's pixel.
+    geom = (Ho, Wo, stride)."""
+    Ho, Wo, stride = geom
+    _, _, Wp, C = xp.shape
+    bk = layout.block[0]
+    base = _conv_rows(xp, Ho, Wo, stride)
+    tap_off = (taps[:, 0].long() * Wp + taps[:, 1].long()) * C + taps[:, 2]
+    kk = torch.arange(bk, device=xp.device)
+    xf = xp.reshape(-1).float()
+
+    def x_blocks(kb):
+        off = tap_off[kb.long()]
+        return xf[base[None, :, None] + off[:, None, None] + kk]
+
+    return _bsr_packed(x_blocks, base.numel(), layout, bias,
+                       act).to(xp.dtype)
+
+
+def _tap_sums(x_taps, values, slots, M):
+    """fp32 (M, G * group) of one bin in layout order: each output summed
+    slot by slot in slot order.  ``x_taps(s)`` gives the (M, G) inputs of
+    slot column s (one entry per group)."""
+    G, L, gp = values.shape
+    acc = torch.zeros((M, G, gp), dtype=torch.float32, device=values.device)
+    for l in range(L):
+        acc += x_taps(slots[:, l])[:, :, None] * values[:, l].float()
+    return acc.reshape(M, G * gp)
+
+
+def _tap_packed(x_taps, M, layout, slot_tables, bias, act):
+    """fp32 (M, P) of every bin at its original filter columns, one
+    epilogue."""
+    gp = layout.group
+    acc = torch.empty((M, layout.shape[1]), dtype=torch.float32,
+                      device=layout.nnz.device)
+    for vals, slots, cols in zip(layout.values, slot_tables,
+                                 layout.bin_cols):
+        acc.view(M, -1, gp)[:, cols.long()] = _tap_sums(
+            x_taps, vals, slots, M).view(M, -1, gp)
+    return _epilogue(acc, bias, act)
+
+
+def tap_gather_ref(x, values, t_idx, bias=None, act="none"):
+    """x (M, R) alive band through one tap bin -> (M, G * group) in layout
+    order; bias (G * group,) in layout order."""
+    xf = x.float()
+    y = _tap_sums(lambda t: xf[:, t.long()], values, t_idx, x.shape[0])
+    return _epilogue(y, bias, act).to(x.dtype)
+
+
+def tap_gather_packed_ref(x, layout, bias=None, act="none"):
+    """x (M, R) alive band @ TapLayout -> (M, P) in original filter
+    order."""
+    xf = x.float()
+    return _tap_packed(lambda t: xf[:, t.long()], x.shape[0], layout,
+                       layout.t_idx, bias, act).to(x.dtype)
+
+
+def tap_gather_implicit_ref(xp, layout, kw, geom, bias=None, act="none"):
+    """Padded image xp (B, Hp, Wp, C) * TapLayout -> (B*Ho*Wo, P): slot
+    row k = ``k_full`` reads channel k % C of tap (dy, dx) =
+    divmod(k // C, kw) at the output position's pixel.  geom = (Ho, Wo,
+    stride)."""
+    Ho, Wo, stride = geom
+    _, _, Wp, C = xp.shape
+    base = _conv_rows(xp, Ho, Wo, stride)
+    xf = xp.reshape(-1).float()
+
+    def x_taps(k):
+        k = k.long()
+        tap = k // C
+        off = ((tap // kw) * Wp + tap % kw) * C + k % C
+        return xf[base[:, None] + off[None, :]]
+
+    return _tap_packed(x_taps, base.numel(), layout, layout.bin_k_full(),
+                       bias, act).to(xp.dtype)
 
 
 def masked_matmul_ref(x, w, mask, bias=None, act="none"):

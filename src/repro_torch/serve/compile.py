@@ -4,14 +4,16 @@
 ``compile_model`` packs every block-pruned linear layer of a param tree
 into a ``core.packed.PackedLayout`` and installs it as
 ``params[...]["packed"]``, so ``models.layers.linear`` runs it on the BCS
-kernel.  Row reordering for load balance (Fig 4) happens here by default
+kernel.  Conv layers pack too: block-punched convs as the PackedLayout of
+their im2col-lowered weight (with its ``conv_taps``), pattern/connectivity
+convs as a ``TapLayout``; ``models.convnet`` dispatches on the type.
+Row reordering for load balance (Fig 4) happens here by default
 (``reorder=True``).  Stacked layer weights are packed slice by slice and
 every slice's per-bin degree is padded to the stack max (``_pack_stacked``)
 so one layout serves the whole stack.
 
-This port has the linear producer only; conv/pattern producers, int8
-values, tensor-parallel shards and the artifact store come with later
-slices.
+Int8 values, tensor-parallel shards and the artifact store come with
+later slices.
 """
 from __future__ import annotations
 
@@ -20,12 +22,19 @@ import math
 
 import torch
 
+from repro_torch.core import bcs as BCS
 from repro_torch.core import reweighted as RW
 from repro_torch.core.packed import PackedLayout
 from repro_torch.kernels import ops
 from repro_torch.models import module as M
 
+# FC block schemes pack the weight as-is; block_punched (the paper's CONV
+# scheme) packs the im2col-lowered weight into whole dead BCS blocks;
+# pattern (incl. connectivity pruning) tap-lowers into a TapLayout
 BLOCK_SCHEMES = ("block", "block_row", "block_col")
+CONV_SCHEMES = ("block_punched",)
+PATTERN_SCHEMES = ("pattern",)
+PACKABLE_SCHEMES = BLOCK_SCHEMES + CONV_SCHEMES + PATTERN_SCHEMES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,11 +43,15 @@ class CompileSpec:
 
     keep_dense : keep "w" next to "packed"; False drops it.
     reorder : degree-sort + bin block columns before padding (Fig 4).
-    n_bins : number of degree bins when reordering (None = 4).
+    n_bins : number of degree bins when reordering.  None uses each
+        producer's own default: 4 for block layouts, 8 for tap layouts.
     block_override : one (bk, bn) packing block for every layer
         (otherwise each layer uses its mapped ``choice.block``).
     min_saving : skip packing when the skipped-FLOP fraction is not above
         this.
+    implicit : conv x-operand hint for serving dispatch (None = auto by
+        patch size, see ``kernels.ops._pick_implicit``); recorded with the
+        report, it does not change the layouts.
     exclude : path substrings never packed (embeddings/head, §5.2.4).
     """
     keep_dense: bool = True
@@ -46,6 +59,7 @@ class CompileSpec:
     n_bins: int | None = None
     block_override: tuple | None = None
     min_saving: float = 0.0
+    implicit: bool | None = None
     exclude: tuple = ("router", "embed", "head")
 
     def __post_init__(self):
@@ -80,6 +94,7 @@ class LayerReport:
     density: float | None = None
     flops_saved: float | None = None
     layers: int | None = None
+    patch_b_per_pos: int | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,21 +158,52 @@ def _pack_stacked(w, mask, block, *, reorder=True, n_bins=4):
     return stacked, stats
 
 
+def _layer_kind(w, scheme: str) -> str:
+    """The layout producer a weight goes to: "conv" (4-D weight, CONV block
+    scheme -> im2col BCS), "pattern_conv" (4-D, pattern scheme -> taps),
+    "depthwise" (Q == 1, never packed), "bad_conv" (a conv scheme on a
+    weight that is not 4-D), else "linear"."""
+    if scheme in CONV_SCHEMES + PATTERN_SCHEMES:
+        if w.ndim != 4:
+            return "bad_conv"
+        if w.shape[1] == 1:
+            return "depthwise"
+        return "pattern_conv" if scheme in PATTERN_SCHEMES else "conv"
+    return "linear"
+
+
+def _tap_stats(tap, w):
+    P, Q, Kh, Kw = w.shape
+    return {
+        "block": (1, tap.group), "shape": tap.shape, "L": tap.L_max,
+        "Kb": tap.shape[0], "L_reordered": round(tap.L_effective, 2),
+        "reorder_gain": round(tap.L_max / max(tap.L_effective, 1e-9), 2),
+        "density": tap.density, "flops_saved": tap.flops_saved,
+        "layers": 1,
+        # patch bytes the materialized path allocates per output position,
+        # which the implicit kernels never touch
+        "patch_b_per_pos": Kh * Kw * Q * w.element_size(),
+    }
+
+
 def compile_model(params, masks=None, mapping=(), spec=None, device="cuda"):
-    """Pack every block-pruned linear layer of ``params`` for sparse
-    execution on ``device``.  Returns (exec_params, CompileReport).
+    """Pack every block-pruned linear or conv layer of ``params`` for
+    sparse execution on ``device``.  Returns (exec_params, CompileReport).
 
     params  : model param tree (nested dicts; linear nodes hold "w").
     masks   : mask tree matching ``params`` (scalar sentinels on unpruned
               leaves, as ``core.reweighted`` builds them).  None derives the
               masks from the zeros already baked into ``w``.
-    mapping : [(path_regex, SchemeChoice)] — only paths mapped to a block
-              scheme are packed.
+    mapping : [(path_regex, SchemeChoice)] — only paths mapped to a
+              packable scheme are packed (FC block schemes, block_punched
+              convs, pattern convs).
     spec    : ``CompileSpec``.
     """
     spec = spec if spec is not None else CompileSpec()
     dev = M.resolve_device(device)
-    n_bins = 4 if spec.n_bins is None else spec.n_bins
+    # per-producer bin defaults: 4 for block layouts, 8 for tap layouts
+    gemm_bins = 4 if spec.n_bins is None else spec.n_bins
+    tap_bins = 8 if spec.n_bins is None else spec.n_bins
     rows = []
 
     def walk(p, m, path):
@@ -178,26 +224,52 @@ def compile_model(params, masks=None, mapping=(), spec=None, device="cuda"):
         if any(e in wpath for e in spec.exclude):
             return skip("excluded")
         choice = RW.match(list(mapping), wpath)
-        if choice is None or choice.scheme not in BLOCK_SCHEMES:
+        if choice is None or choice.scheme not in PACKABLE_SCHEMES:
             return skip("no block scheme mapped")
+        kind = _layer_kind(w, choice.scheme)
+        if kind == "depthwise":
+            return skip("depthwise conv never packed (§5.2.4)")
+        if kind == "bad_conv":
+            return skip(f"{choice.scheme} needs a (P, Q, Kh, Kw) conv "
+                        f"weight, got shape {tuple(w.shape)}")
         mask = m.get("w") if isinstance(m, dict) else None
         if masks is None:
             mask = w != 0
         elif mask is None or mask.ndim == 0:
             return skip("no mask (layer not pruned)")
+        mask = mask.to(dev)
         block = tuple(spec.block_override or choice.block)
-        K, N = w.shape[-2:]
-        if K % block[0] or N % block[1]:
-            return skip(f"block {block} does not divide ({K}, {N})")
-        packed, stats = _pack_stacked(w, mask.to(dev), block,
-                                      reorder=spec.reorder, n_bins=n_bins)
+        if kind == "pattern_conv":
+            packed = ops.pack_taps(w, mask, reorder=spec.reorder,
+                                   n_bins=tap_bins)
+            stats = _tap_stats(packed, w)
+        elif kind == "conv":
+            gemm_block, why = BCS.conv_gemm_block(block, tuple(w.shape))
+            if gemm_block is None:
+                return skip(why)
+            P, Q, Kh, Kw = w.shape
+            packed, stats = _pack_stacked(
+                BCS.conv_lower(w), BCS.conv_lower(mask.expand(w.shape)),
+                gemm_block, reorder=spec.reorder, n_bins=gemm_bins)
+            # the static tap table the implicit kernel gathers through
+            packed = dataclasses.replace(
+                packed,
+                conv_taps=BCS.conv_tap_table(Kh, Kw, Q, gemm_block[0]))
+            stats["patch_b_per_pos"] = Kh * Kw * Q * w.element_size()
+        else:
+            K, N = w.shape[-2:]
+            if K % block[0] or N % block[1]:
+                return skip(f"block {block} does not divide ({K}, {N})")
+            packed, stats = _pack_stacked(w, mask, block,
+                                          reorder=spec.reorder,
+                                          n_bins=gemm_bins)
         if stats["flops_saved"] <= spec.min_saving:
             return skip(f"no effective saving (L={stats['L']} of "
                         f"Kb={stats['Kb']} column blocks survive)")
         out["packed"] = packed
         if not spec.keep_dense:
             del out["w"]
-        rows.append(LayerReport(path=wpath, packed=True, kind="linear",
+        rows.append(LayerReport(path=wpath, packed=True, kind=kind,
                                 scheme=choice.scheme, **stats))
         return out
 
@@ -207,16 +279,20 @@ def compile_model(params, masks=None, mapping=(), spec=None, device="cuda"):
 
 def compiled_summary(report) -> str:
     """One line per layer: the load-balance lever (pre-reorder L ->
-    post-reorder effective L and the gain) or the skip reason."""
+    post-reorder effective L and the gain) or the skip reason; conv rows
+    add the patch bytes per output position the implicit mode avoids."""
     lines = []
     for r in report:
         if r.packed:
-            lines.append(
+            line = (
                 f"  pack {r.path:<28s} [{r.kind}] block={r.block} "
                 f"density={r.density:.2f} "
                 f"L={r.L}->{r.L_reordered}/{r.Kb} "
                 f"(reorder_gain={r.reorder_gain:.2f}x) "
                 f"flops_saved={r.flops_saved:.2f}")
+            if r.patch_b_per_pos is not None:
+                line += f" implicit_avoids={r.patch_b_per_pos}B/pos"
+            lines.append(line)
         else:
             lines.append(f"  skip {r.path:<28s} ({r.reason})")
     return "\n".join(lines)

@@ -103,3 +103,107 @@ def test_generate_on_card_matches_cpu(cuda):
         launches = K.LAUNCHES["bsr_matmul"]
         assert launches == (cfg.n_layers * bins * 11 if dev == "cuda" else 0)
     assert torch.equal(outs["cuda"], outs["cpu"])
+
+
+# -- the conv kernels (2: tap gather, 3: implicit BCS conv, 4: implicit tap
+# gather) and kernel 1 on im2col patches ---------------------------------
+
+def _conv_layout(dev, scheme, P, Q, k, dtype, reorder, n_bins, seed=0):
+    from repro_torch.core import bcs as BCS
+    from repro_torch.core import regularity as R
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn(P, Q, k, k, generator=g) * 0.1
+    if scheme == "pattern":
+        mask = (R.pattern_mask(w, 0.5) if k == 3
+                else R.connectivity_mask(w, rate=0.5))
+        lay = ops.pack_taps(w.to(dev, dtype), mask.to(dev), reorder=reorder,
+                            n_bins=n_bins)
+    else:
+        mask = R.block_punched_mask(w, (8, 8), rate=0.5)
+        lay = ops.pack(BCS.conv_lower(w).to(dev, dtype),
+                       BCS.conv_lower(mask).to(dev), (8, 8), reorder=reorder,
+                       n_bins=n_bins, conv=(k, k, Q))
+    return lay, (w * mask).to(dev)
+
+
+def _conv_plain(x, lay, k, stride, bias, act):
+    """The plain version the wrapper would run on the CPU, here on the
+    card's tensors (fp32 inputs)."""
+    from repro_torch.core.packed import TapLayout
+    from repro_torch.kernels.bsr_matmul import pad_image
+    B = x.shape[0]
+    xp, (Ho, Wo) = pad_image(x.float(), k, k, stride)
+    b = None if bias is None else bias.float()
+    if isinstance(lay, TapLayout):
+        y = ref.tap_gather_implicit_ref(xp, lay, k, (Ho, Wo, stride), b, act)
+    else:
+        y = ref.bsr_conv2d_implicit_ref(xp, lay, lay.conv_taps_t,
+                                        (Ho, Wo, stride), b, act)
+    return y.reshape(B, Ho, Wo, -1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scheme,P,Q,k,stride", [
+    ("pattern", 32, 3, 3, 1), ("pattern", 64, 32, 3, 2),
+    ("pattern", 32, 16, 5, 1), ("pattern", 64, 64, 1, 1),
+    ("punched", 64, 32, 3, 2), ("punched", 32, 16, 5, 1),
+    ("punched", 64, 64, 1, 1)])
+def test_conv_kernels_match_plain(cuda, scheme, P, Q, k, stride, dtype):
+    """Implicit and materialized modes against the plain version on the
+    card; implicit == materialized and reordered == unreordered bitwise."""
+    n_bins = 8 if scheme == "pattern" else 4
+    lay, _ = _conv_layout(cuda, scheme, P, Q, k, dtype, True, n_bins)
+    unre, _ = _conv_layout(cuda, scheme, P, Q, k, dtype, False, n_bins)
+    conv = (ops.sparse_conv2d_pattern if scheme == "pattern"
+            else ops.sparse_conv2d)
+    x = torch.randn(3, 13, 10, Q, device=cuda).to(dtype)
+    b = torch.randn(P, device=cuda).to(dtype)
+    for act, bias in (("none", None), ("relu", b)):
+        K.reset_launches()
+        ys = [conv(x, lay_, kh=k, kw=k, stride=stride, bias=bias, act=act,
+                   implicit=imp)
+              for lay_ in (lay, unre) for imp in (True, False)]
+        torch.cuda.synchronize()
+        for y in ys[1:]:
+            assert torch.equal(y, ys[0])
+        imp_key = ("tap_gather_conv_implicit" if scheme == "pattern"
+                   else "bsr_conv2d_implicit")
+        mat_key = "tap_gather_conv" if scheme == "pattern" else "bsr_matmul"
+        assert K.LAUNCHES[imp_key] == lay.n_bins + unre.n_bins
+        assert K.LAUNCHES[mat_key] == lay.n_bins + unre.n_bins
+        want = _conv_plain(x, lay, k, stride, bias, act)
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(ys[0].float(), want, rtol=tol, atol=tol)
+
+
+def test_convnet_on_card_matches_cpu(cuda, monkeypatch):
+    """VGG_TINY under both mappings, compiled on the card: logits agree
+    with the CPU plain path, and every packed layer went through its
+    kernel.  The unpacked stem runs cuDNN, held to full fp32 (TF32 off)."""
+    from repro_torch.models import convnet as CN
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    specs = {
+        "punched": [(r"(^|/)(c|pw|dw)\d+/w",
+                     RW.SchemeChoice("block_punched", (8, 8)))],
+        "pattern": [(r"(^|/)(c|pw|dw)\d+/w",
+                     RW.SchemeChoice("pattern", connectivity=0.5))]}
+    g = torch.Generator().manual_seed(1)
+    x, _ = CN.synthetic_images(g, 4, size=16)
+    for name, spec in specs.items():
+        logits = {}
+        for dev in ("cpu", "cuda"):
+            p = CN.convnet_init(CN.VGG_TINY, seed=0, device="cpu")
+            masks = (RW.punched_conv_masks(p, spec, (8, 8), rate=0.5)
+                     if name == "punched" else RW.masks_for_spec(p, spec))
+            exec_p, report = C.compile_model(
+                apply_masks(p, masks), masks, spec,
+                spec=C.CompileSpec(keep_dense=False), device=dev)
+            K.reset_launches()
+            logits[dev] = CN.convnet_apply(exec_p, x.to(dev),
+                                           CN.VGG_TINY).cpu()
+            bins = sum(exec_p[r.path.split("/")[0]]["packed"].n_bins
+                       for r in report.packed)
+            assert sum(K.LAUNCHES.values()) == (bins if dev == "cuda" else 0)
+        torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-4,
+                                   atol=1e-5)

@@ -33,7 +33,9 @@ def _env():
 
 def test_importing_every_port_module_loads_no_jax_and_no_repro():
     mods = list(_port_modules())
-    assert "repro_torch.kernels.bsr_matmul" in mods
+    for m in ("repro_torch.kernels.bsr_matmul", "repro_torch.models.convnet",
+              "repro_torch.core.regularity"):
+        assert m in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"

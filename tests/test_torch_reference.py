@@ -14,6 +14,7 @@ import numpy as np  # noqa: E402
 
 from repro import configs as ref_configs  # noqa: E402
 from repro.core.packed import PackedLayout as RefLayout  # noqa: E402
+from repro.core.packed import TapLayout as RefTapLayout  # noqa: E402
 from repro.models import module as ref_module  # noqa: E402
 from repro.models import transformer as ref_T  # noqa: E402
 from repro_torch import configs  # noqa: E402
@@ -28,17 +29,27 @@ SPEC_RE = r"(attn/w[qkvo]|(ffn|moe)/(gate|up|down))/w"
 
 def ref_to_numpy(tree):
     """A reference param/mask tree -> numpy nested dicts; a reference
-    ``PackedLayout`` becomes the dict ``convert.layout_from_numpy`` reads."""
+    ``PackedLayout`` or ``TapLayout`` becomes the dict
+    ``convert.layout_from_numpy`` reads."""
     if isinstance(tree, dict):
         return {k: ref_to_numpy(v) for k, v in tree.items()}
+
+    def opt(a):
+        return None if a is None else np.asarray(a)
     if isinstance(tree, RefLayout):
-        def opt(a):
-            return None if a is None else np.asarray(a)
         return {"values": [np.asarray(v) for v in tree.values],
                 "k_idx": [np.asarray(k) for k in tree.k_idx],
                 "nnz": np.asarray(tree.nnz), "perm": opt(tree.perm),
                 "inv_perm": opt(tree.inv_perm), "block": tree.block,
-                "shape": tree.shape}
+                "shape": tree.shape, "conv_taps": tree.conv_taps}
+    if isinstance(tree, RefTapLayout):
+        return {"values": [np.asarray(v) for v in tree.values],
+                "t_idx": [np.asarray(t) for t in tree.t_idx],
+                "k_full": (None if tree.k_full is None
+                           else [np.asarray(k) for k in tree.k_full]),
+                "nnz": np.asarray(tree.nnz), "alive": np.asarray(tree.alive),
+                "perm": opt(tree.perm), "inv_perm": opt(tree.inv_perm),
+                "group": tree.group, "shape": tree.shape}
     return np.asarray(tree)
 
 
@@ -71,12 +82,34 @@ def block_case(K, N, block, dtype=np.float32, keep=0.45, seed=0):
 
 
 def assert_layout_equal(port, ref):
-    """Leaf-for-leaf equality: integer leaves equal, values bit-equal."""
+    """Leaf-for-leaf equality: integer leaves equal, values bit-equal (and
+    the same ``conv_taps``)."""
     assert port.block == tuple(ref.block) and port.shape == tuple(ref.shape)
+    assert port.conv_taps == ref.conv_taps
     assert port.n_bins == ref.n_bins
     assert (port.perm is None) == (ref.perm is None)
     pairs = [(port.nnz, ref.nnz)]
     pairs += list(zip(port.k_idx, ref.k_idx))
+    if ref.perm is not None:
+        pairs += [(port.perm, ref.perm), (port.inv_perm, ref.inv_perm)]
+    for p, r in pairs:
+        r = np.asarray(r)
+        assert p.dtype == torch.int32
+        np.testing.assert_array_equal(p.cpu().numpy(), r)
+    for p, r in zip(port.values, ref.values):
+        r = tensor_from_numpy(np.asarray(r), "cpu")
+        assert p.dtype == r.dtype and p.shape == r.shape
+        assert torch.equal(p.cpu(), r)
+
+
+def assert_tap_layout_equal(port, ref):
+    """TapLayout leaf for leaf: integer leaves equal, values bit-equal."""
+    assert port.group == ref.group and port.shape == tuple(ref.shape)
+    assert port.n_bins == ref.n_bins
+    assert (port.perm is None) == (ref.perm is None)
+    pairs = [(port.nnz, ref.nnz), (port.alive, ref.alive)]
+    pairs += list(zip(port.t_idx, ref.t_idx))
+    pairs += list(zip(port.k_full, ref.k_full))
     if ref.perm is not None:
         pairs += [(port.perm, ref.perm), (port.inv_perm, ref.inv_perm)]
     for p, r in pairs:
