@@ -27,7 +27,8 @@
    version, implicit == materialized and reordered == unreordered
    bitwise; times of each mode, the plain version, ``F.conv2d`` on the
    masked dense weight (TF32 off; a yardstick the port never calls) and
-   the bound.
+   the bound; then both modes of c2 and c3 at small batches, the rows
+   behind ``ops._pick_implicit``'s rule (no patch-size floor).
 5. Serve ``VGG_TINY`` at its published widths (fp32, seed 0, B = 256
    synthetic 32x32x3 images, 10 classes) under both mappings through
    ``compile_model`` and ``convnet_apply``: the launches of one forward
@@ -106,7 +107,8 @@ def sync():
 def time_ms(fn, iters, flush, graph=True):
     """Median milliseconds of ``fn`` by CUDA events, L2 flushed before
     each run (in the served model every projection's weights arrive cold:
-    the other layers' weights pass through L2 in between).  With ``graph``
+    the other layers' weights pass through L2 in between); ``flush`` None
+    leaves L2 as the previous run left it (warm).  With ``graph``
     the work is captured once in a CUDA graph and replayed, so the events
     time the device work alone; without it they also time the gaps in
     which the card waits for the host to send the next launch."""
@@ -124,7 +126,8 @@ def time_ms(fn, iters, flush, graph=True):
         run = g.replay
     events = []
     for _ in range(iters):
-        flush.zero_()
+        if flush is not None:
+            flush.zero_()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -295,9 +298,12 @@ def planted_faults(params):
 def device_time(fn):
     """Trace ``fn`` with ``torch.profiler``: the card's busy milliseconds
     (union of the intervals of every kernel and copy it ran), the share of
-    them in ``bsr_matmul`` kernels (kernels 1 and 3) and in ``tap_gather``
-    kernels (2 and 4), and the number of device events; None when the
-    profiler saw no device activity."""
+    them in the BCS kernels (``bsr_matmul_kernel``, ``bsr_conv_kernel``:
+    kernels 1 and 3) and in the tap kernels (``tap_gather_kernel``,
+    ``tap_conv_kernel``: 2 and 4), each kernel's own time and traced
+    launches, and the number of device events; None when the profiler saw
+    no device activity.  A trace can miss device events (the conv serve
+    phase holds the traced launches against the counted ones)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -316,9 +322,16 @@ def device_time(fn):
             lo = a
         hi = max(hi, b)
     busy += hi - lo
-    bsr = sum(b - a for a, b, n in spans if "bsr_matmul" in n)
-    tap = sum(b - a for a, b, n in spans if "tap_gather" in n)
+    bsr = sum(b - a for a, b, n in spans if "bsr_" in n)
+    tap = sum(b - a for a, b, n in spans if "tap_" in n)
+    names = ("bsr_matmul_kernel", "bsr_conv_kernel", "tap_gather_kernel",
+             "tap_conv_kernel")
+    by_kernel = {k: [b - a for a, b, n in spans if k in n] for k in names}
     return {"busy_ms": busy / 1e3, "bsr_ms": bsr / 1e3, "tap_ms": tap / 1e3,
+            "by_kernel_ms": {k: sum(v) / 1e3 for k, v in by_kernel.items()
+                             if v},
+            "by_kernel_events": {k: len(v) for k, v in by_kernel.items()
+                                 if v},
             "events": len(spans)}
 
 
@@ -454,7 +467,7 @@ def serve_phase(mods, args):
         raise AssertionError(f"the logit bound does not catch: {missed}")
     return e2e, launches
 
-# -- the CNN path: kernels 2-4 (and kernel 1 on im2col patches) ------------
+# -- the CNN path: kernels 2-4 (kernel 3 also on im2col patches) ------------
 
 def conv_mappings(RW):
     """(name, prune spec) of the two mappings of the CNN path."""
@@ -483,11 +496,12 @@ def layer_inputs(arch, hw, B, C=3):
 
 
 def conv_kernel_keys(layout):
-    """(implicit kernel, materialized kernel) of a packed conv layout."""
+    """(implicit kernel, materialized kernel) launch keys of a packed conv
+    layout."""
     from repro_torch.core.packed import TapLayout
     if isinstance(layout, TapLayout):
         return "tap_gather_conv_implicit", "tap_gather_conv"
-    return "bsr_conv2d_implicit", "bsr_matmul"
+    return "bsr_conv2d_implicit", "bsr_conv2d_materialized"
 
 
 def conv_cases(mods):
@@ -542,7 +556,7 @@ def conv_plain(ref, K, x, lay, kh, kw, stride, bias, act):
 
 
 def conv_kernel_phase(mods, flush):
-    """Kernels 1-4 on the CNN path's shapes vs their plain versions, the
+    """Kernels 2-4 on the CNN path's shapes vs their plain versions, the
     bitwise identities, and timings (fp32, reordered, bias + relu)."""
     ops, ref, K, BCS = mods["ops"], mods["ref"], mods["K"], mods["BCS"]
     import torch.nn.functional as F
@@ -621,7 +635,7 @@ def conv_kernel_phase(mods, flush):
             imp_fn = (lambda: K.bsr_conv2d_implicit(
                 x, lay, kh=kh, kw=kw, stride=stride, bias=b32, act="relu"))
             band = ops.im2col(x, kh, kw, stride).reshape(M, -1)
-            mat_fn = (lambda: K.bsr_matmul_packed(band, lay, b32, "relu"))
+            mat_fn = (lambda: K.bsr_conv2d_patches(band, lay, b32, "relu"))
             bk, bn = lay.block
             live = lay.nnzb * bk * bn
             w_bytes = sum(v.numel() * 4 + k.numel() * 4
@@ -637,6 +651,9 @@ def conv_kernel_phase(mods, flush):
         lib_fn = (lambda: torch.relu(F.conv2d(xn, dense, b32,
                                               stride=stride)))
         imp_ms = time_ms(imp_fn, 20, flush)
+        # as the served forward meets it: the input still in L2 from the
+        # layer that wrote it
+        warm_ms = time_ms(imp_fn, 20, None)
         mat_ms = time_ms(mat_fn, 20, flush)
         call_ms = time_ms(call_fn, 20, flush)
         plain_ms = time_ms(plain_fn, 3, flush)
@@ -654,7 +671,8 @@ def conv_kernel_phase(mods, flush):
             "N": P, "bins": lay.n_bins, "L_max": lay.L_max,
             "executed_frac": 1 - lay.flops_saved,
             "live_flops": flops, "executed_flops": 2 * M * executed,
-            "implicit_ms": imp_ms, "materialized_ms": mat_ms,
+            "implicit_ms": imp_ms, "implicit_warm_ms": warm_ms,
+            "materialized_ms": mat_ms,
             "materialized_call_ms": call_ms, "plain_ms": plain_ms,
             "library_ms": lib_ms,
             "bound_implicit_ms": max(b_imp, t_ops),
@@ -673,24 +691,73 @@ def conv_kernel_phase(mods, flush):
           f"unreordered bitwise; max abs err (fp32) " + ", ".join(
               f"{k} {v:.2e}" for k, v in max_err.items() if v))
     print("conv timings (fp32, reordered, bias + relu, L2 flushed, median "
-          "ms by CUDA-graph replay; materialized = kernel on a prebuilt "
-          "patch band, call = im2col + kernel):")
+          "ms by CUDA-graph replay; warm = implicit without the flush; "
+          "materialized = kernel on a prebuilt patch band, call = im2col + "
+          "kernel):")
     print(f"  {'layer':24s} {'M':>7s} {'K':>5s} {'N':>4s} {'implicit':>9s} "
-          f"{'mat':>9s} {'call':>9s} {'bound':>9s} {'plain':>9s} "
-          f"{'conv2d':>9s}  bound_by")
+          f"{'warm':>9s} {'mat':>9s} {'call':>9s} {'bound':>9s} "
+          f"{'plain':>9s} {'conv2d':>9s}  bound_by")
     for r in rows:
         print(f"  {r['layer']:24s} {r['M']:7d} {r['K']:5d} {r['N']:4d} "
-              f"{r['implicit_ms']:9.4f} {r['materialized_ms']:9.4f} "
+              f"{r['implicit_ms']:9.4f} {r['implicit_warm_ms']:9.4f} "
+              f"{r['materialized_ms']:9.4f} "
               f"{r['materialized_call_ms']:9.4f} "
               f"{r['bound_implicit_ms']:9.4f} {r['plain_ms']:9.4f} "
               f"{r['library_ms']:9.4f}  {r['bound_by_implicit']}")
     return rows, max_err
 
 
+FLOOR_LAYERS = ("vgg/c2/punched", "vgg/c3/punched", "vgg/c2/pattern",
+                "vgg/c3/pattern")
+FLOOR_BATCHES = (1, 4, 16, 64)
+
+
+def floor_phase(mods, flush):
+    """Both modes of VGG_TINY's c2 and c3 (punched and pattern; fp32,
+    reordered, bias + relu) through ``ops`` at small batches: the
+    implicit kernel against im2col + kernel, the rows behind
+    ``_pick_implicit``'s rule."""
+    ops, BCS = mods["ops"], mods["BCS"]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(2)
+    rows = []
+    for (label, wm, mask, kh, kw, stride, shape,
+         scheme) in conv_cases(mods):
+        if label not in FLOOR_LAYERS:
+            continue
+        conv = (ops.sparse_conv2d_pattern if scheme == "pattern"
+                else ops.sparse_conv2d)
+        lay = conv_layouts(ops, BCS, wm, mask, kh, kw, scheme, True,
+                           torch.float32)
+        b = torch.randn(wm.shape[0], generator=gen, device=DEV) * 0.1
+        for nb in FLOOR_BATCHES:
+            x = torch.randn((nb,) + tuple(shape[1:]), generator=gen,
+                            device=DEV)
+            ms = {imp: time_ms(lambda: conv(x, lay, kh=kh, kw=kw,
+                                            stride=stride, bias=b,
+                                            act="relu", implicit=imp),
+                               20, flush)
+                  for imp in (True, False)}
+            rows.append({"layer": label, "B": nb,
+                         "patch_bytes": ops.patch_bytes(x, kh, kw, stride),
+                         "implicit_ms": ms[True],
+                         "materialized_call_ms": ms[False]})
+    print("implicit vs im2col + kernel at small batches (fp32, ms, "
+          "CUDA-graph replay):")
+    for r in rows:
+        print(f"  {r['layer']:16s} B={r['B']:3d} patch "
+              f"{r['patch_bytes'] / 2 ** 20:8.3f} MiB  implicit "
+              f"{r['implicit_ms']:8.4f}  materialized "
+              f"{r['materialized_call_ms']:8.4f}")
+    return rows
+
+
 def expected_conv_launches(ops, arch, exec_p, hw, B):
     """Launches of one ``convnet_apply`` per kernel, from the layouts: a
-    packed layer launches its kernel once per bin, the implicit or the
-    materialized one as ``ops._pick_implicit`` picks at its input."""
+    packed layer launches the implicit or the materialized kernel as
+    ``ops._pick_implicit`` picks at its input; the implicit kernels and
+    the BCS conv on patches once over all bins, the tap kernel on the
+    alive band (kernel 2) once per bin."""
     want = {}
     for name, kh, kw, stride, shape in layer_inputs(arch, hw, B):
         lay = exec_p[name].get("packed")
@@ -701,7 +768,8 @@ def expected_conv_launches(ops, arch, exec_p, hw, B):
         bk = None if k_imp == "tap_gather_conv_implicit" else lay.block[0]
         key = (k_imp if ops._pick_implicit(None, x, kh, kw, stride, "SAME",
                                            bk=bk) else k_mat)
-        want[key] = want.get(key, 0) + lay.n_bins
+        n = lay.n_bins if key == "tap_gather_conv" else 1
+        want[key] = want.get(key, 0) + n
     return want
 
 
@@ -770,6 +838,10 @@ def conv_serve_phase(mods):
                 CN.convnet_apply(exec_p, x, CN.VGG_TINY)
             sync()
             fw_ms = (time.perf_counter() - t0) * 1e3 / n_fw
+            # the card's time for one forward with the host taken out
+            graph_ms = time_ms(lambda: CN.convnet_apply(exec_p, x,
+                                                        CN.VGG_TINY), 10,
+                               None)
             dev = device_time(lambda: CN.convnet_apply(exec_p, x,
                                                        CN.VGG_TINY))
         acc = (logits.argmax(-1) == labels).float().mean().item()
@@ -778,17 +850,31 @@ def conv_serve_phase(mods):
               f" argmax agree {agree.item():.3f}; planted fault (c6's last "
               f"bin dropped): {fault:.3f}; accuracy of the random-weight "
               f"net {acc:.3f}")
+        print(f"[{name}] forward {fw_ms:.3f} ms warm (mean of {n_fw}) = "
+              f"{CONV_B / fw_ms * 1e3:.0f} images/s; its device work "
+              f"replayed as a CUDA graph {graph_ms:.3f} ms = "
+              f"{graph_ms / fw_ms:.3f} of the wall time")
         busy = None
         if dev is None:
             print(f"[{name}] device busy share: not measured (the profiler "
                   f"saw no device activity)")
         else:
             busy = dev["busy_ms"] / fw_ms
-            print(f"[{name}] forward {fw_ms:.3f} ms warm (mean of {n_fw}) ="
-                  f" {CONV_B / fw_ms * 1e3:.0f} images/s; device busy "
-                  f"{dev['busy_ms']:.3f} ms ({dev['bsr_ms']:.3f} in "
-                  f"bsr_matmul kernels, {dev['tap_ms']:.3f} in tap_gather "
-                  f"kernels) = {busy:.3f} of the forward's wall time")
+            traced = {"bsr_conv2d_implicit": "bsr_conv_kernel",
+                      "bsr_conv2d_materialized": "bsr_conv_kernel",
+                      "tap_gather_conv_implicit": "tap_conv_kernel",
+                      "tap_gather_conv": "tap_gather_kernel"}
+            want_ev = {}
+            for k, v in launches.items():
+                want_ev[traced[k]] = want_ev.get(traced[k], 0) + v
+            print(f"[{name}] traced forward (torch.profiler): device busy "
+                  f"{dev['busy_ms']:.3f} ms ({dev['bsr_ms']:.3f} in BCS "
+                  f"kernels, {dev['tap_ms']:.3f} in tap kernels) = "
+                  f"{busy:.3f} of the wall time; by kernel (ms, traced / "
+                  f"launched) " + ", ".join(
+                      f"{k} {v:.3f} ({dev['by_kernel_events'][k]} / "
+                      f"{want_ev.get(k, 0)})"
+                      for k, v in dev["by_kernel_ms"].items()))
         if not (torch.isfinite(logits).all()
                 and tuple(logits.shape) == (CONV_B, 10)
                 and gap <= CONV_LOGIT_REL and agree.item() == 1.0):
@@ -801,6 +887,7 @@ def conv_serve_phase(mods):
                      "logit_gap": gap, "argmax_agree": agree.item(),
                      "fault_gap": fault, "forward_ms": fw_ms,
                      "images_per_s": CONV_B / fw_ms * 1e3,
+                     "graph_ms": graph_ms,
                      "device": dev, "busy_share": busy,
                      "report": C.compiled_summary(report)}
     return out, launches_all
@@ -816,9 +903,13 @@ def conv_shape_row(r, mode):
 
 
 def conv_entries(rows, max_err, launches):
-    """The JSON entries of kernels 2-4: their work in one VGG_TINY forward
-    (the layers that run them on the served path), summed."""
+    """The JSON entries of kernels 2-4 and of kernel 3 on patches: their
+    work in one VGG_TINY forward (the layers that run them on the served
+    path), summed."""
     spec = [
+        ("bsr_conv2d_materialized", "bsr_matmul.cu",
+         "src/repro/kernels/bsr_matmul.py:143",
+         lambda r: r["layer"] == "vgg/c5/punched", "materialized"),
         ("tap_gather_conv", "tap_gather.cu",
          "src/repro/kernels/bsr_matmul.py:314",
          lambda r: r["layer"] == "vgg/c5/pattern", "materialized"),
@@ -914,6 +1005,7 @@ def main(argv=None):
     e2e, launches = serve_phase(mods, args)
     torch.cuda.empty_cache()
     conv_rows, conv_err = conv_kernel_phase(mods, flush)
+    floor_rows = floor_phase(mods, flush)
     del flush
     torch.cuda.empty_cache()
     conv_e2e, conv_launches = conv_serve_phase(mods)
@@ -925,13 +1017,9 @@ def main(argv=None):
         "name": "bsr_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bsr_matmul.cu",
         "replaces": "src/repro/kernels/bsr_matmul.py:143",
-        # the yi-9b generate and the block-punched VGG_TINY forward
-        "launches": (launches["bsr_matmul"]
-                     + conv_launches.get("bsr_matmul", 0)),
-        "launches_by_path": {"yi-9b generate": launches["bsr_matmul"],
-                             "VGG_TINY forwards": conv_launches.get(
-                                 "bsr_matmul", 0)},
-        "max_abs_err": max(max_err, conv_err["bsr_matmul"]),
+        # the yi-9b generate (the CNN path runs kernel 3 instead)
+        "launches": launches["bsr_matmul"],
+        "max_abs_err": max_err,
         # one decode step's 7 projections of one layer (M = 4), summed
         "ms": sum(r["ms"] for r in decode_rows),
         "plain_ms": sum(r["plain_ms"] for r in decode_rows),
@@ -945,9 +1033,7 @@ def main(argv=None):
         {"layer": f"yi-9b/{r['proj']}", "M": r["M"], "K": r["K"],
          "N": r["N"], "ms": r["ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "plain_ms": r["plain_ms"],
-         "library_ms": r["library_ms"]} for r in rows] + [
-        conv_shape_row(r, "materialized") for r in conv_rows
-        if r["layer"] == "vgg/c5/punched"]
+         "library_ms": r["library_ms"]} for r in rows]
     entries = [entry] + conv_entries(conv_rows, conv_err, conv_launches)
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
@@ -957,7 +1043,8 @@ def main(argv=None):
          "build": {n: _build.BUILD_INFO[n]["seconds"] for n in KERNEL_FILES},
          "ptxas": {n: _build.BUILD_INFO[n]["log"] for n in KERNEL_FILES},
          "kernels": entries, "yi9b_shapes": rows,
-         "conv_shapes": conv_rows, "serve": e2e, "conv_serve": conv_e2e},
+         "conv_shapes": conv_rows, "floor_shapes": floor_rows,
+         "serve": e2e, "conv_serve": conv_e2e},
         indent=1))
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))

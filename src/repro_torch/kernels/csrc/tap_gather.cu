@@ -1,41 +1,59 @@
-// Tap-gather convolution for Hopper (sm_90a), one degree bin of a TapLayout:
+// Tap-gather convolutions for Hopper (sm_90a):
 //   out[m, cols[g]*group + c] = act(sum_l x(m, slot[g, l]) * values[g, l, c]
 //                                   + bias[cols[g]*group + c])
-// for the filter groups g of the bin and c < group.
+// for the filter groups g of a TapLayout and c < group.
 //
-// Replaces two Pallas TPU kernels of src/repro/kernels/bsr_matmul.py:
-//   * `tap_gather_conv` (body `_tap_kernel` :287, launch :314, wrapper
-//     `tap_gather_conv_packed` :386): x(m, t) is column t of the alive
-//     im2col band (M, R), slot = t_idx (materialized mode);
-//   * `_tap_implicit_bin` (body `_tap_conv_kernel` :584, launch :613,
-//     wrapper `tap_gather_conv_implicit` :668): x(m, k) is read straight from
-//     the padded NHWC image, k = k_full = tap*C + channel, tap = dy*kw + dx,
-//     at xp[b, ho*s + dy, wo*s + dx, channel] (implicit mode).  Neither the
-//     patch tensor nor the alive band exists.
-// The TPU kernels keep the whole band / image in VMEM and contract a group's
-// gathered (bm, L) taps in one MXU dot.  Pattern masks give every filter its
-// own tap list (group = 1), which is no tensor-core tile shape, so here each
-// thread owns one output element and walks its group's slots.
+// Kernel 2, tap_gather_kernel (tap_gather_launch), one degree bin over the
+// alive im2col band (M, R), slot = t_idx: replaces the Pallas TPU kernel
+// `tap_gather_conv` (body `_tap_kernel` :287, launch :314, wrapper
+// `tap_gather_conv_packed` :386) of src/repro/kernels/bsr_matmul.py.  Each
+// thread owns one output element and walks its group's slots; the block's
+// rows of the band are staged in shared memory when they fit (mode 0),
+// else read from global memory (mode 1).  Bound on an H100: the band's
+// bytes and the executed FLOPs at the fp32 rate.
 //
-// What bounds it on an H100: the executed FLOPs (sum over bins of G_b * L_b
-// slots, times M) at the CUDA-core fp32 rate, one gathered x value per FMA;
-// the materialized mode adds the band's bytes.  What the design does: the
-// slot table and the values of a chunk of slots are staged in shared memory
-// once per block and read as broadcasts (every thread of a warp reads the
-// same slot); a warp is 32 consecutive output rows of one column, so in the
-// implicit mode neighbouring threads read neighbouring output pixels, and in
-// the materialized mode the block first stages its rows of the band into
-// shared memory with contiguous (coalesced) loads when they fit (mode 0),
-// else reads the band from global memory (mode 1).  Tensor cores, cp.async
-// and tuning are later work.
+// Kernel 4, tap_conv_kernel (tap_conv_launch), one launch over every bin
+// from the NHWC image, slot = k_full = tap*C + channel, tap = dy*kw + dx:
+// replaces `_tap_implicit_bin` (body `_tap_conv_kernel` :584, launch :613,
+// wrapper `tap_gather_conv_implicit` :668).  Neither the patch tensor nor
+// the alive band exists.  Pattern masks give every filter its own tap
+// list (group = 1), no tensor-core tile shape, so both kernels use fp32
+// FMAs on CUDA cores.
+//
+// What bounds kernel 4 on an H100: its executed FLOPs need one staged
+// input per FMA, so shared-memory reads (one 32-lane word load per clock
+// an SM) bound it near 1/4 of the fp32 FMA rate; at VGG_TINY's shapes its
+// bytes (image and output) take less time than that.  What held the first
+// port back: one output a thread, and every FMA a global load whose warp
+// touched 32 sectors (neighbouring lanes C*4*s bytes apart), repeated for
+// every filter and bin.  What the design does:
+//   * one block per tile of output rows of one image, one launch over all
+//     bins; it stages the input window, halo zero-filled, all C channels,
+//     channel-major in shared memory (4-byte cp.async, coalesced NHWC
+//     reads), stride-s columns split into s phases, and 2^cg_log2 channels
+//     side by side in a row so that a warp's 32 positions across several
+//     tile rows hit 32 different banks; every filter walks that window;
+//   * a lane owns R positions of one filter: per slot one broadcast read
+//     of (window offset, value) feeds R FMAs; the offsets come from a
+//     per-geometry table, and each warp copies its filter's slots 32 at a
+//     time into a shared-memory buffer, the next 32 already in flight;
+//   * results gather in a shared-memory (tile, N) tile and leave as whole
+//     output rows.
+// The tile, the lanes' R, the row layout and the shared-memory bytes come
+// from conv_plan in repro_torch/kernels/bsr_matmul.py.
 //
 // Numerics: every output is one fp32 FMA chain over its group's slots in
-// slot order l = 0 .. L-1, whatever the mode, the chunking or the binning;
-// padding slots come last with zero values and add exact zeros.  So the
-// implicit and materialized modes, and reordered and unreordered layouts
-// (any bin count), give bit-identical outputs.  Bias and activation apply
-// to the fp32 sum, then one rounding to the output type.  Rows >= M are
-// neither loaded nor stored.
+// slot order l = 0 .. L-1, from 0, in both kernels, whatever the tile, R
+// or binning; padding slots come last with zero values and add exact
+// zeros.  So kernel 4 and kernel 2 (implicit and materialized), and
+// reordered and unreordered layouts (any bin count), give bit-identical
+// outputs.  Bias and activation apply to the fp32 sum, then one rounding
+// to the output type.  Rows >= M are neither loaded nor stored.
+//
+// ptxas -v (CUDA 12.8, -O3, sm_90a): kernel 4 in fp32 96 registers at
+// R = 8, 63 at R = 4, 56 at R = 2 and 1 (bf16 61-96), no spills, under
+// __launch_bounds__(256, 2); dynamic shared memory per conv_plan, 40-114
+// KB at VGG_TINY's pattern layers (two blocks an SM).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (see repro_torch/kernels/_build.py); bound with ctypes.
@@ -43,6 +61,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -70,18 +89,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
 }
 
 // mode 0: band rows staged in shared memory; 1: band read from global
-// memory; 2: implicit, gathered from the padded image.
-struct TapGeom {
-  int C, kw, Wp, HpWp, Ho, Wo, stride;
-};
-
+// memory.
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
 tap_gather_kernel(const T* __restrict__ x, const T* __restrict__ values,
                   const int* __restrict__ slots, const int* __restrict__ cols,
                   const T* __restrict__ bias, T* __restrict__ out, int M,
                   int ldx, int R, int n_cols, int L, int group, int ldo,
-                  int tg, int cb, int band_ld, int act, TapGeom geom) {
+                  int tg, int cb, int band_ld, int act) {
   extern __shared__ float smem[];
   const int tr = kThreads / tg;            // rows of the block
   const int tid = threadIdx.x;
@@ -108,20 +123,7 @@ tap_gather_kernel(const T* __restrict__ x, const T* __restrict__ values,
           rr < rows ? to_f32(x[(size_t)(m0 + rr) * ldx + t]) : 0.f;
     }
   }
-  size_t xbase = 0;                        // row start (modes 1, 2)
-  if (valid) {
-    if (MODE == 1) {
-      xbase = (size_t)m * ldx;
-    } else if (MODE == 2) {
-      const int howo = geom.Ho * geom.Wo;
-      const int b = m / howo;
-      const int p = m - b * howo;
-      const int ho = p / geom.Wo;
-      const int wo = p - ho * geom.Wo;
-      xbase = ((size_t)b * geom.HpWp + (size_t)ho * geom.stride * geom.Wp +
-               (size_t)wo * geom.stride) * geom.C;
-    }
-  }
+  const size_t xbase = (MODE == 1 && valid) ? (size_t)m * ldx : 0;
 
   int jcol[kColsPerThread], gi[kColsPerThread];
 #pragma unroll
@@ -147,15 +149,7 @@ tap_gather_kernel(const T* __restrict__ x, const T* __restrict__ values,
     for (int i = tid; i < n * ngb; i += kThreads) {
       const int l = i / ngb;
       const int gg = i - l * ngb;
-      int s = slots[(size_t)(g_lo + gg) * L + l0 + l];
-      if (MODE == 2) {                     // k_full -> image offset
-        const int tap = s / geom.C;
-        const int ch = s - tap * geom.C;
-        const int dy = tap / geom.kw;
-        const int dx = tap - dy * geom.kw;
-        s = (dy * geom.Wp + dx) * geom.C + ch;
-      }
-      ts[l * cb + gg] = s;
+      ts[l * cb + gg] = slots[(size_t)(g_lo + gg) * L + l0 + l];
     }
     __syncthreads();
     for (int l = 0; l < n; ++l) {
@@ -198,8 +192,7 @@ cudaError_t launch_mode(const T* x, const T* values, const int* slots,
                         const int* cols, const T* bias, T* out, int M,
                         int ldx, int R, int n_cols, int L, int group,
                         int ldo, int tg, int cb, int band_ld, int act,
-                        const TapGeom& geom, size_t smem,
-                        cudaStream_t stream) {
+                        size_t smem, cudaStream_t stream) {
   static bool attr_set = false;            // once per instantiation
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -212,7 +205,7 @@ cudaError_t launch_mode(const T* x, const T* values, const int* slots,
   const dim3 grid((M + tr - 1) / tr, (n_cols + cb - 1) / cb);
   tap_gather_kernel<T, MODE><<<grid, kThreads, smem, stream>>>(
       x, values, slots, cols, bias, out, M, ldx, R, n_cols, L, group, ldo,
-      tg, cb, band_ld, act, geom);
+      tg, cb, band_ld, act);
   return cudaGetLastError();
 }
 
@@ -220,8 +213,7 @@ template <typename T>
 cudaError_t launch_typed(const void* x, const void* values, const int* slots,
                          const int* cols, const void* bias, void* out, int M,
                          int ldx, int R, int ng, int L, int group, int ldo,
-                         int act, bool implicit, const TapGeom& geom,
-                         cudaStream_t stream) {
+                         int act, cudaStream_t stream) {
   const int n_cols = ng * group;
   // column lanes: as many as the bin has columns, up to 8 (256 / 8 = 32
   // rows, one warp per lane); each lane owns up to kColsPerThread columns
@@ -237,38 +229,236 @@ cudaError_t launch_typed(const void* x, const void* values, const int* slots,
   const T* vt = static_cast<const T*>(values);
   const T* bt = static_cast<const T*>(bias);
   T* ot = static_cast<T*>(out);
-  if (implicit)
-    return launch_mode<T, 2>(xt, vt, slots, cols, bt, ot, M, 0, 0, n_cols, L,
-                             group, ldo, tg, cb, 0, act, geom, tables,
-                             stream);
   if (tables + band <= (size_t)kSmemMax)
     return launch_mode<T, 0>(xt, vt, slots, cols, bt, ot, M, ldx, R, n_cols,
-                             L, group, ldo, tg, cb, band_ld, act, geom,
+                             L, group, ldo, tg, cb, band_ld, act,
                              tables + band, stream);
   return launch_mode<T, 1>(xt, vt, slots, cols, bt, ot, M, ldx, R, n_cols, L,
-                           group, ldo, tg, cb, 0, act, geom, tables, stream);
+                           group, ldo, tg, cb, 0, act, tables, stream);
 }
 
-int launch(const void* x, const void* values, const void* slots,
-           const void* cols, const void* bias, void* out, int M, int ldx,
-           int R, int ng, int L, int group, int ldo, int act, int dtype,
-           bool implicit, const TapGeom& geom, void* stream) {
-  if (M <= 0) return 0;
-  if (ng <= 0 || L <= 0 || group <= 0 || act < 0 || act > 2 ||
-      ng * group > 65535 * kColsPerThread * 8)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* sl = static_cast<const int*>(slots);
-  const int* co = static_cast<const int*>(cols);
-  if (dtype == 0)
-    return (int)launch_typed<float>(x, values, sl, co, bias, out, M, ldx, R,
-                                    ng, L, group, ldo, act, implicit, geom,
-                                    s);
-  if (dtype == 1)
-    return (int)launch_typed<__nv_bfloat16>(x, values, sl, co, bias, out, M,
-                                            ldx, R, ng, L, group, ldo, act,
-                                            implicit, geom, s);
-  return (int)cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// Kernel 4: the tap-gather conv from an input tile staged in shared memory.
+
+constexpr int kConvThreads = 256;
+constexpr int kConvWarps = kConvThreads / 32;
+constexpr int kConvSmemMax = 232448;     // bytes a block may use (227 KB)
+
+// One launch's tile geometry, filled by conv_plan in
+// repro_torch/kernels/bsr_matmul.py (ConvPlan.args, same field order).
+struct ConvTile {
+  int B, H, W, C;                        // unpadded NHWC input
+  int Ho, Wo, stride, ph0, pw0;          // output, low SAME padding
+  int tr, tw, tiles_h, tiles_w;          // output tile, tiles per image
+  int rows_in, cols_in, nph, pitch;      // staged window, column phases
+  int chan_ld;                           // words per channel-group plane
+  int cg_log2;                           // log2 channels side by side a row
+  int R, warps_pos, n_cols, N, out_ld;   // lanes, columns, output tile
+  int x_floats;                          // floats of the staged window
+};
+static_assert(sizeof(ConvTile) == 25 * sizeof(int),
+              "ConvTile must match ConvPlan.args()");
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Stage the block's input window channel-major: channel ch of pixel (row,
+// col) at float (ch >> cg_log2) * chan_ld + (ch % 2^cg_log2) * s * nph +
+// row * pitch + pc, pc = (col % s) * nph + col / s: neighbouring output
+// positions read neighbouring words, and 2^cg_log2 channels share a row so
+// that a warp's 32 positions over several tile rows hit 32 banks.
+// Reads are coalesced (NHWC order), one 4-byte cp.async a word in fp32 (a
+// 16-byte load scattered into 4 planes measured slower); pixels outside
+// the image (the SAME halo) are zero-filled.
+template <typename T>
+__device__ __forceinline__ void stage_planes(float* xs,
+                                             const T* __restrict__ x,
+                                             const ConvTile& g, int b,
+                                             int hi0, int wi0) {
+  const int per_row = g.cols_in * g.C;
+  const int tid = threadIdx.x;
+  const int col0 = tid / g.C, ch0 = tid - col0 * g.C;
+  const int dcol = kConvThreads / g.C, dch = kConvThreads - dcol * g.C;
+  const int cw = g.stride * g.nph;       // words of one channel in a row
+  const int cmask = (1 << g.cg_log2) - 1;
+  for (int row = 0; row < g.rows_in; ++row) {
+    const int hi = hi0 + row;
+    const bool row_ok = hi >= 0 && hi < g.H;
+    const T* src_row =
+        x + ((size_t)b * g.H + (row_ok ? hi : 0)) * g.W * g.C;
+    float* dst_row = xs + row * g.pitch;
+    int col = col0, ch = ch0;
+    for (int u = tid; u < per_row; u += kConvThreads) {
+      const int wi = wi0 + col;
+      const bool ok = row_ok && wi >= 0 && wi < g.W;
+      const int pc = g.stride == 1 ? col
+                                   : (col % g.stride) * g.nph + col / g.stride;
+      float* dst =
+          dst_row + (ch >> g.cg_log2) * g.chan_ld + (ch & cmask) * cw + pc;
+      const T* src = src_row + (size_t)(ok ? wi : 0) * g.C + ch;
+      if constexpr (sizeof(T) == 4) {
+        cp_async4(dst, src, ok);
+      } else {
+        *dst = ok ? to_f32(*src) : 0.f;
+      }
+      col += dcol;
+      ch += dch;
+      if (ch >= g.C) {
+        ch -= g.C;
+        ++col;
+      }
+    }
+  }
+  if constexpr (sizeof(T) == 4) cp_async_wait_all();
+}
+
+constexpr int kSlotBuf = 32;             // slots a warp buffers at once
+
+// Block (tile): stage the window, then every warp walks its output columns
+// j = wc, wc + 8 / warps_pos, ...: it copies a column's slots (input word,
+// value), 32 at a time, into its own shared-memory buffer, the next 32
+// already in flight in registers (the next column's first 32 at a column's
+// end), and per slot one broadcast read of the buffer feeds R FMAs, one
+// per position of the lane, each reading the staged window at the slot's
+// word plus the position's.
+template <typename T, int R>
+__global__ void __launch_bounds__(kConvThreads, 2)
+tap_conv_kernel(const T* __restrict__ x, const int2* __restrict__ slots,
+                const int4* __restrict__ meta, const T* __restrict__ bias,
+                T* __restrict__ out, int ldo, int act, ConvTile g) {
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int2* sbuf = reinterpret_cast<int2*>(smem4) + warp * kSlotBuf;
+  float* xs = reinterpret_cast<float*>(smem4) + 2 * kConvWarps * kSlotBuf;
+  float* os = xs + g.x_floats;           // (tr * tw, out_ld) results
+  int t = blockIdx.x;
+  const int tx = t % g.tiles_w;
+  t /= g.tiles_w;
+  const int ty = t % g.tiles_h;
+  const int b = t / g.tiles_h;
+  const int ho0 = ty * g.tr, wo0 = tx * g.tw;
+  stage_planes<T>(xs, x, g, b, ho0 * g.stride - g.ph0,
+                  wo0 * g.stride - g.pw0);
+
+  const int wp = warp % g.warps_pos, wc = warp / g.warps_pos;
+  const int warps_col = kConvWarps / g.warps_pos;
+  const int tp = g.tr * g.tw;
+  int poff[R], pos[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int p = lane + 32 * (wp + g.warps_pos * i);
+    pos[i] = p < tp ? p : -1;
+    const int pp = p < tp ? p : 0;
+    const int r = pp / g.tw, c = pp - r * g.tw;
+    poff[i] = r * g.stride * g.pitch + c;
+  }
+  __syncthreads();
+
+  const int4 none = make_int4(0, 0, 0, 0);
+  int4 mt = wc < g.n_cols ? __ldg(meta + wc) : none;
+  int2 nxt = lane < mt.y ? __ldg(slots + mt.x + lane) : make_int2(0, 0);
+  for (int j = wc; j < g.n_cols; j += warps_col) {
+    const int4 cur = mt;                 // first slot, slots, column
+    mt = j + warps_col < g.n_cols ? __ldg(meta + j + warps_col) : none;
+    float acc[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = 0.f;
+    for (int c0 = 0; c0 < cur.y; c0 += kSlotBuf) {
+      __syncwarp();
+      sbuf[lane] = nxt;
+      __syncwarp();
+      const int cn = c0 + kSlotBuf;
+      if (cn < cur.y) {
+        nxt = cn + lane < cur.y ? __ldg(slots + cur.x + cn + lane)
+                                : make_int2(0, 0);
+      } else {
+        nxt = lane < mt.y ? __ldg(slots + mt.x + lane) : make_int2(0, 0);
+      }
+      const int n = min(kSlotBuf, cur.y - c0);
+#pragma unroll 4
+      for (int k = 0; k < n; ++k) {
+        const int2 e = sbuf[k];
+        const float w = __int_as_float(e.y);
+        const float* xb = xs + e.x;
+#pragma unroll
+        for (int i = 0; i < R; ++i) acc[i] = fmaf(xb[poff[i]], w, acc[i]);
+      }
+    }
+    const int oo = cur.z;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if (pos[i] < 0) continue;
+      float y = acc[i];
+      if (bias != nullptr) y += to_f32(bias[oo]);
+      if (act == 1) {
+        y = y / (1.f + expf(-y));
+      } else if (act == 2) {
+        y = fmaxf(y, 0.f);
+      }
+      os[pos[i] * g.out_ld + oo] = y;
+    }
+  }
+  __syncthreads();
+
+  // the tile's rows of the output, each a contiguous run of N columns
+  for (int p = warp; p < tp; p += kConvWarps) {
+    const int r = p / g.tw, c = p - r * g.tw;
+    const int ho = ho0 + r, wo = wo0 + c;
+    if (ho >= g.Ho || wo >= g.Wo) continue;
+    T* dst = out + ((size_t)(b * g.Ho + ho) * g.Wo + wo) * ldo;
+    const float* src = os + p * g.out_ld;
+    for (int oc = lane; oc < g.N; oc += 32) dst[oc] = from_f32<T>(src[oc]);
+  }
+}
+
+template <typename T, int R>
+cudaError_t launch_conv_r(const void* x, const int2* slots, const int4* meta,
+                          const void* bias, void* out, int ldo, int act,
+                          const ConvTile& g, int smem, cudaStream_t stream) {
+  static bool attr_set = false;          // once per instantiation
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        tap_conv_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kConvSmemMax);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const int grid = g.B * g.tiles_h * g.tiles_w;
+  tap_conv_kernel<T, R><<<grid, kConvThreads, smem, stream>>>(
+      static_cast<const T*>(x), slots, meta, static_cast<const T*>(bias),
+      static_cast<T*>(out), ldo, act, g);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_conv(const void* x, const int2* slots, const int4* meta,
+                        const void* bias, void* out, int ldo, int act,
+                        const ConvTile& g, int smem, cudaStream_t stream) {
+  switch (g.R) {
+    case 1:
+      return launch_conv_r<T, 1>(x, slots, meta, bias, out, ldo, act, g,
+                                 smem, stream);
+    case 2:
+      return launch_conv_r<T, 2>(x, slots, meta, bias, out, ldo, act, g,
+                                 smem, stream);
+    case 4:
+      return launch_conv_r<T, 4>(x, slots, meta, bias, out, ldo, act, g,
+                                 smem, stream);
+    case 8:
+      return launch_conv_r<T, 8>(x, slots, meta, bias, out, ldo, act, g,
+                                 smem, stream);
+    default:
+      return cudaErrorInvalidConfiguration;
+  }
 }
 
 }  // namespace
@@ -283,23 +473,49 @@ extern "C" int tap_gather_launch(const void* x, const void* values,
                                  const void* bias, void* out, int M, int ldx,
                                  int R, int ng, int L, int group, int ldo,
                                  int act, int dtype, void* stream) {
-  if (R <= 0 || ldx < R) return (int)cudaErrorInvalidValue;
-  const TapGeom none{1, 1, 0, 0, 1, 1, 1};
-  return launch(x, values, t_idx, cols, bias, out, M, ldx, R, ng, L, group,
-                ldo, act, dtype, false, none, stream);
+  if (M <= 0) return 0;
+  if (R <= 0 || ldx < R || ng <= 0 || L <= 0 || group <= 0 || act < 0 ||
+      act > 2 || ng * group > 65535 * kColsPerThread * 8)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* sl = static_cast<const int*>(t_idx);
+  const int* co = static_cast<const int*>(cols);
+  if (dtype == 0)
+    return (int)launch_typed<float>(x, values, sl, co, bias, out, M, ldx, R,
+                                    ng, L, group, ldo, act, s);
+  if (dtype == 1)
+    return (int)launch_typed<__nv_bfloat16>(x, values, sl, co, bias, out, M,
+                                            ldx, R, ng, L, group, ldo, act,
+                                            s);
+  return (int)cudaErrorInvalidValue;
 }
 
-// Implicit mode: xp is the padded NHWC image (B, Hp, Wp, C), HpWp = Hp*Wp,
-// k_full the bin's (ng, L) int32 full-band rows (tap*C + channel, tap =
-// dy*kw + dx), out (M, P) with M = B*Ho*Wo rows in (b, ho, wo) order.
-extern "C" int tap_gather_implicit_launch(
-    const void* xp, const void* values, const void* k_full, const void* cols,
-    const void* bias, void* out, int M, int ng, int L, int group, int ldo,
-    int act, int dtype, int C, int kw, int Wp, int HpWp, int Ho, int Wo,
-    int stride, void* stream) {
-  if (C <= 0 || kw <= 0 || Ho <= 0 || Wo <= 0 || stride <= 0)
+// Kernel 4, one launch over every degree bin of a TapLayout: x the
+// unpadded NHWC input (B, H, W, C), slots (total, 2) int32 of (input word
+// in the staged tile, fp32 value bits) per slot of every output column,
+// bins concatenated in layout order, meta (n_cols, 4) int32 (first slot,
+// slots, original output column, 0), bias None or (N,) in original order,
+// out (B*Ho*Wo, N) rows in (b, ho, wo) order with row stride ldo.  geom:
+// the ConvTile ints (host memory).
+extern "C" int tap_conv_launch(const void* x, const void* slots,
+                               const void* meta, const void* bias, void* out,
+                               const void* geom, int ldo, int act, int dtype,
+                               int smem, void* stream) {
+  ConvTile g;
+  memcpy(&g, geom, sizeof(g));
+  if (g.B * g.Ho * g.Wo <= 0) return 0;
+  if (g.C <= 0 || act < 0 || act > 2 || g.n_cols != g.N ||
+      g.x_floats % 4 != 0 || smem > kConvSmemMax || g.warps_pos <= 0 ||
+      kConvWarps % g.warps_pos != 0)
     return (int)cudaErrorInvalidValue;
-  const TapGeom geom{C, kw, Wp, HpWp, Ho, Wo, stride};
-  return launch(xp, values, k_full, cols, bias, out, M, 0, 0, ng, L, group,
-                ldo, act, dtype, true, geom, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int2* sl = static_cast<const int2*>(slots);
+  const int4* mt = static_cast<const int4*>(meta);
+  if (dtype == 0)
+    return (int)launch_conv<float>(x, sl, mt, bias, out, ldo, act, g, smem,
+                                   s);
+  if (dtype == 1)
+    return (int)launch_conv<__nv_bfloat16>(x, sl, mt, bias, out, ldo, act, g,
+                                           smem, s);
+  return (int)cudaErrorInvalidValue;
 }

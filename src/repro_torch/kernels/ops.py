@@ -6,9 +6,9 @@ a pruned layer:
                           masked inside the kernel, so the packed path never
                           falls back to dense)
   dense weight (+mask) -> masked-dense plain version
-``sparse_conv2d`` runs a block-punched conv as one BCS GEMM (over im2col
-patches, or implicit: gathered from the padded image in the kernel) and
-``sparse_conv2d_pattern`` a pattern/connectivity conv through the
+``sparse_conv2d`` runs a block-punched conv through the BCS conv kernel
+(over im2col patches, or implicit: staged from the image in the kernel)
+and ``sparse_conv2d_pattern`` a pattern/connectivity conv through the
 tap-gather kernels.  ``pack`` / ``pack_taps`` build the layouts.
 """
 from __future__ import annotations
@@ -21,19 +21,24 @@ from repro_torch.core import bcs as BCS
 from repro_torch.core.packed import PackedLayout, TapLayout
 from repro_torch.kernels import ref
 from repro_torch.kernels.bsr_matmul import (bsr_conv2d_implicit,
+                                            bsr_conv2d_patches,
                                             bsr_matmul_packed, conv_geometry,
                                             pad_image,
                                             tap_gather_conv_implicit,
                                             tap_gather_conv_packed)
 
-# auto-selection floor for the implicit conv mode: below it the patch
-# tensor is too small for its bytes to matter.  The reference also caps
-# the padded image at what one TPU core's fast memory holds; the CUDA
-# kernels gather per tile from global memory, so the port has no such cap
-# (at every shape of the CNN path the cap never binds, so both pick the
-# same mode).  The floor is still the reference's, to be re-derived from
-# card timings.
-_IMPLICIT_MIN_PATCH_BYTES = 1 << 20
+# Auto-selection of the implicit conv mode.  The reference picks it only
+# for a patch tensor of at least 1 MiB and an image that fits one TPU core's
+# fast memory.  On an H100 (``chip_smoke.py``'s floor sweep, VGG_TINY c2 and
+# c3 under both mappings at B = 1, 4, 16, 64, patches of 0.28-36 MiB, and
+# its per-layer rows at B = 256; PERF.md) the implicit kernels beat
+# im2col + the same kernel (BCS) or + kernel 2 (tap) at every 3x3 and 5x5
+# shape measured, the least margin 1.4x (BCS, B = 1): the kernels stage
+# the image tile themselves, so the patch's bytes are never worth moving.
+# So the port has no floor and no image cap: every conv with kh*kw > 1
+# runs implicit.  A 1x1 conv (no patch blow-up) stays on the materialized
+# route as in the reference; there too the implicit kernels read faster
+# (PERF.md), which the next change to kernel 2 decides.
 
 
 def pack(w, mask, block=(128, 128), *, reorder=False, n_bins=4, conv=None
@@ -99,16 +104,16 @@ def patch_bytes(x, kh, kw, stride=1, padding="SAME"):
 
 def _pick_implicit(implicit, x, kh, kw, stride, padding, bk=None):
     """Resolve the ``implicit=`` tri-state.  None picks the implicit mode
-    when the patch tensor is a real blow-up (kh*kw > 1) of at least
-    ``_IMPLICIT_MIN_PATCH_BYTES``; the BCS path also needs its packing
-    block inside one tap (bk | Cin), which an explicit ``implicit=True``
-    requires instead of falling back."""
+    for every conv whose patch tensor is a real blow-up (kh*kw > 1); the
+    BCS path also needs its packing block inside one tap (bk | Cin),
+    which an explicit ``implicit=True`` requires instead of falling
+    back.  (x, stride and padding: the signature of the reference's, whose
+    patch-size floor the card's timings removed.)"""
     C = x.shape[-1]
     if implicit is None:
         if bk is not None and C % bk:
             return False
-        return (kh * kw > 1 and patch_bytes(x, kh, kw, stride, padding)
-                >= _IMPLICIT_MIN_PATCH_BYTES)
+        return kh * kw > 1
     if implicit and bk is not None and C % bk:
         raise ValueError(f"implicit conv needs bk={bk} | Cin={C} (K-blocks "
                          f"must not straddle kernel taps)")
@@ -118,22 +123,23 @@ def _pick_implicit(implicit, x, kh, kw, stride, padding, bk=None):
 def sparse_conv2d(x, packed: PackedLayout, *, kh, kw, stride=1,
                   padding="SAME", bias=None, act="none", implicit=None):
     """x (B, H, W, Cin) * packed im2col-lowered conv weight -> (B, Ho, Wo,
-    Cout) as one BCS GEMM, bias + activation fused in the kernel.
-    ``implicit`` picks the x operand (None = auto, ``_pick_implicit``):
-    im2col patches through kernel 1, or the padded image through kernel 3;
-    bit-identical outputs either way."""
+    Cout) through the BCS conv kernel, bias + activation fused.
+    ``implicit`` picks its input (None = auto, ``_pick_implicit``): the
+    image itself, or the im2col patch matrix read as a 1 x M image of K
+    channels; bit-identical outputs either way."""
     B, H, W, C = x.shape
     if packed.shape[0] != kh * kw * C:
         raise ValueError(f"layout K={packed.shape[0]} != kh*kw*Cin="
                          f"{kh * kw * C}")
     if _pick_implicit(implicit, x, kh, kw, stride, padding,
                       bk=packed.block[0]):
-        return bsr_conv2d_implicit(x, packed, kh=kh, kw=kw, stride=stride,
-                                   padding=padding, bias=bias, act=act)
+        return bsr_conv2d_implicit(x.contiguous(), packed, kh=kh, kw=kw,
+                                   stride=stride, padding=padding,
+                                   bias=bias, act=act)
     patches = im2col(x, kh, kw, stride, padding)
     _, Ho, Wo, K = patches.shape
-    y = bsr_matmul_packed(patches.reshape(B * Ho * Wo, K), packed,
-                          bias=bias, act=act)
+    y = bsr_conv2d_patches(patches.reshape(B * Ho * Wo, K).contiguous(),
+                           packed, bias=bias, act=act)
     return y.reshape(B, Ho, Wo, y.shape[-1])
 
 
@@ -150,8 +156,9 @@ def sparse_conv2d_pattern(x, tap: TapLayout, *, kh, kw, stride=1,
         raise ValueError(f"layout K={tap.shape[0]} != kh*kw*Cin="
                          f"{kh * kw * C}")
     if _pick_implicit(implicit, x, kh, kw, stride, padding):
-        return tap_gather_conv_implicit(x, tap, kh=kh, kw=kw, stride=stride,
-                                        padding=padding, bias=bias, act=act)
+        return tap_gather_conv_implicit(x.contiguous(), tap, kh=kh, kw=kw,
+                                        stride=stride, padding=padding,
+                                        bias=bias, act=act)
     patches = im2col(x, kh, kw, stride, padding)
     _, Ho, Wo, K = patches.shape
     band = patches.reshape(B * Ho * Wo, K)

@@ -49,9 +49,9 @@ class CompileSpec:
         (otherwise each layer uses its mapped ``choice.block``).
     min_saving : skip packing when the skipped-FLOP fraction is not above
         this.
-    implicit : conv x-operand hint for serving dispatch (None = auto by
-        patch size, see ``kernels.ops._pick_implicit``); recorded with the
-        report, it does not change the layouts.
+    implicit : conv x-operand hint for serving dispatch (None = auto, see
+        ``kernels.ops._pick_implicit``); recorded with the report, it does
+        not change the layouts.
     exclude : path substrings never packed (embeddings/head, §5.2.4).
     """
     keep_dense: bool = True

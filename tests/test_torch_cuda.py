@@ -105,8 +105,8 @@ def test_generate_on_card_matches_cpu(cuda):
     assert torch.equal(outs["cuda"], outs["cpu"])
 
 
-# -- the conv kernels (2: tap gather, 3: implicit BCS conv, 4: implicit tap
-# gather) and kernel 1 on im2col patches ---------------------------------
+# -- the conv kernels (2: tap gather on the alive band, 3: the BCS conv
+# from the image or from im2col patches, 4: the tap conv from the image) --
 
 def _conv_layout(dev, scheme, P, Q, k, dtype, reorder, n_bins, seed=0):
     from repro_torch.core import bcs as BCS
@@ -142,23 +142,35 @@ def _conv_plain(x, lay, k, stride, bias, act):
     return y.reshape(B, Ho, Wo, -1)
 
 
+def _launches(lay, key):
+    """Launches one conv call makes: kernel 2 once per bin, the others
+    once over all bins."""
+    return lay.n_bins if key == "tap_gather_conv" else 1
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("scheme,P,Q,k,stride", [
-    ("pattern", 32, 3, 3, 1), ("pattern", 64, 32, 3, 2),
-    ("pattern", 32, 16, 5, 1), ("pattern", 64, 64, 1, 1),
-    ("punched", 64, 32, 3, 2), ("punched", 32, 16, 5, 1),
-    ("punched", 64, 64, 1, 1)])
-def test_conv_kernels_match_plain(cuda, scheme, P, Q, k, stride, dtype):
+@pytest.mark.parametrize("scheme,P,Q,k,stride,H,W", [
+    ("pattern", 32, 3, 3, 1, 13, 10), ("pattern", 64, 32, 3, 2, 13, 10),
+    ("pattern", 64, 32, 3, 2, 12, 12), ("pattern", 32, 16, 5, 1, 13, 10),
+    ("pattern", 64, 64, 1, 1, 13, 10), ("punched", 64, 32, 3, 2, 13, 10),
+    ("punched", 64, 32, 3, 2, 12, 12), ("punched", 32, 16, 5, 1, 13, 10),
+    ("punched", 64, 64, 1, 1, 13, 10)])
+def test_conv_kernels_match_plain(cuda, scheme, P, Q, k, stride, H, W,
+                                  dtype):
     """Implicit and materialized modes against the plain version on the
-    card; implicit == materialized and reordered == unreordered bitwise."""
+    card at the edge shapes (C = 3, stride 2 with the (0, 1) pad at an
+    even input, Ho * Wo not a multiple of the tile), with and without
+    bias, relu and none; implicit == materialized and reordered ==
+    unreordered bitwise."""
     n_bins = 8 if scheme == "pattern" else 4
     lay, _ = _conv_layout(cuda, scheme, P, Q, k, dtype, True, n_bins)
     unre, _ = _conv_layout(cuda, scheme, P, Q, k, dtype, False, n_bins)
     conv = (ops.sparse_conv2d_pattern if scheme == "pattern"
             else ops.sparse_conv2d)
-    x = torch.randn(3, 13, 10, Q, device=cuda).to(dtype)
+    x = torch.randn(3, H, W, Q, device=cuda).to(dtype)
     b = torch.randn(P, device=cuda).to(dtype)
-    for act, bias in (("none", None), ("relu", b)):
+    for act, bias in (("none", None), ("relu", b), ("none", b),
+                      ("relu", None)):
         K.reset_launches()
         ys = [conv(x, lay_, kh=k, kw=k, stride=stride, bias=bias, act=act,
                    implicit=imp)
@@ -168,12 +180,35 @@ def test_conv_kernels_match_plain(cuda, scheme, P, Q, k, stride, dtype):
             assert torch.equal(y, ys[0])
         imp_key = ("tap_gather_conv_implicit" if scheme == "pattern"
                    else "bsr_conv2d_implicit")
-        mat_key = "tap_gather_conv" if scheme == "pattern" else "bsr_matmul"
-        assert K.LAUNCHES[imp_key] == lay.n_bins + unre.n_bins
-        assert K.LAUNCHES[mat_key] == lay.n_bins + unre.n_bins
+        mat_key = ("tap_gather_conv" if scheme == "pattern"
+                   else "bsr_conv2d_materialized")
+        assert K.LAUNCHES[imp_key] == 2
+        assert K.LAUNCHES[mat_key] == (_launches(lay, mat_key)
+                                       + _launches(unre, mat_key))
+        assert K.LAUNCHES["bsr_matmul"] == 0
         want = _conv_plain(x, lay, k, stride, bias, act)
         tol = 1e-4 if dtype == torch.float32 else 2e-2
         torch.testing.assert_close(ys[0].float(), want, rtol=tol, atol=tol)
+
+
+def _net_launches(exec_p, arch, x_shape):
+    """Kernel launches of one ``convnet_apply``: per packed layer, one
+    (the implicit kernels and the BCS conv on patches) or one per bin
+    (kernel 2 on the alive band), as ``ops._pick_implicit`` routes it."""
+    from repro_torch.core.packed import TapLayout
+    B, H, _, C = x_shape
+    n = 0
+    for (name, cout, kh, kw, stride, dw) in arch:
+        lay = exec_p[name].get("packed")
+        if lay is not None and not dw:
+            x = torch.empty((B, H, H, C), device="meta")
+            tap = isinstance(lay, TapLayout)
+            imp = ops._pick_implicit(None, x, kh, kw, stride, "SAME",
+                                     bk=None if tap else lay.block[0])
+            n += lay.n_bins if tap and not imp else 1
+        _, _, H, _ = K.conv_geometry(H, H, kh, kw, stride)
+        C = C if dw else cout
+    return n
 
 
 def test_convnet_on_card_matches_cpu(cuda, monkeypatch):
@@ -202,8 +237,79 @@ def test_convnet_on_card_matches_cpu(cuda, monkeypatch):
             K.reset_launches()
             logits[dev] = CN.convnet_apply(exec_p, x.to(dev),
                                            CN.VGG_TINY).cpu()
-            bins = sum(exec_p[r.path.split("/")[0]]["packed"].n_bins
-                       for r in report.packed)
-            assert sum(K.LAUNCHES.values()) == (bins if dev == "cuda" else 0)
+            assert sum(K.LAUNCHES.values()) == (
+                _net_launches(exec_p, CN.VGG_TINY, x.shape)
+                if dev == "cuda" else 0)
         torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-4,
                                    atol=1e-5)
+
+
+def test_conv_bins_of_one_slot_and_fewer_columns_than_a_block(cuda):
+    """A bin of degree-1 columns and bins with fewer columns than the
+    block's column warps, through both BCS modes, on the card."""
+    from repro_torch.core import bcs as BCS
+    Q, P, k = 16, 40, 3
+    rng = np.random.RandomState(5)
+    w = torch.from_numpy(rng.randn(P, Q, k, k).astype(np.float32))
+    live = np.zeros((k * k * Q // 8, P // 8), bool)
+    live[:, :2] = True
+    live[3, 2:] = True
+    mask = torch.from_numpy(np.repeat(np.repeat(live, 8, 0), 8, 1))
+    lay = ops.pack(BCS.conv_lower(w).to(cuda), mask.to(cuda), (8, 8),
+                   reorder=True, n_bins=4, conv=(k, k, Q))
+    assert 1 in lay.bin_degrees
+    x = torch.randn(2, 9, 7, Q, device=cuda)
+    b = torch.randn(P, device=cuda)
+    ys = [ops.sparse_conv2d(x, lay, kh=k, kw=k, bias=b, act="relu",
+                            implicit=imp) for imp in (True, False)]
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0], ys[1])
+    want = _conv_plain(x, lay, k, 1, b, "relu")
+    torch.testing.assert_close(ys[0], want, rtol=1e-4, atol=1e-4)
+
+
+def test_conv_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    lay, _ = _conv_layout(cuda, "punched", 32, 16, 3, torch.float32, True,
+                          4)
+    tap, _ = _conv_layout(cuda, "pattern", 32, 16, 3, torch.float32, True,
+                          8)
+    x = torch.randn(2, 8, 8, 16, device=cuda)
+    for fn, l_ in ((K.bsr_conv2d_implicit, lay),
+                   (K.tap_gather_conv_implicit, tap)):
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(x.permute(0, 2, 1, 3), l_, kh=3, kw=3)
+        with pytest.raises(ValueError, match="device"):
+            fn(x, _layout_to(l_, "cpu"), kh=3, kw=3)
+        with pytest.raises(TypeError):
+            fn(x.to(torch.bfloat16), l_, kh=3, kw=3)
+    # bk = 8 does not divide Cin = 12 (K-blocks would straddle taps) but
+    # divides K = 2 * 2 * 12
+    w = torch.randn(16, 12, 2, 2)
+    from repro_torch.core import bcs as BCS
+    m = torch.ones_like(w)
+    l12 = ops.pack(BCS.conv_lower(w).to(cuda), BCS.conv_lower(m).to(cuda),
+                   (8, 8))
+    x12 = torch.randn(1, 6, 6, 12, device=cuda)
+    with pytest.raises(ValueError, match="straddle"):
+        K.bsr_conv2d_implicit(x12, l12, kh=2, kw=2)
+    # the patch-matrix mode takes it: bk | K is all it needs
+    y = ops.sparse_conv2d(x12, l12, kh=2, kw=2)
+    want = ref.bsr_matmul_packed_ref(
+        ops.im2col(x12, 2, 2).reshape(36, 48), l12).reshape(1, 6, 6, 16)
+    torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.bsr_conv2d_patches(torch.randn(48, 36, device=cuda).t(), l12)
+
+
+def _layout_to(layout, dev):
+    """The layout with every tensor leaf moved to ``dev``."""
+    import dataclasses
+    out = {}
+    for f in dataclasses.fields(layout):
+        v = getattr(layout, f.name)
+        if isinstance(v, torch.Tensor):
+            v = v.to(dev)
+        elif isinstance(v, tuple) and v and isinstance(v[0], torch.Tensor):
+            v = tuple(t.to(dev) for t in v)
+        out[f.name] = v
+    return type(layout)(**out)
