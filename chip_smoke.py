@@ -8,10 +8,12 @@
    all started together).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it (yi-9b full width, (16, 16) blocks, decode
-   M = 4 and prefill M = 128, bf16 and fp32, reordered into 4 bins and not,
-   bias with silu / relu / none), and time kernel, plain version, the one
-   PyTorch call computing the same product (``torch.matmul`` on the
-   masked dense weight, a yardstick the port never calls) and the bound.
+   M = 4 and prefill M = 128 and the plan's path boundaries M = 1, 15, 16,
+   17, 129, bf16 and fp32, reordered into 4 bins and not, bias with silu /
+   relu / none), and time kernel, plain version, the one PyTorch call
+   computing the same product (``torch.matmul`` on the masked dense
+   weight, a yardstick the port never calls) and the bound, summed per
+   layer at decode and at prefill.
 3. Serve block-pruned yi-9b at full width (depth cut to ``--layers``):
    seeded init, magnitude block masks at rate 0.6, ``compile_model``,
    then greedy ``generate`` of 4 prompts of 32 tokens, counting kernel
@@ -80,6 +82,9 @@ FP32_TOL = 1e-4          # rtol = atol for fp32 outputs vs the plain version
 LOGIT_MAX_REL = 0.05     # max |diff| <= this * max |dense logit|
 LOGIT_MEAN_REL = 0.02    # mean |diff| <= this * mean |dense logit|
 B, S, N_NEW = 4, 32, 16  # prompts, prompt length, new tokens
+# kernel 1's M cases: decode and prefill, and the edges of bsr_plan's M
+# tiles (16, 32, 128 rows; two tiles past 128)
+CHECK_M = (1, 4, 15, 16, 17, 128, 129)
 
 # the CNN path: VGG_TINY on CIFAR-10-shaped images
 CONV_RE = r"(^|/)(c|pw|dw)\d+/w"
@@ -165,7 +170,7 @@ def kernel_phase(mods, flush):
             w, mask = weight_and_mask(RW, Kd, Nd, gen, dtype)
             plain_lay = ops.pack(w, mask, BLOCK)
             reord = ops.pack(w, mask, BLOCK, reorder=True, n_bins=N_BINS)
-            for M in (4, 128):
+            for M in CHECK_M:
                 x = torch.randn(M, Kd, generator=gen, device="cuda").to(dtype)
                 b = (torch.randn(Nd, generator=gen, device="cuda")
                      * 0.1).to(dtype)
@@ -199,15 +204,20 @@ def kernel_phase(mods, flush):
                     checks += 1
             del w, mask, plain_lay, reord
     print(f"kernel vs plain: {checks} cases at {len(shapes)} (K, N) shapes, "
-          f"M in (4, 128), bf16 + fp32, bias with none/silu/relu, "
+          f"M in {CHECK_M}, bf16 + fp32, bias with none/silu/relu, "
           f"reordered == unreordered bitwise; max abs err {max_err:.3e}")
 
     rows = []
+    # a plain read of as many bytes as a projection's values, under the
+    # same flush: what the memory system gives a stream of that size
+    stream_buf = torch.ones(DFF * D, dtype=torch.bfloat16, device="cuda")
     for name, Kd, Nd, act in PROJECTIONS:
         w, mask = weight_and_mask(RW, Kd, Nd, gen, torch.bfloat16)
         lay = ops.pack(w, mask, BLOCK, reorder=True, n_bins=N_BINS)
         dense = w * mask.to(w.dtype)
         nnzb = int(lay.nnz.sum())
+        n_vals = sum(v.numel() for v in lay.values)
+        stream_ms = time_ms(lambda: stream_buf[:n_vals].sum(), 30, flush)
         for M in (4, 128):
             x = torch.randn(M, Kd, generator=gen, device="cuda").to(
                 torch.bfloat16)
@@ -232,22 +242,48 @@ def kernel_phase(mods, flush):
                 "executed_frac": 1 - lay.flops_saved,
                 "bins": lay.n_bins, "ms": ms, "eager_ms": eager_ms,
                 "plain_ms": plain_ms,
-                "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
+                "library_ms": lib_ms, "stream_ms": stream_ms,
+                "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes_ms": t_bytes, "ops_ms": t_ops, "bytes": nbytes,
                 "flops": flops})
         del w, mask, lay, dense
+    del stream_buf
     print("main-path timings (bf16, L2 flushed, median ms; device time "
           "by CUDA-graph replay, and the kernel's eager call for the host's "
-          "share):")
+          "share; stream = one torch sum over as many bytes as the live "
+          "values, same flush):")
     print(f"  {'proj':5s} {'M':>4s} {'kernel':>9s} {'eager':>9s} "
-          f"{'bound':>9s} {'plain':>9s} {'matmul':>9s}  bound_by")
+          f"{'bound':>9s} {'stream':>9s} {'plain':>9s} {'matmul':>9s}  "
+          f"bound_by")
     for r in rows:
         print(f"  {r['proj']:5s} {r['M']:4d} {r['ms']:9.4f} "
               f"{r['eager_ms']:9.4f} {r['bound_ms']:9.4f} "
-              f"{r['plain_ms']:9.4f} {r['library_ms']:9.4f}  "
-              f"{r['bound_by']}")
+              f"{r['stream_ms']:9.4f} {r['plain_ms']:9.4f} "
+              f"{r['library_ms']:9.4f}  {r['bound_by']}")
+    for M, what in ((4, "decode"), (128, "prefill")):
+        lay_sum = layer_sum(rows, M)
+        print(f"  one yi-9b layer at {what} (M = {M}, 7 projections): kernel "
+              f"{lay_sum['ms']:.4f} ms, torch.matmul "
+              f"{lay_sum['library_ms']:.4f}, bound {lay_sum['bound_ms']:.4f}"
+              f" ({lay_sum['bound_by']}), stream {lay_sum['stream_ms']:.4f},"
+              f" plain {lay_sum['plain_ms']:.3f}")
     return rows, max_err
+
+
+def layer_sum(rows, M):
+    """Kernel 1's timing rows at one M summed over a layer's projections;
+    the bound from the summed bytes and operations."""
+    sel = [r for r in rows if r["M"] == M]
+    t_bytes = sum(r["bytes_ms"] for r in sel)
+    t_ops = sum(r["ops_ms"] for r in sel)
+    return {"ms": sum(r["ms"] for r in sel),
+            "eager_ms": sum(r["eager_ms"] for r in sel),
+            "plain_ms": sum(r["plain_ms"] for r in sel),
+            "library_ms": sum(r["library_ms"] for r in sel),
+            "stream_ms": sum(r["stream_ms"] for r in sel),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def logit_gap(dense, packed):
@@ -299,8 +335,8 @@ def device_time(fn):
     """Trace ``fn`` with ``torch.profiler``: the card's busy milliseconds
     (union of the intervals of every kernel and copy it ran), the share of
     them in the BCS kernels (``bsr_matmul_kernel``, ``bsr_conv_kernel``:
-    kernels 1 and 3) and in the tap kernels (``tap_gather_kernel``,
-    ``tap_conv_kernel``: 2 and 4), each kernel's own time and traced
+    kernels 1 and 3) and in the tap kernel (``tap_conv_kernel``: kernels
+    2 and 4), each kernel's own time and traced
     launches, and the number of device events; None when the profiler saw
     no device activity.  A trace can miss device events (the conv serve
     phase holds the traced launches against the counted ones)."""
@@ -324,8 +360,7 @@ def device_time(fn):
     busy += hi - lo
     bsr = sum(b - a for a, b, n in spans if "bsr_" in n)
     tap = sum(b - a for a, b, n in spans if "tap_" in n)
-    names = ("bsr_matmul_kernel", "bsr_conv_kernel", "tap_gather_kernel",
-             "tap_conv_kernel")
+    names = ("bsr_matmul_kernel", "bsr_conv_kernel", "tap_conv_kernel")
     by_kernel = {k: [b - a for a, b, n in spans if k in n] for k in names}
     return {"busy_ms": busy / 1e3, "bsr_ms": bsr / 1e3, "tap_ms": tap / 1e3,
             "by_kernel_ms": {k: sum(v) / 1e3 for k, v in by_kernel.items()
@@ -384,10 +419,11 @@ def serve_phase(mods, args):
     sync()
     gen_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
-    want = cfg.n_layers * 7 * N_BINS * (1 + N_NEW)
+    want = cfg.n_layers * 7 * (1 + N_NEW)
     print(f"generate {tuple(out.shape)}: bsr_matmul launches "
           f"{launches['bsr_matmul']} (expected layers {cfg.n_layers} x 7 "
-          f"projections x {N_BINS} bins x (1 + {N_NEW}) forwards = {want})")
+          f"projections x (1 + {N_NEW}) forwards = {want}, one launch over "
+          f"the {N_BINS} bins)")
     if launches["bsr_matmul"] != want:
         raise AssertionError("the main path did not go through the kernel "
                              "the expected number of times")
@@ -755,9 +791,7 @@ def floor_phase(mods, flush):
 def expected_conv_launches(ops, arch, exec_p, hw, B):
     """Launches of one ``convnet_apply`` per kernel, from the layouts: a
     packed layer launches the implicit or the materialized kernel as
-    ``ops._pick_implicit`` picks at its input; the implicit kernels and
-    the BCS conv on patches once over all bins, the tap kernel on the
-    alive band (kernel 2) once per bin."""
+    ``ops._pick_implicit`` picks at its input, once over all bins."""
     want = {}
     for name, kh, kw, stride, shape in layer_inputs(arch, hw, B):
         lay = exec_p[name].get("packed")
@@ -768,8 +802,7 @@ def expected_conv_launches(ops, arch, exec_p, hw, B):
         bk = None if k_imp == "tap_gather_conv_implicit" else lay.block[0]
         key = (k_imp if ops._pick_implicit(None, x, kh, kw, stride, "SAME",
                                            bk=bk) else k_mat)
-        n = lay.n_bins if key == "tap_gather_conv" else 1
-        want[key] = want.get(key, 0) + n
+        want[key] = want.get(key, 0) + 1
     return want
 
 
@@ -863,7 +896,7 @@ def conv_serve_phase(mods):
             traced = {"bsr_conv2d_implicit": "bsr_conv_kernel",
                       "bsr_conv2d_materialized": "bsr_conv_kernel",
                       "tap_gather_conv_implicit": "tap_conv_kernel",
-                      "tap_gather_conv": "tap_gather_kernel"}
+                      "tap_gather_conv": "tap_conv_kernel"}
             want_ev = {}
             for k, v in launches.items():
                 want_ev[traced[k]] = want_ev.get(traced[k], 0) + v
@@ -1010,9 +1043,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     conv_e2e, conv_launches = conv_serve_phase(mods)
 
-    decode_rows = [r for r in rows if r["M"] == 4]
-    t_bytes = sum(r["bytes_ms"] for r in decode_rows)
-    t_ops = sum(r["ops_ms"] for r in decode_rows)
+    decode, prefill = layer_sum(rows, 4), layer_sum(rows, 128)
     entry = {
         "name": "bsr_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bsr_matmul.cu",
@@ -1021,13 +1052,13 @@ def main(argv=None):
         "launches": launches["bsr_matmul"],
         "max_abs_err": max_err,
         # one decode step's 7 projections of one layer (M = 4), summed
-        "ms": sum(r["ms"] for r in decode_rows),
-        "plain_ms": sum(r["plain_ms"] for r in decode_rows),
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": sum(r["library_ms"] for r in decode_rows),
+        "ms": decode["ms"], "plain_ms": decode["plain_ms"],
+        "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
+        "library_ms": decode["library_ms"],
+        "prefill": prefill,
         "measured_at": "sum over one yi-9b layer's 7 projections at decode "
-                       "M=4, bf16, (16,16) blocks, rate 0.6, 4 bins",
+                       "M=4 (prefill: M=128), bf16, (16,16) blocks, rate "
+                       "0.6, 4 bins",
     }
     entry["shapes"] = [
         {"layer": f"yi-9b/{r['proj']}", "M": r["M"], "K": r["K"],

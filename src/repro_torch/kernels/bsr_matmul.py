@@ -15,20 +15,25 @@ Kernel 1 in detail:
 
 The kernel replaces the reference's Pallas TPU kernel ``bsr_matmul``
 (``repro/kernels/bsr_matmul.py:63``/``:143``): it reads and multiplies only
-the surviving weight blocks of one degree bin of a ``PackedLayout``,
-accumulates in fp32, fuses bias + silu/relu into the epilogue with one
-rounding, and writes each column tile straight to its ORIGINAL column
-(``layout.perm``), so ``bsr_matmul_packed`` needs neither the per-bin
-concat nor the un-permute gather of the reference.
+the surviving weight blocks of a ``PackedLayout``, every degree bin in one
+launch, accumulates in fp32 (bf16 on the tensor cores, ``mma.sync``),
+fuses bias + silu/relu into the epilogue with one rounding, and writes
+each column tile straight to its ORIGINAL column (``layout.perm``), so
+``bsr_matmul_packed`` needs neither the per-bin concat nor the un-permute
+gather of the reference.  ``bsr_plan`` decides the launch from the shapes
+(path, M tile, warps, chunk of slots, shared memory); ``_bsr_bins`` lays
+out the bins' descriptor table the kernel takes as an argument.
 
 Kernels 2-4 replace the reference's ``tap_gather_conv`` (:314),
 ``_conv_implicit_bin`` (:483) and ``_tap_implicit_bin`` (:613); each writes
-its outputs at their original columns like kernel 1.  Kernels 3 and 4 run
-one launch per layer over all degree bins: a thread block stages a tile
-of the unpadded NHWC input (the SAME halo zero-filled as it loads) in
-shared memory and walks every output column of the layer against it.
-``conv_plan`` chooses the tile; ``_bsr_tables`` / ``_tap_tables`` flatten
-the bins into the per-column tables the kernels walk.
+its outputs at their original columns like kernel 1, in one launch per
+layer over all degree bins: a thread block stages a tile of its input
+(the unpadded NHWC image, the SAME halo zero-filled as it loads; or the
+im2col patch matrix / alive band read as a 1 x M image) in shared memory
+and walks every output column of the layer against it.  Kernel 2 is
+kernel 4 run over the alive band.  ``conv_plan`` chooses the tile;
+``_bsr_tables`` / ``_tap_tables`` flatten the bins into the per-column
+tables the kernels walk.
 
 The plain PyTorch versions (``kernels.ref``) run only for CPU tensors.
 For a CUDA tensor the kernel launches or the call raises; nothing falls
@@ -55,9 +60,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # C entry point -> (library, pointer args, int args); every entry ends
 # with the stream pointer
 _ENTRIES = {
-    "bsr_matmul_launch": ("bsr_matmul", 6, 9),
+    "bsr_matmul_launch": ("bsr_matmul", 7, 6),
     "bsr_conv_launch": ("bsr_matmul", 7, 6),
-    "tap_gather_launch": ("tap_gather", 6, 9),
     "tap_conv_launch": ("tap_gather", 6, 4),
 }
 _fns: dict = {}
@@ -378,22 +382,25 @@ def _bsr_tables(layout):
     return _cached(layout, "bcs", build)
 
 
-def _tap_tables(layout, plan):
+def _tap_tables(layout, plan, band=False):
     """Kernel 4's tables for one tile geometry: (slots, 2) int32 of (the
     slot's input word in the staged tile, its value's fp32 bits) per
     output column of the layout, in slot order, and the column meta.  The
-    word of k_full k (tap = k // C, (dy, dx) = divmod(tap, kw), channel ch
-    = k % C) is ``(ch >> cg_log2) * chan_ld + (ch % 2**cg_log2) * s * nph
-    + dy * pitch + (dx % s) * nph + dx // s``; adding a position's ``r * s
-    * pitch + c`` gives its input."""
+    word of input row k (tap = k // C, (dy, dx) = divmod(tap, kw), channel
+    ch = k % C) is ``(ch >> cg_log2) * chan_ld + (ch % 2**cg_log2) * s *
+    nph + dy * pitch + (dx % s) * nph + dx // s``; adding a position's ``r
+    * s * pitch + c`` gives its input.  k is the slot's ``k_full`` row of
+    the image's im2col band, or with ``band`` its ``t_idx`` row of the
+    alive band (a 1 x 1 conv over its ``n_alive`` channels: kernel 2)."""
     C, kw, s, cg = plan.C, plan.kw, plan.stride, plan.cg_log2
-    key = ("tap", C, kw, s, plan.chan_ld, plan.pitch, plan.nph, cg)
+    key = ("tap", band, C, kw, s, plan.chan_ld, plan.pitch, plan.nph, cg)
 
     def build():
         dev = layout.nnz.device
         g = layout.group
         ents = []
-        for vals, kf in zip(layout.values, layout.bin_k_full()):
+        rows = layout.t_idx if band else layout.bin_k_full()
+        for vals, kf in zip(layout.values, rows):
             G, L, _ = vals.shape
             k = kf.long()
             tap, ch = k // C, k % C
@@ -416,104 +423,259 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_common(name, out, x, values, idx, cols, bias, act):
-    """The checks every kernel shares: one device, dtypes, contiguity of
-    the per-bin leaves and the bias."""
-    tensors = [out, x, values, idx, cols] + ([bias] if bias is not None
-                                             else [])
-    if any(t.device != x.device for t in tensors):
-        raise ValueError(f"{name}: all tensors must be on one device, "
-                         f"got {[str(t.device) for t in tensors]}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"{name}: dtype {x.dtype} not supported "
-                        f"(float32, bfloat16)")
-    for label, t in (("values", values), ("out", out), ("bias", bias)):
-        if t is not None and t.dtype != x.dtype:
-            raise TypeError(f"{name}: {label} dtype {t.dtype} != x dtype "
-                            f"{x.dtype}")
-    if idx.dtype != torch.int32 or cols.dtype != torch.int32:
-        raise TypeError(f"{name}: index tables and cols must be int32")
-    if act not in _ACTS:
-        raise ValueError(f"{name}: unknown activation {act!r}")
-    if not (values.is_contiguous() and idx.is_contiguous()
-            and cols.is_contiguous() and out.stride(1) == 1):
-        raise ValueError(f"{name}: values, index tables and cols must be "
-                         f"contiguous, out needs unit column stride")
-    if bias is not None and (bias.shape != (out.shape[1],)
-                             or not bias.is_contiguous()):
-        raise ValueError(f"{name}: bias must be contiguous "
-                         f"({out.shape[1]},), got {tuple(bias.shape)}")
-
-
 def _raise_on(err, name, detail):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
                            f"({detail})")
 
 
-def _check_bsr(name, out, x, values, k_idx, cols, bias, act):
-    """Everything the BCS kernels assume, checked before any pointer is
-    passed (x is the (M, K) matrix or the padded image)."""
-    _check_common(name, out, x, values, k_idx, cols, bias, act)
-    nb, L, bk, bn = values.shape
-    if tuple(k_idx.shape) != (nb, L) or tuple(cols.shape) != (nb,):
-        raise ValueError(f"{name}: shapes disagree: values "
-                         f"{tuple(values.shape)}, k_idx "
-                         f"{tuple(k_idx.shape)}, cols {tuple(cols.shape)}")
-    if out.shape[1] % bn or nb > out.shape[1] // bn:
-        raise ValueError(f"{name}: out {tuple(out.shape)} cannot hold "
-                         f"{nb} column tiles of width {bn}")
-    if 256 % bn or bk & (bk - 1):
-        raise ValueError(f"{name}: block ({bk}, {bn}) not supported "
-                         f"(bk a power of two, bn dividing 256)")
+# kernel 1's launch shape (csrc/bsr_matmul.cu)
+BSR_WARPS = 4                # warps of a block (128 threads)
+BSR_UNITS = (2, 1)           # units (slot pieces) a warp group moves a step
+BSR_STAGES = (4, 3, 2)       # cp.async ring depths (steps in flight + 1)
+BSR_CHUNK = 64               # slots of a chunk unless the card needs more
+BSR_SMEM_TARGET = SMEM_MAX // 3   # leaves room for 3 blocks an SM
+BSR_MAX_BINS = 16            # bins of one launch's descriptor table
+BSR_TARGET_BLOCKS = 4 * SMS  # blocks a launch aims at (density unknown)
 
 
-def _launch(out, x, values, k_idx, cols, bias, act):
-    """One kernel launch over one degree bin: ``out[:, cols[j]*bn:
-    (cols[j]+1)*bn] = act(x @ W_j + bias[...])`` for every layout column j.
+def _odd16(nbytes):
+    """Bytes of a staged row of ``nbytes``: whole 16-byte units, an odd
+    number of them, so 8 rows read at once (ldmatrix) hit 8 bank quads."""
+    u = -(-nbytes // 16)
+    return 16 * (u + 1 - u % 2)
 
-    x (M, K); values (nb, L, bk, bn); k_idx (nb, L) int32; cols (nb,) int32
-    original block column of each layout column; bias None or (N,) in
-    ORIGINAL column order; out (M, N), written only at the bin's columns.
-    """
-    if x.device.type != "cuda":
-        raise ValueError(f"bsr_matmul: unsupported device {x.device}")
-    _check_bsr("bsr_matmul", out, x, values, k_idx, cols, bias, act)
-    M, K = x.shape
-    nb, L, bk, bn = values.shape
-    if x.stride(1) != 1:
-        raise ValueError("bsr_matmul: x needs unit column stride")
-    if K % bk or out.shape[0] != M:
-        raise ValueError(f"bsr_matmul: x {tuple(x.shape)}, out "
-                         f"{tuple(out.shape)} and block ({bk}, {bn}) "
-                         f"disagree")
-    err = _kernel()(x.data_ptr(), values.data_ptr(), k_idx.data_ptr(),
-                    cols.data_ptr(),
-                    None if bias is None else bias.data_ptr(),
-                    out.data_ptr(), M, x.stride(0), nb, L, bk, bn,
-                    out.stride(0), _ACTS[act], _DTYPES[x.dtype], _stream(x))
-    _raise_on(err, "bsr_matmul", f"M={M}, nb={nb}, L={L}, block=({bk}, "
-                                 f"{bn}), dtype={x.dtype}")
-    LAUNCHES["bsr_matmul"] += 1
-    return out
+
+@dataclasses.dataclass(frozen=True)
+class BsrPlan:
+    """One launch of kernel 1, from the shapes alone (never from a bin's
+    degree or the bin count).  A thread block of 4 warps owns one work
+    item: a layout column, a sub-column of ``NW`` of its ``bn`` outputs,
+    an M tile of ``MT = 16 * FM * WM`` rows (``mtiles`` of them) and a
+    chunk of ``S`` of the column's slots.  Warp w is (w % WM, w // WM): it
+    owns ``16 * FM`` rows of the tile and a sub-chunk of ``SW = S // WK``
+    slots (``WK = 4 // WM`` warp groups).  A pipeline step takes, for each
+    group, ``U`` units, each one slot's ``KS``-deep piece: the gathered x
+    tile (MT rows of ``xp`` elements in shared memory) and the value piece
+    (KS rows of ``vp``), through a ring of ``stages``.  ``mma``: bf16 on
+    the tensor cores; otherwise fp32 FMAs on CUDA cores (FM = 1).  Field
+    order up to ``smem`` is the kernel's ``BsrShape``."""
+    M: int
+    bk: int
+    bn: int
+    mma: int
+    MT: int
+    FM: int
+    WM: int
+    NW: int
+    KS: int
+    S: int
+    SW: int
+    subcols: int
+    mtiles: int
+    xp: int
+    vp: int
+    U: int
+    stages: int
+    smem: int
+    WK: int
+    K: int
+    N: int
+    dtype: torch.dtype
+
+    def args(self):
+        """The ``BsrShape`` ints, in the kernel's field order."""
+        names = [f.name for f in dataclasses.fields(self)]
+        return [getattr(self, n) for n in names[:names.index("smem") + 1]]
+
+    @functools.cached_property
+    def c_args(self):
+        vals = self.args()
+        return (ctypes.c_int * len(vals))(*vals)
+
+    def chunks(self, L):
+        """Chunks of a column of ``L`` slots."""
+        return -(-L // self.S)
+
+
+@functools.lru_cache(maxsize=256)
+def bsr_plan(M, K, N, dtype, bk, bn):
+    """Kernel 1's launch for x (M, K) @ a (K, N) layout of (bk, bn) blocks.
+
+    Path: tensor cores for bf16 with bk % 16 == 0 and bn % 8 == 0, else
+    FMAs.  M tile: the least power of two >= M between 16 and 128 (64 on
+    the FMA path); warps along M as the tile needs, the rest split the
+    chunk's slots.  Chunk: S = ``BSR_CHUNK`` slots (short enough that all
+    WK warp groups stay busy on the short columns of a pruned layer), no
+    more than a column of K // bk slots needs, halved (down to SW = 4)
+    while a launch at full density has fewer than ``BSR_TARGET_BLOCKS``
+    blocks.  Step and ring: the most units a step (then the deepest ring)
+    within ``BSR_SMEM_TARGET``, else one unit in the shallowest ring.
+    Raises ValueError for a block the kernel does not take."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"bsr_matmul: dtype {dtype} not supported "
+                        f"(float32, bfloat16)")
+    if (bk < 4 or bk & (bk - 1) or bn < 4 or bn > 256 or bn & (bn - 1)
+            or K % bk or N % bn):
+        raise ValueError(f"bsr_matmul: block ({bk}, {bn}) not supported "
+                         f"for ({K}, {N}) (bk a power of two >= 4, bn one "
+                         f"from 4 to 256)")
+    es = 2 if dtype == torch.bfloat16 else 4
+    mma = int(es == 2 and bk % 16 == 0 and bn % 8 == 0)
+    MT = 16
+    while MT < min(M, 128 if mma else 64):
+        MT *= 2
+    FM = 2 if mma and MT > 16 else 1
+    WM = MT // (16 * FM)
+    WK = BSR_WARPS // WM
+    NW = min(bn, 32)
+    KS = min(bk, 64 if mma else 32)
+    subcols, mtiles = bn // NW, -(-M // MT)
+    Kb, tiles = K // bk, (N // bn) * subcols * mtiles
+    SW = 4
+    while WK * SW < min(Kb, BSR_CHUNK):
+        SW *= 2
+    while SW > 4 and tiles * -(-Kb // (WK * SW)) < BSR_TARGET_BLOCKS:
+        SW //= 2
+    xp, vp = _odd16(KS * es) // es, _odd16(NW * es) // es
+
+    def smem_of(U, stages):  # k_idx of a chunk, ring or red tile, flag
+        ring = stages * WK * U * (MT * xp + KS * vp) * es
+        red = WK * MT * NW * 4
+        return _round_to(4 * WK * SW, 16, 0) + max(ring, red) + 16
+    U, stages = next(((u, st) for u in BSR_UNITS for st in BSR_STAGES
+                      if smem_of(u, st) <= BSR_SMEM_TARGET),
+                     (1, BSR_STAGES[-1]))
+    return BsrPlan(M, bk, bn, mma, MT, FM, WM, NW, KS, WK * SW, SW,
+                   subcols, mtiles, xp, vp, U, stages, smem_of(U, stages),
+                   WK, K, N, dtype)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BsrBins:
+    """The bin table of one (layout, plan): ``table`` the BinDesc rows
+    (values, k_idx and cols pointers, first workspace float, columns,
+    padded degree, chunks a column, first block, first tile, 0) as host
+    int64; ``items`` blocks, ``tiles`` counters and ``ws_floats`` of
+    workspace the launch needs."""
+    table: ctypes.Array
+    n_bins: int
+    items: int
+    tiles: int
+    ws_floats: int
+
+
+def _bsr_bins(layout, plan, device):
+    """Kernel 1's bin table for ``plan``, checked against what the kernel
+    assumes of each bin's tensors.  Cached per layout and plan (the
+    layout's tensors never change)."""
+    def build():
+        if layout.n_bins > BSR_MAX_BINS:
+            raise ValueError(f"bsr_matmul: {layout.n_bins} bins, the kernel "
+                             f"takes at most {BSR_MAX_BINS}")
+        rows, item, tile, ws = [], 0, 0, 0
+        for vals, kidx, cols in zip(layout.values, layout.k_idx,
+                                    layout.bin_cols):
+            nb, L = kidx.shape
+            if any(t.device != device for t in (vals, kidx, cols)):
+                raise ValueError(f"bsr_matmul: the layout and x must share "
+                                 f"one device ({device})")
+            if vals.dtype != plan.dtype:
+                raise TypeError(f"bsr_matmul: values dtype {vals.dtype} != "
+                                f"x dtype {plan.dtype}")
+            if kidx.dtype != torch.int32 or cols.dtype != torch.int32:
+                raise TypeError("bsr_matmul: k_idx and cols must be int32")
+            if (tuple(vals.shape) != (nb, L, plan.bk, plan.bn)
+                    or tuple(cols.shape) != (nb,)):
+                raise ValueError(f"bsr_matmul: shapes disagree: values "
+                                 f"{tuple(vals.shape)}, k_idx "
+                                 f"{tuple(kidx.shape)}, cols "
+                                 f"{tuple(cols.shape)}")
+            if not (vals.is_contiguous() and kidx.is_contiguous()
+                    and cols.is_contiguous()) or vals.data_ptr() % 16:
+                raise ValueError("bsr_matmul: values, k_idx and cols must "
+                                 "be contiguous, values 16-byte aligned")
+            nch = plan.chunks(L)
+            tiles = nb * plan.subcols * plan.mtiles
+            rows += [vals.data_ptr(), kidx.data_ptr(), cols.data_ptr(), ws,
+                     nb, L, nch, item, tile, 0]
+            item += tiles * nch
+            tile += tiles
+            if nch > 1:
+                ws += tiles * nch * plan.MT * plan.NW
+        if sum(layout.bin_sizes) * plan.bn != layout.shape[1]:
+            raise ValueError(f"bsr_matmul: the bins cover "
+                             f"{sum(layout.bin_sizes)} of {layout.Nb} block "
+                             f"columns")
+        table = (ctypes.c_longlong * len(rows))(*rows)
+        return BsrBins(table, layout.n_bins, item, tile, ws)
+    return _cached(layout, ("bins", plan), build)
+
+
+# per device: kernel 1's per-tile arrival counters, all 0 between launches
+# (the last block of a tile resets its own); launches on one device run
+# on one stream at a time
+_COUNTERS: dict = {}
+
+
+def _counters(device, n):
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("bsr_matmul: the tile counters must grow "
+                               "before a CUDA graph is captured (run the "
+                               "call once uncaptured)")
+        c = torch.zeros(max(n, 1 << 16), dtype=torch.int32, device=device)
+        _COUNTERS[device] = c
+    return c
 
 
 def bsr_matmul_packed(x, layout, bias=None, act="none"):
-    """x (M, K) @ PackedLayout W (K, N) -> (M, N), one launch per degree
-    bin.  Each bin writes its columns at their original positions, so the
-    result is in original column order without a gather.  Per-column
-    accumulation order is independent of the binning, so reordered and
-    unreordered layouts give bit-identical results."""
+    """x (M, K) @ PackedLayout W (K, N) -> (M, N): one launch over every
+    degree bin, each column written at its original position, so the
+    result is in original column order without a gather.  An output's
+    sum order depends on its column's slot list and the shapes only, so
+    reordered and unreordered layouts give bit-identical results.  x needs
+    unit column stride and a 16-byte aligned base and row pitch."""
     if x.shape[-1] != layout.shape[0]:
         raise ValueError(f"bsr_matmul: x has K={x.shape[-1]}, the layout "
                          f"K={layout.shape[0]}")
     if x.device.type == "cpu":
         return ref.bsr_matmul_packed_ref(x, layout, bias, act)
-    out = torch.empty((x.shape[0], layout.shape[1]), dtype=x.dtype,
-                      device=x.device)
-    for vals_b, kidx_b, cols_b in zip(layout.values, layout.k_idx,
-                                      layout.bin_cols):
-        _launch(out, x, vals_b, kidx_b, cols_b, bias, act)
+    if x.device.type != "cuda":
+        raise ValueError(f"bsr_matmul: unsupported device {x.device}")
+    if act not in _ACTS:
+        raise ValueError(f"bsr_matmul: unknown activation {act!r}")
+    M, K = x.shape
+    N = layout.shape[1]
+    es = x.element_size()
+    if x.stride(1) != 1 or x.data_ptr() % 16 or (M > 1 and
+                                                 x.stride(0) * es % 16):
+        raise ValueError("bsr_matmul: x needs unit column stride and a "
+                         "16-byte aligned base and row pitch")
+    if bias is not None and (bias.shape != (N,) or not bias.is_contiguous()
+                             or bias.device != x.device
+                             or bias.dtype != x.dtype):
+        raise ValueError(f"bsr_matmul: bias must be a contiguous ({N},) "
+                         f"{x.dtype} tensor on {x.device}")
+    plan = bsr_plan(M, K, N, x.dtype, *layout.block)
+    bins = _bsr_bins(layout, plan, x.device)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M == 0:
+        return out
+    ws = (torch.empty(bins.ws_floats, dtype=torch.float32, device=x.device)
+          if bins.ws_floats else None)
+    err = _kernel()(x.data_ptr(), None if bias is None else bias.data_ptr(),
+                    out.data_ptr(), None if ws is None else ws.data_ptr(),
+                    _counters(x.device, bins.tiles).data_ptr(),
+                    ctypes.addressof(plan.c_args),
+                    ctypes.addressof(bins.table), bins.n_bins, bins.items,
+                    x.stride(0), out.stride(0), _ACTS[act], _DTYPES[x.dtype],
+                    _stream(x))
+    _raise_on(err, "bsr_matmul", f"M={M}, K={K}, N={N}, block="
+                                 f"{layout.block}, dtype={x.dtype}, "
+                                 f"plan={plan.args()}")
+    LAUNCHES["bsr_matmul"] += 1
     return out
 
 
@@ -666,25 +828,38 @@ def bsr_conv2d_patches(x, layout, bias=None, act="none"):
                      "bsr_conv2d_materialized")
 
 
-def _check_tap(name, out, x, values, slots, cols, bias, act, group):
-    _check_common(name, out, x, values, slots, cols, bias, act)
-    ng, L, gp = values.shape
-    if gp != group or tuple(slots.shape) != (ng, L) or \
-            tuple(cols.shape) != (ng,):
-        raise ValueError(f"{name}: shapes disagree: values "
-                         f"{tuple(values.shape)}, slots "
-                         f"{tuple(slots.shape)}, cols {tuple(cols.shape)}, "
-                         f"group {group}")
-    if out.shape[1] % group or ng > out.shape[1] // group:
-        raise ValueError(f"{name}: out {tuple(out.shape)} cannot hold {ng} "
-                         f"groups of {group} filters")
+def _tap_conv(x, layout, plan, band, bias, act, name):
+    """One launch of kernel 4 over every bin of ``layout``: x is the
+    (B, H, W, C) image ``plan`` tiles, whose channels are the layout's
+    ``k_full`` rows, or (``band``) the 1 x M image of the alive band;
+    returns (B*Ho*Wo, P)."""
+    P = layout.shape[1]
+    if sum(layout.bin_sizes) * layout.group != P:
+        raise ValueError(f"{name}: the bins cover {sum(layout.bin_sizes)} "
+                         f"of {layout.n_groups} filter groups")
+    slots, meta = _tap_tables(layout, plan, band)
+    out = torch.empty((plan.B * plan.Ho * plan.Wo, P), dtype=x.dtype,
+                      device=x.device)
+    err = _kernel("tap_conv_launch")(
+        x.data_ptr(), slots.data_ptr(), meta.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        ctypes.addressof(plan.c_args), out.stride(0), _ACTS[act],
+        _DTYPES[x.dtype], plan.smem_bytes, _stream(x))
+    _raise_on(err, name, f"x {tuple(x.shape)}, tile {plan.tr}x{plan.tw}, "
+                         f"R={plan.R}, smem {plan.smem_bytes}, "
+                         f"dtype={x.dtype}")
+    LAUNCHES[name] += 1
+    return out
 
 
 def tap_gather_conv_packed(x, layout, bias=None, act="none"):
     """x (M, R) alive im2col band @ TapLayout -> (M, P), original filter
-    order: one launch per degree bin, each filter group contracting only
-    its own surviving taps (slot order), written at its original columns.
-    Bit-identical across bin counts and to the implicit mode."""
+    order: kernel 4 over the band read as a 1 x M image of R channels
+    (slot t_idx = channel), one launch over all degree bins, each filter
+    group contracting only its own surviving taps in slot order, written
+    at its original columns.  Bit-identical across bin counts and to the
+    implicit mode.  A band with unit column stride but a wider row pitch
+    is copied contiguous first."""
     if x.shape[-1] != layout.n_alive:
         raise ValueError(f"tap_gather_conv: x has {x.shape[-1]} band "
                          f"columns, the layout {layout.n_alive} alive rows")
@@ -694,22 +869,12 @@ def tap_gather_conv_packed(x, layout, bias=None, act="none"):
         raise ValueError(f"tap_gather_conv: unsupported device {x.device}")
     if x.stride(1) != 1:
         raise ValueError("tap_gather_conv: x needs unit column stride")
+    x = x.contiguous()
+    _check_conv_input("tap_gather_conv", x, layout, bias, act)
     M, R = x.shape
-    out = torch.empty((M, layout.shape[1]), dtype=x.dtype, device=x.device)
-    for vals, tidx, cols in zip(layout.values, layout.t_idx,
-                                layout.bin_cols):
-        _check_tap("tap_gather_conv", out, x, vals, tidx, cols, bias, act,
-                   layout.group)
-        ng, L, _ = vals.shape
-        err = _kernel("tap_gather_launch")(
-            x.data_ptr(), vals.data_ptr(), tidx.data_ptr(), cols.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(), M,
-            x.stride(0), R, ng, L, layout.group, out.stride(0), _ACTS[act],
-            _DTYPES[x.dtype], _stream(x))
-        _raise_on(err, "tap_gather_conv", f"M={M}, R={R}, groups={ng}, "
-                                          f"L={L}, dtype={x.dtype}")
-        LAUNCHES["tap_gather_conv"] += 1
-    return out
+    P = layout.shape[1]
+    plan = conv_plan("tap", (1, 1, M, R), 1, 1, 1, "VALID", P, P)
+    return _tap_conv(x, layout, plan, True, bias, act, "tap_gather_conv")
 
 
 def tap_gather_conv_implicit(x, layout, *, kh, kw, stride=1, padding="SAME",
@@ -731,21 +896,6 @@ def tap_gather_conv_implicit(x, layout, *, kh, kw, stride=1, padding="SAME",
         return y.reshape(B, Ho, Wo, P)
     name = "tap_gather_conv_implicit"
     _check_conv_input(name, x, layout, bias, act)
-    if sum(layout.bin_sizes) * layout.group != P:
-        raise ValueError(f"{name}: the bins cover {sum(layout.bin_sizes)} "
-                         f"of {layout.n_groups} filter groups")
     plan = conv_plan("tap", x.shape, kh, kw, stride, padding, P, P)
-    slots, meta = _tap_tables(layout, plan)
-    out = torch.empty((B * plan.Ho * plan.Wo, P), dtype=x.dtype,
-                      device=x.device)
-    err = _kernel("tap_conv_launch")(
-        x.data_ptr(), slots.data_ptr(), meta.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(),
-        ctypes.addressof(plan.c_args), out.stride(0), _ACTS[act],
-        _DTYPES[x.dtype],
-        plan.smem_bytes, _stream(x))
-    _raise_on(err, name, f"x {tuple(x.shape)}, tile {plan.tr}x{plan.tw}, "
-                         f"R={plan.R}, smem {plan.smem_bytes}, "
-                         f"dtype={x.dtype}")
-    LAUNCHES[name] += 1
+    out = _tap_conv(x, layout, plan, False, bias, act, name)
     return out.reshape(B, plan.Ho, plan.Wo, P)

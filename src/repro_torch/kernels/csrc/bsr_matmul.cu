@@ -1,35 +1,75 @@
 // Kernel 1, bsr_matmul_kernel: BCS block-sparse matmul for Hopper (sm_90a):
 //   out[:, cols[j]*bn + c] = act(sum_l x[:, k_idx[j,l]*bk : +bk] @ values[j,l][:, c] + bias)
-// over the block columns j of ONE degree bin of a PackedLayout.
+// over every block column j of every degree bin of a PackedLayout, in ONE
+// launch (bsr_matmul_launch).
 //
 // Replaces the Pallas TPU kernel `bsr_matmul` (body `_kernel`) in
 // src/repro/kernels/bsr_matmul.py:63 (launch :143).  There the sequential
 // grid (M/bm, Nb, L) carried an fp32 VMEM accumulator across the L steps.
-// Here one thread block owns one (M tile, block column j) pair and walks the
-// column's slots itself, so nothing carries between blocks.
+// Here a thread block owns one work item -- (layout column j, a sub-column
+// of NW of its bn outputs, an M tile of MT rows, a chunk of S of its slots)
+// -- and walks the chunk's slots itself; a column's chunks meet through an
+// fp32 workspace (below).
 //
 // What bounds it on an H100: the bytes of the live value blocks.  Each is
-// read once and used for M rows, so the arithmetic intensity is about M
-// flop/byte in bf16, below the card's ~295 at decode (M = 4) and at prefill
-// (M = 128) alike.  This version multiplies on CUDA cores in fp32 (the
-// block menu has (4,4) and (8,16) blocks, below any MMA tile), so at
-// prefill the FMA rate, not the bound, limits it.  What the design
-// does about the bytes: the slots of column j are one contiguous
-// (L*bk, bn) run of `values`, streamed through shared memory with 16-byte
-// loads in chunks as deep as the shared-memory budget allows, and every
-// thread of the block works on every chunk: the 256 threads split into
-// G = 256/bn reduction groups x bn columns, each thread accumulating all
-// rows of the M tile over the reduction rows q with q % G == its group.
+// read once per M tile and used for its rows, so the arithmetic intensity
+// is about M flop/byte in bf16, far below the card's ~295: at yi-9b decode
+// (M = 4) and prefill (M = 128) alike the bound is the value bytes at
+// 3.35 TB/s (0.042 ms a layer at rate 0.6), the bf16 operations at
+// prefill taking under half of that.  The first port reached ~6 % of the
+// HBM rate at decode and multiplied on CUDA cores at prefill, one launch
+// per degree bin.  What the design does:
+//   * one launch per call over all bins: the bins' pointers, degrees and
+//     work-item offsets travel as a by-value kernel argument (BinDesc), so
+//     no table is copied to the card and a CUDA graph captures it as is;
+//   * a column's slots are cut into chunks of S slots (S from the shapes
+//     alone, bsr_plan in repro_torch/kernels/bsr_matmul.py), so a launch
+//     has enough blocks to fill the card even where a bin has few columns
+//     (wk / wv at decode); inside a block each of the WK = 4 / WM warp
+//     groups walks its own sub-chunk of SW = S / WK slots;
+//   * the block first copies its chunk's k_idx to shared memory (no step
+//     waits on a k_idx load); then per pipeline step each group takes U
+//     units, a unit being one slot's KS-deep piece: the gathered x tile
+//     (MT rows x KS) and the (KS, NW) piece of the value block stream
+//     through a cp.async ring of `stages` steps in their own dtype
+//     (values L2-only, x through L1, where neighbouring columns on the SM
+//     find it); x rows >= M are never loaded (they only feed output rows
+//     that are never stored), so decode (M = 4 in a 16-row tile) moves
+//     only live bytes;
+//   * bf16 with bk % 16 == 0 and bn % 8 == 0 (yi-9b's (16, 16) and every
+//     menu block from (16, 32) up) multiplies on the tensor cores:
+//     mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, fp32
+//     accumulators in registers, A from the x tile by ldmatrix.x4, B from
+//     the (KS, NW) row-major value piece by ldmatrix.x4.trans (x2.trans at
+//     NW = 8); staged rows are an odd number of 16-byte units long, so
+//     the 8 row addresses of an ldmatrix phase hit 8 distinct bank quads.
+//     mma.sync rather than wgmma: the bytes bind at both M, and mma.sync
+//     keeps the operations well under them;
+//   * fp32 (the gate excludes TF32) and the small bf16 blocks ((4, 4),
+//     (8, 16)) take the same pipeline with fp32 FMAs on CUDA cores, each
+//     lane owning NW / 2 outputs of its warp's 16 x NW tile;
+//   * the epilogue (bias, silu / relu, one rounding) runs once per output
+//     from an fp32 tile in shared memory; each column writes straight to
+//     its ORIGINAL columns (cols = layout.perm), so no gather follows.
 //
-// Numerics: each thread sums its reduction rows in increasing q order in
-// fp32 registers (q = l*bk + kk), and the G group partials of an output
-// are then added in group order 0..G-1.  Which rows a group sums depends
-// only on q (chunks start at multiples of G), so an output's sum order
-// depends only on its column's slot list; padding slots hold zero values
-// and add exact zeros.  Reordered and unreordered layouts of one weight
-// therefore give bit-identical outputs.  Bias and activation are applied
-// to the fp32 sum, followed by one rounding to the output type.  Ragged M
-// is masked here: rows >= M are never loaded or stored.
+// Numerics: inside a warp group's sub-chunk every output is one chain over
+// its slots in slot order (one MMA k-step, or bk FMAs, per slot and KS
+// piece, from 0).  A block adds its WK sub-chunk sums in sub-chunk order;
+// a column cut into nch > 1 chunks writes each chunk's sum to the fp32
+// workspace, and the block that arrives last (a per-tile counter) adds
+// them in chunk order, applies the epilogue, stores, and resets the
+// counter to 0, so the next launch and a CUDA-graph replay find it clean.
+// Chunk and sub-chunk edges depend on the slot index and the shapes only,
+// never on a bin's degree or the bin count, and padding slots (zero
+// values, k_idx 0) and the all-padding chunks of a longer bin add exact
+// zeros: reordered and unreordered layouts give bit-identical outputs.
+// bf16 products are exact in fp32; the sums round in fp32.
+//
+// ptxas -v (CUDA 12.8, -O3, sm_90a): kernel 1 90-126 registers over its
+// 18 instantiations (90 for the (16, 16) decode tile, 110 for (16, 16)
+// at MT = 32-128), no spills, under __launch_bounds__(128, 4); dynamic
+// shared memory per bsr_plan, 49-56 KB at yi-9b's shapes (the chunk's
+// k_idx, a 4-deep ring of 2 units a group, the flag).
 //
 // Kernel 3, bsr_conv_kernel below (bsr_conv_launch), is the BCS conv.  It
 // replaces the Pallas TPU kernel `_conv_implicit_bin` (body `_conv_kernel`)
@@ -81,6 +121,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (see repro_torch/kernels/_build.py); bound with ctypes.
 
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,9 +129,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxRows = 8;              // rows of an M tile (one thread's)
-constexpr int kSmemBudget = 40 * 1024;   // bytes; below the 48 KB default cap
+constexpr int kSmemMax = 232448;         // bytes a block may use (227 KB)
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) {
@@ -110,152 +149,451 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
   return __float2bfloat16_rn(v);
 }
 
-// dst[0:n] = float(src[0:n]), 16-byte loads where src is 16-byte aligned
-template <typename T>
-__device__ __forceinline__ void load_f32(float* dst, const T* __restrict__ src,
-                                         int n, int tid) {
-  constexpr int kVec = 16 / sizeof(T);
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int nv = n / kVec;
-    const uint4* s4 = reinterpret_cast<const uint4*>(src);
-    for (int i = tid; i < nv; i += kThreads) {
-      uint4 u = __ldg(s4 + i);
-      const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) dst[i * kVec + k] = to_f32(e[k]);
-    }
-    for (int i = nv * kVec + tid; i < n; i += kThreads)
-      dst[i] = to_f32(src[i]);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until at most n (< kMaxStages) committed groups are pending
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    default: cp_async_wait<6>(); break;
+  }
+}
+
+__device__ __forceinline__ float epilogue(float y, int act) {
+  if (act == 1) return y / (1.f + expf(-y));
+  if (act == 2) return fmaxf(y, 0.f);
+  return y;
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 1: the BCS matmul, one launch over every bin.
+
+constexpr int kBsrThreads = 128;
+constexpr int kBsrWarps = kBsrThreads / 32;
+constexpr int kMaxStages = 8;            // ring depth: steps in flight + 1
+constexpr int kMaxBins = 16;
+
+// One launch's shape, filled by bsr_plan in repro_torch/kernels/
+// bsr_matmul.py (BsrPlan.args, same field order).
+struct BsrShape {
+  int M, bk, bn;
+  int mma;                               // 1: tensor cores, 0: fp32 FMAs
+  int MT, FM, WM, NW, KS;                // M tile, warps, sub-column, k piece
+  int S, SW, subcols, mtiles;            // chunk, warp sub-chunk, tiles
+  int xp, vp;                            // elements of a staged x / value row
+  int U;                                 // units (slot pieces) per step
+  int stages;                            // depth of the cp.async ring
+  int smem;                              // dynamic shared-memory bytes
+};
+constexpr int kFlagBytes = 16;           // the last-arrival flag, at the end
+static_assert(sizeof(BsrShape) == 18 * sizeof(int),
+              "BsrShape must match BsrPlan.args()");
+
+// One degree bin (the wrapper's _bsr_bins, same field order).
+struct BinDesc {
+  long long vals, kidx, cols;            // (nb, L, bk, bn), (nb, L), (nb,)
+  long long ws0;                         // first workspace float of the bin
+  long long ncols, L, nch;               // columns, padded degree, chunks
+  long long item0, tile0;                // first block and tile of the bin
+  long long unused;
+};
+static_assert(sizeof(BinDesc) == 10 * sizeof(long long),
+              "BinDesc must match the wrapper's table rows");
+
+struct BsrArgs {
+  BsrShape p;
+  int ldx, ldo, act, n_bins;
+  BinDesc bins[kMaxBins];
+};
+
+// cp.async of 16, 8 or 4 bytes; 16-byte copies of streamed data skip L1
+template <bool kL1>
+__device__ __forceinline__ void cp_async_bytes(void* dst, const void* src,
+                                               int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (bytes == 16) {
+    if (kL1)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                   "l"(src));
+    else
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                   "l"(src));
+  } else if (bytes == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src));
   } else {
-    for (int i = tid; i < n; i += kThreads) dst[i] = to_f32(src[i]);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src));
   }
 }
 
-// act: 0 none, 1 silu, 2 relu.  x row m is row m of the (M, K) matrix.
-template <typename T, int RPT>
-__global__ void __launch_bounds__(kThreads)
-bsr_matmul_kernel(const T* __restrict__ x, const T* __restrict__ values,
-                  const int* __restrict__ k_idx, const int* __restrict__ cols,
-                  const T* __restrict__ bias, T* __restrict__ out, int M,
-                  int ldx, int L, int bk_log2, int bn, int ldo, int kc,
-                  int act) {
-  extern __shared__ float smem[];
-  const int G = kThreads / bn;             // reduction groups
-  const int bk = 1 << bk_log2;
-  const int j = blockIdx.y;
-  const int m0 = blockIdx.x * RPT;
-  const int rows = min(RPT, M - m0);
-  const int tid = threadIdx.x;
-  const int c = tid % bn;
-  const int g = tid / bn;
-  const int xs_ld = kc + 1;                // odd stride: no bank conflicts
-  float* xs = smem;                        // (RPT, kc) gathered x columns
-  float* vs = smem + RPT * xs_ld;          // (kc, bn) value rows
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
 
-  const int R = L * bk;                    // reduction length of column j
-  const T* vals_j = values + (size_t)j * R * bn;
-  const int* kidx_j = k_idx + (size_t)j * L;
-  // start of each row's x
-  size_t xrow[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-    xrow[i] = (i < rows) ? (size_t)(m0 + i) * ldx : 0;
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
 
-  float acc[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
+__device__ __forceinline__ void ldsm_x2_t(unsigned (&r)[2], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(a));
+}
 
-  for (int q0 = 0; q0 < R; q0 += kc) {
-    const int n = min(kc, R - q0);
-    // rows q0 .. q0+n of column j's (L*bk, bn) value run are contiguous
-    load_f32(vs, vals_j + (size_t)q0 * bn, n * bn, tid);
-    // the matching x columns, gathered through k_idx
-    for (int q = tid; q < n; q += kThreads) {
-      const int gq = q0 + q;
-      const int kb = kidx_j[gq >> bk_log2];
-      const int kk = gq & (bk - 1);
-      const int col = kb * bk + kk;
-#pragma unroll
-      for (int r = 0; r < RPT; ++r)
-        if (r < rows) xs[r * xs_ld + q] = to_f32(x[xrow[r] + col]);
-    }
-    __syncthreads();
-    for (int q = g; q < n; q += G) {
-      const float w = vs[q * bn + c];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-        if (i < rows) acc[i] = fmaf(xs[i * xs_ld + q], w, acc[i]);
-    }
-    __syncthreads();
-  }
+// d += a (16x16, row) @ b (16x8, col): bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
-  // add the G group partials of each output in group order
-  float* red = smem;                       // (G, RPT, bn), reuses xs/vs
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) red[(g * RPT + i) * bn + c] = acc[i];
+// Block = one work item.  Warp w is (wm, wk) = (w % WM, w / WM): it owns
+// rows [16*FM*wm, +16*FM) of the M tile and the slots [slot0 + wk*SW, +SW)
+// of the chunk, SW * bk / KS units (one slot's KS-deep piece each).  Stage
+// st of the ring holds, for each warp group g, the U units of the group's
+// current step, each the x tile (MT rows of xp elements; rows >= M are
+// never loaded and only feed output rows that are never stored) and then
+// the value piece (KS rows of vp elements); the group's own WM warps load
+// it.  NWT: NW at compile time on the tensor-core path, 0 on the FMA path
+// (NW from the shape, FM = 1).  The arguments stay in the parameter space
+// (__grid_constant__): the bins are indexed at run time.
+template <typename T, bool MMA, int FM, int WM, int NWT>
+__global__ void __launch_bounds__(kBsrThreads, 4)
+bsr_matmul_kernel(const T* __restrict__ x, const T* __restrict__ bias,
+                  T* __restrict__ out, float* __restrict__ ws,
+                  int* __restrict__ counters,
+                  const __grid_constant__ BsrArgs a) {
+  constexpr int WK = kBsrWarps / WM;
+  constexpr int MT = 16 * FM * WM;
+  constexpr int TPG = kBsrThreads / WK;  // threads loading one group
+  constexpr int kAcc = MMA ? FM * (NWT / 8) * 4 : 16;
+  extern __shared__ uint4 smem_raw[];
+  const BsrShape& p = a.p;
+  // shared memory: the chunk's k_idx (S ints, 16-byte padded), the ring
+  // (later the fp32 red tile), the last-arrival flag
+  int* skid = reinterpret_cast<int*>(smem_raw);
+  char* ring = reinterpret_cast<char*>(smem_raw) + ((p.S * 4 + 15) & ~15);
+  T* sm = reinterpret_cast<T*>(ring);
+  int& s_last = *reinterpret_cast<int*>(reinterpret_cast<char*>(smem_raw) +
+                                        p.smem - kFlagBytes);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wk = warp / WM;
+  const int NW = MMA ? NWT : p.NW;
+
+  // the work item: bin b, column j, sub-column s, M tile mt, chunk c
+  int b = 0;
+  while (b + 1 < a.n_bins && (long long)blockIdx.x >= a.bins[b + 1].item0)
+    ++b;
+  const BinDesc& d = a.bins[b];
+  const int nch = (int)d.nch, L = (int)d.L;
+  int r = (int)(blockIdx.x - d.item0);
+  const int c = r % nch;
+  r /= nch;
+  const int mt = r % p.mtiles;
+  r /= p.mtiles;
+  const int s = r % p.subcols;
+  const int j = r / p.subcols;
+  const int tile = (j * p.subcols + s) * p.mtiles + mt;
+  const int m0 = mt * MT;
+  const int rows = min(MT, p.M - m0);
+  const int bk = p.bk, bn = p.bn, KS = p.KS, nks = bk / KS;
+  const int ns = p.stages;
+  const T* vj = reinterpret_cast<const T*>(d.vals) + (size_t)j * L * bk * bn +
+                s * NW;
+  const int* kj = reinterpret_cast<const int*>(d.kidx) + (size_t)j * L;
+  const int slot0 = c * p.S;
+
+  const int U = p.U;
+  const int sub = MT * p.xp + KS * p.vp;  // elements of one unit
+  const int stage = WK * U * sub;
+  auto units_of = [&](int g) {           // units of warp group g
+    const int n = L - (slot0 + g * p.SW);
+    return (n < 0 ? 0 : (n > p.SW ? p.SW : n)) * nks;
+  };
+  const int nsteps = (units_of(0) + U - 1) / U, my_units = units_of(wk);
+
+  // the chunk's slots' K-blocks, read once (no step waits on a k_idx load)
+  const int nkid = min(p.S, L - slot0);
+  for (int i = tid; i < nkid; i += kBsrThreads)
+    skid[i] = __ldg(kj + slot0 + i);
   __syncthreads();
-  const int oc = cols[j] * bn;
-  for (int o = tid; o < rows * bn; o += kThreads) {
-    const int i = o / bn;
-    const int cc = o - i * bn;
-    float y = red[i * bn + cc];
-    for (int gg = 1; gg < G; ++gg) y += red[(gg * RPT + i) * bn + cc];
-    if (bias != nullptr) y += to_f32(bias[oc + cc]);
-    if (act == 1) {
-      y = y / (1.f + expf(-y));
-    } else if (act == 2) {
-      y = fmaxf(y, 0.f);
+
+  // the 16-, 8- or 4-byte pieces of a unit: rows * xpc of x, KS * vpc of
+  // the values; thread lq0 of group lg copies pieces lq0, lq0 + TPG, ...
+  constexpr int es = sizeof(T);
+  const int xpb = min(16, KS * es), xpc = KS * es / xpb, xpe = xpb / es;
+  const int vpb = min(16, NW * es), vpc = NW * es / vpb, vpe = vpb / es;
+  const int lxpc = 31 - __clz(xpc), lvpc = 31 - __clz(vpc);
+  const int lnks = 31 - __clz(nks);
+  const int nx = rows * xpc, per = nx + KS * vpc;
+  const int lg = tid / TPG, lq0 = tid % TPG;
+  const int lg_units = units_of(lg);
+  const T* xm = x + (size_t)m0 * a.ldx;
+  auto load = [&](int t) {
+    T* dst = sm + (t % ns) * stage + lg * U * sub;
+    for (int i = 0, u = t * U; i < U && u < lg_units; ++i, ++u, dst += sub) {
+      const int l = lg * p.SW + (u >> lnks);   // slot within the chunk
+      const int k0 = (u & (nks - 1)) * KS;
+      const T* xs = xm + (size_t)skid[l] * bk + k0;
+      const T* vs = vj + ((size_t)(slot0 + l) * bk + k0) * bn;
+      for (int q = lq0; q < per; q += TPG) {
+        if (q < nx) {
+          const int row = q >> lxpc, pc = q & (xpc - 1);
+          cp_async_bytes<true>(dst + row * p.xp + pc * xpe,
+                               xs + (size_t)row * a.ldx + pc * xpe, xpb);
+        } else {
+          const int q2 = q - nx, row = q2 >> lvpc, pc = q2 & (vpc - 1);
+          cp_async_bytes<false>(dst + MT * p.xp + row * p.vp + pc * vpe,
+                                vs + row * bn + pc * vpe, vpb);
+        }
+      }
     }
-    out[(size_t)(m0 + i) * ldo + oc + cc] = from_f32<T>(y);
+  };
+
+  float acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  // FMA path: a lane owns column lane % NW of rows r0 + i * rstep
+  const int lognw = 31 - __clz(NW);
+  const int fcol = lane & (NW - 1), r0 = lane >> lognw, rstep = 32 >> lognw;
+
+  for (int t = 0; t < ns - 1; ++t) {
+    load(t);
+    cp_async_commit();
   }
+  for (int t = 0; t < nsteps; ++t) {
+    cp_async_wait_n(ns - 2);             // step t has landed
+    __syncthreads();                     // ... and step t - 1 is consumed
+    load(t + ns - 1);
+    cp_async_commit();
+    const T* xs = sm + (t % ns) * stage + wk * U * sub;
+    for (int ui = 0, u = t * U; ui < U && u < my_units;
+         ++ui, ++u, xs += sub) {
+      const T* vs = xs + MT * p.xp;
+      if constexpr (MMA) {
+        for (int k16 = 0; k16 < KS; k16 += 16) {
+          unsigned af[FM][4];
+#pragma unroll
+          for (int f = 0; f < FM; ++f)
+            ldsm_x4(af[f], xs + (wm * 16 * FM + f * 16 + (lane & 15)) * p.xp
+                               + k16 + (lane >> 4) * 8);
+          unsigned bf[NWT / 8][2];
+          if constexpr (NWT == 8) {
+            ldsm_x2_t(bf[0], vs + (k16 + (lane & 15)) * p.vp);
+          } else {
+#pragma unroll
+            for (int np = 0; np < NWT / 16; ++np) {
+              unsigned r4[4];
+              ldsm_x4_t(r4, vs + (k16 + (lane & 15)) * p.vp + np * 16 +
+                                (lane >> 4) * 8);
+              bf[2 * np][0] = r4[0];
+              bf[2 * np][1] = r4[1];
+              bf[2 * np + 1][0] = r4[2];
+              bf[2 * np + 1][1] = r4[3];
+            }
+          }
+#pragma unroll
+          for (int f = 0; f < FM; ++f)
+#pragma unroll
+            for (int n = 0; n < NWT / 8; ++n)
+              mma_bf16(acc + (f * (NWT / 8) + n) * 4, af[f], bf[n]);
+        }
+      } else {
+        const T* xr = xs + (wm * 16 + r0) * p.xp;
+        for (int kk = 0; kk < KS; ++kk) {
+          const float w = to_f32(vs[kk * p.vp + fcol]);
+#pragma unroll
+          for (int i = 0; i < kAcc; ++i)
+            if (i < NW / 2)
+              acc[i] = fmaf(to_f32(xr[i * rstep * p.xp + kk]), w, acc[i]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // each group's sums into a (WK, MT, NW) fp32 tile over the ring
+  float* red = reinterpret_cast<float*>(ring) + wk * MT * NW;
+  if constexpr (MMA) {
+#pragma unroll
+    for (int f = 0; f < FM; ++f)
+#pragma unroll
+      for (int n = 0; n < NWT / 8; ++n) {
+        const float* q = acc + (f * (NWT / 8) + n) * 4;
+        const int row = wm * 16 * FM + f * 16 + (lane >> 2);
+        const int col = n * 8 + 2 * (lane & 3);
+        red[row * NW + col] = q[0];
+        red[row * NW + col + 1] = q[1];
+        red[(row + 8) * NW + col] = q[2];
+        red[(row + 8) * NW + col + 1] = q[3];
+      }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i)
+      if (i < NW / 2) red[(wm * 16 + r0 + i * rstep) * NW + fcol] = acc[i];
+  }
+  __syncthreads();
+  red = reinterpret_cast<float*>(ring);
+
+  const int n_out = rows * NW;
+  const int oc0 = __ldg(reinterpret_cast<const int*>(d.cols) + j) * bn +
+                  s * NW;
+  auto finish = [&](int e, float y) {
+    const int row = e >> lognw, cc = e & (NW - 1);
+    if (bias != nullptr) y += to_f32(bias[oc0 + cc]);
+    out[(size_t)(m0 + row) * a.ldo + oc0 + cc] =
+        from_f32<T>(epilogue(y, a.act));
+  };
+  auto chunk_sum = [&](int e) {          // the WK sub-chunks, in order
+    float y = red[e];
+#pragma unroll
+    for (int g = 1; g < WK; ++g) y += red[g * MT * NW + e];
+    return y;
+  };
+  if (nch == 1) {
+    for (int e = tid; e < n_out; e += kBsrThreads) finish(e, chunk_sum(e));
+    return;
+  }
+  // a column cut into chunks: each chunk's sum to the workspace; the last
+  // block to arrive adds them in chunk order and resets the counter
+  float* wt = ws + d.ws0 + (size_t)tile * nch * MT * NW;
+  for (int e = tid; e < n_out; e += kBsrThreads)
+    wt[(size_t)c * MT * NW + e] = chunk_sum(e);
+  __threadfence();
+  __syncthreads();
+  int* ctr = counters + d.tile0 + tile;
+  if (tid == 0) s_last = atomicAdd(ctr, 1) == nch - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int e = tid; e < n_out; e += kBsrThreads) {
+    float y = __ldcg(wt + e);
+    for (int cc = 1; cc < nch; ++cc)
+      y += __ldcg(wt + (size_t)cc * MT * NW + e);
+    finish(e, y);
+  }
+  if (tid == 0) *ctr = 0;
 }
 
-template <typename T>
-cudaError_t launch_typed(const void* x, const void* values, const int* k_idx,
-                         const int* cols, const void* bias, void* out, int M,
-                         int ldx, int nb, int L, int bk, int bn, int ldo,
-                         int act, cudaStream_t stream) {
-  const int G = kThreads / bn;
-  int rpt = 1;
-  while (rpt < kMaxRows && rpt < M) rpt *= 2;
-  int bk_log2 = 0;
-  while ((1 << bk_log2) < bk) ++bk_log2;
-  // deepest chunk that fits: a multiple of G (so a reduction row's group
-  // is fixed by q alone) and of 8 (so xs_ld = kc + 1 is odd)
-  const int unit = G > 8 ? G : 8;
-  int kc = (kSmemBudget / 4 - rpt) / (rpt + bn);
-  kc = (kc / unit) * unit;
-  const int R = L * bk;
-  const int r_units = ((R + unit - 1) / unit) * unit;
-  if (kc > r_units) kc = r_units;
-  if (kc < unit) return cudaErrorInvalidConfiguration;
-  size_t floats = (size_t)rpt * (kc + 1) + (size_t)kc * bn;
-  const size_t red = (size_t)G * rpt * bn;
-  if (floats < red) floats = red;
-  const size_t smem = floats * sizeof(float);
-  // M tiles on x (no 65535 cap), block columns on y
-  if (nb > 65535) return cudaErrorInvalidConfiguration;
-  const dim3 grid((M + rpt - 1) / rpt, nb);
-  const T* xt = static_cast<const T*>(x);
-  const T* vt = static_cast<const T*>(values);
-  const T* bt = static_cast<const T*>(bias);
-  T* ot = static_cast<T*>(out);
-#define BSR_LAUNCH(RPT_)                                                  \
-  bsr_matmul_kernel<T, RPT_><<<grid, kThreads, smem, stream>>>(           \
-      xt, vt, k_idx, cols, bt, ot, M, ldx, L, bk_log2, bn, ldo, kc, act)
-  switch (rpt) {
-    case 1: BSR_LAUNCH(1); break;
-    case 2: BSR_LAUNCH(2); break;
-    case 4: BSR_LAUNCH(4); break;
-    default: BSR_LAUNCH(8); break;
+template <typename T, bool MMA, int FM, int WM, int NWT>
+cudaError_t bsr_launch_cfg(const void* x, const void* bias, void* out,
+                           float* ws, int* counters, const BsrArgs& a,
+                           int items, cudaStream_t stream) {
+  static bool attr_set = false;          // once per instantiation
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        bsr_matmul_kernel<T, MMA, FM, WM, NWT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
   }
-#undef BSR_LAUNCH
+  bsr_matmul_kernel<T, MMA, FM, WM, NWT>
+      <<<items, kBsrThreads, a.p.smem, stream>>>(
+          static_cast<const T*>(x), static_cast<const T*>(bias),
+          static_cast<T*>(out), ws, counters, a);
   return cudaGetLastError();
 }
 
-bool bad_args(int nb, int L, int bk, int bn, int act) {
-  return nb <= 0 || bn <= 0 || bn > kThreads || kThreads % bn != 0 ||
-         bk <= 0 || (bk & (bk - 1)) != 0 || L <= 0 || act < 0 || act > 2;
+// (FM, WM) of the M tile: tensor cores (1, 1), (2, 1), (2, 2), (2, 4) for
+// MT = 16, 32, 64, 128; FMAs (1, 1), (1, 2), (1, 4) for MT = 16, 32, 64
+template <typename T, bool MMA, int NWT>
+cudaError_t bsr_launch_tile(const void* x, const void* bias, void* out,
+                            float* ws, int* counters, const BsrArgs& a,
+                            int items, cudaStream_t stream) {
+  const int fm = a.p.FM, wm = a.p.WM;
+#define BSR_CFG(FM_, WM_)                                                    \
+  if (fm == FM_ && wm == WM_)                                                \
+  return bsr_launch_cfg<T, MMA, FM_, WM_, NWT>(x, bias, out, ws, counters, a, \
+                                               items, stream)
+  BSR_CFG(1, 1);
+  if constexpr (MMA) {
+    BSR_CFG(2, 1);
+    BSR_CFG(2, 2);
+    BSR_CFG(2, 4);
+  } else {
+    BSR_CFG(1, 2);
+    BSR_CFG(1, 4);
+  }
+#undef BSR_CFG
+  return cudaErrorInvalidConfiguration;
+}
+
+bool bad_shape(const BsrShape& p, int n_bins, int items, int dtype) {
+  const int es = dtype == 0 ? 4 : 2;
+  const int MT = 16 * p.FM * p.WM;
+  if (p.WM <= 0 || kBsrWarps % p.WM != 0) return true;
+  const int WK = kBsrWarps / p.WM;
+  const bool nw_ok = p.mma ? (p.NW == 8 || p.NW == 16 || p.NW == 32)
+                           : (p.NW == 4 || p.NW == 8 || p.NW == 16 ||
+                              p.NW == 32);
+  const size_t ring = (size_t)p.stages * WK * p.U *
+                      ((size_t)MT * p.xp + (size_t)p.KS * p.vp) * es;
+  const size_t red = (size_t)WK * MT * p.NW * 4;
+  return n_bins <= 0 || n_bins > kMaxBins || items <= 0 || p.M <= 0 ||
+         p.MT != MT || !nw_ok || p.bn % p.NW != 0 ||
+         p.subcols != p.bn / p.NW || p.KS <= 0 || (p.KS & (p.KS - 1)) ||
+         p.bk % p.KS != 0 || ((p.bk / p.KS) & (p.bk / p.KS - 1)) ||
+         (p.mma && (dtype != 1 || p.KS % 16 != 0 || p.FM > 2)) ||
+         (!p.mma && p.FM != 1) || (p.KS * es) % 4 != 0 ||
+         (p.NW * es) % 4 != 0 || (p.xp * es) % 16 != 0 ||
+         (p.vp * es) % 16 != 0 || p.xp < p.KS || p.vp < p.NW ||
+         p.S != p.SW * WK || p.SW <= 0 || p.stages < 2 || p.U <= 0 ||
+         p.stages > kMaxStages ||
+         p.mtiles != (p.M + MT - 1) / MT || p.smem > kSmemMax ||
+         (size_t)p.smem < (size_t)((p.S * 4 + 15) & ~15) +
+                              (ring > red ? ring : red) + kFlagBytes;
+}
+
+template <typename T>
+cudaError_t bsr_launch_typed(const void* x, const void* bias, void* out,
+                             float* ws, int* counters, const BsrArgs& a,
+                             int items, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2) {
+    if (a.p.mma) {
+      switch (a.p.NW) {
+        case 8:
+          return bsr_launch_tile<T, true, 8>(x, bias, out, ws, counters, a,
+                                             items, stream);
+        case 16:
+          return bsr_launch_tile<T, true, 16>(x, bias, out, ws, counters, a,
+                                              items, stream);
+        case 32:
+          return bsr_launch_tile<T, true, 32>(x, bias, out, ws, counters, a,
+                                              items, stream);
+        default:
+          return cudaErrorInvalidConfiguration;
+      }
+    }
+  }
+  return bsr_launch_tile<T, false, 0>(x, bias, out, ws, counters, a, items,
+                                      stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -263,7 +601,6 @@ bool bad_args(int nb, int L, int bk, int bn, int act) {
 
 constexpr int kConvThreads = 256;
 constexpr int kConvWarps = kConvThreads / 32;
-constexpr int kSmemMax = 232448;         // bytes a block may use (227 KB)
 
 // One launch's tile geometry, filled by conv_plan in
 // repro_torch/kernels/bsr_matmul.py (ConvPlan.args, same field order).
@@ -344,15 +681,6 @@ __device__ __forceinline__ void stage_pixels(float* xs,
 }
 
 constexpr int kStages = 4;               // value blocks in flight per warp
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Block (tile): stage the window, then every warp walks its block columns
 // j = wc, wc + 8 / warps_pos, ...  A column's (bk, BN) value blocks stream
@@ -562,27 +890,38 @@ cudaError_t launch_conv(const void* x, const float* vals, const int* soffs,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (x, values, bias and out share it).
-// bk must be a power of two and bn must divide 256 (every block of the
-// menu in core/regularity.py qualifies).  Returns the cudaError_t of the
-// launch (0 on success); the caller raises.
-extern "C" int bsr_matmul_launch(const void* x, const void* values,
-                                 const void* k_idx, const void* cols,
-                                 const void* bias, void* out, int M, int ldx,
-                                 int nb, int L, int bk, int bn, int ldo,
-                                 int act, int dtype, void* stream) {
-  if (M <= 0) return 0;
-  if (bad_args(nb, L, bk, bn, act)) return (int)cudaErrorInvalidValue;
+// Kernel 1, one launch over every degree bin of a PackedLayout: x (M, K)
+// with row stride ldx (16-byte aligned base and rows), bias None or (N,)
+// in ORIGINAL column order, out (M, N) with row stride ldo.  shape: the
+// BsrShape ints (host memory); bins: n_bins BinDesc rows of 10 int64
+// (host memory); items: blocks of the launch.  ws: the fp32 workspace of
+// the chunked columns (None when no column is cut); counters: one int32
+// per tile, all 0 on entry and again on exit.  dtype: 0 float32, 1
+// bfloat16 (x, values, bias and out share it).  Returns the cudaError_t
+// of the launch (0 on success); the caller raises.
+extern "C" int bsr_matmul_launch(const void* x, const void* bias, void* out,
+                                 void* ws, void* counters, const void* shape,
+                                 const void* bins, int n_bins, int items,
+                                 int ldx, int ldo, int act, int dtype,
+                                 void* stream) {
+  BsrArgs a;
+  memset(&a, 0, sizeof(a));
+  memcpy(&a.p, shape, sizeof(a.p));
+  if (bad_shape(a.p, n_bins, items, dtype) || act < 0 || act > 2 ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  memcpy(a.bins, bins, sizeof(BinDesc) * n_bins);
+  a.ldx = ldx;
+  a.ldo = ldo;
+  a.act = act;
+  a.n_bins = n_bins;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* ki = static_cast<const int*>(k_idx);
-  const int* co = static_cast<const int*>(cols);
+  float* w = static_cast<float*>(ws);
+  int* ctr = static_cast<int*>(counters);
   if (dtype == 0)
-    return (int)launch_typed<float>(x, values, ki, co, bias, out, M, ldx, nb,
-                                    L, bk, bn, ldo, act, s);
-  if (dtype == 1)
-    return (int)launch_typed<__nv_bfloat16>(x, values, ki, co, bias, out, M,
-                                            ldx, nb, L, bk, bn, ldo, act, s);
-  return (int)cudaErrorInvalidValue;
+    return (int)bsr_launch_typed<float>(x, bias, out, w, ctr, a, items, s);
+  return (int)bsr_launch_typed<__nv_bfloat16>(x, bias, out, w, ctr, a, items,
+                                              s);
 }
 
 // Kernel 3, one launch over every degree bin of a conv PackedLayout:

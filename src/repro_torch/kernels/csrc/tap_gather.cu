@@ -3,22 +3,20 @@
 //                                   + bias[cols[g]*group + c])
 // for the filter groups g of a TapLayout and c < group.
 //
-// Kernel 2, tap_gather_kernel (tap_gather_launch), one degree bin over the
-// alive im2col band (M, R), slot = t_idx: replaces the Pallas TPU kernel
-// `tap_gather_conv` (body `_tap_kernel` :287, launch :314, wrapper
-// `tap_gather_conv_packed` :386) of src/repro/kernels/bsr_matmul.py.  Each
-// thread owns one output element and walks its group's slots; the block's
-// rows of the band are staged in shared memory when they fit (mode 0),
-// else read from global memory (mode 1).  Bound on an H100: the band's
-// bytes and the executed FLOPs at the fp32 rate.
-//
 // Kernel 4, tap_conv_kernel (tap_conv_launch), one launch over every bin
 // from the NHWC image, slot = k_full = tap*C + channel, tap = dy*kw + dx:
 // replaces `_tap_implicit_bin` (body `_tap_conv_kernel` :584, launch :613,
-// wrapper `tap_gather_conv_implicit` :668).  Neither the patch tensor nor
-// the alive band exists.  Pattern masks give every filter its own tap
-// list (group = 1), no tensor-core tile shape, so both kernels use fp32
-// FMAs on CUDA cores.
+// wrapper `tap_gather_conv_implicit` :668) of src/repro/kernels/
+// bsr_matmul.py.  Neither the patch tensor nor the alive band exists.
+//
+// Kernel 2, the materialized tap gather over the alive im2col band (M, R),
+// slot = t_idx: replaces the Pallas TPU kernel `tap_gather_conv` (body
+// `_tap_kernel` :287, launch :314, wrapper `tap_gather_conv_packed` :386).
+// On the card it is this same kernel 4, the band read as a 1 x M image of
+// R channels (a 1x1 conv whose channel c is band row c), so kernel 2 and
+// kernel 4 share one FMA chain per output and agree bitwise.  Pattern
+// masks give every filter its own tap list (group = 1), no tensor-core
+// tile shape, so the kernel uses fp32 FMAs on CUDA cores.
 //
 // What bounds kernel 4 on an H100: its executed FLOPs need one staged
 // input per FMA, so shared-memory reads (one 32-lane word load per clock
@@ -43,12 +41,11 @@
 // from conv_plan in repro_torch/kernels/bsr_matmul.py.
 //
 // Numerics: every output is one fp32 FMA chain over its group's slots in
-// slot order l = 0 .. L-1, from 0, in both kernels, whatever the tile, R
-// or binning; padding slots come last with zero values and add exact
-// zeros.  So kernel 4 and kernel 2 (implicit and materialized), and
-// reordered and unreordered layouts (any bin count), give bit-identical
-// outputs.  Bias and activation apply to the fp32 sum, then one rounding
-// to the output type.  Rows >= M are neither loaded nor stored.
+// slot order l = 0 .. L-1, from 0, whatever the tile, R or binning;
+// padding slots come last with zero values and add exact zeros.  So the
+// implicit and the materialized mode, and reordered and unreordered
+// layouts (any bin count), give bit-identical outputs.  Bias and
+// activation apply to the fp32 sum, then one rounding to the output type.
 //
 // ptxas -v (CUDA 12.8, -O3, sm_90a): kernel 4 in fp32 96 registers at
 // R = 8, 63 at R = 4, 56 at R = 2 and 1 (bf16 61-96), no spills, under
@@ -64,11 +61,6 @@
 #include <string.h>
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kColsPerThread = 4;        // output columns one thread owns
-constexpr int kSlotChunk = 64;           // slots staged per round
-constexpr int kSmemMax = 200 * 1024;     // dynamic shared memory cap (bytes)
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) {
@@ -86,155 +78,6 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
     float v) {
   return __float2bfloat16_rn(v);
-}
-
-// mode 0: band rows staged in shared memory; 1: band read from global
-// memory.
-template <typename T, int MODE>
-__global__ void __launch_bounds__(kThreads)
-tap_gather_kernel(const T* __restrict__ x, const T* __restrict__ values,
-                  const int* __restrict__ slots, const int* __restrict__ cols,
-                  const T* __restrict__ bias, T* __restrict__ out, int M,
-                  int ldx, int R, int n_cols, int L, int group, int ldo,
-                  int tg, int cb, int band_ld, int act) {
-  extern __shared__ float smem[];
-  const int tr = kThreads / tg;            // rows of the block
-  const int tid = threadIdx.x;
-  const int r = tid % tr;                  // a warp: 32 consecutive rows
-  const int lane = tid / tr;               // ... of one column lane
-  const int m0 = blockIdx.x * tr;
-  const int m = m0 + r;
-  const bool valid = m < M;
-  const int c_begin = blockIdx.y * cb;
-  const int ncols = min(cb, n_cols - c_begin);
-  const int g_lo = c_begin / group;
-  const int ngb = (c_begin + ncols - 1) / group - g_lo + 1;
-
-  float* vs = smem;                        // (kSlotChunk, cb) values
-  int* ts = reinterpret_cast<int*>(vs + kSlotChunk * cb);  // (chunk, cb)
-  float* xs = reinterpret_cast<float*>(ts + kSlotChunk * cb);  // mode 0
-
-  if (MODE == 0) {                         // the block's rows of the band
-    const int rows = min(tr, M - m0);
-    for (int i = tid; i < tr * R; i += kThreads) {
-      const int rr = i / R;
-      const int t = i - rr * R;
-      xs[rr * band_ld + t] =
-          rr < rows ? to_f32(x[(size_t)(m0 + rr) * ldx + t]) : 0.f;
-    }
-  }
-  const size_t xbase = (MODE == 1 && valid) ? (size_t)m * ldx : 0;
-
-  int jcol[kColsPerThread], gi[kColsPerThread];
-#pragma unroll
-  for (int k = 0; k < kColsPerThread; ++k) {
-    jcol[k] = lane + k * tg;
-    gi[k] = (c_begin + jcol[k]) / group - g_lo;
-  }
-  float acc[kColsPerThread];
-#pragma unroll
-  for (int k = 0; k < kColsPerThread; ++k) acc[k] = 0.f;
-
-  for (int l0 = 0; l0 < L; l0 += kSlotChunk) {
-    const int n = min(kSlotChunk, L - l0);
-    __syncthreads();                       // the previous chunk is consumed
-    for (int i = tid; i < n * ncols; i += kThreads) {
-      const int l = i / ncols;
-      const int j = i - l * ncols;
-      const int oc = c_begin + j;
-      const int g = oc / group;
-      const int c = oc - g * group;
-      vs[l * cb + j] = to_f32(values[((size_t)g * L + l0 + l) * group + c]);
-    }
-    for (int i = tid; i < n * ngb; i += kThreads) {
-      const int l = i / ngb;
-      const int gg = i - l * ngb;
-      ts[l * cb + gg] = slots[(size_t)(g_lo + gg) * L + l0 + l];
-    }
-    __syncthreads();
-    for (int l = 0; l < n; ++l) {
-#pragma unroll
-      for (int k = 0; k < kColsPerThread; ++k) {
-        if (jcol[k] < ncols) {
-          const int s = ts[l * cb + gi[k]];
-          float xv;
-          if (MODE == 0) {
-            xv = xs[r * band_ld + s];
-          } else {
-            xv = valid ? to_f32(x[xbase + s]) : 0.f;
-          }
-          acc[k] = fmaf(xv, vs[l * cb + jcol[k]], acc[k]);
-        }
-      }
-    }
-  }
-
-  if (!valid) return;
-#pragma unroll
-  for (int k = 0; k < kColsPerThread; ++k) {
-    if (jcol[k] >= ncols) continue;
-    const int oc = c_begin + jcol[k];
-    const int g = oc / group;
-    const int oo = cols[g] * group + (oc - g * group);
-    float y = acc[k];
-    if (bias != nullptr) y += to_f32(bias[oo]);
-    if (act == 1) {
-      y = y / (1.f + expf(-y));
-    } else if (act == 2) {
-      y = fmaxf(y, 0.f);
-    }
-    out[(size_t)m * ldo + oo] = from_f32<T>(y);
-  }
-}
-
-template <typename T, int MODE>
-cudaError_t launch_mode(const T* x, const T* values, const int* slots,
-                        const int* cols, const T* bias, T* out, int M,
-                        int ldx, int R, int n_cols, int L, int group,
-                        int ldo, int tg, int cb, int band_ld, int act,
-                        size_t smem, cudaStream_t stream) {
-  static bool attr_set = false;            // once per instantiation
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        tap_gather_kernel<T, MODE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
-  const int tr = kThreads / tg;
-  const dim3 grid((M + tr - 1) / tr, (n_cols + cb - 1) / cb);
-  tap_gather_kernel<T, MODE><<<grid, kThreads, smem, stream>>>(
-      x, values, slots, cols, bias, out, M, ldx, R, n_cols, L, group, ldo,
-      tg, cb, band_ld, act);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_typed(const void* x, const void* values, const int* slots,
-                         const int* cols, const void* bias, void* out, int M,
-                         int ldx, int R, int ng, int L, int group, int ldo,
-                         int act, cudaStream_t stream) {
-  const int n_cols = ng * group;
-  // column lanes: as many as the bin has columns, up to 8 (256 / 8 = 32
-  // rows, one warp per lane); each lane owns up to kColsPerThread columns
-  int tg = 8;
-  while (tg > 1 && tg / 2 >= n_cols) tg /= 2;
-  const int cb = n_cols < kColsPerThread * tg ? n_cols
-                                               : kColsPerThread * tg;
-  const int tr = kThreads / tg;
-  const size_t tables = (size_t)2 * kSlotChunk * cb * sizeof(float);
-  const int band_ld = R | 1;               // odd stride: no bank conflicts
-  const size_t band = (size_t)tr * band_ld * sizeof(float);
-  const T* xt = static_cast<const T*>(x);
-  const T* vt = static_cast<const T*>(values);
-  const T* bt = static_cast<const T*>(bias);
-  T* ot = static_cast<T*>(out);
-  if (tables + band <= (size_t)kSmemMax)
-    return launch_mode<T, 0>(xt, vt, slots, cols, bt, ot, M, ldx, R, n_cols,
-                             L, group, ldo, tg, cb, band_ld, act,
-                             tables + band, stream);
-  return launch_mode<T, 1>(xt, vt, slots, cols, bt, ot, M, ldx, R, n_cols, L,
-                           group, ldo, tg, cb, 0, act, tables, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -463,35 +306,9 @@ cudaError_t launch_conv(const void* x, const int2* slots, const int4* meta,
 
 }  // namespace
 
-// Materialized mode: x is the alive band (M, R) with row stride ldx,
-// t_idx the bin's (ng, L) int32 band columns.  values (ng, L, group),
-// cols (ng,) int32 original group of each layout group, bias None or (P,)
-// in ORIGINAL order, out (M, P) with row stride ldo.  dtype: 0 float32,
-// 1 bfloat16.  Returns the cudaError_t of the launch (0 on success).
-extern "C" int tap_gather_launch(const void* x, const void* values,
-                                 const void* t_idx, const void* cols,
-                                 const void* bias, void* out, int M, int ldx,
-                                 int R, int ng, int L, int group, int ldo,
-                                 int act, int dtype, void* stream) {
-  if (M <= 0) return 0;
-  if (R <= 0 || ldx < R || ng <= 0 || L <= 0 || group <= 0 || act < 0 ||
-      act > 2 || ng * group > 65535 * kColsPerThread * 8)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* sl = static_cast<const int*>(t_idx);
-  const int* co = static_cast<const int*>(cols);
-  if (dtype == 0)
-    return (int)launch_typed<float>(x, values, sl, co, bias, out, M, ldx, R,
-                                    ng, L, group, ldo, act, s);
-  if (dtype == 1)
-    return (int)launch_typed<__nv_bfloat16>(x, values, sl, co, bias, out, M,
-                                            ldx, R, ng, L, group, ldo, act,
-                                            s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// Kernel 4, one launch over every degree bin of a TapLayout: x the
-// unpadded NHWC input (B, H, W, C), slots (total, 2) int32 of (input word
+// Kernel 4 (and kernel 2), one launch over every degree bin of a
+// TapLayout: x the unpadded NHWC input (B, H, W, C) (kernel 2: the alive
+// band as (1, 1, M, R)), slots (total, 2) int32 of (input word
 // in the staged tile, fp32 value bits) per slot of every output column,
 // bins concatenated in layout order, meta (n_cols, 4) int32 (first slot,
 // slots, original output column, 0), bias None or (N,) in original order,

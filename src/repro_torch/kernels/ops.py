@@ -37,8 +37,9 @@ from repro_torch.kernels.bsr_matmul import (bsr_conv2d_implicit,
 # the image tile themselves, so the patch's bytes are never worth moving.
 # So the port has no floor and no image cap: every conv with kh*kw > 1
 # runs implicit.  A 1x1 conv (no patch blow-up) stays on the materialized
-# route as in the reference; there too the implicit kernels read faster
-# (PERF.md), which the next change to kernel 2 decides.
+# route as in the reference; on the card both routes of a 1x1 run the same
+# kernel (3 or 4): on the image, or on the patch matrix or alive band read
+# as a 1 x M image.
 
 
 def pack(w, mask, block=(128, 128), *, reorder=False, n_bins=4, conv=None
@@ -72,7 +73,7 @@ def pack_taps(w, mask, *, group=1, reorder=True, n_bins=8) -> TapLayout:
 def sparse_linear(x, packed: PackedLayout | None = None, w=None, mask=None,
                   bias=None, act="none"):
     """x (..., K) -> (..., N) through whichever path applies.  With
-    ``packed`` the BCS kernel always runs (one launch per degree bin)."""
+    ``packed`` the BCS kernel always runs (one launch over all bins)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if packed is not None:

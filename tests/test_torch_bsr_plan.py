@@ -1,0 +1,431 @@
+"""Kernel 1's launch plan, its bin table and its arithmetic, and kernel 2's
+plan over the alive band, on the CPU.
+
+``kernels.bsr_matmul.bsr_plan`` decides each launch of the BCS matmul
+kernel (path, M tile, warps, chunk of slots, staged rows, shared memory)
+from the shapes alone, and ``_bsr_bins`` lays out the per-bin table the
+kernel takes as its argument.  These tests check the plan at the path
+boundaries, then emulate the kernel with torch: the blocks' work items
+decoded from the table as the kernel decodes them, each warp group's
+sub-chunk in slot order, the groups added in order, the chunked columns
+through the workspace and the arrival counters (blocks arriving in a
+shuffled order), and the epilogue.  The emulation must equal itself
+bitwise on reordered and unreordered layouts and the plain version
+within tolerance.  A last group emulates ``ldmatrix`` and ``mma.sync``
+fragment by fragment on the kernel's shared-memory addresses.  The
+kernels themselves run on the card (``test_torch_cuda.py``)."""
+import random
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch.kernels import bsr_matmul as K  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+from test_torch_conv_plan import _check_plan, emulate_tap  # noqa: E402
+
+CPU = torch.device("cpu")
+BF16, FP32 = torch.bfloat16, torch.float32
+# yi-9b's projections (K, N) and the block menu of core/regularity.py
+YI = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096)]
+MENU = [(4, 4), (8, 16), (16, 16), (16, 32), (32, 64), (64, 128),
+        (128, 32), (128, 64), (128, 128), (128, 256), (256, 256)]
+M_EDGES = [1, 4, 15, 16, 17, 128, 129]
+
+
+def _es(dtype):
+    return 2 if dtype == BF16 else 4
+
+
+# -- the plan ----------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [FP32, BF16])
+@pytest.mark.parametrize("block", MENU)
+@pytest.mark.parametrize("M", M_EDGES)
+def test_plan_path_tile_and_shared_memory(M, block, dtype):
+    bk, bn = block
+    Kd, N = 2048, 4096
+    p = K.bsr_plan(M, Kd, N, dtype, bk, bn)
+    es = _es(dtype)
+    assert p.mma == int(dtype == BF16 and bk % 16 == 0 and bn % 8 == 0)
+    # the M tile: the least power of two >= M from 16, capped
+    cap = 128 if p.mma else 64
+    assert p.MT == min(max(16, 1 << (M - 1).bit_length()), cap)
+    assert p.mtiles == -(-M // p.MT) and (p.mtiles - 1) * p.MT < M
+    assert p.MT == 16 * p.FM * p.WM and p.WK * p.WM == K.BSR_WARPS
+    assert p.FM == (2 if p.mma and p.MT > 16 else 1)
+    # the sub-column and the k piece
+    assert p.NW == min(bn, 32) and p.subcols * p.NW == bn
+    assert bk % p.KS == 0 and (p.KS % 16 == 0 if p.mma else True)
+    # staged rows: whole 16-byte units, an odd number of them
+    for elems, width in ((p.xp, p.KS), (p.vp, p.NW)):
+        assert elems >= width and elems * es % 16 == 0
+        assert (elems * es // 16) % 2 == 1
+    # the chunk: a whole number of warp sub-chunks
+    assert p.S == p.WK * p.SW and p.SW >= 4 and p.SW & (p.SW - 1) == 0
+    # step and ring: the most units a step, then the deepest ring, within
+    # the target; else one unit in the shallowest ring
+    def smem(u, st):               # k_idx of a chunk, ring or red, flag
+        ring = st * p.WK * u * (p.MT * p.xp + p.KS * p.vp) * es
+        return (-(-4 * p.S // 16) * 16 + max(ring, p.WK * p.MT * p.NW * 4)
+                + 16)
+    assert p.smem == smem(p.U, p.stages) <= K.SMEM_MAX == 232448
+    better = [(u, st) for u in K.BSR_UNITS for st in K.BSR_STAGES
+              if u > p.U or (u == p.U and st > p.stages)]
+    assert all(smem(u, st) > K.BSR_SMEM_TARGET for u, st in better)
+    assert p.smem <= K.BSR_SMEM_TARGET or (p.U, p.stages) == (
+        1, K.BSR_STAGES[-1])
+    assert len(p.args()) == 18                   # the kernel's BsrShape
+
+
+def test_plan_decode_and_prefill_at_yi9b():
+    """At yi-9b's shapes: tensor cores; decode in a 16-row tile with four
+    warp groups splitting the slots, prefill in one 128-row tile; chunks
+    short enough to fill the card where the columns alone do not."""
+    for M, MT, WK in ((4, 16, 4), (128, 128, 1)):
+        for Kd, N in YI:
+            p = K.bsr_plan(M, Kd, N, BF16, 16, 16)
+            assert p.mma and (p.MT, p.WK, p.mtiles) == (MT, WK, 1)
+    assert [K.bsr_plan(4, Kd, N, BF16, 16, 16).S for Kd, N in YI] == [
+        64, 16, 64, 64]
+    assert [K.bsr_plan(128, Kd, N, BF16, 16, 16).S for Kd, N in YI] == [
+        64, 8, 64, 64]
+
+
+def test_plan_rejects_blocks_the_kernel_does_not_take():
+    for block in ((2, 16), (16, 2), (12, 16), (16, 512)):
+        with pytest.raises(ValueError, match="not supported"):
+            K.bsr_plan(4, 1024, 1024, FP32, *block)
+    with pytest.raises(TypeError):
+        K.bsr_plan(4, 1024, 1024, torch.float16, 16, 16)
+
+
+# -- the bin table -----------------------------------------------------------
+
+def _layout(K_, N_, block, dtype, reorder, n_bins=4, seed=0, density=0.4):
+    rng = np.random.RandomState(seed)
+    bk, bn = block
+    live = rng.rand(K_ // bk, N_ // bn) < density
+    live[:, -1] = True                       # one dense column
+    live[:, 0] = False
+    live[rng.randint(K_ // bk), 0] = True    # one of degree 1
+    mask = torch.from_numpy(np.repeat(np.repeat(live, bk, 0), bn, 1))
+    w = torch.from_numpy(rng.randn(K_, N_).astype(np.float32)).to(dtype)
+    return ops.pack(w, mask, block, reorder=reorder, n_bins=n_bins)
+
+
+@pytest.mark.parametrize("n_bins", [1, 2, 4, 8])
+def test_bin_table_matches_the_layout(n_bins):
+    lay = _layout(256, 384, (16, 16), BF16, True, n_bins)
+    for M in (4, 128):
+        p = K.bsr_plan(M, 256, 384, BF16, 16, 16)
+        bins = K._bsr_bins(lay, p, CPU)
+        assert K._bsr_bins(lay, p, CPU) is bins        # cached
+        rows = torch.tensor(list(bins.table)).reshape(-1, 10)
+        assert rows.shape[0] == bins.n_bins == lay.n_bins
+        item = tile = ws = 0
+        for r, vals, kidx, cols in zip(rows.tolist(), lay.values, lay.k_idx,
+                                       lay.bin_cols):
+            nb, L = kidx.shape
+            nch = -(-L // p.S)
+            assert r == [vals.data_ptr(), kidx.data_ptr(), cols.data_ptr(),
+                         ws, nb, L, nch, item, tile, 0]
+            tiles = nb * p.subcols * p.mtiles
+            item += tiles * nch
+            tile += tiles
+            ws += tiles * nch * p.MT * p.NW if nch > 1 else 0
+        assert (bins.items, bins.tiles, bins.ws_floats) == (item, tile, ws)
+
+
+def test_chunks_do_not_depend_on_the_bin_count():
+    """S comes from the shapes alone, so every column is cut at the same
+    slots whatever bin it lands in: a column's chunks in a longer bin are
+    its chunks in a shorter one plus all-padding ones."""
+    layouts = [_layout(512, 256, (16, 16), BF16, True, n)
+               for n in (1, 2, 4, 8)] + [_layout(512, 256, (16, 16), BF16,
+                                                 False)]
+    plans = {K.bsr_plan(4, 512, 256, BF16, 16, 16) for _ in layouts}
+    assert len(plans) == 1
+    p = plans.pop()
+    for lay in layouts:
+        rows = torch.tensor(list(K._bsr_bins(lay, p, CPU).table)).reshape(
+            -1, 10)
+        assert rows[:, 6].tolist() == [-(-L // p.S)
+                                       for L in lay.bin_degrees]
+
+
+# -- kernel 1 emulated -------------------------------------------------------
+
+def _decode(p, bins, item):
+    """The kernel's work-item decode: (bin row, b, j, s, mt, c, tile)."""
+    rows = torch.tensor(list(bins.table)).reshape(-1, 10).tolist()
+    b = 0
+    while b + 1 < bins.n_bins and item >= rows[b + 1][7]:
+        b += 1
+    r = rows[b]
+    nch = r[6]
+    q = item - r[7]
+    c, q = q % nch, q // nch
+    mt, q = q % p.mtiles, q // p.mtiles
+    s, j = q % p.subcols, q // p.subcols
+    return r, b, j, s, mt, c, (j * p.subcols + s) * p.mtiles + mt
+
+
+def emulate_bsr(x, layout, bias, act, seed=0):
+    """Kernel 1 on its plan and bin table, blocks in a shuffled order."""
+    M, Kd = x.shape
+    bk, bn = layout.block
+    p = K.bsr_plan(M, Kd, layout.shape[1], x.dtype, bk, bn)
+    bins = K._bsr_bins(layout, p, CPU)
+    MT, NW, KS = p.MT, p.NW, p.KS
+    nks = bk // KS
+    out = torch.full((M, layout.shape[1]), float("nan"))
+    ws = torch.full((max(bins.ws_floats, 1),), float("nan"))
+    counters = torch.zeros(bins.tiles, dtype=torch.int64)
+    items = list(range(bins.items))
+    random.Random(seed).shuffle(items)
+    seen = set()
+    for item in items:
+        r, b, j, s, mt, c, tile = _decode(p, bins, item)
+        assert (b, j, s, mt, c) not in seen
+        seen.add((b, j, s, mt, c))
+        vals, kidx = layout.values[b], layout.k_idx[b]
+        col = int(layout.bin_cols[b][j])
+        L, nch = r[5], r[6]
+        m0 = mt * MT
+        rows = min(MT, M - m0)
+        slot0 = c * p.S
+        sums = []
+        for g in range(p.WK):                  # warp groups
+            n = min(max(L - (slot0 + g * p.SW), 0), p.SW) * nks
+            acc = torch.zeros(MT, NW)
+            for t in range(n):
+                l = slot0 + g * p.SW + t // nks
+                k0 = (t % nks) * KS
+                kb = int(kidx[j, l])
+                xt = torch.zeros(MT, KS)       # rows >= M stay zero
+                xt[:rows] = x[m0:m0 + rows, kb * bk + k0:kb * bk + k0 + KS]
+                vt = vals[j, l, k0:k0 + KS, s * NW:(s + 1) * NW]
+                acc = acc + xt.float() @ vt.float()
+            sums.append(acc)
+        y = sums[0]
+        for a in sums[1:]:                     # the groups, in order
+            y = y + a
+        y = y[:rows].reshape(-1)
+
+        def finish(v):
+            oc = col * bn + s * NW
+            o = ref._epilogue(v.reshape(rows, NW),
+                              None if bias is None else
+                              bias[oc:oc + NW].float(), act)
+            dst = out[m0:m0 + rows, oc:oc + NW]
+            assert bool(dst.isnan().all()), "an output written twice"
+            out[m0:m0 + rows, oc:oc + NW] = o.to(x.dtype).float()
+
+        if nch == 1:
+            finish(y)
+            continue
+        base = r[3] + tile * nch * MT * NW
+        ws[base + c * MT * NW:base + c * MT * NW + y.numel()] = y
+        t_id = r[8] + tile
+        counters[t_id] += 1
+        if counters[t_id] == nch:              # the last to arrive
+            v = ws[base:base + y.numel()].clone()
+            for cc in range(1, nch):
+                v = v + ws[base + cc * MT * NW:base + cc * MT * NW
+                           + y.numel()]
+            finish(v)
+            counters[t_id] = 0
+    assert len(seen) == bins.items
+    assert bool((counters == 0).all()), "a counter left dirty"
+    assert not bool(out.isnan().any()), "an output never written"
+    return out.to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", [FP32, BF16])
+@pytest.mark.parametrize("block", [(16, 16), (16, 32), (8, 16), (4, 4)])
+@pytest.mark.parametrize("M", [1, 4, 17, 129])
+def test_emulated_kernel_matches_plain_and_is_bitwise_reorder_stable(
+        M, block, dtype):
+    Kd, N = 2048, 128
+    lays = [_layout(Kd, N, block, dtype, True, n) for n in (4, 8)]
+    lays.append(_layout(Kd, N, block, dtype, False))
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(M, Kd).astype(np.float32)).to(dtype)
+    b = torch.from_numpy(rng.randn(N).astype(np.float32)).to(dtype)
+    p = K.bsr_plan(M, Kd, N, dtype, *block)
+    # the case splits columns into several chunks and its bins differ in
+    # their chunk counts
+    nchs = {-(-L // p.S) for lay in lays for L in lay.bin_degrees}
+    assert max(nchs) > 1 and len(nchs) > 1
+    ys = [emulate_bsr(x, lay, b, "silu", seed=i)
+          for i, lay in enumerate(lays)]
+    for y in ys[1:]:
+        assert torch.equal(y, ys[0])
+    want = ref.bsr_matmul_packed_ref(x.float(), lays[0], b.float(), "silu")
+    tol = 1e-4 if dtype == FP32 else 1e-2
+    torch.testing.assert_close(ys[0].float(), want, rtol=tol, atol=tol)
+
+
+# -- ldmatrix and mma.sync, fragment by fragment ------------------------------
+
+def _ldmatrix(smem, addr, n, trans):
+    """``ldmatrix.m8n8.x{n}[.trans].b16``: lanes 8i..8i+7 give the row
+    addresses (elements) of matrix i, a row being 8 consecutive elements.
+    Returns regs[lane][i] = the lane's two elements of matrix i."""
+    regs = [[None] * n for _ in range(32)]
+    for i in range(n):
+        mat = torch.stack([smem[addr[8 * i + r]:addr[8 * i + r] + 8]
+                           for r in range(8)])
+        if trans:
+            mat = mat.t()
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            regs[lane][i] = (mat[g, 2 * t], mat[g, 2 * t + 1])
+    return regs
+
+
+def _mma(a, bb):
+    """``mma.m16n8k16.row.col``: rebuild A (16x16) and B (16x8) from the
+    lanes' fragments as the PTX ISA lays them out; D = A @ B, returned as
+    the lanes' c fragments."""
+    A = torch.full((16, 16), float("nan"))
+    B = torch.full((16, 8), float("nan"))
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for i, (r, k) in enumerate(((g, 2 * t), (g + 8, 2 * t),
+                                    (g, 2 * t + 8), (g + 8, 2 * t + 8))):
+            A[r, k], A[r, k + 1] = a[lane][i]
+        for i, k in enumerate((2 * t, 2 * t + 8)):
+            B[k, g], B[k + 1, g] = bb[lane][i]
+    D = A.double() @ B.double()
+    return [(D[lane // 4, 2 * (lane % 4)], D[lane // 4, 2 * (lane % 4) + 1],
+             D[lane // 4 + 8, 2 * (lane % 4)],
+             D[lane // 4 + 8, 2 * (lane % 4) + 1]) for lane in range(32)]
+
+
+@pytest.mark.parametrize("M,block", [(4, (16, 16)), (17, (16, 32)),
+                                     (64, (32, 64)), (128, (16, 16)),
+                                     (128, (128, 256)), (4, (16, 8))])
+def test_fragments_of_the_tensor_core_path(M, block):
+    """One pipeline step of every warp, on the kernel's staged layout
+    (unstaged words NaN) and its lane addresses: the red tile the warps
+    write equals x_tile @ value_piece, and every ldmatrix phase's 8 row
+    addresses sit on 8 distinct 16-byte bank quads."""
+    bk, bn = block
+    p = K.bsr_plan(M, 4 * bk, 4 * bn, BF16, bk, bn)
+    assert p.mma
+    g = torch.Generator().manual_seed(0)
+    xt = torch.randn(p.MT, p.KS, generator=g)
+    vt = torch.randn(p.KS, p.NW, generator=g)
+    xs = torch.full((p.MT * p.xp,), float("nan"))
+    vs = torch.full((p.KS * p.vp,), float("nan"))
+    for r in range(p.MT):
+        xs[r * p.xp:r * p.xp + p.KS] = xt[r]
+    for r in range(p.KS):
+        vs[r * p.vp:r * p.vp + p.NW] = vt[r]
+
+    def quads(addr):                       # bf16: 2 bytes an element
+        for i in range(len(addr) // 8):
+            q = {(2 * a // 16) % 8 for a in addr[8 * i:8 * i + 8]}
+            assert len(q) == 8
+
+    red = torch.full((p.MT, p.NW), float("nan"), dtype=torch.float64)
+    for wm in range(p.WM):
+        acc = {}
+        for k16 in range(0, p.KS, 16):
+            af = []
+            for f in range(p.FM):
+                addr = [(wm * 16 * p.FM + f * 16 + (ln & 15)) * p.xp + k16
+                        + (ln >> 4) * 8 for ln in range(32)]
+                quads(addr)
+                af.append(_ldmatrix(xs, addr, 4, False))
+            bf = []
+            if p.NW == 8:
+                addr = [(k16 + (ln & 15)) * p.vp for ln in range(32)]
+                quads(addr[:16])
+                r2 = _ldmatrix(vs, addr, 2, True)
+                bf.append([(r2[ln][0], r2[ln][1]) for ln in range(32)])
+            else:
+                for np_ in range(p.NW // 16):
+                    addr = [(k16 + (ln & 15)) * p.vp + np_ * 16
+                            + (ln >> 4) * 8 for ln in range(32)]
+                    quads(addr)
+                    r4 = _ldmatrix(vs, addr, 4, True)
+                    bf.append([(r4[ln][0], r4[ln][1]) for ln in range(32)])
+                    bf.append([(r4[ln][2], r4[ln][3]) for ln in range(32)])
+            for f in range(p.FM):
+                for n in range(p.NW // 8):
+                    d = _mma(af[f], bf[n])
+                    for ln in range(32):
+                        a0 = acc.get((f, n, ln), (0.0,) * 4)
+                        acc[(f, n, ln)] = tuple(u + v for u, v in
+                                                zip(a0, d[ln]))
+        for (f, n, ln), q in acc.items():
+            row = wm * 16 * p.FM + f * 16 + (ln >> 2)
+            col = n * 8 + 2 * (ln & 3)
+            red[row, col], red[row, col + 1] = q[0], q[1]
+            red[row + 8, col], red[row + 8, col + 1] = q[2], q[3]
+    torch.testing.assert_close(red, xt.double() @ vt.double())
+
+
+@pytest.mark.parametrize("NW", [4, 8, 16, 32])
+def test_fma_path_lanes_own_their_warp_tile_once(NW):
+    """The FMA path: lane owns column lane % NW of rows r0 + i * (32 /
+    NW), i < NW / 2 — every (row, column) of a warp's 16 x NW tile once."""
+    own = torch.zeros(16, NW, dtype=torch.int64)
+    lognw = NW.bit_length() - 1
+    for lane in range(32):
+        col, r0, rstep = lane & (NW - 1), lane >> lognw, 32 >> lognw
+        for i in range(NW // 2):
+            own[r0 + i * rstep, col] += 1
+    assert bool((own == 1).all())
+
+
+# -- kernel 2: kernel 4 over the alive band ----------------------------------
+
+def _pattern_layout(P, Q, k, n_bins=8, seed=0):
+    from repro_torch.core import regularity as R
+    w = torch.from_numpy(np.random.RandomState(seed).randn(P, Q, k, k)
+                         .astype(np.float32)) * 0.1
+    mask = (R.pattern_mask(w, 0.5) if k == 3
+            else R.connectivity_mask(w, rate=0.5))
+    return ops.pack_taps(w, mask, reorder=True, n_bins=n_bins)
+
+
+@pytest.mark.parametrize("P,Q,k,B,H", [(64, 64, 1, 3, 7), (32, 16, 3, 2, 6),
+                                       (128, 128, 1, 1, 5)])
+def test_band_plan_and_tables_match_plain(P, Q, k, B, H):
+    """Kernel 2 = kernel 4 on the band as a 1 x M image of R channels:
+    its plan covers every band row once, and its tables (slot word = the
+    slot's t_idx channel) give the plain version's outputs."""
+    lay = _pattern_layout(P, Q, k)
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(B, H, H, Q).astype(np.float32))
+    band = ops.im2col(x, k, k).reshape(B * H * H, -1)
+    if lay.n_alive < band.shape[1]:
+        band = band.index_select(1, lay.alive.long())
+    bias = torch.from_numpy(rng.randn(P).astype(np.float32))
+    want = K.tap_gather_conv_packed(band, lay, bias, "relu")
+    plan = K.conv_plan("tap", (1, 1) + tuple(band.shape), 1, 1, 1, "VALID",
+                       P, P)
+    _check_plan(plan)
+    got = emulate_tap(band.reshape(1, 1, *band.shape), lay, plan, bias,
+                      "relu", band=True)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    if k == 1:   # the band is the image: the implicit mode's input words
+        imp = K.tap_gather_conv_implicit(x, lay, kh=1, kw=1, bias=bias,
+                                         act="relu").reshape(-1, P)
+        assert torch.equal(imp, want)
+
+
+def test_band_plan_at_the_served_c5():
+    """VGG_TINY's 1x1 c5 at B = 256 (16 x 16 x 128 into 128): one launch
+    of two blocks an SM that fills the card."""
+    M, R, P = 256 * 16 * 16, 128, 128
+    plan = K.conv_plan("tap", (1, 1, M, R), 1, 1, 1, "VALID", P, P)
+    _check_plan(plan)
+    assert plan.grid >= 2 * K.SMS and plan.smem_bytes <= K.SMEM_SOFT

@@ -241,8 +241,10 @@ def emulate_bcs(x, layout, taps_of, plan, bias, act):
     return _epilogue(out, bias, act).to(x.dtype)
 
 
-def emulate_tap(x, layout, plan, bias, act):
-    slots, meta = K._tap_tables(layout, plan)
+def emulate_tap(x, layout, plan, bias, act, band=False):
+    """Kernel 4 on ``plan`` with the tables it reads (``band``: kernel 2,
+    the alive band as a 1 x M image)."""
+    slots, meta = K._tap_tables(layout, plan, band)
     off, vbits = slots[:, 0].long(), slots[:, 1].contiguous()
     vals = vbits.view(torch.float32)
     out = torch.full((plan.B * plan.Ho * plan.Wo, plan.N), float("nan"))
@@ -385,6 +387,10 @@ def test_entry_signatures_match_the_sources():
     garbage to the kernel on the card."""
     import re
     from repro_torch.kernels import _build
+    declared = {m for lib in {v[0] for v in K._ENTRIES.values()}
+                for m in re.findall(r'extern "C" int (\w+)\(',
+                                    (_build.CSRC / f"{lib}.cu").read_text())}
+    assert declared == set(K._ENTRIES)       # no entry left out or stale
     for entry, (lib, n_ptr, n_int) in K._ENTRIES.items():
         src = (_build.CSRC / f"{lib}.cu").read_text()
         m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src)

@@ -43,8 +43,10 @@ def _layout(dev, K_, N_, block, dtype, reorder, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("block", [(16, 16), (8, 16), (4, 4), (16, 32)])
-@pytest.mark.parametrize("M", [1, 4, 129])
+@pytest.mark.parametrize("M", [1, 4, 15, 16, 17, 129])
 def test_kernel_matches_plain(cuda, M, block, dtype):
+    """At the plan's path boundaries (M tiles of 16, 32 and 128 rows, the
+    tensor-core path and the FMA path), one launch over all bins."""
     lay, _ = _layout(cuda, 256, 384, block, dtype, reorder=True)
     unre, _ = _layout(cuda, 256, 384, block, dtype, reorder=False)
     x = torch.randn(M, 256, device=cuda).to(dtype)
@@ -53,11 +55,35 @@ def test_kernel_matches_plain(cuda, M, block, dtype):
         before = K.LAUNCHES["bsr_matmul"]
         y = K.bsr_matmul_packed(x, lay, bias=b, act=act)
         torch.cuda.synchronize()
-        assert K.LAUNCHES["bsr_matmul"] - before == lay.n_bins
+        assert K.LAUNCHES["bsr_matmul"] - before == 1
         assert torch.equal(y, K.bsr_matmul_packed(x, unre, bias=b, act=act))
         want = ref.bsr_matmul_packed_ref(x.float(), lay, b.float(), act)
         tol = 1e-4 if dtype == torch.float32 else 1e-2
         torch.testing.assert_close(y.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_columns_replay_in_a_cuda_graph(cuda, dtype):
+    """A deep layout whose columns are cut into chunks (the per-tile
+    counters pick the last block, which resets them): eager and replayed
+    calls give the same bits, and the counters are 0 after each."""
+    lay, _ = _layout(cuda, 4096, 256, (16, 16), dtype, reorder=True)
+    x = torch.randn(4, 4096, device=cuda).to(dtype)
+    plan = K.bsr_plan(4, 4096, 256, dtype, 16, 16)
+    assert K._bsr_bins(lay, plan, x.device).ws_floats > 0
+    want = K.bsr_matmul_packed(x, lay, act="silu")
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y = K.bsr_matmul_packed(x, lay, act="silu")
+    for _ in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, want)
+        assert int(K._COUNTERS[x.device].abs().sum()) == 0
+    torch.testing.assert_close(
+        want.float(), ref.bsr_matmul_packed_ref(x.float(), lay, None,
+                                                "silu"),
+        rtol=1e-2, atol=1e-2)
 
 
 def test_single_bin_and_no_bias(cuda):
@@ -95,13 +121,14 @@ def test_generate_on_card_matches_cpu(cuda):
         exec_p, _ = C.compile_model(apply_masks(p, masks), masks, spec,
                                     spec=C.CompileSpec(keep_dense=False),
                                     device=dev)
-        bins = sum(node["packed"].n_bins for g in ("attn", "ffn")
-                   for node in exec_p["layers"][g].values())
+        assert sum(1 for g in ("attn", "ffn")
+                   for node in exec_p["layers"][g].values()
+                   if "packed" in node) == 7
         K.reset_launches()
         outs[dev] = engine.generate(exec_p, cfg, tokens, 10,
                                     device=dev).cpu()
         launches = K.LAUNCHES["bsr_matmul"]
-        assert launches == (cfg.n_layers * bins * 11 if dev == "cuda" else 0)
+        assert launches == (cfg.n_layers * 7 * 11 if dev == "cuda" else 0)
     assert torch.equal(outs["cuda"], outs["cpu"])
 
 
@@ -142,12 +169,6 @@ def _conv_plain(x, lay, k, stride, bias, act):
     return y.reshape(B, Ho, Wo, -1)
 
 
-def _launches(lay, key):
-    """Launches one conv call makes: kernel 2 once per bin, the others
-    once over all bins."""
-    return lay.n_bins if key == "tap_gather_conv" else 1
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("scheme,P,Q,k,stride,H,W", [
     ("pattern", 32, 3, 3, 1, 13, 10), ("pattern", 64, 32, 3, 2, 13, 10),
@@ -183,8 +204,7 @@ def test_conv_kernels_match_plain(cuda, scheme, P, Q, k, stride, H, W,
         mat_key = ("tap_gather_conv" if scheme == "pattern"
                    else "bsr_conv2d_materialized")
         assert K.LAUNCHES[imp_key] == 2
-        assert K.LAUNCHES[mat_key] == (_launches(lay, mat_key)
-                                       + _launches(unre, mat_key))
+        assert K.LAUNCHES[mat_key] == 2
         assert K.LAUNCHES["bsr_matmul"] == 0
         want = _conv_plain(x, lay, k, stride, bias, act)
         tol = 1e-4 if dtype == torch.float32 else 2e-2
@@ -192,20 +212,13 @@ def test_conv_kernels_match_plain(cuda, scheme, P, Q, k, stride, H, W,
 
 
 def _net_launches(exec_p, arch, x_shape):
-    """Kernel launches of one ``convnet_apply``: per packed layer, one
-    (the implicit kernels and the BCS conv on patches) or one per bin
-    (kernel 2 on the alive band), as ``ops._pick_implicit`` routes it."""
-    from repro_torch.core.packed import TapLayout
+    """Kernel launches of one ``convnet_apply``: one per packed layer,
+    whichever kernel ``ops._pick_implicit`` routes it to."""
     B, H, _, C = x_shape
     n = 0
     for (name, cout, kh, kw, stride, dw) in arch:
-        lay = exec_p[name].get("packed")
-        if lay is not None and not dw:
-            x = torch.empty((B, H, H, C), device="meta")
-            tap = isinstance(lay, TapLayout)
-            imp = ops._pick_implicit(None, x, kh, kw, stride, "SAME",
-                                     bk=None if tap else lay.block[0])
-            n += lay.n_bins if tap and not imp else 1
+        if exec_p[name].get("packed") is not None and not dw:
+            n += 1
         _, _, H, _ = K.conv_geometry(H, H, kh, kw, stride)
         C = C if dw else cout
     return n
@@ -242,6 +255,30 @@ def test_convnet_on_card_matches_cpu(cuda, monkeypatch):
                 if dev == "cuda" else 0)
         torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-4,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel2_equals_kernel4_at_a_1x1_layer(cuda, dtype):
+    """Kernel 2 (kernel 4 over the alive band, dead channels dropped) and
+    kernel 4 on the image agree bitwise at a connectivity-pruned 1x1
+    layer, each in one launch."""
+    from repro_torch.core import regularity as R
+    w = torch.randn(128, 128, 1, 1, generator=torch.Generator()
+                    .manual_seed(3)) * 0.1
+    mask = R.connectivity_mask(w, rate=0.5)
+    mask[:, :8] = 0                       # channels dead in every filter
+    lay = ops.pack_taps(w.to(cuda, dtype), mask.to(cuda), n_bins=8)
+    assert lay.n_alive == 120
+    x = torch.randn(2, 16, 16, 128, device=cuda).to(dtype)
+    b = torch.randn(128, device=cuda).to(dtype)
+    band = x.reshape(-1, 128).index_select(1, lay.alive.long())
+    K.reset_launches()
+    y2 = K.tap_gather_conv_packed(band, lay, b, "relu")
+    y4 = K.tap_gather_conv_implicit(x, lay, kh=1, kw=1, bias=b, act="relu")
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["tap_gather_conv"] == 1
+    assert K.LAUNCHES["tap_gather_conv_implicit"] == 1
+    assert torch.equal(y2, y4.reshape(-1, 128))
 
 
 def test_conv_bins_of_one_slot_and_fewer_columns_than_a_block(cuda):
