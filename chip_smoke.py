@@ -37,6 +37,22 @@
    per kernel equal what the layouts imply, the logits agree with the
    masked-dense run on the card (TF32 off), a planted fault breaks that
    bound; ms per forward, images/s and the card's busy share.
+6. The MoE path: kernel 1 over mixtral-8x7b's expert stacks (8 experts,
+   (K, N) of 4096 x 14336 and 14336 x 4096, M = 1, 4, 15, 16, 17, 40,
+   64, 65, bf16 and fp32, reordered into 4 bins and not, silu / none) in
+   one launch a call vs the plain version expert by expert, reordered ==
+   unreordered bitwise; one MoE layer's three projections timed at decode
+   (M = 4) and prefill (M = 40, the capacity of the 128-token group)
+   beside ``torch.bmm`` of the masked dense stack, the bound and a plain
+   read of the same bytes.  Then mixtral-8x7b served at full width (depth
+   cut to MOE_LAYERS, bf16, seed 0, rate 0.6, 4 bins, B = 4 x 32,
+   16 new tokens): launches counted over the ``generate``, warm prefill
+   and decode times, the busy share; every layer's ``moe()`` packed vs
+   masked-dense on the same input (bf16, yi-9b's bounds), whole-model
+   bf16 logits and routing flips printed, the fp32 whole model at 2
+   layers gated on its logits (TF32 off) and greedy tokens, two planted
+   expert-layout faults breaking both gated bounds, and the phase's peak
+   device memory.
 
 No phase is caught: any failure exits non-zero.  The last two lines are
 the kernels JSON and ``{"ok": true, "device": {...}}``.  Full detail goes
@@ -94,6 +110,17 @@ CONV_B, CONV_HW = 256, 32
 # c6) moves them by a sizeable share of max |logit| (PERF.md)
 CONV_LOGIT_REL = 1e-3    # max |diff| <= this * max |dense logit|
 KERNEL_FILES = {"bsr_matmul": "bsr_matmul.cu", "tap_gather": "tap_gather.cu"}
+# the MoE path: mixtral-8x7b's expert stacks.  Kernel 1's M cases over the
+# experts: decode (4) and prefill (40 = the capacity of one 128-token
+# group), and bsr_plan's M-tile edges around them
+MOE_CHECK_M = (1, 4, 15, 16, 17, 40, 64, 65)
+MOE_LAYERS = 4           # depth cut of the bf16 serve (width is never cut)
+MOE_FP32_LAYERS = 2
+# fp32 logits, packed vs masked-dense on the card (TF32 off): the two
+# differ in fp32 sum order only, far too little to flip a router choice
+# short of a near-exact tie; a fault moves the logits by a sizeable share
+# of max |logit| (PERF.md)
+MOE_FP32_LOGIT_REL = 1e-3
 DEV = "cuda"             # the conv phases' device
 
 
@@ -149,6 +176,24 @@ def bf16_ulp(p):
     return torch.ldexp(torch.ones_like(p), (e - 8).to(torch.int32))
 
 
+def check_close(y, want, dtype, what):
+    """Kernel 1's output bound against its fp32 plain version: rtol = atol
+    = FP32_TOL in fp32, 1 bf16 ulp (+ FP32_TOL near zero) in bf16.
+    Returns the max abs error."""
+    err = (y.float() - want).abs()
+    if dtype == torch.float32:
+        tol = FP32_TOL + FP32_TOL * want.abs()
+    else:
+        tol = bf16_ulp(want) + FP32_TOL * (1 + want.abs())
+    bad = err > tol
+    if bad.any():
+        i = int(bad.flatten().nonzero()[0])
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} elements out of tolerance, first "
+            f"{err.flatten()[i].item()} > {tol.flatten()[i].item()}")
+    return err.max().item()
+
+
 def weight_and_mask(RW, K, N, gen, dtype):
     w = (torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5).to(
         dtype)
@@ -164,7 +209,10 @@ def kernel_phase(mods, flush):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     checks, max_err = 0, 0.0
-    shapes = sorted({(k, n) for _, k, n, _ in PROJECTIONS})
+    # yi-9b's projections and mixtral-8x7b's attention (its experts are
+    # checked in moe_kernel_phase)
+    shapes = sorted({(k, n) for _, k, n, _ in PROJECTIONS}
+                    | attention_shapes(moe_config()))
     for dtype in (torch.float32, torch.bfloat16):
         for (Kd, Nd) in shapes:
             w, mask = weight_and_mask(RW, Kd, Nd, gen, dtype)
@@ -186,25 +234,14 @@ def kernel_phase(mods, flush):
                         raise AssertionError(
                             f"reordered != unreordered bitwise at K={Kd} "
                             f"N={Nd} M={M} {dtype} act={act}")
-                    err = (y_re.float() - want).abs()
-                    if dtype == torch.float32:
-                        tol = FP32_TOL + FP32_TOL * want.abs()
-                    else:    # 1 bf16 ulp, plus the fp32 bound near zero
-                        tol = bf16_ulp(want) + FP32_TOL * (1 + want.abs())
-                    bad = err > tol
-                    if bad.any():
-                        i = int(bad.flatten().nonzero()[0])
-                        raise AssertionError(
-                            f"kernel vs plain at K={Kd} N={Nd} M={M} "
-                            f"{dtype} act={act} bias={bias is not None}: "
-                            f"{int(bad.sum())} elements out of tolerance, "
-                            f"first {err.flatten()[i].item()} > "
-                            f"{tol.flatten()[i].item()}")
-                    max_err = max(max_err, err.max().item())
+                    max_err = max(max_err, check_close(
+                        y_re, want, dtype, f"kernel vs plain at K={Kd} "
+                        f"N={Nd} M={M} {dtype} act={act} "
+                        f"bias={bias is not None}"))
                     checks += 1
             del w, mask, plain_lay, reord
-    print(f"kernel vs plain: {checks} cases at {len(shapes)} (K, N) shapes, "
-          f"M in {CHECK_M}, bf16 + fp32, bias with none/silu/relu, "
+    print(f"kernel vs plain: {checks} cases at (K, N) in {shapes} (yi-9b's "
+          f"projections, mixtral-8x7b's attention), M in {CHECK_M}, bf16 + fp32, bias with none/silu/relu, "
           f"reordered == unreordered bitwise; max abs err {max_err:.3e}")
 
     rows = []
@@ -221,54 +258,60 @@ def kernel_phase(mods, flush):
         for M in (4, 128):
             x = torch.randn(M, Kd, generator=gen, device="cuda").to(
                 torch.bfloat16)
-            ms = time_ms(lambda: K.bsr_matmul_packed(x, lay, None, act),
-                         30, flush)
-            eager_ms = time_ms(
-                lambda: K.bsr_matmul_packed(x, lay, None, act), 30, flush,
-                graph=False)
-            plain_ms = time_ms(
-                lambda: ref.bsr_matmul_packed_ref(x, lay, None, act), 3,
-                flush)
-            lib_ms = time_ms(lambda: torch.matmul(x, dense), 30, flush)
-            es = 2
-            nbytes = (nnzb * (BLOCK[0] * BLOCK[1] * es + 4)
-                      + M * Kd * es + M * Nd * es)
-            flops = 2 * M * nnzb * BLOCK[0] * BLOCK[1]
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / BF16_PEAK_FLOPS * 1e3
-            rows.append({
-                "proj": name, "M": M, "K": Kd, "N": Nd, "act": act,
-                "dtype": "bfloat16", "density": lay.density,
-                "executed_frac": 1 - lay.flops_saved,
-                "bins": lay.n_bins, "ms": ms, "eager_ms": eager_ms,
-                "plain_ms": plain_ms,
-                "library_ms": lib_ms, "stream_ms": stream_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes_ms": t_bytes, "ops_ms": t_ops, "bytes": nbytes,
-                "flops": flops})
+            rows.append(timed_row(
+                lambda: K.bsr_matmul_packed(x, lay, None, act),
+                lambda: ref.bsr_matmul_packed_ref(x, lay, None, act),
+                lambda: torch.matmul(x, dense), stream_ms,
+                nnzb * (BLOCK[0] * BLOCK[1] * 2 + 4) + M * (Kd + Nd) * 2,
+                2 * M * nnzb * BLOCK[0] * BLOCK[1], flush, proj=name, M=M,
+                K=Kd, N=Nd, act=act, dtype="bfloat16", density=lay.density,
+                executed_frac=1 - lay.flops_saved, bins=lay.n_bins))
         del w, mask, lay, dense
     del stream_buf
-    print("main-path timings (bf16, L2 flushed, median ms; device time "
-          "by CUDA-graph replay, and the kernel's eager call for the host's "
-          "share; stream = one torch sum over as many bytes as the live "
-          "values, same flush):")
+    print_timings("main-path timings (bf16, L2 flushed, median ms; device "
+                  "time by CUDA-graph replay, and the kernel's eager call "
+                  "for the host's share; stream = one torch sum over as "
+                  "many bytes as the live values, same flush):", rows,
+                  "torch.matmul", "yi-9b layer (7 projections)",
+                  ((4, "decode"), (128, "prefill")))
+    return rows, max_err
+
+
+def timed_row(kernel_fn, plain_fn, lib_fn, stream_ms, nbytes, flops, flush,
+              **meta):
+    """One projection's timing row (median ms, L2 flushed): the kernel by
+    CUDA-graph replay (device time) and eager (with the host's share), its
+    plain version, the library call, and the bound from ``nbytes`` at the
+    HBM rate and ``flops`` at the bf16 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_PEAK_FLOPS * 1e3
+    return dict(meta, ms=time_ms(kernel_fn, 30, flush),
+                eager_ms=time_ms(kernel_fn, 30, flush, graph=False),
+                plain_ms=time_ms(plain_fn, 3, flush),
+                library_ms=time_ms(lib_fn, 30, flush), stream_ms=stream_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes_ms=t_bytes, ops_ms=t_ops, bytes=nbytes, flops=flops)
+
+
+def print_timings(title, rows, lib, layer, Ms):
+    """The timing rows as a table, then their sums over a layer at each
+    M of ``Ms`` ((M, what) pairs)."""
+    print(title)
     print(f"  {'proj':5s} {'M':>4s} {'kernel':>9s} {'eager':>9s} "
-          f"{'bound':>9s} {'stream':>9s} {'plain':>9s} {'matmul':>9s}  "
+          f"{'bound':>9s} {'stream':>9s} {'plain':>9s} {lib:>12s}  "
           f"bound_by")
     for r in rows:
         print(f"  {r['proj']:5s} {r['M']:4d} {r['ms']:9.4f} "
               f"{r['eager_ms']:9.4f} {r['bound_ms']:9.4f} "
               f"{r['stream_ms']:9.4f} {r['plain_ms']:9.4f} "
-              f"{r['library_ms']:9.4f}  {r['bound_by']}")
-    for M, what in ((4, "decode"), (128, "prefill")):
-        lay_sum = layer_sum(rows, M)
-        print(f"  one yi-9b layer at {what} (M = {M}, 7 projections): kernel "
-              f"{lay_sum['ms']:.4f} ms, torch.matmul "
-              f"{lay_sum['library_ms']:.4f}, bound {lay_sum['bound_ms']:.4f}"
-              f" ({lay_sum['bound_by']}), stream {lay_sum['stream_ms']:.4f},"
-              f" plain {lay_sum['plain_ms']:.3f}")
-    return rows, max_err
+              f"{r['library_ms']:12.4f}  {r['bound_by']}")
+    for M, what in Ms:
+        t = layer_sum(rows, M)
+        print(f"  one {layer} at {what} (M = {M}): kernel {t['ms']:.4f} ms, "
+              f"{lib} {t['library_ms']:.4f}, bound {t['bound_ms']:.4f} "
+              f"({t['bound_by']}), stream {t['stream_ms']:.4f}, plain "
+              f"{t['plain_ms']:.3f}")
 
 
 def layer_sum(rows, M):
@@ -370,19 +413,16 @@ def device_time(fn):
             "events": len(spans)}
 
 
-def serve_phase(mods, args):
-    """Full-width yi-9b through the port's entry points."""
-    T, RW, C, E, K = mods["T"], mods["RW"], mods["C"], mods["E"], mods["K"]
-    from repro_torch import configs
+def build_served(mods, cfg, dtype):
+    """Seeded init at ``cfg`` on the card, the serving CLI's magnitude
+    block masks at PRUNE_RATE, ``compile_model(keep_dense=False)``:
+    (masked-dense params, compiled params, report, init + masks s,
+    compile s)."""
+    T, RW, C = mods["T"], mods["RW"], mods["C"]
     from repro_torch.launch.serve import SPARSE_SPEC
     from repro_torch.train.trainer import apply_masks
-    full = configs.get("yi-9b")
-    cfg = full.replace(n_layers=args.layers)
-    print(f"yi-9b at full width (d_model {cfg.d_model}, heads {cfg.n_heads}"
-          f"/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}); depth "
-          f"cut to {cfg.n_layers} of {full.n_layers} layers")
     t0 = time.perf_counter()
-    params = T.init_lm(cfg, seed=0, device="cuda")
+    params = T.init_lm(cfg, seed=0, dtype=dtype, device=DEV)
     masks = RW.magnitude_block_masks(params, SPARSE_SPEC, None,
                                      rate=PRUNE_RATE)
     pm = apply_masks(params, masks)
@@ -392,38 +432,32 @@ def serve_phase(mods, args):
     t0 = time.perf_counter()
     exec_p, report = C.compile_model(
         pm, masks, SPARSE_SPEC, spec=C.CompileSpec(keep_dense=False),
-        device="cuda")
+        device=DEV)
     sync()
-    compile_s = time.perf_counter() - t0
-    del masks
-    print(f"init + masks {init_s:.2f}s; compile_model {compile_s:.2f}s:")
-    print(C.compiled_summary(report))
-    layer = exec_p["layers"]
-    n_bins = {layer[g][n]["packed"].n_bins
-              for g, names in (("attn", ("wq", "wk", "wv", "wo")),
-                               ("ffn", ("gate", "up", "down")))
-              for n in names}
-    if len(report.packed) != 7 or n_bins != {N_BINS}:
-        raise AssertionError(f"expected 7 packed projections of {N_BINS} "
-                             f"bins, got {len(report.packed)}, {n_bins}")
+    return pm, exec_p, report, init_s, time.perf_counter() - t0
 
+
+def serve_counted(mods, exec_p, cfg, full, compile_s, how):
+    """The main path: greedy ``generate`` of B prompts of S tokens, the
+    kernel counts set to 0 just before and read just after, kernel 1 held
+    to layers x 7 projections x (1 + N_NEW) forwards; then warm prefill and
+    generate wall times and one traced prefill and ``generate`` (the
+    card's busy share).  Returns (e2e, launches, prompts, tokens)."""
+    E, K = mods["E"], mods["K"]
     prompts = np.random.RandomState(0).randint(0, cfg.vocab, size=(B, S))
-    tokens = torch.as_tensor(prompts, device="cuda")
-
-    # the main path, counted: counts to 0 just before, read just after
+    tokens = torch.as_tensor(prompts, device=DEV)
     K.reset_launches()
     sync()
     t0 = time.perf_counter()
     with torch.no_grad():
-        out = E.generate(exec_p, cfg, prompts, N_NEW, device="cuda")
+        out = E.generate(exec_p, cfg, prompts, N_NEW, device=DEV)
     sync()
     gen_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     want = cfg.n_layers * 7 * (1 + N_NEW)
     print(f"generate {tuple(out.shape)}: bsr_matmul launches "
           f"{launches['bsr_matmul']} (expected layers {cfg.n_layers} x 7 "
-          f"projections x (1 + {N_NEW}) forwards = {want}, one launch over "
-          f"the {N_BINS} bins)")
+          f"projections x (1 + {N_NEW}) forwards = {want}, {how})")
     if launches["bsr_matmul"] != want:
         raise AssertionError("the main path did not go through the kernel "
                              "the expected number of times")
@@ -440,12 +474,12 @@ def serve_phase(mods, args):
         sync()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
-        E.generate(exec_p, cfg, prompts, N_NEW, device="cuda")
+        E.generate(exec_p, cfg, prompts, N_NEW, device=DEV)
         sync()
         gen_warm_s = time.perf_counter() - t0
         dev_prefill = device_time(lambda: E.prefill(exec_p, cfg, tokens))
         dev_gen = device_time(lambda: E.generate(exec_p, cfg, prompts, N_NEW,
-                                                 device="cuda"))
+                                                 device=DEV))
     decode_ms = (gen_warm_s * 1e3 - prefill_ms) / N_NEW
     e2e = {"layers": cfg.n_layers, "of_layers": full.n_layers, "batch": B,
            "prompt": S, "new_tokens": N_NEW, "compile_s": compile_s,
@@ -476,6 +510,33 @@ def serve_phase(mods, args):
               f"decode step {step_busy:.3f} ms ({step_bsr:.3f} in "
               f"bsr_matmul) = {e2e['device']['decode_busy_share']:.3f}; "
               f"{dev_gen['events']} device events per generate")
+    return e2e, launches, prompts, tokens
+
+
+def serve_phase(mods, args):
+    """Full-width yi-9b through the port's entry points."""
+    C, E = mods["C"], mods["E"]
+    from repro_torch import configs
+    full = configs.get("yi-9b")
+    cfg = full.replace(n_layers=args.layers)
+    print(f"yi-9b at full width (d_model {cfg.d_model}, heads {cfg.n_heads}"
+          f"/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}); depth "
+          f"cut to {cfg.n_layers} of {full.n_layers} layers")
+    pm, exec_p, report, init_s, compile_s = build_served(mods, cfg,
+                                                         torch.bfloat16)
+    print(f"init + masks {init_s:.2f}s; compile_model {compile_s:.2f}s:")
+    print(C.compiled_summary(report))
+    layer = exec_p["layers"]
+    n_bins = {layer[g][n]["packed"].n_bins
+              for g, names in (("attn", ("wq", "wk", "wv", "wo")),
+                               ("ffn", ("gate", "up", "down")))
+              for n in names}
+    if len(report.packed) != 7 or n_bins != {N_BINS}:
+        raise AssertionError(f"expected 7 packed projections of {N_BINS} "
+                             f"bins, got {len(report.packed)}, {n_bins}")
+    e2e, launches, _, tokens = serve_counted(
+        mods, exec_p, cfg, full, compile_s, f"one launch over the {N_BINS} "
+        f"bins")
 
     with torch.no_grad():
         dense_logits, _ = E.prefill(pm, cfg, tokens)
@@ -626,25 +687,13 @@ def conv_kernel_phase(mods, flush):
                             f"outputs differ bitwise")
                 want = conv_plain(ref, K, x, lays[0], kh, kw, stride, bias,
                                   act)
-                err = (ys[0].float() - want).abs()
+                e = check_close(ys[0], want, dtype, f"conv kernel vs plain "
+                                f"at {label} {dtype} act={act}")
                 if dtype == torch.float32:
-                    tol = FP32_TOL + FP32_TOL * want.abs()
-                else:
-                    tol = bf16_ulp(want) + FP32_TOL * (1 + want.abs())
-                bad = err > tol
-                if bad.any():
-                    i = int(bad.flatten().nonzero()[0])
-                    raise AssertionError(
-                        f"conv kernel vs plain at {label} {dtype} act={act}:"
-                        f" {int(bad.sum())} elements out of tolerance, first"
-                        f" {err.flatten()[i].item()} > "
-                        f"{tol.flatten()[i].item()}")
-                if dtype == torch.float32:
-                    e = err.max().item()
                     max_err[k_imp] = max(max_err[k_imp], e)
                     max_err[k_mat] = max(max_err[k_mat], e)
                 checks += 1
-            del ys, want, err
+            del ys, want
 
         # timings: fp32, the reordered layout, bias + relu (the served
         # configuration), L2 flushed before each run
@@ -982,6 +1031,347 @@ def conv_entries(rows, max_err, launches):
     return out
 
 
+# -- the MoE path: kernel 1 over mixtral-8x7b's expert stacks -----------------
+
+def moe_config():
+    """mixtral-8x7b at its published widths (the rehearsal on the CPU
+    swaps in the SMOKE config)."""
+    from repro_torch import configs
+    return configs.get("mixtral-8x7b")
+
+
+def prefill_capacity(cfg):
+    """Rows an expert gets at prefill: the capacity ``models.moe.moe``
+    gives one dispatch group of the B x S prompt tokens (40 at mixtral,
+    B x S = 128)."""
+    Sg = min(cfg.moe_group, B * S)
+    return min(Sg, max(4, int(Sg * cfg.top_k / cfg.n_experts * 1.25)))
+
+
+def attention_shapes(cfg):
+    """The (K, N) of a transformer config's four attention projections."""
+    d, q, kv = cfg.d_model, cfg.n_heads * cfg.head_dim, \
+        cfg.n_kv_heads * cfg.head_dim
+    return {(d, q), (d, kv), (q, d)}
+
+
+def moe_projections(cfg):
+    """(name, K, N, epilogue) of an MoE layer's three expert projections."""
+    d, f = cfg.d_model, cfg.d_ff
+    return [("gate", d, f, "silu"), ("up", d, f, "none"),
+            ("down", f, d, "none")]
+
+
+def expert_stack(mods, E, Kd, Nd, gen, dtype, reorder):
+    """An (E, K, N) expert stack at the served scale (fan-in scaled normal
+    weights, magnitude block masks at PRUNE_RATE over the whole stack),
+    packed as ``compile_model`` packs experts, reordered into N_BINS bins
+    or not as each of ``reorder`` says; returns (the layouts, the masked
+    dense weights)."""
+    RW, C = mods["RW"], mods["C"]
+    w = (torch.randn(E, Kd, Nd, generator=gen, device=DEV)
+         * Kd ** -0.5).to(dtype)
+    spec = [(r"w$", RW.SchemeChoice("block", BLOCK))]
+    mask = RW.magnitude_block_masks({"w": w}, spec, None,
+                                    rate=PRUNE_RATE)["w"]
+    dense = w * mask.to(dtype)
+    del w
+    lays = [C._pack_stacked(dense, mask, BLOCK, reorder=r,
+                            n_bins=N_BINS)[0] for r in reorder]
+    return lays, dense
+
+
+def moe_kernel_phase(mods, flush):
+    """Kernel 1 over an expert stack (one launch for all E experts) vs the
+    plain version, expert by expert, at mixtral's expert shapes; then one
+    MoE layer's three projections timed at decode (M = 4) and prefill
+    (M = the capacity of the prefill's dispatch group) beside
+    ``torch.bmm`` of the masked dense stack, the byte bound and a plain
+    read of the same bytes."""
+    ops, ref, K = mods["ops"], mods["ref"], mods["K"]
+    cfg = moe_config()
+    E = cfg.n_experts
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(2)
+    checks, max_err = 0, 0.0
+    shapes = sorted({(k, n) for _, k, n, _ in moe_projections(cfg)})
+    for dtype in (torch.float32, torch.bfloat16):
+        for Kd, Nd in shapes:
+            (reord, unre), dense = expert_stack(mods, E, Kd, Nd, gen, dtype,
+                                                (True, False))
+            del dense
+            for M in MOE_CHECK_M:
+                x = torch.randn(E, M, Kd, generator=gen, device=DEV).to(
+                    dtype)
+                for act in ("silu", "none"):
+                    before = K.LAUNCHES["bsr_matmul"]
+                    y_re = ops.sparse_expert_linear(x, reord, act=act)
+                    y_un = ops.sparse_expert_linear(x, unre, act=act)
+                    sync()
+                    if K.LAUNCHES["bsr_matmul"] - before != 2:
+                        raise AssertionError("an expert projection did not "
+                                             "take exactly one launch")
+                    if not torch.equal(y_re, y_un):
+                        raise AssertionError(
+                            f"experts: reordered != unreordered bitwise at "
+                            f"E={E} K={Kd} N={Nd} M={M} {dtype} act={act}")
+                    want = ref.bsr_matmul_experts_ref(x.float(), reord,
+                                                      None, act)
+                    max_err = max(max_err, check_close(
+                        y_re, want, dtype, f"experts: kernel vs plain at "
+                        f"E={E} K={Kd} N={Nd} M={M} {dtype} act={act}"))
+                    checks += 1
+                    del y_re, y_un, want
+            del reord, unre
+    print(f"experts: kernel vs plain, {checks} cases (E = {E}, (K, N) in "
+          f"{shapes}, M in {MOE_CHECK_M}, bf16 + fp32, silu/none), one "
+          f"launch per call, reordered == unreordered bitwise; max abs err "
+          f"{max_err:.3e}")
+
+    rows = []
+    stream_buf = None
+    for name, Kd, Nd, act in moe_projections(cfg):
+        (lay,), dense = expert_stack(mods, E, Kd, Nd, gen, torch.bfloat16,
+                                     (True,))
+        nnzb = int(lay.nnz.sum())
+        for M in (4, prefill_capacity(cfg)):
+            x = torch.randn(E, M, Kd, generator=gen, device=DEV).to(
+                torch.bfloat16)
+            nbytes = (nnzb * (BLOCK[0] * BLOCK[1] * 2 + 4)
+                      + E * M * (Kd + Nd) * 2)
+            if stream_buf is None or stream_buf.numel() < nbytes // 2:
+                stream_buf = torch.ones(nbytes // 2, dtype=torch.bfloat16,
+                                        device=DEV)
+            stream_ms = time_ms(lambda: stream_buf[:nbytes // 2].sum(), 30,
+                                flush)
+            rows.append(timed_row(
+                lambda: ops.sparse_expert_linear(x, lay, act=act),
+                lambda: ref.bsr_matmul_experts_ref(x, lay, None, act),
+                lambda: torch.bmm(x, dense), stream_ms, nbytes,
+                2 * M * nnzb * BLOCK[0] * BLOCK[1], flush, proj=name, E=E,
+                M=M, K=Kd, N=Nd, act=act, dtype="bfloat16",
+                density=lay.density, executed_frac=1 - lay.flops_saved,
+                bins=lay.n_bins))
+        del lay, dense
+    del stream_buf
+    print_timings(f"experts timed (bf16, E = {E}, one launch per "
+                  f"projection, L2 flushed, median ms by CUDA-graph replay; "
+                  f"torch.bmm of the masked dense (E, K, N) stack; stream = "
+                  f"one torch sum over the bound's bytes; M = rows an "
+                  f"expert):", rows, "torch.bmm",
+                  "MoE layer's experts (3 projections)",
+                  ((4, "decode"), (prefill_capacity(cfg), "prefill")))
+    return rows, max_err
+
+
+def moe_inputs(T, fwd):
+    """The input of every layer's ``moe()`` in one run of ``fwd`` (the
+    port's own forward), in layer order."""
+    seen = []
+    orig = T.moe
+
+    def spy(p, h, **kw):
+        seen.append(h)
+        return orig(p, h, **kw)
+    T.moe = spy
+    try:
+        out = fwd()
+    finally:
+        T.moe = orig
+    return out, seen
+
+
+def routes(layers, inputs, top_k):
+    """Per layer, each token's top-k expert choice (sorted) from its input
+    by the port's routing rule (fp32 logits of the fp32 router), and the
+    fp32 margin of that choice: the gap between the k-th and the
+    (k+1)-th router logit."""
+    out = []
+    for lp, h in zip(layers, inputs):
+        logits = h.reshape(-1, h.shape[-1]).float() @ lp["moe"]["router"][
+            "w"].float()
+        top = torch.topk(logits, top_k + 1)
+        out.append((top.indices[:, :top_k].sort(-1).values,
+                    top.values[:, top_k - 1] - top.values[:, top_k]))
+    return out
+
+
+def expert_faults(params):
+    """(name, params) pairs: the compiled model with one fault in an expert
+    stack (every layer), as a broken packer could make."""
+    moe_p = params["layers"]["moe"]
+    gate, down = moe_p["gate"]["packed"], moe_p["down"]["packed"]
+
+    def shift(k):                 # leaves (layers, experts, ...)
+        k = k.clone()
+        k[:, 3] = (k[:, 3] + 1) % gate.Kb
+        return k
+
+    def swap(v):
+        v = v.clone()
+        v[:, [0, 1]] = v[:, [1, 0]]
+        return v
+    shifted = tuple(shift(k) for k in gate.k_idx)
+    swapped = tuple(swap(v) for v in down.values)
+    return [
+        ("gate: expert 3's k_idx shifted by one block",
+         with_layout(params, "moe", "gate",
+                     dataclasses.replace(gate, k_idx=shifted))),
+        ("down: experts 0 and 1 values swapped",
+         with_layout(params, "moe", "down",
+                     dataclasses.replace(down, values=swapped))),
+    ]
+
+
+def moe_layer_gaps(mods, exec_p, dense_p, cfg, inputs):
+    """Per layer: moe() with the packed and the masked-dense params on the
+    same input (the packed run's): (max, mean) relative gaps."""
+    MOE, T = mods["MOE"], mods["T"]
+    gaps = []
+    for lp_x, lp_d, h in zip(T.layer_params(exec_p), T.layer_params(dense_p),
+                             inputs):
+        a, _ = MOE.moe(lp_x["moe"], h, top_k=cfg.top_k, group=cfg.moe_group)
+        b, _ = MOE.moe(lp_d["moe"], h, top_k=cfg.top_k, group=cfg.moe_group)
+        gaps.append(logit_gap(b, a))
+    return gaps
+
+
+def moe_serve_phase(mods):
+    """mixtral-8x7b at full width through the port's entry points (bf16,
+    depth cut to MOE_LAYERS), its gates, then the fp32 whole-model gate at
+    MOE_FP32_LAYERS layers."""
+    T, C, E = mods["T"], mods["C"], mods["E"]
+    full = moe_config()
+    cfg = full.replace(n_layers=MOE_LAYERS)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    print(f"mixtral-8x7b at full width (d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, {cfg.n_experts} "
+          f"experts top-{cfg.top_k}, vocab {cfg.vocab}); depth cut to "
+          f"{cfg.n_layers} of {full.n_layers} layers")
+    pm, exec_p, report, init_s, compile_s = build_served(mods, cfg,
+                                                         torch.bfloat16)
+    print(f"init + masks {init_s:.2f}s; compile_model {compile_s:.2f}s:")
+    print(C.compiled_summary(report))
+    moe_p = exec_p["layers"]["moe"]
+    n_bins = {moe_p[n]["packed"].n_bins for n in ("gate", "up", "down")}
+    routers = [r for r in report if r.path == "layers/moe/router/w"]
+    if (len(report.packed) != 7 or n_bins != {N_BINS}
+            or [r.reason for r in routers] != ["excluded"]):
+        raise AssertionError(f"expected 4 attention + 3 expert packed "
+                             f"projections of {N_BINS} bins and the router "
+                             f"excluded: {C.compiled_summary(report)}")
+    e2e, launches, prompts, tokens = serve_counted(
+        mods, exec_p, cfg, full, compile_s, f"4 attention + 3 expert "
+        f"projections, one launch each over all {cfg.n_experts} experts and "
+        f"{N_BINS} bins")
+
+    # bf16 gates, layer by layer: the same input into moe() with packed and
+    # masked-dense params routes the same way, so the experts are compared
+    # and not the routing (a near-tie of router scores flips with the
+    # attention's rounding and moves whole-model logits far more)
+    with torch.no_grad():
+        s_logits, s_in = moe_inputs(T, lambda: T.forward(exec_p, cfg,
+                                                         tokens))
+        d_logits, d_in = moe_inputs(T, lambda: T.forward(pm, cfg, tokens))
+        gaps = moe_layer_gaps(mods, exec_p, pm, cfg, s_in)
+        fault_gaps = [(name, moe_layer_gaps(mods, p, pm, cfg, s_in))
+                      for name, p in expert_faults(exec_p)]
+        s_routes = routes(T.layer_params(exec_p), s_in, cfg.top_k)
+        d_routes = routes(T.layer_params(exec_p), d_in, cfg.top_k)
+    # the (token, layer) pairs whose choice differs, each with its router
+    # margin on the packed run's input (all tokens' median beside it), and
+    # the whole-model gap over the sequences that no flip touched
+    flipped = [(a != b).any(-1) for (a, _), (b, _) in zip(s_routes,
+                                                          d_routes)]
+    flips = sum(int(f.sum()) for f in flipped)
+    margins = [(layer, int(t), m[t].item())
+               for layer, (f, (_, m)) in enumerate(zip(flipped, s_routes))
+               for t in f.nonzero().flatten()]
+    median_margin = torch.cat([m for _, m in s_routes]).median().item()
+    seq_flipped = torch.stack(flipped).reshape(len(flipped), B, S).any(
+        0).any(-1)
+    clean = ~seq_flipped
+    clean_gap = (logit_gap(d_logits[clean], s_logits[clean])
+                 if clean.any() else None)
+    whole = logit_gap(d_logits, s_logits)
+    print(f"per-layer moe() packed vs masked-dense on the packed run's "
+          f"input (bf16): " + ", ".join(f"layer {i} {g[0]:.4f} / {g[1]:.4f}"
+                                        for i, g in enumerate(gaps))
+          + f" (bound {LOGIT_MAX_REL} / {LOGIT_MEAN_REL})")
+    for name, fg in fault_gaps:
+        worst = max(fg, key=lambda g: g[1])
+        missed = "  (NOT CAUGHT)" if all(map(within_bound, fg)) else ""
+        print(f"  planted fault, {name}: worst layer {worst[0]:.4f} / "
+              f"{worst[1]:.4f}{missed}")
+    print(f"whole-model bf16 logits packed vs masked-dense (not gated): "
+          f"{whole[0]:.4f} of max|logit| / {whole[1]:.4f} of mean|logit|; "
+          f"routing choices that differ: {flips} of "
+          f"{len(s_routes) * B * S} (token, layer) pairs")
+    print(f"  router margin (fp32 gap of the router logits ranked "
+          f"{cfg.top_k} and {cfg.top_k + 1}) at each flip, (layer, token, "
+          f"margin): "
+          + ", ".join(f"({i}, {t}, {m:.2e})" for i, t, m in margins)
+          + f"; median over all tokens {median_margin:.2e}")
+    if clean_gap is None:
+        print("  every sequence had a flipped route")
+    else:
+        print(f"  whole-model bf16 logits over the {int(clean.sum())} of {B} "
+              f"sequences with no flipped route: {clean_gap[0]:.4f} / "
+              f"{clean_gap[1]:.4f} (within {LOGIT_MAX_REL} / "
+              f"{LOGIT_MEAN_REL}: {within_bound(clean_gap)})")
+    e2e.update(layer_gaps=gaps, fault_layer_gaps=dict(fault_gaps),
+               whole_logit_gap_bf16=whole, routing_flips=flips,
+               flip_margins=margins, median_router_margin=median_margin,
+               unflipped_sequences=int(clean.sum()),
+               unflipped_logit_gap_bf16=clean_gap)
+    if not (torch.isfinite(s_logits).all()
+            and all(map(within_bound, gaps))):
+        raise AssertionError("packed moe() disagrees with masked-dense "
+                             "beyond the stated bound")
+    missed = [n for n, fg in fault_gaps if all(map(within_bound, fg))]
+    if missed:
+        raise AssertionError(f"the per-layer bound does not catch: {missed}")
+    del pm, exec_p, s_logits, d_logits, s_in, d_in, fault_gaps
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+    # fp32, whole model at MOE_FP32_LAYERS layers: the routing does not
+    # flip, so logits and greedy tokens are gated directly
+    cfg32 = full.replace(n_layers=MOE_FP32_LAYERS)
+    pm, exec_p, _, _, _ = build_served(mods, cfg32, torch.float32)
+    with torch.no_grad():
+        d32 = T.forward(pm, cfg32, tokens)
+        s32 = T.forward(exec_p, cfg32, tokens)
+        gap32 = logit_gap(d32, s32)[0]
+        faults32 = [(name, logit_gap(d32, T.forward(p, cfg32, tokens))[0])
+                    for name, p in expert_faults(exec_p)]
+        tok_d = E.generate(pm, cfg32, prompts, N_NEW, device=DEV)
+        tok_s = E.generate(exec_p, cfg32, prompts, N_NEW, device=DEV)
+    same = bool(torch.equal(tok_d, tok_s))
+    print(f"fp32 ({cfg32.n_layers} layers, TF32 off): logits packed vs "
+          f"masked-dense {gap32:.2e} of max|logit| (bound "
+          f"{MOE_FP32_LOGIT_REL}); greedy tokens identical: {same}; "
+          + "; ".join(f"planted fault, {n}: {g:.3f}" for n, g in faults32))
+    e2e.update(fp32_logit_gap=gap32, fp32_tokens_identical=same,
+               fp32_faults=dict(faults32))
+    if not (torch.isfinite(s32).all() and gap32 <= MOE_FP32_LOGIT_REL
+            and same):
+        raise AssertionError("fp32 packed mixtral disagrees with "
+                             "masked-dense")
+    missed = [n for n, g in faults32 if g <= MOE_FP32_LOGIT_REL]
+    if missed:
+        raise AssertionError(f"the fp32 logit bound does not catch: "
+                             f"{missed}")
+    del pm, exec_p
+    if DEV == "cuda":
+        e2e["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"MoE phase peak device memory "
+              f"{e2e['peak_mem_gb']:.2f} GB (torch.cuda."
+              f"max_memory_allocated)")
+    return e2e, launches
+
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
@@ -1000,6 +1390,7 @@ def main(argv=None):
         from repro_torch.kernels import _build, ops, ref
         from repro_torch.kernels import bsr_matmul as K
         from repro_torch.models import convnet as CN
+        from repro_torch.models import moe as MOE
         from repro_torch.models import transformer as T
         from repro_torch.serve import compile as C
         from repro_torch.serve import engine as E
@@ -1008,7 +1399,7 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     mods = dict(RW=RW, ops=ops, ref=ref, K=K, T=T, C=C, E=E, CN=CN,
-                BCS=BCS)
+                BCS=BCS, MOE=MOE)
     # the oracles (masked-dense matmul and F.conv2d) run in full fp32: a
     # float32 conv goes through cuDNN in TF32 unless told otherwise
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1042,15 +1433,27 @@ def main(argv=None):
     del flush
     torch.cuda.empty_cache()
     conv_e2e, conv_launches = conv_serve_phase(mods)
+    # the MoE path, after the yi-9b and VGG state is gone
+    torch.cuda.empty_cache()
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=DEV)
+    moe_rows, moe_err = moe_kernel_phase(mods, flush)
+    del flush
+    torch.cuda.empty_cache()
+    moe_e2e, moe_launches = moe_serve_phase(mods)
 
     decode, prefill = layer_sum(rows, 4), layer_sum(rows, 128)
+    moe_m = prefill_capacity(moe_config())
     entry = {
         "name": "bsr_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bsr_matmul.cu",
         "replaces": "src/repro/kernels/bsr_matmul.py:143",
-        # the yi-9b generate (the CNN path runs kernel 3 instead)
-        "launches": launches["bsr_matmul"],
-        "max_abs_err": max_err,
+        # the yi-9b and the mixtral generate, each counted alone (the CNN
+        # path runs kernel 3 instead)
+        "launches": launches["bsr_matmul"] + moe_launches["bsr_matmul"],
+        "launches_by_path": {
+            "yi-9b generate": launches["bsr_matmul"],
+            "mixtral-8x7b generate": moe_launches["bsr_matmul"]},
+        "max_abs_err": max(max_err, moe_err),
         # one decode step's 7 projections of one layer (M = 4), summed
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
@@ -1065,6 +1468,21 @@ def main(argv=None):
          "N": r["N"], "ms": r["ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "plain_ms": r["plain_ms"],
          "library_ms": r["library_ms"]} for r in rows]
+    entry["experts"] = {
+        "launches": moe_launches["bsr_matmul"], "max_abs_err": moe_err,
+        "decode": layer_sum(moe_rows, 4),
+        "prefill": layer_sum(moe_rows, moe_m),
+        "measured_at": f"sum over one mixtral-8x7b MoE layer's 3 expert "
+                       f"projections, 8 experts in one launch each, at "
+                       f"decode M=4 (prefill: M={moe_m} rows an expert), "
+                       f"bf16, (16,16) blocks, rate 0.6, 4 bins; library "
+                       f"= torch.bmm of the masked dense (E, K, N) stack",
+        "shapes": [
+            {"layer": f"mixtral-8x7b/{r['proj']}", "E": r["E"], "M": r["M"],
+             "K": r["K"], "N": r["N"], "ms": r["ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+             "stream_ms": r["stream_ms"]} for r in moe_rows]}
     entries = [entry] + conv_entries(conv_rows, conv_err, conv_launches)
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
@@ -1073,7 +1491,8 @@ def main(argv=None):
          "cuda": torch.version.cuda,
          "build": {n: _build.BUILD_INFO[n]["seconds"] for n in KERNEL_FILES},
          "ptxas": {n: _build.BUILD_INFO[n]["log"] for n in KERNEL_FILES},
-         "kernels": entries, "yi9b_shapes": rows,
+         "kernels": entries, "yi9b_shapes": rows, "moe_shapes": moe_rows,
+         "moe_serve": moe_e2e,
          "conv_shapes": conv_rows, "floor_shapes": floor_rows,
          "serve": e2e, "conv_serve": conv_e2e},
         indent=1))

@@ -15,7 +15,7 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                 # dense (the only family ported so far)
+    family: str                 # dense | moe (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -23,6 +23,10 @@ class ArchConfig:
     d_ff: int
     vocab: int
     head_dim: int = 0           # 0 -> d_model // n_heads
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    moe_group: int = 1024       # tokens per dispatch group
     sliding_window: int = 0
     rope_theta: float = 10000.0
     kv_chunk: int = 1024        # KV chunk of the online-softmax attention
@@ -40,6 +44,7 @@ class ArchConfig:
 # canonical external ids -> module names
 ALIASES = {
     "yi-9b": "yi_9b",
+    "mixtral-8x7b": "mixtral_8x7b",
 }
 
 

@@ -32,10 +32,12 @@ import torch
 
 
 def _bin_slices(t, sizes):
-    """Consecutive slices of ``t`` of the given lengths (one per bin)."""
+    """Consecutive slices of ``t``'s last dim of the given lengths (one per
+    bin), each contiguous: a stacked (E, Nb) column table gives (E, nb_b)
+    tensors."""
     out, start = [], 0
     for n in sizes:
-        out.append(t[start:start + n])
+        out.append(t[..., start:start + n].contiguous())
         start += n
     return tuple(out)
 
@@ -151,13 +153,14 @@ class PackedLayout:
 
     @cached_property
     def bin_cols(self) -> tuple:
-        """Per-bin (nb_b,) int32 ORIGINAL block column of each layout
-        column (single-slice layouts) — where the kernel writes each
-        column tile, which makes the un-permute gather unnecessary.
-        Computed once per layout object."""
+        """Per-bin (..., nb_b) int32 ORIGINAL block column of each layout
+        column, contiguous, with the layout's leading stack dims (an
+        expert stack's (E, nb_b)) — where the kernel writes each column
+        tile, which makes the un-permute gather unnecessary.  Computed
+        once per layout object."""
         cols = (self.perm if self.perm is not None else
                 torch.arange(self.Nb, dtype=torch.int32,
-                             device=self.nnz.device))
+                             device=self.nnz.device).expand(self.nnz.shape))
         return _bin_slices(cols, self.bin_sizes)
 
     @cached_property
@@ -372,8 +375,8 @@ class TapLayout:
         """Per-bin (G_b * group,) bias slices in layout order (or Nones)."""
         if bias is None:
             return (None,) * self.n_bins
-        pb = self.permute_bias(bias).reshape(-1, self.group)
-        return tuple(t.reshape(-1) for t in _bin_slices(pb, self.bin_sizes))
+        return _bin_slices(self.permute_bias(bias),
+                           [n * self.group for n in self.bin_sizes])
 
     def bin_k_full(self) -> tuple:
         """Per-bin (G_b, L_b) FULL-band row ids (tap*C + channel): the

@@ -22,7 +22,11 @@ each column tile straight to its ORIGINAL column (``layout.perm``), so
 ``bsr_matmul_packed`` needs neither the per-bin concat nor the un-permute
 gather of the reference.  ``bsr_plan`` decides the launch from the shapes
 (path, M tile, warps, chunk of slots, shared memory); ``_bsr_bins`` lays
-out the bins' descriptor table the kernel takes as an argument.
+out the bins' descriptor table the kernel takes as an argument.  An MoE
+expert stack (a layout whose leaves carry a leading expert axis E, x
+(E, M, K)) runs in the same single launch, the expert on the grid's y
+dimension (the reference vmaps its kernel over experts,
+``repro/kernels/ops.py:437``).
 
 Kernels 2-4 replace the reference's ``tap_gather_conv`` (:314),
 ``_conv_implicit_bin`` (:483) and ``_tap_implicit_bin`` (:613); each writes
@@ -60,7 +64,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # C entry point -> (library, pointer args, int args); every entry ends
 # with the stream pointer
 _ENTRIES = {
-    "bsr_matmul_launch": ("bsr_matmul", 7, 6),
+    "bsr_matmul_launch": ("bsr_matmul", 7, 12),
     "bsr_conv_launch": ("bsr_matmul", 7, 6),
     "tap_conv_launch": ("tap_gather", 6, 4),
 }
@@ -458,8 +462,9 @@ class BsrPlan:
     group, ``U`` units, each one slot's ``KS``-deep piece: the gathered x
     tile (MT rows of ``xp`` elements in shared memory) and the value piece
     (KS rows of ``vp``), through a ring of ``stages``.  ``mma``: bf16 on
-    the tensor cores; otherwise fp32 FMAs on CUDA cores (FM = 1).  Field
-    order up to ``smem`` is the kernel's ``BsrShape``."""
+    the tensor cores; otherwise fp32 FMAs on CUDA cores (FM = 1).  ``E``
+    experts run side by side (grid y).  Field order up to ``smem`` is the
+    kernel's ``BsrShape``."""
     M: int
     bk: int
     bn: int
@@ -482,6 +487,7 @@ class BsrPlan:
     K: int
     N: int
     dtype: torch.dtype
+    E: int = 1
 
     def args(self):
         """The ``BsrShape`` ints, in the kernel's field order."""
@@ -499,8 +505,9 @@ class BsrPlan:
 
 
 @functools.lru_cache(maxsize=256)
-def bsr_plan(M, K, N, dtype, bk, bn):
-    """Kernel 1's launch for x (M, K) @ a (K, N) layout of (bk, bn) blocks.
+def bsr_plan(M, K, N, dtype, bk, bn, E=1):
+    """Kernel 1's launch for x (M, K) @ a (K, N) layout of (bk, bn) blocks,
+    or for ``E`` such products of an expert stack side by side.
 
     Path: tensor cores for bf16 with bk % 16 == 0 and bn % 8 == 0, else
     FMAs.  M tile: the least power of two >= M between 16 and 128 (64 on
@@ -508,9 +515,10 @@ def bsr_plan(M, K, N, dtype, bk, bn):
     chunk's slots.  Chunk: S = ``BSR_CHUNK`` slots (short enough that all
     WK warp groups stay busy on the short columns of a pruned layer), no
     more than a column of K // bk slots needs, halved (down to SW = 4)
-    while a launch at full density has fewer than ``BSR_TARGET_BLOCKS``
-    blocks.  Step and ring: the most units a step (then the deepest ring)
-    within ``BSR_SMEM_TARGET``, else one unit in the shallowest ring.
+    while a launch at full density (all E experts' tiles) has fewer than
+    ``BSR_TARGET_BLOCKS`` blocks.  Step and ring: the most units a step
+    (then the deepest ring) within ``BSR_SMEM_TARGET``, else one unit in
+    the shallowest ring.
     Raises ValueError for a block the kernel does not take."""
     if dtype not in _DTYPES:
         raise TypeError(f"bsr_matmul: dtype {dtype} not supported "
@@ -531,7 +539,7 @@ def bsr_plan(M, K, N, dtype, bk, bn):
     NW = min(bn, 32)
     KS = min(bk, 64 if mma else 32)
     subcols, mtiles = bn // NW, -(-M // MT)
-    Kb, tiles = K // bk, (N // bn) * subcols * mtiles
+    Kb, tiles = K // bk, E * (N // bn) * subcols * mtiles
     SW = 4
     while WK * SW < min(Kb, BSR_CHUNK):
         SW *= 2
@@ -548,7 +556,7 @@ def bsr_plan(M, K, N, dtype, bk, bn):
                      (1, BSR_STAGES[-1]))
     return BsrPlan(M, bk, bn, mma, MT, FM, WM, NW, KS, WK * SW, SW,
                    subcols, mtiles, xp, vp, U, stages, smem_of(U, stages),
-                   WK, K, N, dtype)
+                   WK, K, N, dtype, E)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -557,7 +565,8 @@ class BsrBins:
     (values, k_idx and cols pointers, first workspace float, columns,
     padded degree, chunks a column, first block, first tile, 0) as host
     int64; ``items`` blocks, ``tiles`` counters and ``ws_floats`` of
-    workspace the launch needs."""
+    workspace of one expert (the whole launch for an unstacked layout;
+    an expert stack's leaves are addressed by stride from expert 0's)."""
     table: ctypes.Array
     n_bins: int
     items: int
@@ -567,16 +576,21 @@ class BsrBins:
 
 def _bsr_bins(layout, plan, device):
     """Kernel 1's bin table for ``plan``, checked against what the kernel
-    assumes of each bin's tensors.  Cached per layout and plan (the
-    layout's tensors never change)."""
+    assumes of each bin's tensors (an expert stack: ``plan.E`` experts on
+    a leading axis of every leaf, each leaf contiguous).  Cached per
+    layout and plan (the layout's tensors never change)."""
     def build():
         if layout.n_bins > BSR_MAX_BINS:
             raise ValueError(f"bsr_matmul: {layout.n_bins} bins, the kernel "
                              f"takes at most {BSR_MAX_BINS}")
+        lead = _expert_dims(layout)
+        if (lead[0] if lead else 1) != plan.E:
+            raise ValueError(f"bsr_matmul: the layout stacks {lead} "
+                             f"experts, the plan {plan.E}")
         rows, item, tile, ws = [], 0, 0, 0
         for vals, kidx, cols in zip(layout.values, layout.k_idx,
                                     layout.bin_cols):
-            nb, L = kidx.shape
+            nb, L = kidx.shape[-2:]
             if any(t.device != device for t in (vals, kidx, cols)):
                 raise ValueError(f"bsr_matmul: the layout and x must share "
                                  f"one device ({device})")
@@ -585,8 +599,9 @@ def _bsr_bins(layout, plan, device):
                                 f"x dtype {plan.dtype}")
             if kidx.dtype != torch.int32 or cols.dtype != torch.int32:
                 raise TypeError("bsr_matmul: k_idx and cols must be int32")
-            if (tuple(vals.shape) != (nb, L, plan.bk, plan.bn)
-                    or tuple(cols.shape) != (nb,)):
+            if (tuple(vals.shape) != lead + (nb, L, plan.bk, plan.bn)
+                    or tuple(kidx.shape) != lead + (nb, L)
+                    or tuple(cols.shape) != lead + (nb,)):
                 raise ValueError(f"bsr_matmul: shapes disagree: values "
                                  f"{tuple(vals.shape)}, k_idx "
                                  f"{tuple(kidx.shape)}, cols "
@@ -610,6 +625,16 @@ def _bsr_bins(layout, plan, device):
         table = (ctypes.c_longlong * len(rows))(*rows)
         return BsrBins(table, layout.n_bins, item, tile, ws)
     return _cached(layout, ("bins", plan), build)
+
+
+def _expert_dims(layout):
+    """() for an unstacked layout, (E,) for an expert stack; a layout with
+    more stack dims (a layer axis) must be sliced first."""
+    lead = tuple(layout.nnz.shape[:-1])
+    if len(lead) > 1:
+        raise ValueError(f"bsr_matmul: the layout carries stack dims "
+                         f"{lead}; slice its layer first (layout.layer(i))")
+    return lead
 
 
 # per device: kernel 1's per-tile arrival counters, all 0 between launches
@@ -636,43 +661,60 @@ def bsr_matmul_packed(x, layout, bias=None, act="none"):
     result is in original column order without a gather.  An output's
     sum order depends on its column's slot list and the shapes only, so
     reordered and unreordered layouts give bit-identical results.  x needs
-    unit column stride and a 16-byte aligned base and row pitch."""
+    unit column stride and a 16-byte aligned base and row pitch.
+
+    An expert stack (every leaf with a leading expert axis E, as
+    ``serve.compile`` packs MoE experts) takes x (E, M, K) -> (E, M, N),
+    bias None or (E, N): all experts in the same one launch, x's expert
+    stride 16-byte aligned too."""
+    lead = _expert_dims(layout)
+    if x.dim() != 2 + len(lead) or tuple(x.shape[:-2]) != lead:
+        raise ValueError(f"bsr_matmul: x {tuple(x.shape)} does not match a "
+                         f"layout with expert dims {lead}")
     if x.shape[-1] != layout.shape[0]:
         raise ValueError(f"bsr_matmul: x has K={x.shape[-1]}, the layout "
                          f"K={layout.shape[0]}")
     if x.device.type == "cpu":
+        if lead:
+            return ref.bsr_matmul_experts_ref(x, layout, bias, act)
         return ref.bsr_matmul_packed_ref(x, layout, bias, act)
     if x.device.type != "cuda":
         raise ValueError(f"bsr_matmul: unsupported device {x.device}")
     if act not in _ACTS:
         raise ValueError(f"bsr_matmul: unknown activation {act!r}")
-    M, K = x.shape
+    E = lead[0] if lead else 1
+    M, K = x.shape[-2:]
     N = layout.shape[1]
     es = x.element_size()
-    if x.stride(1) != 1 or x.data_ptr() % 16 or (M > 1 and
-                                                 x.stride(0) * es % 16):
+    ldx_e = x.stride(0) if lead else 0
+    if (x.stride(-1) != 1 or x.data_ptr() % 16
+            or (M > 1 and x.stride(-2) * es % 16) or ldx_e * es % 16
+            or max(x.stride(-2), ldx_e) >= 2 ** 31):
         raise ValueError("bsr_matmul: x needs unit column stride and a "
-                         "16-byte aligned base and row pitch")
-    if bias is not None and (bias.shape != (N,) or not bias.is_contiguous()
+                         "16-byte aligned base, row pitch and expert stride")
+    if bias is not None and (bias.shape != lead + (N,)
+                             or not bias.is_contiguous()
                              or bias.device != x.device
                              or bias.dtype != x.dtype):
-        raise ValueError(f"bsr_matmul: bias must be a contiguous ({N},) "
-                         f"{x.dtype} tensor on {x.device}")
-    plan = bsr_plan(M, K, N, x.dtype, *layout.block)
+        raise ValueError(f"bsr_matmul: bias must be a contiguous "
+                         f"{lead + (N,)} {x.dtype} tensor on {x.device}")
+    plan = bsr_plan(M, K, N, x.dtype, *layout.block, E)
     bins = _bsr_bins(layout, plan, x.device)
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    out = torch.empty(lead + (M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return out
-    ws = (torch.empty(bins.ws_floats, dtype=torch.float32, device=x.device)
-          if bins.ws_floats else None)
+    ws = (torch.empty(E * bins.ws_floats, dtype=torch.float32,
+                      device=x.device) if bins.ws_floats else None)
     err = _kernel()(x.data_ptr(), None if bias is None else bias.data_ptr(),
                     out.data_ptr(), None if ws is None else ws.data_ptr(),
-                    _counters(x.device, bins.tiles).data_ptr(),
+                    _counters(x.device, E * bins.tiles).data_ptr(),
                     ctypes.addressof(plan.c_args),
                     ctypes.addressof(bins.table), bins.n_bins, bins.items,
-                    x.stride(0), out.stride(0), _ACTS[act], _DTYPES[x.dtype],
-                    _stream(x))
-    _raise_on(err, "bsr_matmul", f"M={M}, K={K}, N={N}, block="
+                    x.stride(-2), out.stride(-2), _ACTS[act],
+                    _DTYPES[x.dtype], E, ldx_e, out.stride(0) if lead else 0,
+                    N if lead and bias is not None else 0, bins.tiles,
+                    bins.ws_floats, _stream(x))
+    _raise_on(err, "bsr_matmul", f"E={E}, M={M}, K={K}, N={N}, block="
                                  f"{layout.block}, dtype={x.dtype}, "
                                  f"plan={plan.args()}")
     LAUNCHES["bsr_matmul"] += 1

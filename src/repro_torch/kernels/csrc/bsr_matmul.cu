@@ -1,10 +1,13 @@
 // Kernel 1, bsr_matmul_kernel: BCS block-sparse matmul for Hopper (sm_90a):
 //   out[:, cols[j]*bn + c] = act(sum_l x[:, k_idx[j,l]*bk : +bk] @ values[j,l][:, c] + bias)
 // over every block column j of every degree bin of a PackedLayout, in ONE
-// launch (bsr_matmul_launch).
+// launch (bsr_matmul_launch); for a stack of E expert layouts (MoE), every
+// expert's product in the same launch, the expert on grid dimension y.
 //
 // Replaces the Pallas TPU kernel `bsr_matmul` (body `_kernel`) in
-// src/repro/kernels/bsr_matmul.py:63 (launch :143).  There the sequential
+// src/repro/kernels/bsr_matmul.py:63 (launch :143), and its vmap over
+// experts in `sparse_expert_linear` (src/repro/kernels/ops.py:437, one
+// batched launch per degree bin there).  There the sequential
 // grid (M/bm, Nb, L) carried an fp32 VMEM accumulator across the L steps.
 // Here a thread block owns one work item -- (layout column j, a sub-column
 // of NW of its bn outputs, an M tile of MT rows, a chunk of S of its slots)
@@ -16,9 +19,11 @@
 // is about M flop/byte in bf16, far below the card's ~295: at yi-9b decode
 // (M = 4) and prefill (M = 128) alike the bound is the value bytes at
 // 3.35 TB/s (0.042 ms a layer at rate 0.6), the bf16 operations at
-// prefill taking under half of that.  The first port reached ~6 % of the
-// HBM rate at decode and multiplied on CUDA cores at prefill, one launch
-// per degree bin.  What the design does:
+// prefill taking under half of that; mixtral's experts (E = 8, M = 4 at
+// decode, 40 at prefill) read ~1.13 GB of live values a layer, 0.34 ms
+// at that rate.  The first port reached ~6 % of the HBM rate at decode
+// and multiplied on CUDA cores at prefill, one launch per degree bin.
+// What the design does:
 //   * one launch per call over all bins: the bins' pointers, degrees and
 //     work-item offsets travel as a by-value kernel argument (BinDesc), so
 //     no table is copied to the card and a CUDA graph captures it as is;
@@ -50,7 +55,15 @@
 //     lane owning NW / 2 outputs of its warp's 16 x NW tile;
 //   * the epilogue (bias, silu / relu, one rounding) runs once per output
 //     from an fp32 tile in shared memory; each column writes straight to
-//     its ORIGINAL columns (cols = layout.perm), so no gather follows.
+//     its ORIGINAL columns (cols = layout.perm), so no gather follows;
+//   * experts (MoE): blockIdx.y = e.  The per-bin leaves of an expert
+//     stack are contiguous (E, nb, L, bk, bn) / (E, nb, L) / (E, nb), so a
+//     bin's descriptor addresses expert e by stride (e * nb * L * bk * bn
+//     values, e * nb * L k_idx, e * nb cols); x, out and bias get an
+//     expert stride each, and the tile counters and the workspace are
+//     offset by e times one expert's share.  The bin table stays one
+//     expert's (at most 16 bins), so the table never caps E; an unstacked
+//     layout is E = 1 (blockIdx.y = 0, every offset 0).
 //
 // Numerics: inside a warp group's sub-chunk every output is one chain over
 // its slots in slot order (one MMA k-step, or bk FMAs, per slot and KS
@@ -65,9 +78,10 @@
 // zeros: reordered and unreordered layouts give bit-identical outputs.
 // bf16 products are exact in fp32; the sums round in fp32.
 //
-// ptxas -v (CUDA 12.8, -O3, sm_90a): kernel 1 90-126 registers over its
-// 18 instantiations (90 for the (16, 16) decode tile, 110 for (16, 16)
-// at MT = 32-128), no spills, under __launch_bounds__(128, 4); dynamic
+// ptxas -v (CUDA 12.8, -O3, sm_90a): kernel 1 93-128 registers over its
+// 18 instantiations with the expert axis (93 for the (16, 16) decode
+// tile, 113 for the 64-row tile of the expert prefill), no spills, under
+// __launch_bounds__(128, 4); dynamic
 // shared memory per bsr_plan, 49-56 KB at yi-9b's shapes (the chunk's
 // k_idx, a 4-deep ring of 2 units a group, the flag).
 //
@@ -215,6 +229,9 @@ static_assert(sizeof(BinDesc) == 10 * sizeof(long long),
 struct BsrArgs {
   BsrShape p;
   int ldx, ldo, act, n_bins;
+  // one expert's stride in x, out and bias (elements), its tile counters
+  // and workspace floats; all 0 for an unstacked layout
+  long long ldx_e, ldo_e, ldb_e, tiles_e, ws_e;
   BinDesc bins[kMaxBins];
 };
 
@@ -306,7 +323,12 @@ bsr_matmul_kernel(const T* __restrict__ x, const T* __restrict__ bias,
   const int wm = warp % WM, wk = warp / WM;
   const int NW = MMA ? NWT : p.NW;
 
-  // the work item: bin b, column j, sub-column s, M tile mt, chunk c
+  // the work item: expert ex, bin b, column j, sub-column s, M tile mt,
+  // chunk c
+  const int ex = blockIdx.y;
+  x += ex * a.ldx_e;
+  out += ex * a.ldo_e;
+  if (bias != nullptr) bias += ex * a.ldb_e;
   int b = 0;
   while (b + 1 < a.n_bins && (long long)blockIdx.x >= a.bins[b + 1].item0)
     ++b;
@@ -324,9 +346,10 @@ bsr_matmul_kernel(const T* __restrict__ x, const T* __restrict__ bias,
   const int rows = min(MT, p.M - m0);
   const int bk = p.bk, bn = p.bn, KS = p.KS, nks = bk / KS;
   const int ns = p.stages;
-  const T* vj = reinterpret_cast<const T*>(d.vals) + (size_t)j * L * bk * bn +
+  const size_t je = (size_t)ex * d.ncols + j;  // column j of expert ex
+  const T* vj = reinterpret_cast<const T*>(d.vals) + je * L * bk * bn +
                 s * NW;
-  const int* kj = reinterpret_cast<const int*>(d.kidx) + (size_t)j * L;
+  const int* kj = reinterpret_cast<const int*>(d.kidx) + je * L;
   const int slot0 = c * p.S;
 
   const int U = p.U;
@@ -463,7 +486,7 @@ bsr_matmul_kernel(const T* __restrict__ x, const T* __restrict__ bias,
   red = reinterpret_cast<float*>(ring);
 
   const int n_out = rows * NW;
-  const int oc0 = __ldg(reinterpret_cast<const int*>(d.cols) + j) * bn +
+  const int oc0 = __ldg(reinterpret_cast<const int*>(d.cols) + je) * bn +
                   s * NW;
   auto finish = [&](int e, float y) {
     const int row = e >> lognw, cc = e & (NW - 1);
@@ -483,12 +506,12 @@ bsr_matmul_kernel(const T* __restrict__ x, const T* __restrict__ bias,
   }
   // a column cut into chunks: each chunk's sum to the workspace; the last
   // block to arrive adds them in chunk order and resets the counter
-  float* wt = ws + d.ws0 + (size_t)tile * nch * MT * NW;
+  float* wt = ws + ex * a.ws_e + d.ws0 + (size_t)tile * nch * MT * NW;
   for (int e = tid; e < n_out; e += kBsrThreads)
     wt[(size_t)c * MT * NW + e] = chunk_sum(e);
   __threadfence();
   __syncthreads();
-  int* ctr = counters + d.tile0 + tile;
+  int* ctr = counters + ex * a.tiles_e + d.tile0 + tile;
   if (tid == 0) s_last = atomicAdd(ctr, 1) == nch - 1;
   __syncthreads();
   if (!s_last) return;
@@ -505,7 +528,7 @@ bsr_matmul_kernel(const T* __restrict__ x, const T* __restrict__ bias,
 template <typename T, bool MMA, int FM, int WM, int NWT>
 cudaError_t bsr_launch_cfg(const void* x, const void* bias, void* out,
                            float* ws, int* counters, const BsrArgs& a,
-                           int items, cudaStream_t stream) {
+                           int items, int n_exp, cudaStream_t stream) {
   static bool attr_set = false;          // once per instantiation
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -515,7 +538,7 @@ cudaError_t bsr_launch_cfg(const void* x, const void* bias, void* out,
     attr_set = true;
   }
   bsr_matmul_kernel<T, MMA, FM, WM, NWT>
-      <<<items, kBsrThreads, a.p.smem, stream>>>(
+      <<<dim3(items, n_exp), kBsrThreads, a.p.smem, stream>>>(
           static_cast<const T*>(x), static_cast<const T*>(bias),
           static_cast<T*>(out), ws, counters, a);
   return cudaGetLastError();
@@ -526,12 +549,12 @@ cudaError_t bsr_launch_cfg(const void* x, const void* bias, void* out,
 template <typename T, bool MMA, int NWT>
 cudaError_t bsr_launch_tile(const void* x, const void* bias, void* out,
                             float* ws, int* counters, const BsrArgs& a,
-                            int items, cudaStream_t stream) {
+                            int items, int n_exp, cudaStream_t stream) {
   const int fm = a.p.FM, wm = a.p.WM;
 #define BSR_CFG(FM_, WM_)                                                    \
   if (fm == FM_ && wm == WM_)                                                \
   return bsr_launch_cfg<T, MMA, FM_, WM_, NWT>(x, bias, out, ws, counters, a, \
-                                               items, stream)
+                                               items, n_exp, stream)
   BSR_CFG(1, 1);
   if constexpr (MMA) {
     BSR_CFG(2, 1);
@@ -574,26 +597,26 @@ bool bad_shape(const BsrShape& p, int n_bins, int items, int dtype) {
 template <typename T>
 cudaError_t bsr_launch_typed(const void* x, const void* bias, void* out,
                              float* ws, int* counters, const BsrArgs& a,
-                             int items, cudaStream_t stream) {
+                             int items, int n_exp, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
     if (a.p.mma) {
       switch (a.p.NW) {
         case 8:
           return bsr_launch_tile<T, true, 8>(x, bias, out, ws, counters, a,
-                                             items, stream);
+                                             items, n_exp, stream);
         case 16:
           return bsr_launch_tile<T, true, 16>(x, bias, out, ws, counters, a,
-                                              items, stream);
+                                              items, n_exp, stream);
         case 32:
           return bsr_launch_tile<T, true, 32>(x, bias, out, ws, counters, a,
-                                              items, stream);
+                                              items, n_exp, stream);
         default:
           return cudaErrorInvalidConfiguration;
       }
     }
   }
   return bsr_launch_tile<T, false, 0>(x, bias, out, ws, counters, a, items,
-                                      stream);
+                                      n_exp, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -894,34 +917,46 @@ cudaError_t launch_conv(const void* x, const float* vals, const int* soffs,
 // with row stride ldx (16-byte aligned base and rows), bias None or (N,)
 // in ORIGINAL column order, out (M, N) with row stride ldo.  shape: the
 // BsrShape ints (host memory); bins: n_bins BinDesc rows of 10 int64
-// (host memory); items: blocks of the launch.  ws: the fp32 workspace of
-// the chunked columns (None when no column is cut); counters: one int32
-// per tile, all 0 on entry and again on exit.  dtype: 0 float32, 1
-// bfloat16 (x, values, bias and out share it).  Returns the cudaError_t
-// of the launch (0 on success); the caller raises.
+// (host memory, one expert's); items: blocks of the launch per expert.
+// ws: the fp32 workspace of the chunked columns (None when no column is
+// cut); counters: one int32 per tile, all 0 on entry and again on exit.
+// dtype: 0 float32, 1 bfloat16 (x, values, bias and out share it).
+// n_exp experts (1 for an unstacked layout; the bins' leaves then carry a
+// leading expert axis): x, out and bias of expert e start ldx_e, ldo_e
+// and ldb_e elements after expert e - 1's, its counters tiles_e and its
+// workspace ws_e floats after.  Returns the cudaError_t of the launch (0
+// on success); the caller raises.
 extern "C" int bsr_matmul_launch(const void* x, const void* bias, void* out,
                                  void* ws, void* counters, const void* shape,
                                  const void* bins, int n_bins, int items,
                                  int ldx, int ldo, int act, int dtype,
-                                 void* stream) {
+                                 int n_exp, int ldx_e, int ldo_e, int ldb_e,
+                                 int tiles_e, int ws_e, void* stream) {
   BsrArgs a;
   memset(&a, 0, sizeof(a));
   memcpy(&a.p, shape, sizeof(a.p));
   if (bad_shape(a.p, n_bins, items, dtype) || act < 0 || act > 2 ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || n_exp < 1 || n_exp > 65535 ||
+      ldx_e < 0 || ldo_e < 0 || ldb_e < 0 || tiles_e < 0 || ws_e < 0)
     return (int)cudaErrorInvalidValue;
   memcpy(a.bins, bins, sizeof(BinDesc) * n_bins);
   a.ldx = ldx;
   a.ldo = ldo;
   a.act = act;
   a.n_bins = n_bins;
+  a.ldx_e = ldx_e;
+  a.ldo_e = ldo_e;
+  a.ldb_e = ldb_e;
+  a.tiles_e = tiles_e;
+  a.ws_e = ws_e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
   int* ctr = static_cast<int*>(counters);
   if (dtype == 0)
-    return (int)bsr_launch_typed<float>(x, bias, out, w, ctr, a, items, s);
+    return (int)bsr_launch_typed<float>(x, bias, out, w, ctr, a, items,
+                                        n_exp, s);
   return (int)bsr_launch_typed<__nv_bfloat16>(x, bias, out, w, ctr, a, items,
-                                              s);
+                                              n_exp, s);
 }
 
 // Kernel 3, one launch over every degree bin of a conv PackedLayout:

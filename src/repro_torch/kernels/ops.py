@@ -6,6 +6,8 @@ a pruned layer:
                           masked inside the kernel, so the packed path never
                           falls back to dense)
   dense weight (+mask) -> masked-dense plain version
+``sparse_expert_linear`` runs an MoE expert stack's projections in one
+launch of the same kernel.
 ``sparse_conv2d`` runs a block-punched conv through the BCS conv kernel
 (over im2col patches, or implicit: staged from the image in the kernel)
 and ``sparse_conv2d_pattern`` a pattern/connectivity conv through the
@@ -83,6 +85,21 @@ def sparse_linear(x, packed: PackedLayout | None = None, w=None, mask=None,
             x2, w, mask if mask is not None else w.new_ones(()),
             bias=bias, act=act)
     return y.reshape(*lead, y.shape[-1])
+
+
+def sparse_expert_linear(x, packed: PackedLayout, bias=None, act="none"):
+    """Batched per-expert sparse GEMM: x (E, M, K) -> (E, M, N).
+
+    ``packed`` carries a leading expert axis on every leaf (values
+    (E, nb_b, L_b, bk, bn), perm (E, Nb), ...), as ``serve.compile``
+    packs MoE expert weights; bias None or (E, N).  One kernel launch
+    covers every expert and every degree bin (the expert is a grid axis
+    of the kernel, not a loop here); the plain version for CPU tensors
+    runs expert by expert."""
+    if x.dim() != 3:
+        raise ValueError(f"sparse_expert_linear: x {tuple(x.shape)} is not "
+                         f"(E, M, K)")
+    return bsr_matmul_packed(x, packed, bias=bias, act=act)
 
 
 def im2col(x, kh, kw, stride=1, padding="SAME"):

@@ -91,6 +91,16 @@ def _bsr_packed(x_blocks, M, layout, bias, act):
     return _epilogue(acc, bias, act)
 
 
+def bsr_matmul_experts_ref(x, layout, bias=None, act="none"):
+    """x (E, M, K) @ an expert stack (``PackedLayout`` leaves with a
+    leading E axis) -> (E, M, N): expert e's product with its own layout
+    slice, expert by expert; bias None or (E, N)."""
+    return torch.stack([
+        bsr_matmul_packed_ref(x[e], layout.layer(e),
+                              None if bias is None else bias[e], act)
+        for e in range(x.shape[0])])
+
+
 def _conv_rows(xp, Ho, Wo, stride):
     """(M,) flat offset of each output position's top-left input pixel in
     the padded image xp (B, Hp, Wp, C), positions in (b, ho, wo) order."""

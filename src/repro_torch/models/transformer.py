@@ -1,4 +1,4 @@
-"""Model assembly for the dense decoder family.
+"""Model assembly for the dense and MoE decoder families.
 
 Per-layer params are stacked on a leading layer dim, as in the reference;
 where the reference scans over that dim, the port loops over the layer
@@ -14,30 +14,39 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import module as M
+from repro_torch.models.moe import moe, moe_init
+
+FAMILIES = ("dense", "moe")
 
 
 def init_lm(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
             device="cuda"):
-    """Random dense-LM params from ``seed`` (a ``torch.Generator`` on the
-    device), layer leaves stacked on a leading ``n_layers`` dim."""
-    if cfg.family != "dense":
+    """Random LM params from ``seed`` (a ``torch.Generator`` on the
+    device), layer leaves stacked on a leading ``n_layers`` dim; an MoE
+    layer's FFN is ``{"moe": ...}`` (router in fp32) in place of
+    ``{"ffn": ...}``."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     dev = M.resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     n, d = cfg.n_layers, cfg.d_model
     kw = dict(dtype=dtype, device=dev)
+    layers = {
+        "ln1": {"scale": torch.ones((n, d), **kw)},
+        "attn": A.attn_init(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, gen,
+                            n=n, **kw),
+        "ln2": {"scale": torch.ones((n, d), **kw)},
+    }
+    if cfg.family == "moe":
+        layers["moe"] = moe_init(d, cfg.d_ff, cfg.n_experts, gen, n=n, **kw)
+    else:
+        layers["ffn"] = L.ffn_init(d, cfg.d_ff, gen, n=n, **kw)
     return {
         "embed": L.embedding_init(cfg.vocab, d, gen, **kw),
         "head": L.embedding_init(cfg.vocab, d, gen, **kw),
         "norm_f": L.rmsnorm_init(d, **kw),
-        "layers": {
-            "ln1": {"scale": torch.ones((n, d), **kw)},
-            "attn": A.attn_init(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, gen,
-                                n=n, **kw),
-            "ln2": {"scale": torch.ones((n, d), **kw)},
-            "ffn": L.ffn_init(d, cfg.d_ff, gen, n=n, **kw),
-        },
+        "layers": layers,
     }
 
 
@@ -52,14 +61,22 @@ def layer_params(params) -> list:
     return [M.take_layer(params["layers"], i) for i in range(n_layers(params))]
 
 
+def _ffn(p, h, cfg: ArchConfig):
+    """The layer's FFN on its normed input: SwiGLU, or the MoE experts
+    (their aux loss is a training quantity, dropped when serving)."""
+    if cfg.family == "moe":
+        return moe(p["moe"], h, top_k=cfg.top_k, group=cfg.moe_group)[0]
+    return L.ffn(p["ffn"], h)
+
+
 def _layer_fwd(p, x, positions, cfg: ArchConfig):
-    """One dense layer.  Returns (x, (k, v)) with the layer's roped KV."""
+    """One layer.  Returns (x, (k, v)) with the layer's roped KV."""
     h = L.rmsnorm(p["ln1"], x)
     att, kv = A.mha(p["attn"], h, positions, cfg.n_heads, cfg.n_kv_heads,
                     cfg.hd, window=cfg.sliding_window,
                     rope_theta=cfg.rope_theta, kv_chunk=cfg.kv_chunk)
     x = x + att
-    x = x + L.ffn(p["ffn"], L.rmsnorm(p["ln2"], x))
+    x = x + _ffn(p, L.rmsnorm(p["ln2"], x), cfg)
     return x, kv
 
 
@@ -77,7 +94,8 @@ def forward(params, cfg: ArchConfig, tokens, positions=None):
 
 def init_cache(params, cfg: ArchConfig, batch, seq, dtype=torch.bfloat16):
     """Fixed-shape KV caches, stacked on the layer dim as in the
-    reference: k/v (n_layers, B, S, KV, hd), pos (n_layers, S)."""
+    reference: k/v (n_layers, B, S, KV, hd), pos (n_layers, S); the same
+    for both families."""
     eff = min(seq, cfg.sliding_window) if cfg.sliding_window else seq
     dev = params["embed"]["table"].device
     n = n_layers(params)
@@ -102,7 +120,7 @@ def decode_step(params, cfg: ArchConfig, token, cache, pos, layers=None):
                               window=cfg.sliding_window,
                               rope_theta=cfg.rope_theta)
         x = x + att
-        x = x + L.ffn(lp["ffn"], L.rmsnorm(lp["ln2"], x))
+        x = x + _ffn(lp, L.rmsnorm(lp["ln2"], x), cfg)
     x = L.rmsnorm(params["norm_f"], x)
     return L.unembed(params["head"], x), cache
 

@@ -9,8 +9,10 @@ boundaries, then emulate the kernel with torch: the blocks' work items
 decoded from the table as the kernel decodes them, each warp group's
 sub-chunk in slot order, the groups added in order, the chunked columns
 through the workspace and the arrival counters (blocks arriving in a
-shuffled order), and the epilogue.  The emulation must equal itself
-bitwise on reordered and unreordered layouts and the plain version
+shuffled order), and the epilogue; an MoE expert stack's blocks
+(the kernel's grid y) address their expert's leaves, x, out, counters and
+workspace by the strides the wrapper passes.  The emulation must equal
+itself bitwise on reordered and unreordered layouts and the plain version
 within tolerance.  A last group emulates ``ldmatrix`` and ``mma.sync``
 fragment by fragment on the kernel's shared-memory addresses.  The
 kernels themselves run on the card (``test_torch_cuda.py``)."""
@@ -24,6 +26,7 @@ import numpy as np  # noqa: E402
 
 from repro_torch.kernels import bsr_matmul as K  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.serve import compile as C  # noqa: E402
 
 from test_torch_conv_plan import _check_plan, emulate_tap  # noqa: E402
 
@@ -174,27 +177,45 @@ def _decode(p, bins, item):
     return r, b, j, s, mt, c, (j * p.subcols + s) * p.mtiles + mt
 
 
+def _strided(t, offset, size, stride):
+    """The elements of contiguous ``t`` the kernel reads at flat element
+    ``offset`` (its pointer arithmetic), as a tensor of ``size``."""
+    flat = t.reshape(-1)
+    return flat.as_strided(size, stride, flat.storage_offset() + offset)
+
+
 def emulate_bsr(x, layout, bias, act, seed=0):
-    """Kernel 1 on its plan and bin table, blocks in a shuffled order."""
-    M, Kd = x.shape
+    """Kernel 1 on its plan and bin table, blocks in a shuffled order.  An
+    expert stack (x (E, M, K), leaves with a leading E axis) runs E copies
+    of the grid (blockIdx.y = e): expert e's values, k_idx and cols at e
+    times one expert's leaf from the bin's pointer, x / out / bias at e
+    times their expert stride, counters and workspace at e times one
+    expert's share, as the kernel addresses them."""
+    lead = tuple(layout.nnz.shape[:-1])
+    E = lead[0] if lead else 1
+    M, Kd = x.shape[-2:]
     bk, bn = layout.block
-    p = K.bsr_plan(M, Kd, layout.shape[1], x.dtype, bk, bn)
+    N = layout.shape[1]
+    p = K.bsr_plan(M, Kd, N, x.dtype, bk, bn, E)
     bins = K._bsr_bins(layout, p, CPU)
     MT, NW, KS = p.MT, p.NW, p.KS
     nks = bk // KS
-    out = torch.full((M, layout.shape[1]), float("nan"))
-    ws = torch.full((max(bins.ws_floats, 1),), float("nan"))
-    counters = torch.zeros(bins.tiles, dtype=torch.int64)
-    items = list(range(bins.items))
-    random.Random(seed).shuffle(items)
+    xe = x.reshape(E, M, Kd)
+    be = None if bias is None else bias.reshape(E, N)
+    out = torch.full((E, M, N), float("nan"))
+    ws = torch.full((max(E * bins.ws_floats, 1),), float("nan"))
+    counters = torch.zeros(E * bins.tiles, dtype=torch.int64)
+    blocks = [(e, item) for e in range(E) for item in range(bins.items)]
+    random.Random(seed).shuffle(blocks)
     seen = set()
-    for item in items:
+    for e, item in blocks:
         r, b, j, s, mt, c, tile = _decode(p, bins, item)
-        assert (b, j, s, mt, c) not in seen
-        seen.add((b, j, s, mt, c))
+        assert (e, b, j, s, mt, c) not in seen
+        seen.add((e, b, j, s, mt, c))
+        nb, L, nch = r[4], r[5], r[6]
+        je = e * nb + j                        # column j of expert e
         vals, kidx = layout.values[b], layout.k_idx[b]
-        col = int(layout.bin_cols[b][j])
-        L, nch = r[5], r[6]
+        col = int(layout.bin_cols[b].reshape(-1)[je])
         m0 = mt * MT
         rows = min(MT, M - m0)
         slot0 = c * p.S
@@ -205,10 +226,12 @@ def emulate_bsr(x, layout, bias, act, seed=0):
             for t in range(n):
                 l = slot0 + g * p.SW + t // nks
                 k0 = (t % nks) * KS
-                kb = int(kidx[j, l])
+                kb = int(kidx.reshape(-1)[je * L + l])
                 xt = torch.zeros(MT, KS)       # rows >= M stay zero
-                xt[:rows] = x[m0:m0 + rows, kb * bk + k0:kb * bk + k0 + KS]
-                vt = vals[j, l, k0:k0 + KS, s * NW:(s + 1) * NW]
+                xt[:rows] = xe[e, m0:m0 + rows,
+                               kb * bk + k0:kb * bk + k0 + KS]
+                vt = _strided(vals, (je * L + l) * bk * bn + k0 * bn
+                              + s * NW, (KS, NW), (bn, 1))
                 acc = acc + xt.float() @ vt.float()
             sums.append(acc)
         y = sums[0]
@@ -219,18 +242,18 @@ def emulate_bsr(x, layout, bias, act, seed=0):
         def finish(v):
             oc = col * bn + s * NW
             o = ref._epilogue(v.reshape(rows, NW),
-                              None if bias is None else
-                              bias[oc:oc + NW].float(), act)
-            dst = out[m0:m0 + rows, oc:oc + NW]
+                              None if be is None else
+                              be[e, oc:oc + NW].float(), act)
+            dst = out[e, m0:m0 + rows, oc:oc + NW]
             assert bool(dst.isnan().all()), "an output written twice"
-            out[m0:m0 + rows, oc:oc + NW] = o.to(x.dtype).float()
+            out[e, m0:m0 + rows, oc:oc + NW] = o.to(x.dtype).float()
 
         if nch == 1:
             finish(y)
             continue
-        base = r[3] + tile * nch * MT * NW
+        base = e * bins.ws_floats + r[3] + tile * nch * MT * NW
         ws[base + c * MT * NW:base + c * MT * NW + y.numel()] = y
-        t_id = r[8] + tile
+        t_id = e * bins.tiles + r[8] + tile
         counters[t_id] += 1
         if counters[t_id] == nch:              # the last to arrive
             v = ws[base:base + y.numel()].clone()
@@ -239,10 +262,10 @@ def emulate_bsr(x, layout, bias, act, seed=0):
                            + y.numel()]
             finish(v)
             counters[t_id] = 0
-    assert len(seen) == bins.items
+    assert len(seen) == E * bins.items
     assert bool((counters == 0).all()), "a counter left dirty"
     assert not bool(out.isnan().any()), "an output never written"
-    return out.to(x.dtype)
+    return out.reshape(lead + (M, N)).to(x.dtype)
 
 
 @pytest.mark.parametrize("dtype", [FP32, BF16])
@@ -268,6 +291,133 @@ def test_emulated_kernel_matches_plain_and_is_bitwise_reorder_stable(
     want = ref.bsr_matmul_packed_ref(x.float(), lays[0], b.float(), "silu")
     tol = 1e-4 if dtype == FP32 else 1e-2
     torch.testing.assert_close(ys[0].float(), want, rtol=tol, atol=tol)
+
+
+# -- kernel 1's expert axis (MoE) ---------------------------------------------
+
+def _expert_stack(E, K_, N_, block, dtype, reorder, n_bins=4, seed=0):
+    """An (E, K, N) expert stack packed as ``compile_model`` packs MoE
+    experts (``_pack_stacked``): one dense column, one empty, per expert."""
+    rng = np.random.RandomState(seed)
+    bk, bn = block
+    live = rng.rand(E, K_ // bk, N_ // bn) < 0.4
+    live[:, :, -1] = True
+    live[:, :, 0] = False
+    mask = torch.from_numpy(np.repeat(np.repeat(live, bk, 1), bn, 2))
+    w = torch.from_numpy(rng.randn(E, K_, N_).astype(np.float32)).to(dtype)
+    lay, _ = C._pack_stacked(w * mask.to(dtype), mask, block,
+                             reorder=reorder, n_bins=n_bins)
+    return lay
+
+
+def test_plan_counts_every_experts_tiles():
+    """E = 1 is the unstacked plan; an expert stack fills the card with all
+    experts' tiles, so its chunks are no shorter than one expert's."""
+    for M in (1, 4, 40, 65):
+        for Kd, N in ((4096, 14336), (14336, 4096), (512, 256)):
+            one = K.bsr_plan(M, Kd, N, BF16, 16, 16)
+            assert one == K.bsr_plan(M, Kd, N, BF16, 16, 16, 1)
+            assert one.E == 1
+            for E in (4, 8, 64, 384):
+                p = K.bsr_plan(M, Kd, N, BF16, 16, 16, E)
+                assert p.E == E and p.args() != [] and p.S >= one.S
+                assert p.args()[:9] == one.args()[:9]   # path and tile
+    # mixtral's experts at decode and prefill (M = capacity 40)
+    for M, MT in ((4, 16), (40, 64)):
+        for Kd, N in ((4096, 14336), (14336, 4096)):
+            p = K.bsr_plan(M, Kd, N, BF16, 16, 16, 8)
+            assert p.mma and p.MT == MT and p.mtiles == 1 and p.S == 64
+
+
+@pytest.mark.parametrize("E", [4, 64, 384])
+@pytest.mark.parametrize("n_bins", [4, 16])
+def test_expert_bin_table_addresses_every_expert_by_stride(E, n_bins):
+    """The table is one expert's, at most 16 bins whatever E: expert e's
+    leaves sit e x (one expert's leaf) past the bin's pointers, its columns
+    in the stacked ``bin_cols``."""
+    lay = _expert_stack(E, 64, 256, (16, 16), BF16, True, n_bins)
+    assert lay.n_bins == n_bins
+    p = K.bsr_plan(4, 64, 256, BF16, 16, 16, E)
+    bins = K._bsr_bins(lay, p, CPU)
+    rows = torch.tensor(list(bins.table)).reshape(-1, 10).tolist()
+    assert len(rows) == n_bins
+    item = tile = 0
+    for r, vals, kidx, cols in zip(rows, lay.values, lay.k_idx,
+                                   lay.bin_cols):
+        nb, L = kidx.shape[-2:]
+        assert tuple(cols.shape) == (E, nb) and cols.is_contiguous()
+        assert r[4:6] == [nb, L] and r[7:9] == [item, tile]
+        for e in (0, 1, E - 1):
+            assert vals[e].data_ptr() == r[0] + e * nb * L * 16 * 16 * 2
+            assert kidx[e].data_ptr() == r[1] + e * nb * L * 4
+            assert cols[e].data_ptr() == r[2] + e * nb * 4
+        item += nb * p.subcols * p.mtiles * r[6]
+        tile += nb * p.subcols * p.mtiles
+    assert (bins.items, bins.tiles) == (item, tile)   # one expert's
+
+
+def test_stacked_bin_cols_slice_the_last_dim():
+    """bin_cols of an (E, Nb) and an (L, E, Nb) stack: contiguous
+    (..., nb_b) slices of perm, and a layer's / an expert's slice of the
+    stack has the slice's bin_cols."""
+    lay = _expert_stack(3, 64, 512, (16, 16), FP32, True, 4)
+    start = 0
+    for b, cols in enumerate(lay.bin_cols):
+        n = lay.bin_sizes[b]
+        assert cols.is_contiguous() and tuple(cols.shape) == (3, n)
+        assert torch.equal(cols, lay.perm[:, start:start + n])
+        for e in range(3):
+            assert torch.equal(lay.layer(e).bin_cols[b], cols[e])
+        start += n
+    unre = _expert_stack(3, 64, 512, (16, 16), FP32, False)
+    assert torch.equal(unre.bin_cols[0],
+                       torch.arange(32, dtype=torch.int32).expand(3, 32))
+    rng = np.random.RandomState(0)
+    w = torch.from_numpy(rng.randn(2, 3, 64, 128).astype(np.float32))
+    mask = torch.from_numpy(rng.rand(2, 3, 64, 128) < 0.5)
+    stack, _ = C._pack_stacked(w, mask, (16, 16), n_bins=4)
+    for b, cols in enumerate(stack.bin_cols):
+        assert tuple(cols.shape) == (2, 3, stack.bin_sizes[b])
+        assert torch.equal(stack.layer(1).bin_cols[b], cols[1])
+        assert stack.layer(1).bin_cols[b].is_contiguous()
+
+
+@pytest.mark.parametrize("E,n_bins,M,dtype", [(4, 4, 17, FP32),
+                                              (4, 16, 4, BF16),
+                                              (64, 4, 4, BF16),
+                                              (64, 16, 1, FP32)])
+def test_emulated_expert_launch_matches_plain_and_is_reorder_stable(
+        E, n_bins, M, dtype):
+    """Every expert in one launch, blocks of all experts arriving in a
+    shuffled order: columns cut into chunks meet through each expert's own
+    workspace and counters; reordered == unreordered bitwise, and expert e
+    equals the plain product with its own layout slice."""
+    # E = 64: K = 68 blocks, so the dense column (68 slots) is cut at S = 64
+    Kd, N = (512, 256) if E == 4 else (1088, 16 * n_bins)
+    lays = [_expert_stack(E, Kd, N, (16, 16), dtype, True, n_bins),
+            _expert_stack(E, Kd, N, (16, 16), dtype, False)]
+    p = K.bsr_plan(M, Kd, N, dtype, 16, 16, E)
+    assert max(p.chunks(L) for L in lays[0].bin_degrees) > 1
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(E, M, Kd).astype(np.float32)).to(dtype)
+    b = torch.from_numpy(rng.randn(E, N).astype(np.float32)).to(dtype)
+    ys = [emulate_bsr(x, lay, b, "silu", seed=i)
+          for i, lay in enumerate(lays)]
+    assert torch.equal(ys[0], ys[1])
+    want = ref.bsr_matmul_experts_ref(x.float(), lays[0], b.float(), "silu")
+    tol = 1e-4 if dtype == FP32 else 1e-2
+    torch.testing.assert_close(ys[0].float(), want, rtol=tol, atol=tol)
+    # the CPU wrapper runs the same plain version
+    assert torch.equal(K.bsr_matmul_packed(x, lays[0], b, "silu"),
+                       ref.bsr_matmul_experts_ref(x, lays[0], b, "silu"))
+
+
+def test_wrapper_refuses_x_that_does_not_match_the_stack():
+    lay = _expert_stack(4, 64, 128, (16, 16), FP32, True)
+    with pytest.raises(ValueError, match="expert dims"):
+        K.bsr_matmul_packed(torch.zeros(3, 2, 64), lay)
+    with pytest.raises(ValueError, match="expert dims"):
+        K.bsr_matmul_packed(torch.zeros(2, 64), lay)
 
 
 # -- ldmatrix and mma.sync, fragment by fragment ------------------------------

@@ -1,4 +1,5 @@
-"""The CUDA BCS kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card
+(kernel 1 also over an MoE expert stack).
 
 Every test here is marked ``cuda`` and skips without a card (the kernel
 has no CPU mode).  This file imports neither jax nor the JAX package, so
@@ -124,6 +125,90 @@ def test_generate_on_card_matches_cpu(cuda):
         assert sum(1 for g in ("attn", "ffn")
                    for node in exec_p["layers"][g].values()
                    if "packed" in node) == 7
+        K.reset_launches()
+        outs[dev] = engine.generate(exec_p, cfg, tokens, 10,
+                                    device=dev).cpu()
+        launches = K.LAUNCHES["bsr_matmul"]
+        assert launches == (cfg.n_layers * 7 * 11 if dev == "cuda" else 0)
+    assert torch.equal(outs["cuda"], outs["cpu"])
+
+
+# -- kernel 1 over an MoE expert stack ---------------------------------------
+
+def _expert_stack(dev, E, K_, N_, dtype, reorder, seed=0):
+    rng = np.random.RandomState(seed)
+    live = rng.rand(E, K_ // 16, N_ // 16) < 0.4
+    live[:, :, -1] = True
+    mask = torch.from_numpy(np.repeat(np.repeat(live, 16, 1), 16, 2)).to(dev)
+    w = torch.from_numpy(rng.randn(E, K_, N_).astype(np.float32)).to(dev,
+                                                                     dtype)
+    lay, _ = C._pack_stacked(w * mask.to(dtype), mask, (16, 16),
+                             reorder=reorder, n_bins=4)
+    return lay
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 4, 17, 40, 65])
+def test_expert_launch_matches_plain(cuda, M, dtype):
+    """Eight experts in one launch (not one per expert): each expert's
+    output is the plain product with its own layout slice, and reordered
+    == unreordered bitwise."""
+    lay = _expert_stack(cuda, 8, 512, 384, dtype, reorder=True)
+    unre = _expert_stack(cuda, 8, 512, 384, dtype, reorder=False)
+    x = torch.randn(8, M, 512, device=cuda).to(dtype)
+    b = torch.randn(8, 384, device=cuda).to(dtype)
+    for act, bias in (("silu", b), ("none", None)):
+        before = K.LAUNCHES["bsr_matmul"]
+        y = ops.sparse_expert_linear(x, lay, bias=bias, act=act)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["bsr_matmul"] - before == 1
+        assert torch.equal(y, ops.sparse_expert_linear(x, unre, bias=bias,
+                                                       act=act))
+        want = ref.bsr_matmul_experts_ref(
+            x.float(), lay, None if bias is None else bias.float(), act)
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        torch.testing.assert_close(y.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_launch_replays_in_a_cuda_graph(cuda, dtype):
+    """Chunked columns in every expert: each expert's counters are reset
+    by its last block, so replays give the same bits and leave them 0."""
+    lay = _expert_stack(cuda, 8, 4096, 256, dtype, reorder=True)
+    x = torch.randn(8, 4, 4096, device=cuda).to(dtype)
+    plan = K.bsr_plan(4, 4096, 256, dtype, 16, 16, 8)
+    assert K._bsr_bins(lay, plan, x.device).ws_floats > 0
+    want = ops.sparse_expert_linear(x, lay, act="silu")
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y = ops.sparse_expert_linear(x, lay, act="silu")
+    for _ in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, want)
+        assert int(K._COUNTERS[x.device].abs().sum()) == 0
+    torch.testing.assert_close(
+        want.float(), ref.bsr_matmul_experts_ref(x.float(), lay, None,
+                                                 "silu"),
+        rtol=1e-2, atol=1e-2)
+
+
+def test_moe_generate_on_card_matches_cpu(cuda):
+    """fp32 mixtral SMOKE, pruned and compiled: the card's greedy tokens
+    equal the CPU plain path's; each layer launches kernel 1 seven times
+    a forward (four attention projections, three expert projections)."""
+    cfg = configs.get("mixtral-8x7b", smoke=True)
+    spec = [(r"(attn/w[qkvo]|moe/(gate|up|down))/w",
+             RW.SchemeChoice("block", (16, 16)))]
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab, size=(2, 8))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = T.init_lm(cfg, seed=0, dtype=torch.float32, device="cpu")
+        masks = RW.magnitude_block_masks(p, spec, None, rate=0.6)
+        exec_p, rep = C.compile_model(apply_masks(p, masks), masks, spec,
+                                      spec=C.CompileSpec(keep_dense=False),
+                                      device=dev)
+        assert len(rep.packed) == 7
         K.reset_launches()
         outs[dev] = engine.generate(exec_p, cfg, tokens, 10,
                                     device=dev).cpu()

@@ -132,19 +132,37 @@ def test_bf16_crosses_bit_exact():
         t.view(torch.int16).numpy(), np.asarray(x).view(np.int16))
 
 
+def _flat_structure(t, path=()):
+    """{path: (shape, dtype)} of every leaf of a port tree."""
+    if isinstance(t, dict):
+        return {k: v for kk, vv in t.items()
+                for k, v in _flat_structure(vv, path + (kk,)).items()}
+    return {"/".join(path): (tuple(t.shape), t.dtype)}
+
+
 def test_params_tree_matches_port_init_structure():
     """The reference's tree crosses into exactly the structure, shapes and
     dtypes the port's own ``init_lm`` builds."""
     rcfg, pcfg, rparams = ref_smoke_params(jnp.bfloat16)
     crossed = to_port(rparams)
     own = T.init_lm(pcfg, seed=0, device="cpu")
+    assert _flat_structure(crossed) == _flat_structure(own)
 
-    def flat(t, path=()):
-        if isinstance(t, dict):
-            return {k: v for kk, vv in t.items()
-                    for k, v in flat(vv, path + (kk,)).items()}
-        return {"/".join(path): (tuple(t.shape), t.dtype)}
-    assert flat(crossed) == flat(own)
+
+def test_moe_params_tree_matches_port_init_structure():
+    """The MoE family: the reference's own init (bf16 weights, the router
+    fp32) crosses into the structure, shapes and dtypes of the port's
+    ``init_lm``, layers {ln1, attn, ln2, moe} with the experts stacked
+    (layers, experts, ...)."""
+    rcfg = ref_configs.get("mixtral-8x7b", smoke=True)
+    pcfg = configs.get("mixtral-8x7b", smoke=True)
+    crossed = _flat_structure(to_port(ref_T.init_lm(jax.random.PRNGKey(0),
+                                                    rcfg)))
+    own = _flat_structure(T.init_lm(pcfg, seed=0, device="cpu"))
+    assert crossed == own
+    assert own["layers/moe/router/w"] == ((2, 64, 4), torch.float32)
+    assert own["layers/moe/gate/w"] == ((2, 4, 64, 128), torch.bfloat16)
+    assert "layers/ffn/gate/w" not in own
 
 
 def test_port_init_is_seeded_and_scaled():
