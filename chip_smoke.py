@@ -54,6 +54,27 @@
    expert-layout faults breaking both gated bounds, and the phase's peak
    device memory.
 
+7. int8 values, the reference's ``CompileSpec(value_dtype="int8")``,
+   after each path's float phase and on its masked params: quantization
+   on the card == on the host bitwise; kernel 1 at yi-9b's shapes
+   (CHECK_M) and over mixtral's 8-expert stacks (MOE_CHECK_M), kernels
+   2-4 at VGG_TINY's layers, each vs its plain version in bf16 and fp32
+   under both scale granularities (a scale per block or tap slot, or per
+   output column), reordered == unreordered and implicit == materialized
+   bitwise (c5 under the pattern mapping: kernel 2 == kernel 4); one
+   CUDA-graph replay of a chunked int8 expert launch; planted scale
+   faults (a block's scale doubled, a column's zeroed) on kernel 1 and on
+   a tap layout, each breaking the kernel-vs-plain bound; the value bytes
+   of a yi-9b layer in bf16 and in int8 + scales, and int8 timings beside
+   the int8 byte bound, the plain version, the library call on the bf16
+   masked dense weight and a stream read of the int8 bytes.  yi-9b,
+   mixtral-8x7b and VGG_TINY served int8: launches counted over the main
+   path (952 and 476 kernel-1 launches a ``generate``, as float), logits
+   against masked-dense on the dequantized weights (``to_dense``) within
+   each path's bound, the fp32 LMs at 2 layers gated on logits and greedy
+   tokens, prefill / decode / forward times, busy shares and mixtral's
+   int8 peak memory.  Each kernel's JSON entry carries an ``int8`` branch.
+
 No phase is caught: any failure exits non-zero.  The last two lines are
 the kernels JSON and ``{"ok": true, "device": {...}}``.  Full detail goes
 to ``build/chip_smoke.json`` (``build/`` is not versioned).
@@ -176,26 +197,33 @@ def bf16_ulp(p):
     return torch.ldexp(torch.ones_like(p), (e - 8).to(torch.int32))
 
 
-def check_close(y, want, dtype, what):
-    """Kernel 1's output bound against its fp32 plain version: rtol = atol
-    = FP32_TOL in fp32, 1 bf16 ulp (+ FP32_TOL near zero) in bf16.
-    Returns the max abs error."""
+def out_of_tol(y, want, dtype):
+    """(elements out of the kernel-vs-plain bound, max abs error, first
+    offender's error, its tolerance): rtol = atol = FP32_TOL in fp32, 1
+    bf16 ulp (+ FP32_TOL near zero) in bf16."""
     err = (y.float() - want).abs()
     if dtype == torch.float32:
         tol = FP32_TOL + FP32_TOL * want.abs()
     else:
         tol = bf16_ulp(want) + FP32_TOL * (1 + want.abs())
-    bad = err > tol
-    if bad.any():
-        i = int(bad.flatten().nonzero()[0])
-        raise AssertionError(
-            f"{what}: {int(bad.sum())} elements out of tolerance, first "
-            f"{err.flatten()[i].item()} > {tol.flatten()[i].item()}")
-    return err.max().item()
+    bad = (err > tol).flatten()
+    i = int(bad.nonzero()[0]) if bad.any() else 0
+    return (int(bad.sum()), err.max().item(), err.flatten()[i].item(),
+            tol.flatten()[i].item())
+
+
+def check_close(y, want, dtype, what):
+    """Kernel output against its fp32 plain version within ``out_of_tol``'s
+    bound.  Returns the max abs error."""
+    n, err, first, tol = out_of_tol(y, want, dtype)
+    if n:
+        raise AssertionError(f"{what}: {n} elements out of tolerance, "
+                             f"first {first} > {tol}")
+    return err
 
 
 def weight_and_mask(RW, K, N, gen, dtype):
-    w = (torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5).to(
+    w = (torch.randn(K, N, generator=gen, device=DEV) * K ** -0.5).to(
         dtype)
     spec = [(r"w$", RW.SchemeChoice("block", BLOCK))]
     mask = RW.magnitude_block_masks({"w": w}, spec, None,
@@ -203,43 +231,58 @@ def weight_and_mask(RW, K, N, gen, dtype):
     return w, mask
 
 
+def kernel1_cases(mods, gen, shapes, layouts, acts):
+    """Kernel 1 vs its plain version at every (K, N) of ``shapes`` and M of
+    CHECK_M, fp32 and bf16: ``layouts(w, mask)`` gives the (label,
+    reordered, unreordered) layouts of a weight, ``acts`` the (activation,
+    with bias) cases; reordered == unreordered bitwise.  Returns (cases,
+    max abs error)."""
+    RW, ref, K = mods["RW"], mods["ref"], mods["K"]
+    checks, max_err = 0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for (Kd, Nd) in shapes:
+            w, mask = weight_and_mask(RW, Kd, Nd, gen, dtype)
+            for label, reord, unre in layouts(w, mask):
+                for M in CHECK_M:
+                    x = torch.randn(M, Kd, generator=gen, device=DEV).to(
+                        dtype)
+                    b = (torch.randn(Nd, generator=gen, device=DEV)
+                         * 0.1).to(dtype)
+                    for act, with_bias in acts:
+                        bias = b if with_bias else None
+                        want = ref.bsr_matmul_packed_ref(
+                            x.float(), reord,
+                            None if bias is None else bias.float(), act)
+                        y_re = K.bsr_matmul_packed(x, reord, bias, act)
+                        y_un = K.bsr_matmul_packed(x, unre, bias, act)
+                        sync()
+                        what = (f"K={Kd} N={Nd} M={M} {dtype} {label} "
+                                f"act={act} bias={with_bias}")
+                        if not torch.equal(y_re, y_un):
+                            raise AssertionError(f"reordered != unreordered "
+                                                 f"bitwise at {what}")
+                        max_err = max(max_err, check_close(
+                            y_re, want, dtype, f"kernel vs plain at {what}"))
+                        checks += 1
+            del w, mask
+    return checks, max_err
+
+
 def kernel_phase(mods, flush):
     """Kernel vs plain at every main-path shape; timings in bf16."""
     RW, ops, ref, K = mods["RW"], mods["ops"], mods["ref"], mods["K"]
-    gen = torch.Generator(device="cuda")
+    gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
-    checks, max_err = 0, 0.0
     # yi-9b's projections and mixtral-8x7b's attention (its experts are
     # checked in moe_kernel_phase)
     shapes = sorted({(k, n) for _, k, n, _ in PROJECTIONS}
                     | attention_shapes(moe_config()))
-    for dtype in (torch.float32, torch.bfloat16):
-        for (Kd, Nd) in shapes:
-            w, mask = weight_and_mask(RW, Kd, Nd, gen, dtype)
-            plain_lay = ops.pack(w, mask, BLOCK)
-            reord = ops.pack(w, mask, BLOCK, reorder=True, n_bins=N_BINS)
-            for M in CHECK_M:
-                x = torch.randn(M, Kd, generator=gen, device="cuda").to(dtype)
-                b = (torch.randn(Nd, generator=gen, device="cuda")
-                     * 0.1).to(dtype)
-                for act, bias in (("none", None), ("none", b), ("silu", b),
-                                  ("relu", b)):
-                    want = ref.bsr_matmul_packed_ref(
-                        x.float(), reord,
-                        None if bias is None else bias.float(), act)
-                    y_re = K.bsr_matmul_packed(x, reord, bias, act)
-                    y_un = K.bsr_matmul_packed(x, plain_lay, bias, act)
-                    sync()
-                    if not torch.equal(y_re, y_un):
-                        raise AssertionError(
-                            f"reordered != unreordered bitwise at K={Kd} "
-                            f"N={Nd} M={M} {dtype} act={act}")
-                    max_err = max(max_err, check_close(
-                        y_re, want, dtype, f"kernel vs plain at K={Kd} "
-                        f"N={Nd} M={M} {dtype} act={act} "
-                        f"bias={bias is not None}"))
-                    checks += 1
-            del w, mask, plain_lay, reord
+    checks, max_err = kernel1_cases(
+        mods, gen, shapes,
+        lambda w, mask: [("float", ops.pack(w, mask, BLOCK, reorder=True,
+                                            n_bins=N_BINS),
+                          ops.pack(w, mask, BLOCK))],
+        (("none", False), ("none", True), ("silu", True), ("relu", True)))
     print(f"kernel vs plain: {checks} cases at (K, N) in {shapes} (yi-9b's "
           f"projections, mixtral-8x7b's attention), M in {CHECK_M}, bf16 + fp32, bias with none/silu/relu, "
           f"reordered == unreordered bitwise; max abs err {max_err:.3e}")
@@ -247,7 +290,7 @@ def kernel_phase(mods, flush):
     rows = []
     # a plain read of as many bytes as a projection's values, under the
     # same flush: what the memory system gives a stream of that size
-    stream_buf = torch.ones(DFF * D, dtype=torch.bfloat16, device="cuda")
+    stream_buf = torch.ones(DFF * D, dtype=torch.bfloat16, device=DEV)
     for name, Kd, Nd, act in PROJECTIONS:
         w, mask = weight_and_mask(RW, Kd, Nd, gen, torch.bfloat16)
         lay = ops.pack(w, mask, BLOCK, reorder=True, n_bins=N_BINS)
@@ -256,7 +299,7 @@ def kernel_phase(mods, flush):
         n_vals = sum(v.numel() for v in lay.values)
         stream_ms = time_ms(lambda: stream_buf[:n_vals].sum(), 30, flush)
         for M in (4, 128):
-            x = torch.randn(M, Kd, generator=gen, device="cuda").to(
+            x = torch.randn(M, Kd, generator=gen, device=DEV).to(
                 torch.bfloat16)
             rows.append(timed_row(
                 lambda: K.bsr_matmul_packed(x, lay, None, act),
@@ -413,12 +456,10 @@ def device_time(fn):
             "events": len(spans)}
 
 
-def build_served(mods, cfg, dtype):
-    """Seeded init at ``cfg`` on the card, the serving CLI's magnitude
-    block masks at PRUNE_RATE, ``compile_model(keep_dense=False)``:
-    (masked-dense params, compiled params, report, init + masks s,
-    compile s)."""
-    T, RW, C = mods["T"], mods["RW"], mods["C"]
+def build_masked(mods, cfg, dtype):
+    """Seeded init at ``cfg`` on the card and the serving CLI's magnitude
+    block masks at PRUNE_RATE: (masked-dense params, masks, seconds)."""
+    T, RW = mods["T"], mods["RW"]
     from repro_torch.launch.serve import SPARSE_SPEC
     from repro_torch.train.trainer import apply_masks
     t0 = time.perf_counter()
@@ -428,13 +469,30 @@ def build_served(mods, cfg, dtype):
     pm = apply_masks(params, masks)
     del params
     sync()
-    init_s = time.perf_counter() - t0
+    return pm, masks, time.perf_counter() - t0
+
+
+def compile_timed(mods, pm, masks, rules, **spec):
+    """``compile_model(keep_dense=False, **spec)`` on the card: (compiled
+    params, report, seconds)."""
+    C = mods["C"]
+    sync()
     t0 = time.perf_counter()
     exec_p, report = C.compile_model(
-        pm, masks, SPARSE_SPEC, spec=C.CompileSpec(keep_dense=False),
+        pm, masks, rules, spec=C.CompileSpec(keep_dense=False, **spec),
         device=DEV)
     sync()
-    return pm, exec_p, report, init_s, time.perf_counter() - t0
+    return exec_p, report, time.perf_counter() - t0
+
+
+def build_served(mods, cfg, dtype):
+    """``build_masked``, then ``compile_model(keep_dense=False)``:
+    (masked-dense params, compiled params, report, init + masks s,
+    compile s, masks)."""
+    from repro_torch.launch.serve import SPARSE_SPEC
+    pm, masks, init_s = build_masked(mods, cfg, dtype)
+    exec_p, report, compile_s = compile_timed(mods, pm, masks, SPARSE_SPEC)
+    return pm, exec_p, report, init_s, compile_s, masks
 
 
 def serve_counted(mods, exec_p, cfg, full, compile_s, how):
@@ -522,8 +580,8 @@ def serve_phase(mods, args):
     print(f"yi-9b at full width (d_model {cfg.d_model}, heads {cfg.n_heads}"
           f"/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}); depth "
           f"cut to {cfg.n_layers} of {full.n_layers} layers")
-    pm, exec_p, report, init_s, compile_s = build_served(mods, cfg,
-                                                         torch.bfloat16)
+    pm, exec_p, report, init_s, compile_s, masks = build_served(
+        mods, cfg, torch.bfloat16)
     print(f"init + masks {init_s:.2f}s; compile_model {compile_s:.2f}s:")
     print(C.compiled_summary(report))
     layer = exec_p["layers"]
@@ -562,7 +620,11 @@ def serve_phase(mods, args):
     missed = [name for name, g in faults if within_bound(g)]
     if missed:
         raise AssertionError(f"the logit bound does not catch: {missed}")
-    return e2e, launches
+    del exec_p, faults
+    torch.cuda.empty_cache()
+    e2e["int8"], launches8 = lm_int8_phase(mods, pm, masks, cfg, full,
+                                           tokens)
+    return e2e, launches, launches8
 
 # -- the CNN path: kernels 2-4 (kernel 3 also on im2col patches) ------------
 
@@ -652,11 +714,115 @@ def conv_plain(ref, K, x, lay, kh, kw, stride, bias, act):
     return y.reshape(x.shape[0], Ho, Wo, -1)
 
 
+def layout_bytes(lay):
+    """Bytes of a layout's stored leaves the kernels read: values (their
+    own dtype), the slot index (k_idx / t_idx) and any int8 scales."""
+    idx = lay.t_idx if hasattr(lay, "t_idx") else lay.k_idx
+    return (sum(v.numel() * v.element_size() for v in lay.values)
+            + sum(t.numel() * 4 for t in idx)
+            + sum(sc.numel() * 4 for sc in lay.scales or ()))
+
+
+def conv_timing(mods, label, lay, x, b32, dense, kh, kw, stride, conv,
+                flush):
+    """One conv layer's timing row (fp32, bias + relu, L2 flushed, median
+    ms by CUDA-graph replay): the implicit kernel (also warm), the
+    materialized kernel on a prebuilt patch band and the call with its
+    im2col, the plain version, ``F.conv2d`` on the masked dense weight
+    ``dense`` (TF32 off) and the bounds."""
+    ops, ref, K = mods["ops"], mods["ref"], mods["K"]
+    import torch.nn.functional as F
+    from repro_torch.core.packed import TapLayout
+    k_imp, k_mat = conv_kernel_keys(lay)
+    B_, H, W, _ = x.shape
+    P = dense.shape[0]
+    _, _, Ho, Wo = K.conv_geometry(H, W, kh, kw, stride)
+    M = B_ * Ho * Wo
+    band = ops.im2col(x, kh, kw, stride).reshape(M, -1)
+    if isinstance(lay, TapLayout):
+        imp_fn = (lambda: K.tap_gather_conv_implicit(
+            x, lay, kh=kh, kw=kw, stride=stride, bias=b32, act="relu"))
+        if lay.n_alive < band.shape[1]:
+            band = band.index_select(1, lay.alive.long()).contiguous()
+        mat_fn = (lambda: K.tap_gather_conv_packed(band, lay, b32, "relu"))
+        live = lay.nnz_taps * lay.group
+        executed = lay.executed_taps * lay.group
+    else:
+        imp_fn = (lambda: K.bsr_conv2d_implicit(
+            x, lay, kh=kh, kw=kw, stride=stride, bias=b32, act="relu"))
+        mat_fn = (lambda: K.bsr_conv2d_patches(band, lay, b32, "relu"))
+        bk, bn = lay.block
+        live = lay.nnzb * bk * bn
+        executed = lay.executed_blocks * bk * bn
+    w_bytes = layout_bytes(lay)
+    call_fn = (lambda: conv(x, lay, kh=kh, kw=kw, stride=stride, bias=b32,
+                            act="relu", implicit=False))
+    plain_fn = (lambda: conv_plain(ref, K, x, lay, kh, kw, stride, b32,
+                                   "relu"))
+    dense = dense.float()
+    xp, _ = K.pad_image(x, kh, kw, stride)
+    xn = xp.permute(0, 3, 1, 2).contiguous()
+    lib_fn = (lambda: torch.relu(F.conv2d(xn, dense, b32, stride=stride)))
+    imp_ms = time_ms(imp_fn, 20, flush)
+    # as the served forward meets it: the input still in L2 from the
+    # layer that wrote it
+    warm_ms = time_ms(imp_fn, 20, None)
+    mat_ms = time_ms(mat_fn, 20, flush)
+    call_ms = time_ms(call_fn, 20, flush)
+    plain_ms = time_ms(plain_fn, 3, flush)
+    lib_ms = time_ms(lib_fn, 20, flush)
+    img_bytes = xp.numel() * 4
+    out_bytes = M * P * 4
+    flops = 2 * M * live
+    t_ops = flops / FP32_PEAK_FLOPS * 1e3
+    b_imp = (img_bytes + w_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    b_mat = (band.numel() * 4 + w_bytes + out_bytes) / \
+        HBM_BYTES_PER_S * 1e3
+    return {
+        "layer": label, "kernel_implicit": k_imp,
+        "kernel_materialized": k_mat, "M": M, "K": lay.shape[0],
+        "N": P, "bins": lay.n_bins, "L_max": lay.L_max,
+        "values": lay.value_dtype, "layout_bytes": w_bytes,
+        "executed_frac": 1 - lay.flops_saved,
+        "live_flops": flops, "executed_flops": 2 * M * executed,
+        "implicit_ms": imp_ms, "implicit_warm_ms": warm_ms,
+        "materialized_ms": mat_ms,
+        "materialized_call_ms": call_ms, "plain_ms": plain_ms,
+        "library_ms": lib_ms,
+        "bound_implicit_ms": max(b_imp, t_ops),
+        "bound_materialized_ms": max(b_mat, t_ops),
+        "bound_by_implicit": "bytes" if b_imp >= t_ops else "operations",
+        "bound_by_materialized": ("bytes" if b_mat >= t_ops
+                                  else "operations"),
+        "ops_ms": t_ops, "bytes_implicit_ms": b_imp,
+        "bytes_materialized_ms": b_mat,
+        "patch_bytes": band.numel() * 4, "image_bytes": img_bytes}
+
+
+def conv_check(mods, what, conv, lays, x, bias, act, kh, kw, stride,
+               max_err):
+    """One conv case: ``conv`` on each layout of ``lays`` (reordered and
+    not), implicit and materialized, all bitwise equal, and within
+    ``check_close`` of the plain version; fp32 errors go into ``max_err``
+    by kernel."""
+    ref, K = mods["ref"], mods["K"]
+    ys = [conv(x, lay, kh=kh, kw=kw, stride=stride, bias=bias, act=act,
+               implicit=imp) for lay in lays for imp in (True, False)]
+    sync()
+    if any(not torch.equal(y, ys[0]) for y in ys[1:]):
+        raise AssertionError(f"{what}: implicit / materialized / reordered "
+                             f"/ unreordered outputs differ bitwise")
+    want = conv_plain(ref, K, x, lays[0], kh, kw, stride, bias, act)
+    e = check_close(ys[0], want, x.dtype, f"conv kernel vs plain at {what}")
+    if x.dtype == torch.float32:
+        for k in conv_kernel_keys(lays[0]):
+            max_err[k] = max(max_err[k], e)
+
+
 def conv_kernel_phase(mods, flush):
     """Kernels 2-4 on the CNN path's shapes vs their plain versions, the
     bitwise identities, and timings (fp32, reordered, bias + relu)."""
-    ops, ref, K, BCS = mods["ops"], mods["ref"], mods["K"], mods["BCS"]
-    import torch.nn.functional as F
+    ops, K, BCS = mods["ops"], mods["K"], mods["BCS"]
     gen = torch.Generator(device=DEV)
     gen.manual_seed(1)
     max_err = {k: 0.0 for k in K.LAUNCHES}
@@ -673,112 +839,34 @@ def conv_kernel_phase(mods, flush):
             lays = [conv_layouts(ops, BCS, wm, mask, kh, kw, scheme, r,
                                  dtype) for r in (True, False)]
             x, b = x32.to(dtype), b32.to(dtype)
-            k_imp, k_mat = conv_kernel_keys(lays[0])
             for act, bias in (("none", None), ("relu", b)):
-                ys = [conv(x, lay, kh=kh, kw=kw, stride=stride, bias=bias,
-                           act=act, implicit=imp)
-                      for lay in lays for imp in (True, False)]
-                sync()
-                for y in ys[1:]:
-                    if not torch.equal(y, ys[0]):
-                        raise AssertionError(
-                            f"{label} {dtype} act={act}: implicit / "
-                            f"materialized / reordered / unreordered "
-                            f"outputs differ bitwise")
-                want = conv_plain(ref, K, x, lays[0], kh, kw, stride, bias,
-                                  act)
-                e = check_close(ys[0], want, dtype, f"conv kernel vs plain "
-                                f"at {label} {dtype} act={act}")
-                if dtype == torch.float32:
-                    max_err[k_imp] = max(max_err[k_imp], e)
-                    max_err[k_mat] = max(max_err[k_mat], e)
+                conv_check(mods, f"{label} {dtype} act={act}", conv, lays,
+                           x, bias, act, kh, kw, stride, max_err)
                 checks += 1
-            del ys, want
 
         # timings: fp32, the reordered layout, bias + relu (the served
         # configuration), L2 flushed before each run
         lay = conv_layouts(ops, BCS, wm, mask, kh, kw, scheme, True,
                            torch.float32)
-        k_imp, k_mat = conv_kernel_keys(lay)
-        x = x32
-        B_, H, W, C = shape
-        _, _, Ho, Wo = K.conv_geometry(H, W, kh, kw, stride)
-        M = B_ * Ho * Wo
-        if scheme == "pattern":
-            imp_fn = (lambda: K.tap_gather_conv_implicit(
-                x, lay, kh=kh, kw=kw, stride=stride, bias=b32, act="relu"))
-            band = ops.im2col(x, kh, kw, stride).reshape(M, -1)
-            if lay.n_alive < band.shape[1]:
-                band = band.index_select(1, lay.alive.long()).contiguous()
-            mat_fn = (lambda: K.tap_gather_conv_packed(band, lay, b32,
-                                                       "relu"))
-            live = lay.nnz_taps * lay.group
-            w_bytes = sum(v.numel() * 4 + t.numel() * 4
-                          for v, t in zip(lay.values, lay.t_idx))
-            executed = lay.executed_taps * lay.group
-        else:
-            imp_fn = (lambda: K.bsr_conv2d_implicit(
-                x, lay, kh=kh, kw=kw, stride=stride, bias=b32, act="relu"))
-            band = ops.im2col(x, kh, kw, stride).reshape(M, -1)
-            mat_fn = (lambda: K.bsr_conv2d_patches(band, lay, b32, "relu"))
-            bk, bn = lay.block
-            live = lay.nnzb * bk * bn
-            w_bytes = sum(v.numel() * 4 + k.numel() * 4
-                          for v, k in zip(lay.values, lay.k_idx))
-            executed = lay.executed_blocks * bk * bn
-        call_fn = (lambda: conv(x, lay, kh=kh, kw=kw, stride=stride,
-                                bias=b32, act="relu", implicit=False))
-        plain_fn = (lambda: conv_plain(ref, K, x, lay, kh, kw, stride, b32,
-                                       "relu"))
-        dense = (wm * mask).float()
-        xp, _ = K.pad_image(x, kh, kw, stride)
-        xn = xp.permute(0, 3, 1, 2).contiguous()
-        lib_fn = (lambda: torch.relu(F.conv2d(xn, dense, b32,
-                                              stride=stride)))
-        imp_ms = time_ms(imp_fn, 20, flush)
-        # as the served forward meets it: the input still in L2 from the
-        # layer that wrote it
-        warm_ms = time_ms(imp_fn, 20, None)
-        mat_ms = time_ms(mat_fn, 20, flush)
-        call_ms = time_ms(call_fn, 20, flush)
-        plain_ms = time_ms(plain_fn, 3, flush)
-        lib_ms = time_ms(lib_fn, 20, flush)
-        img_bytes = xp.numel() * 4
-        out_bytes = M * P * 4
-        flops = 2 * M * live
-        t_ops = flops / FP32_PEAK_FLOPS * 1e3
-        b_imp = (img_bytes + w_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-        b_mat = (band.numel() * 4 + w_bytes + out_bytes) / \
-            HBM_BYTES_PER_S * 1e3
-        rows.append({
-            "layer": label, "kernel_implicit": k_imp,
-            "kernel_materialized": k_mat, "M": M, "K": lay.shape[0],
-            "N": P, "bins": lay.n_bins, "L_max": lay.L_max,
-            "executed_frac": 1 - lay.flops_saved,
-            "live_flops": flops, "executed_flops": 2 * M * executed,
-            "implicit_ms": imp_ms, "implicit_warm_ms": warm_ms,
-            "materialized_ms": mat_ms,
-            "materialized_call_ms": call_ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms,
-            "bound_implicit_ms": max(b_imp, t_ops),
-            "bound_materialized_ms": max(b_mat, t_ops),
-            "bound_by_implicit": "bytes" if b_imp >= t_ops else "operations",
-            "bound_by_materialized": ("bytes" if b_mat >= t_ops
-                                      else "operations"),
-            "ops_ms": t_ops, "bytes_implicit_ms": b_imp,
-            "bytes_materialized_ms": b_mat,
-            "patch_bytes": band.numel() * 4, "image_bytes": img_bytes})
-        del band, lay, xp, xn
+        rows.append(conv_timing(mods, label, lay, x32, b32, wm * mask, kh,
+                                kw, stride, conv, flush))
+        del lay
     print(f"conv kernels vs plain: {checks} cases over "
           f"{len(rows)} layers (VGG_TINY punched + pattern at B={CONV_B} "
           f"{CONV_HW}x{CONV_HW}, MOBILE_TINY c4 5x5), fp32 + bf16, bias + "
           f"relu and none; implicit == materialized and reordered == "
           f"unreordered bitwise; max abs err (fp32) " + ", ".join(
               f"{k} {v:.2e}" for k, v in max_err.items() if v))
-    print("conv timings (fp32, reordered, bias + relu, L2 flushed, median "
-          "ms by CUDA-graph replay; warm = implicit without the flush; "
-          "materialized = kernel on a prebuilt patch band, call = im2col + "
-          "kernel):")
+    print_conv_timings("conv timings (fp32, reordered, bias + relu, L2 "
+                       "flushed, median ms by CUDA-graph replay; warm = "
+                       "implicit without the flush; materialized = kernel "
+                       "on a prebuilt patch band, call = im2col + kernel):",
+                       rows)
+    return rows, max_err
+
+
+def print_conv_timings(title, rows):
+    print(title)
     print(f"  {'layer':24s} {'M':>7s} {'K':>5s} {'N':>4s} {'implicit':>9s} "
           f"{'warm':>9s} {'mat':>9s} {'call':>9s} {'bound':>9s} "
           f"{'plain':>9s} {'conv2d':>9s}  bound_by")
@@ -789,7 +877,6 @@ def conv_kernel_phase(mods, flush):
               f"{r['materialized_call_ms']:9.4f} "
               f"{r['bound_implicit_ms']:9.4f} {r['plain_ms']:9.4f} "
               f"{r['library_ms']:9.4f}  {r['bound_by_implicit']}")
-    return rows, max_err
 
 
 FLOOR_LAYERS = ("vgg/c2/punched", "vgg/c3/punched", "vgg/c2/pattern",
@@ -872,7 +959,7 @@ def conv_serve_phase(mods):
     print(f"VGG_TINY at its published widths (32-64-64-128-128-128), fp32, "
           f"seed 0; B = {CONV_B} synthetic {CONV_HW}x{CONV_HW}x3 images, 10 "
           f"classes")
-    out, launches_all = {}, {}
+    out, launches_all, launches8 = {}, {}, {}
     for name, spec in conv_mappings(RW):
         masks = conv_masks(RW, name, params, spec)
         pm = apply_masks(params, masks)
@@ -972,7 +1059,12 @@ def conv_serve_phase(mods):
                      "graph_ms": graph_ms,
                      "device": dev, "busy_share": busy,
                      "report": C.compiled_summary(report)}
-    return out, launches_all
+        del exec_p
+        out[name]["int8"], l8 = vgg_int8_serve(mods, name, spec, pm, masks,
+                                               x)
+        for k, v in l8.items():
+            launches8[k] = launches8.get(k, 0) + v
+    return out, launches_all, launches8
 
 
 def conv_shape_row(r, mode):
@@ -984,10 +1076,25 @@ def conv_shape_row(r, mode):
             "library_ms": r["library_ms"]}
 
 
-def conv_entries(rows, max_err, launches):
+def conv_sums(rows, pick, mode):
+    """The rows ``pick`` selects and their times summed, the bound from
+    the summed bytes and operations."""
+    sel = [r for r in rows if pick(r)]
+    t_ops = sum(r["ops_ms"] for r in sel)
+    t_bytes = sum(r[f"bytes_{mode}_ms"] for r in sel)
+    return sel, {
+        "ms": sum(r[f"{mode}_ms"] for r in sel),
+        "plain_ms": sum(r["plain_ms"] for r in sel),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": sum(r["library_ms"] for r in sel)}
+
+
+def conv_entries(rows, max_err, launches, rows8, err8, launches8):
     """The JSON entries of kernels 2-4 and of kernel 3 on patches: their
     work in one VGG_TINY forward (the layers that run them on the served
-    path), summed."""
+    path), summed; each with its int8 branch (the int8 forward's launches
+    and layouts)."""
     spec = [
         ("bsr_conv2d_materialized", "bsr_matmul.cu",
          "src/repro/kernels/bsr_matmul.py:143",
@@ -1008,26 +1115,24 @@ def conv_entries(rows, max_err, launches):
     ]
     out = []
     for name, src, replaces, pick, mode in spec:
-        sel = [r for r in rows if pick(r)]
-        t_ops = sum(r["ops_ms"] for r in sel)
-        t_bytes = sum(r[f"bytes_{mode}_ms"] for r in sel)
-        out.append({
+        sel, t = conv_sums(rows, pick, mode)
+        sel8, t8 = conv_sums(rows8, pick, mode)
+        out.append(dict({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces, "launches": launches.get(name, 0),
-            "max_abs_err": max_err[name],
-            "ms": sum(r[f"{mode}_ms"] for r in sel),
-            "plain_ms": sum(r["plain_ms"] for r in sel),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": sum(r["library_ms"] for r in sel),
-            "shapes": [conv_shape_row(r, mode) for r in sel],
-            "measured_at": f"sum over VGG_TINY layers "
-                           f"{[r['layer'] for r in sel]} at B={CONV_B} "
-                           f"{CONV_HW}x{CONV_HW}, fp32, {mode} mode, bias "
-                           f"+ relu; library = F.conv2d + relu on the "
-                           f"masked dense weight, TF32 off",
-        })
+            "max_abs_err": max_err[name]}, **t,
+            shapes=[conv_shape_row(r, mode) for r in sel],
+            measured_at=f"sum over VGG_TINY layers "
+                        f"{[r['layer'] for r in sel]} at B={CONV_B} "
+                        f"{CONV_HW}x{CONV_HW}, fp32, {mode} mode, bias "
+                        f"+ relu; library = F.conv2d + relu on the "
+                        f"masked dense weight, TF32 off",
+            int8=int8_entry(
+                launches8.get(name, 0), err8[name], **t8,
+                shapes=[conv_shape_row(r, mode) for r in sel8],
+                measured_at="the same layers, int8 values (a scale per "
+                            "block punched, per filter pattern), fp32 x")))
     return out
 
 
@@ -1062,12 +1167,12 @@ def moe_projections(cfg):
             ("down", f, d, "none")]
 
 
-def expert_stack(mods, E, Kd, Nd, gen, dtype, reorder):
+def expert_stack(mods, E, Kd, Nd, gen, dtype, reorder, gran=None):
     """An (E, K, N) expert stack at the served scale (fan-in scaled normal
     weights, magnitude block masks at PRUNE_RATE over the whole stack),
     packed as ``compile_model`` packs experts, reordered into N_BINS bins
-    or not as each of ``reorder`` says; returns (the layouts, the masked
-    dense weights)."""
+    or not as each of ``reorder`` says, int8 with scales at ``gran`` if
+    given; returns (the layouts, the masked dense weights)."""
     RW, C = mods["RW"], mods["C"]
     w = (torch.randn(E, Kd, Nd, generator=gen, device=DEV)
          * Kd ** -0.5).to(dtype)
@@ -1076,9 +1181,56 @@ def expert_stack(mods, E, Kd, Nd, gen, dtype, reorder):
                                     rate=PRUNE_RATE)["w"]
     dense = w * mask.to(dtype)
     del w
-    lays = [C._pack_stacked(dense, mask, BLOCK, reorder=r,
-                            n_bins=N_BINS)[0] for r in reorder]
+    lays = [C._pack_stacked(dense, mask, BLOCK, reorder=r, n_bins=N_BINS,
+                            value_dtype=gran and "int8",
+                            scale_granularity=gran or "block")[0]
+            for r in reorder]
     return lays, dense
+
+
+def expert_cases(mods, gen, E, shapes, grans, acts, after=None):
+    """Kernel 1 over E-expert stacks (one launch a call) vs the plain
+    version expert by expert at every (K, N) of ``shapes`` and M of
+    MOE_CHECK_M, fp32 and bf16, float values (gran None) or int8 at each
+    of ``grans``, each activation of ``acts``; reordered == unreordered
+    bitwise.  ``after(dtype, K, N, gran, layout)`` runs on each reordered
+    stack.  Returns (cases, max abs error)."""
+    ops, ref, K = mods["ops"], mods["ref"], mods["K"]
+    checks, max_err = 0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for Kd, Nd in shapes:
+            for gran in grans:
+                (reord, unre), dense = expert_stack(
+                    mods, E, Kd, Nd, gen, dtype, (True, False), gran)
+                del dense
+                for M in MOE_CHECK_M:
+                    x = torch.randn(E, M, Kd, generator=gen, device=DEV).to(
+                        dtype)
+                    for act in acts:
+                        before = K.LAUNCHES["bsr_matmul"]
+                        y_re = ops.sparse_expert_linear(x, reord, act=act)
+                        y_un = ops.sparse_expert_linear(x, unre, act=act)
+                        sync()
+                        what = (f"E={E} K={Kd} N={Nd} M={M} {dtype} "
+                                f"values={gran or 'float'} act={act}")
+                        if K.LAUNCHES["bsr_matmul"] - before != 2:
+                            raise AssertionError(f"an expert projection did "
+                                                 f"not take one launch at "
+                                                 f"{what}")
+                        if not torch.equal(y_re, y_un):
+                            raise AssertionError(f"experts: reordered != "
+                                                 f"unreordered at {what}")
+                        want = ref.bsr_matmul_experts_ref(x.float(), reord,
+                                                          None, act)
+                        max_err = max(max_err, check_close(
+                            y_re, want, dtype, f"experts: kernel vs plain "
+                            f"at {what}"))
+                        checks += 1
+                        del y_re, y_un, want
+                if after is not None:
+                    after(dtype, Kd, Nd, gran, reord)
+                del reord, unre
+    return checks, max_err
 
 
 def moe_kernel_phase(mods, flush):
@@ -1088,41 +1240,14 @@ def moe_kernel_phase(mods, flush):
     (M = the capacity of the prefill's dispatch group) beside
     ``torch.bmm`` of the masked dense stack, the byte bound and a plain
     read of the same bytes."""
-    ops, ref, K = mods["ops"], mods["ref"], mods["K"]
+    ops, ref = mods["ops"], mods["ref"]
     cfg = moe_config()
     E = cfg.n_experts
     gen = torch.Generator(device=DEV)
     gen.manual_seed(2)
-    checks, max_err = 0, 0.0
     shapes = sorted({(k, n) for _, k, n, _ in moe_projections(cfg)})
-    for dtype in (torch.float32, torch.bfloat16):
-        for Kd, Nd in shapes:
-            (reord, unre), dense = expert_stack(mods, E, Kd, Nd, gen, dtype,
-                                                (True, False))
-            del dense
-            for M in MOE_CHECK_M:
-                x = torch.randn(E, M, Kd, generator=gen, device=DEV).to(
-                    dtype)
-                for act in ("silu", "none"):
-                    before = K.LAUNCHES["bsr_matmul"]
-                    y_re = ops.sparse_expert_linear(x, reord, act=act)
-                    y_un = ops.sparse_expert_linear(x, unre, act=act)
-                    sync()
-                    if K.LAUNCHES["bsr_matmul"] - before != 2:
-                        raise AssertionError("an expert projection did not "
-                                             "take exactly one launch")
-                    if not torch.equal(y_re, y_un):
-                        raise AssertionError(
-                            f"experts: reordered != unreordered bitwise at "
-                            f"E={E} K={Kd} N={Nd} M={M} {dtype} act={act}")
-                    want = ref.bsr_matmul_experts_ref(x.float(), reord,
-                                                      None, act)
-                    max_err = max(max_err, check_close(
-                        y_re, want, dtype, f"experts: kernel vs plain at "
-                        f"E={E} K={Kd} N={Nd} M={M} {dtype} act={act}"))
-                    checks += 1
-                    del y_re, y_un, want
-            del reord, unre
+    checks, max_err = expert_cases(mods, gen, E, shapes, (None,),
+                                   ("silu", "none"))
     print(f"experts: kernel vs plain, {checks} cases (E = {E}, (K, N) in "
           f"{shapes}, M in {MOE_CHECK_M}, bf16 + fp32, silu/none), one "
           f"launch per call, reordered == unreordered bitwise; max abs err "
@@ -1249,8 +1374,8 @@ def moe_serve_phase(mods):
           f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, {cfg.n_experts} "
           f"experts top-{cfg.top_k}, vocab {cfg.vocab}); depth cut to "
           f"{cfg.n_layers} of {full.n_layers} layers")
-    pm, exec_p, report, init_s, compile_s = build_served(mods, cfg,
-                                                         torch.bfloat16)
+    pm, exec_p, report, init_s, compile_s, masks = build_served(
+        mods, cfg, torch.bfloat16)
     print(f"init + masks {init_s:.2f}s; compile_model {compile_s:.2f}s:")
     print(C.compiled_summary(report))
     moe_p = exec_p["layers"]["moe"]
@@ -1332,14 +1457,19 @@ def moe_serve_phase(mods):
     missed = [n for n, fg in fault_gaps if all(map(within_bound, fg))]
     if missed:
         raise AssertionError(f"the per-layer bound does not catch: {missed}")
-    del pm, exec_p, s_logits, d_logits, s_in, d_in, fault_gaps
+    del exec_p, s_logits, d_logits, s_in, d_in, fault_gaps
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    # int8: the same masked params compiled again, int8 values
+    int8, launches8 = moe_int8_phase(mods, pm, masks, cfg, full, tokens)
+    del pm, masks
     if DEV == "cuda":
         torch.cuda.empty_cache()
 
     # fp32, whole model at MOE_FP32_LAYERS layers: the routing does not
     # flip, so logits and greedy tokens are gated directly
     cfg32 = full.replace(n_layers=MOE_FP32_LAYERS)
-    pm, exec_p, _, _, _ = build_served(mods, cfg32, torch.float32)
+    pm, exec_p, _, _, _, masks = build_served(mods, cfg32, torch.float32)
     with torch.no_grad():
         d32 = T.forward(pm, cfg32, tokens)
         s32 = T.forward(exec_p, cfg32, tokens)
@@ -1363,14 +1493,540 @@ def moe_serve_phase(mods):
     if missed:
         raise AssertionError(f"the fp32 logit bound does not catch: "
                              f"{missed}")
-    del pm, exec_p
+    del exec_p
+    int8.update(fp32_int8_gate(mods, pm, masks, cfg32, tokens, prompts,
+                               "mixtral-8x7b"))
+    del pm, masks
     if DEV == "cuda":
-        e2e["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        # the int8 part reset the peak: the float bf16 part's is kept apart
+        e2e["peak_mem_gb"] = max(int8["float_bf16_peak_mem_gb"],
+                                 torch.cuda.max_memory_allocated() / 1e9)
         print(f"MoE phase peak device memory "
               f"{e2e['peak_mem_gb']:.2f} GB (torch.cuda."
-              f"max_memory_allocated)")
+              f"max_memory_allocated; float and int8 parts)")
+    e2e["int8"] = int8
+    return e2e, launches, launches8
+
+
+# -- int8 values: the dequant branch of every kernel -------------------------
+
+INT8_GRANS = ("block", "out")
+
+
+def layout_to(layout, dev):
+    """The layout with every tensor leaf moved to ``dev``."""
+    out = {}
+    for f in dataclasses.fields(layout):
+        v = getattr(layout, f.name)
+        if isinstance(v, torch.Tensor):
+            v = v.to(dev)
+        elif isinstance(v, tuple) and v and isinstance(v[0], torch.Tensor):
+            v = tuple(t.to(dev) for t in v)
+        out[f.name] = v
+    return type(layout)(**out)
+
+
+def quant_on_card_check(mods, lay):
+    """``core.quant`` on the card gives the host's bits: int8 values and
+    fp32 scales of ``lay`` quantized on both, at both granularities."""
+    from repro_torch.core import quant as Q
+    host = layout_to(lay, "cpu")
+    for gran in INT8_GRANS:
+        a = Q.quantize_layout(lay, scale_granularity=gran)
+        b = Q.quantize_layout(host, scale_granularity=gran)
+        same = all(torch.equal(u.cpu(), v) for u, v in zip(a.values,
+                                                           b.values))
+        same &= all(torch.equal(u.cpu().view(torch.int32),
+                                v.view(torch.int32))
+                    for u, v in zip(a.scales, b.scales))
+        if not same:
+            raise AssertionError(f"quantize_layout ({gran}) on the card "
+                                 f"differs from the host's")
+    print(f"core.quant on the card == on the host, bit for bit (values and "
+          f"scales, {' and '.join(INT8_GRANS)}, a {lay.shape} layout)")
+
+
+def scale_faults(lay_block, lay_out):
+    """(name, broken layout, true layout): an int8 layout ("block") with
+    one live block's (or tap slot's) scale doubled, and one ("out") with
+    one column's (or filter's) scales zeroed — column 0 of the last bin,
+    whose slot 0 is live."""
+    b = lay_block.n_bins - 1
+    doubled = [s.clone() for s in lay_block.scales]
+    doubled[b][0, 0] *= 2
+    zeroed = [s.clone() for s in lay_out.scales]
+    zeroed[b][0] = 0
+    return [("a block's (slot's) scale doubled", dataclasses.replace(
+                lay_block, scales=tuple(doubled)), lay_block),
+            ("a column's (filter's) scales zeroed", dataclasses.replace(
+                lay_out, scales=tuple(zeroed)), lay_out)]
+
+
+def faults_caught(what, lay_block, lay_out, kernel, plain, dtype):
+    """Each fault of ``scale_faults`` run by ``kernel(layout)`` must break
+    the kernel-vs-plain bound against ``plain(true layout)``."""
+    out = []
+    for name, broken, true in scale_faults(lay_block, lay_out):
+        y, want = kernel(broken), plain(true)
+        sync()
+        n = out_of_tol(y, want, dtype)[0]
+        out.append((name, n))
+        print(f"  planted fault, {what}, {name}: {n} of {y.numel()} "
+              f"outputs out of the bound{'' if n else '  (NOT CAUGHT)'}")
+    missed = [name for name, n in out if n == 0]
+    if missed:
+        raise AssertionError(f"the kernel-vs-plain bound does not catch "
+                             f"{missed} at {what}")
+    return dict(out)
+
+
+def int8_pack(ops, w, mask, gran, reorder):
+    return ops.pack(w, mask, BLOCK, reorder=reorder, n_bins=N_BINS,
+                    value_dtype="int8", scale_granularity=gran)
+
+
+def int8_bound_bytes(lay):
+    """Bytes kernel 1 must read of an int8 layout: each live block's values
+    (1 byte a value), its k_idx and its scale ("block")."""
+    bk, bn = lay.block
+    nnzb = int(lay.nnz.sum())
+    per_scale = 4 if lay.scale_granularity == "block" else 0
+    cols = lay.nnz.numel() if lay.scale_granularity == "out" else 0
+    return nnzb * (bk * bn + 4 + per_scale) + 4 * cols
+
+
+def int8_kernel_phase(mods, flush):
+    """Kernel 1's int8 branch at yi-9b's projection shapes: quantization
+    on the card == on the host; kernel vs plain at CHECK_M, bf16 and fp32,
+    both granularities, reordered == unreordered bitwise; planted scale
+    faults; the value bytes and the timings of one layer at decode and
+    prefill (the served granularity, "block")."""
+    RW, ops, ref, K = mods["RW"], mods["ops"], mods["ref"], mods["K"]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(3)
+    w, mask = weight_and_mask(RW, D, D, gen, torch.bfloat16)
+    quant_on_card_check(mods, ops.pack(w, mask, BLOCK, reorder=True,
+                                       n_bins=N_BINS))
+    shapes = sorted({(k, n) for _, k, n, _ in PROJECTIONS})
+    checks, max_err = kernel1_cases(
+        mods, gen, shapes,
+        lambda w, mask: [(gran, int8_pack(ops, w, mask, gran, True),
+                          int8_pack(ops, w, mask, gran, False))
+                         for gran in INT8_GRANS],
+        (("none", False), ("silu", True)))
+    print(f"[int8] kernel 1 vs plain: {checks} cases at (K, N) in {shapes}, "
+          f"M in {CHECK_M}, bf16 + fp32, scales per block and per column, "
+          f"bias + silu and none, reordered == unreordered bitwise; max abs "
+          f"err {max_err:.3e}")
+    x = torch.randn(4, D, generator=gen, device=DEV).to(torch.bfloat16)
+    faults = faults_caught(
+        f"kernel 1 ({D} x {D}, M = 4, bf16)",
+        int8_pack(ops, w, mask, "block", True),
+        int8_pack(ops, w, mask, "out", True),
+        lambda lay: K.bsr_matmul_packed(x, lay),
+        lambda lay: ref.bsr_matmul_packed_ref(x.float(), lay),
+        torch.bfloat16)
+    del w, mask
+
+    rows = []
+    stream_buf = torch.ones(DFF * D, dtype=torch.bfloat16, device=DEV)
+    print("[int8] stored value bytes of one yi-9b layer (rate 0.6, 4 bins, "
+          "padding slots included): bf16 vs int8 + fp32 scales per block")
+    tot16 = tot8 = 0
+    for name, Kd, Nd, act in PROJECTIONS:
+        w, mask = weight_and_mask(RW, Kd, Nd, gen, torch.bfloat16)
+        lay = int8_pack(ops, w, mask, "block", True)
+        dense = w * mask.to(w.dtype)
+        nnzb = int(lay.nnz.sum())
+        n_vals = sum(v.numel() for v in lay.values)
+        b16 = 2 * n_vals
+        b8 = n_vals + sum(s.numel() * 4 for s in lay.scales)
+        tot16, tot8 = tot16 + b16, tot8 + b8
+        print(f"  {name:5s} bf16 {b16 / 2**20:8.2f} MiB  int8 + scales "
+              f"{b8 / 2**20:8.2f} MiB ({b8 / b16:.3f})")
+        live = int8_bound_bytes(lay)
+        stream_ms = time_ms(lambda: stream_buf[:live // 2].sum(), 30, flush)
+        for M in (4, 128):
+            x = torch.randn(M, Kd, generator=gen, device=DEV).to(
+                torch.bfloat16)
+            rows.append(timed_row(
+                lambda: K.bsr_matmul_packed(x, lay, None, act),
+                lambda: ref.bsr_matmul_packed_ref(x, lay, None, act),
+                lambda: torch.matmul(x, dense), stream_ms,
+                live + M * (Kd + Nd) * 2,
+                2 * M * nnzb * BLOCK[0] * BLOCK[1], flush, proj=name, M=M,
+                K=Kd, N=Nd, act=act, dtype="bfloat16", values="int8",
+                value_bytes_bf16=b16, value_bytes_int8=b8,
+                density=lay.density, bins=lay.n_bins))
+        del w, mask, lay, dense
+    del stream_buf
+    print(f"  layer bf16 {tot16 / 2**20:.2f} MiB, int8 + scales "
+          f"{tot8 / 2**20:.2f} MiB ({tot8 / tot16:.3f})")
+    print_timings("[int8] kernel 1 timings (bf16 x, int8 values, a scale "
+                  "per block; L2 flushed, median ms by CUDA-graph replay; "
+                  "bound and stream from the int8 bytes; torch.matmul on "
+                  "the bf16 masked dense weight):", rows, "torch.matmul",
+                  "yi-9b layer (7 projections)",
+                  ((4, "decode"), (128, "prefill")))
+    return rows, max_err, faults, (tot16, tot8)
+
+
+def int8_moe_kernel_phase(mods, flush):
+    """Kernel 1's int8 branch over mixtral's 8-expert stacks: vs the plain
+    version expert by expert at MOE_CHECK_M, bf16 and fp32, both
+    granularities, reordered == unreordered bitwise, one launch a call;
+    one CUDA-graph replay of a chunked int8 expert launch; one MoE
+    layer's three projections timed at decode and prefill."""
+    ops, ref, K = mods["ops"], mods["ref"], mods["K"]
+    cfg = moe_config()
+    E = cfg.n_experts
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(4)
+    shapes = sorted({(k, n) for _, k, n, _ in moe_projections(cfg)})
+
+    def replay(dtype, Kd, Nd, gran, lay):
+        if dtype == torch.bfloat16 and Kd > Nd and gran == "block":
+            replay_check(ops, K, lay, gen, E, Kd)
+    checks, max_err = expert_cases(mods, gen, E, shapes, INT8_GRANS,
+                                   ("silu",), replay)
+    print(f"[int8] experts: kernel vs plain, {checks} cases (E = {E}, (K, N) "
+          f"in {shapes}, M in {MOE_CHECK_M}, bf16 + fp32, both "
+          f"granularities), one launch per call, reordered == unreordered "
+          f"bitwise; max abs err {max_err:.3e}")
+
+    rows = []
+    stream_buf = None
+    for name, Kd, Nd, act in moe_projections(cfg):
+        (lay,), dense = expert_stack(mods, E, Kd, Nd, gen, torch.bfloat16,
+                                     (True,), "block")
+        nnzb = int(lay.nnz.sum())
+        for M in (4, prefill_capacity(cfg)):
+            x = torch.randn(E, M, Kd, generator=gen, device=DEV).to(
+                torch.bfloat16)
+            nbytes = int8_bound_bytes(lay) + E * M * (Kd + Nd) * 2
+            if stream_buf is None or stream_buf.numel() < nbytes // 2:
+                stream_buf = torch.ones(nbytes // 2, dtype=torch.bfloat16,
+                                        device=DEV)
+            stream_ms = time_ms(lambda: stream_buf[:nbytes // 2].sum(), 30,
+                                flush)
+            rows.append(timed_row(
+                lambda: ops.sparse_expert_linear(x, lay, act=act),
+                lambda: ref.bsr_matmul_experts_ref(x, lay, None, act),
+                lambda: torch.bmm(x, dense), stream_ms, nbytes,
+                2 * M * nnzb * BLOCK[0] * BLOCK[1], flush, proj=name, E=E,
+                M=M, K=Kd, N=Nd, act=act, dtype="bfloat16", values="int8",
+                density=lay.density, bins=lay.n_bins))
+        del lay, dense
+    del stream_buf
+    print_timings(f"[int8] experts timed (bf16 x, int8 values, a scale per "
+                  f"block, E = {E}, one launch per projection, L2 flushed, "
+                  f"median ms by CUDA-graph replay; torch.bmm of the bf16 "
+                  f"masked dense stack; bound and stream from the int8 "
+                  f"bytes):", rows, "torch.bmm",
+                  "MoE layer's experts (3 projections)",
+                  ((4, "decode"), (prefill_capacity(cfg), "prefill")))
+    return rows, max_err
+
+
+def replay_check(ops, K, lay, gen, E, Kd):
+    """One int8 expert launch with chunked columns captured in a CUDA
+    graph: replays give the eager bits and leave the tile counters 0."""
+    x = torch.randn(E, 4, Kd, generator=gen, device=DEV).to(torch.bfloat16)
+    want = ops.sparse_expert_linear(x, lay, act="silu")
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y = ops.sparse_expert_linear(x, lay, act="silu")
+    for _ in range(2):
+        g.replay()
+        sync()
+        if not torch.equal(y, want) or int(
+                K._COUNTERS[x.device].abs().sum()):
+            raise AssertionError("an int8 expert launch replayed from a "
+                                 "CUDA graph differs or left a counter set")
+    print(f"[int8] a chunked int8 expert launch (E = {E}, K = {Kd}, M = 4) "
+          f"replayed from a CUDA graph: the eager bits, counters 0")
+
+
+def int8_conv_layouts(ops, BCS, wm, mask, kh, kw, scheme, reorder, dtype,
+                      gran):
+    w = wm.to(dtype)
+    if scheme == "pattern":
+        return ops.pack_taps(w, mask, reorder=reorder, value_dtype="int8",
+                             scale_granularity=gran)
+    Q = w.shape[1]
+    return ops.pack(BCS.conv_lower(w), BCS.conv_lower(mask), (8, 8),
+                    reorder=reorder, n_bins=4, conv=(kh, kw, Q),
+                    value_dtype="int8", scale_granularity=gran)
+
+
+def int8_conv_kernel_phase(mods, flush):
+    """Kernels 2-4's int8 branch at every packed VGG_TINY layer under both
+    mappings: vs plain, bf16 and fp32, both granularities, implicit ==
+    materialized and reordered == unreordered bitwise (c5, the 1x1: kernel
+    2 == kernel 4 under the pattern mapping, kernel 3 on its patches ==
+    on the image); planted scale faults on a tap layout; timings at the
+    served granularity (per block for punched, per filter for taps)."""
+    ops, ref, K, BCS = mods["ops"], mods["ref"], mods["K"], mods["BCS"]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(5)
+    max_err = {k: 0.0 for k in K.LAUNCHES}
+    checks, rows, faults = 0, [], {}
+    for (label, wm, mask, kh, kw, stride, shape,
+         scheme) in conv_cases(mods):
+        if not label.startswith("vgg/"):
+            continue
+        conv = (ops.sparse_conv2d_pattern if scheme == "pattern"
+                else ops.sparse_conv2d)
+        x32 = torch.randn(shape, generator=gen, device=DEV)
+        b32 = torch.randn(wm.shape[0], generator=gen, device=DEV) * 0.1
+        for dtype in (torch.float32, torch.bfloat16):
+            x, b = x32.to(dtype), b32.to(dtype)
+            for gran in INT8_GRANS:
+                lays = [int8_conv_layouts(ops, BCS, wm, mask, kh, kw,
+                                          scheme, r, dtype, gran)
+                        for r in (True, False)]
+                conv_check(mods, f"int8 {label} {dtype} {gran}", conv, lays,
+                           x, b, "relu", kh, kw, stride, max_err)
+                checks += 1
+                del lays
+        if label == "vgg/c2/pattern":
+            faults = faults_caught(
+                f"kernel 4 ({label}, fp32)",
+                *(int8_conv_layouts(ops, BCS, wm, mask, kh, kw, scheme,
+                                    True, torch.float32, g)
+                  for g in INT8_GRANS),
+                lambda lay: K.tap_gather_conv_implicit(
+                    x32, lay, kh=kh, kw=kw, stride=stride),
+                lambda lay: conv_plain(ref, K, x32, lay, kh, kw, stride,
+                                       None, "none"),
+                torch.float32)
+        served = "out" if scheme == "pattern" else "block"
+        lay = int8_conv_layouts(ops, BCS, wm, mask, kh, kw, scheme, True,
+                                torch.float32, served)
+        rows.append(conv_timing(mods, label, lay, x32, b32, wm * mask, kh,
+                                kw, stride, conv, flush))
+        del lay
+    print(f"[int8] conv kernels vs plain: {checks} cases over {len(rows)} "
+          f"VGG_TINY layers (punched + pattern, B={CONV_B}), fp32 + bf16, "
+          f"both granularities, bias + relu; implicit == materialized "
+          f"(c5 pattern: kernel 2 == kernel 4) and reordered == "
+          f"unreordered bitwise; max abs err (fp32) " + ", ".join(
+              f"{k} {v:.2e}" for k, v in max_err.items() if v))
+    print_conv_timings("[int8] conv timings (fp32 x, int8 values: a scale "
+                       "per block (punched) or per filter (pattern); as "
+                       "above):", rows)
+    return rows, max_err, faults
+
+
+def dense_of(lay, w):
+    """The dequantized dense weight of a layer's int8 layout, in the shape
+    and dtype of its weight ``w``: a linear stack slice by slice; a conv
+    from its im2col-lowered (kh*kw*Q, P) form."""
+    if getattr(lay, "conv_taps", None) is not None or hasattr(lay,
+                                                                "t_idx"):
+        P, Q, kh, kw = w.shape
+        d = lay.to_dense().reshape(kh, kw, Q, P).permute(3, 2, 0, 1)
+        return d.to(w.dtype).contiguous()
+
+    def rec(lay_, lead):
+        if not lead:
+            return lay_.to_dense().to(w.dtype)
+        return torch.stack([rec(lay_.layer(i), lead[1:])
+                            for i in range(lead[0])])
+    return rec(lay, tuple(w.shape[:-2]))
+
+
+def dequantized(params, exec_p):
+    """``params`` (masked dense) with every packed layer's weight replaced
+    by its int8 layout's dequantized weight: the oracle of the int8
+    path."""
+    if not isinstance(params, dict):
+        return params
+    out = {k: dequantized(v, exec_p.get(k, {})) for k, v in params.items()}
+    lay = exec_p.get("packed")
+    if lay is not None and "w" in params:
+        out["w"] = dense_of(lay, params["w"])
+    return out
+
+
+def check_int8_report(C, report, n_packed):
+    print(C.compiled_summary(report))
+    got = [r for r in report.packed if r.value_dtype == "int8"]
+    if len(report.packed) != n_packed or len(got) != n_packed:
+        raise AssertionError(f"expected {n_packed} int8 packed layers: "
+                             f"{C.compiled_summary(report)}")
+
+
+def lm_int8_phase(mods, pm, masks, cfg, full, tokens):
+    """yi-9b's masked params compiled again with int8 values: the main
+    path counted (kernel 1 still one launch a projection), bf16 prefill
+    logits against masked-dense on the dequantized weights, then the fp32
+    model at 2 layers against its dequantized weights."""
+    C, E = mods["C"], mods["E"]
+    from repro_torch.launch.serve import SPARSE_SPEC
+    exec8, report, compile_s = compile_timed(mods, pm, masks, SPARSE_SPEC,
+                                             value_dtype="int8")
+    print(f"[int8] yi-9b compile_model(value_dtype='int8') "
+          f"{compile_s:.2f}s:")
+    check_int8_report(C, report, 7)
+    e2e, launches, prompts, _ = serve_counted(
+        mods, exec8, cfg, full, compile_s, f"int8 values, one launch over "
+        f"the {N_BINS} bins")
+    with torch.no_grad():
+        deq = dequantized(pm, exec8)
+        d = E.prefill(deq, cfg, tokens)[0]
+        s8 = E.prefill(exec8, cfg, tokens)[0]
+    gap = logit_gap(d, s8)
+    agree = (d.argmax(-1) == s8.argmax(-1)).float().mean().item()
+    print(f"[int8] yi-9b prefill logits packed vs masked-dense on the "
+          f"dequantized weights (bf16): max|diff| {gap[0]:.4f} of "
+          f"max|logit|, mean |diff| {gap[1]:.4f} of mean |logit| (bound "
+          f"{LOGIT_MAX_REL} / {LOGIT_MEAN_REL}); argmax agree {agree:.2f}")
+    if not (torch.isfinite(s8).all() and within_bound(gap)):
+        raise AssertionError("int8 prefill logits disagree with the "
+                             "dequantized masked-dense ones beyond the "
+                             "bound")
+    e2e["logits_gap"] = gap
+    del deq, exec8, d, s8
+    torch.cuda.empty_cache()
+    cfg2 = full.replace(n_layers=2)
+    pm32, masks32, _ = build_masked(mods, cfg2, torch.float32)
+    e2e.update(fp32_int8_gate(mods, pm32, masks32, cfg2, tokens, prompts,
+                              "yi-9b"))
     return e2e, launches
 
+
+def fp32_int8_gate(mods, pm, masks, cfg, tokens, prompts, arch):
+    """An fp32 model compiled int8 (TF32 off): its logits within
+    MOE_FP32_LOGIT_REL of max |logit| of the masked-dense run on the
+    dequantized weights, and identical greedy tokens."""
+    T, E = mods["T"], mods["E"]
+    from repro_torch.launch.serve import SPARSE_SPEC
+    exec8, _, _ = compile_timed(mods, pm, masks, SPARSE_SPEC,
+                                value_dtype="int8")
+    with torch.no_grad():
+        deq = dequantized(pm, exec8)
+        gap = logit_gap(T.forward(deq, cfg, tokens),
+                        T.forward(exec8, cfg, tokens))[0]
+        tok_d = E.generate(deq, cfg, prompts, N_NEW, device=DEV)
+        tok_s = E.generate(exec8, cfg, prompts, N_NEW, device=DEV)
+    same = bool(torch.equal(tok_d, tok_s))
+    print(f"[int8] {arch} fp32 ({cfg.n_layers} layers, TF32 off): logits "
+          f"packed vs masked-dense on the dequantized weights {gap:.2e} of "
+          f"max|logit| (bound {MOE_FP32_LOGIT_REL}); greedy tokens "
+          f"identical: {same}")
+    if not (gap <= MOE_FP32_LOGIT_REL and same):
+        raise AssertionError(f"int8 fp32 {arch} disagrees with its "
+                             f"dequantized masked-dense run")
+    return {"fp32_logit_gap": gap, "fp32_tokens_identical": same}
+
+
+def moe_int8_phase(mods, pm, masks, cfg, full, tokens):
+    """mixtral's masked bf16 params compiled again with int8 values: the
+    main path counted, every layer's ``moe()`` against masked-dense on the
+    dequantized weights (same input), the phase's peak memory."""
+    T, C = mods["T"], mods["C"]
+    from repro_torch.launch.serve import SPARSE_SPEC
+    float_peak = None
+    if DEV == "cuda":
+        float_peak = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+    exec8, report, compile_s = compile_timed(mods, pm, masks, SPARSE_SPEC,
+                                             value_dtype="int8")
+    print(f"[int8] mixtral-8x7b compile_model(value_dtype='int8') "
+          f"{compile_s:.2f}s:")
+    check_int8_report(C, report, 7)
+    e2e, launches, _, _ = serve_counted(
+        mods, exec8, cfg, full, compile_s, f"int8 values; 4 attention + 3 "
+        f"expert projections, one launch each over all {cfg.n_experts} "
+        f"experts and {N_BINS} bins")
+    with torch.no_grad():
+        deq = dequantized(pm, exec8)
+        _, s_in = moe_inputs(T, lambda: T.forward(exec8, cfg, tokens))
+        gaps = moe_layer_gaps(mods, exec8, deq, cfg, s_in)
+    print(f"[int8] per-layer moe() packed vs masked-dense on the dequantized "
+          f"weights, same input (bf16): " + ", ".join(
+              f"layer {i} {g[0]:.4f} / {g[1]:.4f}"
+              for i, g in enumerate(gaps))
+          + f" (bound {LOGIT_MAX_REL} / {LOGIT_MEAN_REL})")
+    if not all(map(within_bound, gaps)):
+        raise AssertionError("int8 moe() disagrees with the dequantized "
+                             "masked-dense one beyond the bound")
+    e2e["layer_gaps"] = gaps
+    del deq, exec8, s_in
+    if DEV == "cuda":
+        e2e["float_bf16_peak_mem_gb"] = float_peak
+        e2e["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[int8] mixtral int8 part peak device memory "
+              f"{e2e['peak_mem_gb']:.2f} GB (the masked bf16 params, their "
+              f"int8 compile and the dequantized oracle; the float bf16 "
+              f"part before it {float_peak:.2f} GB)")
+        torch.cuda.empty_cache()
+    return e2e, launches
+
+
+def vgg_int8_serve(mods, name, spec, pm, masks, x):
+    """VGG_TINY's masked params compiled again with int8 values (per-block
+    scales punched, per-filter taps): one forward counted, its fp32 logits
+    against masked-dense on the dequantized weights, ms per forward and
+    the card's busy share."""
+    CN, C, K, ops = mods["CN"], mods["C"], mods["K"], mods["ops"]
+    exec8, report, compile_s = compile_timed(mods, pm, masks, spec,
+                                             value_dtype="int8")
+    print(f"[{name}, int8] compile_model {compile_s:.2f}s:")
+    check_int8_report(C, report, len(report.packed))
+    want = expected_conv_launches(ops, CN.VGG_TINY, exec8, CONV_HW, CONV_B)
+    K.reset_launches()
+    sync()
+    with torch.no_grad():
+        logits = CN.convnet_apply(exec8, x, CN.VGG_TINY)
+    sync()
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    print(f"[{name}, int8] one forward: launches {launches} (from the "
+          f"layouts: {want})")
+    if launches != want:
+        raise AssertionError(f"[{name}, int8] the forward did not go "
+                             f"through the kernels the layouts imply")
+    with torch.no_grad():
+        dense = CN.convnet_apply(dequantized(pm, exec8), x, CN.VGG_TINY)
+        gap = conv_logit_gap(dense, logits)
+        agree = (dense.argmax(-1) == logits.argmax(-1)).float().mean().item()
+        for _ in range(2):
+            CN.convnet_apply(exec8, x, CN.VGG_TINY)
+        sync()
+        n_fw = 10
+        t0 = time.perf_counter()
+        for _ in range(n_fw):
+            CN.convnet_apply(exec8, x, CN.VGG_TINY)
+        sync()
+        fw_ms = (time.perf_counter() - t0) * 1e3 / n_fw
+        graph_ms = time_ms(lambda: CN.convnet_apply(exec8, x, CN.VGG_TINY),
+                           10, None)
+        dev = device_time(lambda: CN.convnet_apply(exec8, x, CN.VGG_TINY))
+    busy = None if dev is None else dev["busy_ms"] / fw_ms
+    print(f"[{name}, int8] logits packed vs masked-dense on the dequantized "
+          f"weights (fp32, TF32 off): max|diff| {gap:.2e} of max|logit| "
+          f"(bound {CONV_LOGIT_REL}); argmax agree {agree:.3f}; forward "
+          f"{fw_ms:.3f} ms warm = {CONV_B / fw_ms * 1e3:.0f} images/s; "
+          f"device work by graph replay {graph_ms:.3f} ms; busy share "
+          + ("not measured (the profiler saw no device activity)"
+             if busy is None else f"{busy:.3f}"))
+    if not (torch.isfinite(logits).all() and gap <= CONV_LOGIT_REL
+            and agree == 1.0):
+        raise AssertionError(f"[{name}, int8] packed logits disagree with "
+                             f"the dequantized masked-dense ones")
+    return ({"compile_s": compile_s, "launches": launches, "logit_gap": gap,
+             "argmax_agree": agree, "forward_ms": fw_ms,
+             "images_per_s": CONV_B / fw_ms * 1e3, "graph_ms": graph_ms,
+             "device": dev, "busy_share": busy}, launches)
+
+
+def int8_entry(launches, max_err, ms, plain_ms, bound_ms, bound_by,
+               library_ms, **extra):
+    """The ``int8`` branch of a kernel's JSON entry."""
+    return dict({"launches": launches, "max_abs_err": max_err, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": library_ms}, **extra)
 
 
 def main(argv=None):
@@ -1425,21 +2081,25 @@ def main(argv=None):
 
     flush = torch.empty(64 << 20, dtype=torch.float32, device=DEV)
     rows, max_err = kernel_phase(mods, flush)
+    rows8, err8, faults8, vbytes = int8_kernel_phase(mods, flush)
     torch.cuda.empty_cache()
-    e2e, launches = serve_phase(mods, args)
+    e2e, launches, launches8 = serve_phase(mods, args)
     torch.cuda.empty_cache()
     conv_rows, conv_err = conv_kernel_phase(mods, flush)
+    conv_rows8, conv_err8, conv_faults8 = int8_conv_kernel_phase(mods,
+                                                                 flush)
     floor_rows = floor_phase(mods, flush)
     del flush
     torch.cuda.empty_cache()
-    conv_e2e, conv_launches = conv_serve_phase(mods)
+    conv_e2e, conv_launches, conv_launches8 = conv_serve_phase(mods)
     # the MoE path, after the yi-9b and VGG state is gone
     torch.cuda.empty_cache()
     flush = torch.empty(64 << 20, dtype=torch.float32, device=DEV)
     moe_rows, moe_err = moe_kernel_phase(mods, flush)
+    moe_rows8, moe_err8 = int8_moe_kernel_phase(mods, flush)
     del flush
     torch.cuda.empty_cache()
-    moe_e2e, moe_launches = moe_serve_phase(mods)
+    moe_e2e, moe_launches, moe_launches8 = moe_serve_phase(mods)
 
     decode, prefill = layer_sum(rows, 4), layer_sum(rows, 128)
     moe_m = prefill_capacity(moe_config())
@@ -1483,7 +2143,28 @@ def main(argv=None):
              "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
              "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
              "stream_ms": r["stream_ms"]} for r in moe_rows]}
-    entries = [entry] + conv_entries(conv_rows, conv_err, conv_launches)
+    d8 = layer_sum(rows8, 4)
+    entry["int8"] = int8_entry(
+        launches8["bsr_matmul"] + moe_launches8["bsr_matmul"],
+        max(err8, moe_err8), d8["ms"], d8["plain_ms"], d8["bound_ms"],
+        d8["bound_by"], d8["library_ms"],
+        launches_by_path={
+            "yi-9b generate": launches8["bsr_matmul"],
+            "mixtral-8x7b generate": moe_launches8["bsr_matmul"]},
+        prefill=layer_sum(rows8, 128),
+        experts={"decode": layer_sum(moe_rows8, 4),
+                 "prefill": layer_sum(moe_rows8, moe_m)},
+        stream_ms={"decode": d8["stream_ms"],
+                   "prefill": layer_sum(rows8, 128)["stream_ms"]},
+        layer_value_bytes={"bf16": vbytes[0], "int8_and_scales": vbytes[1]},
+        planted_faults=faults8,
+        measured_at="as above with int8 values and a scale per block; "
+                    "bound from the int8 bytes; library = torch.matmul / "
+                    "torch.bmm on the bf16 masked dense weight")
+    entries = [entry] + conv_entries(conv_rows, conv_err, conv_launches,
+                                     conv_rows8, conv_err8, conv_launches8)
+    next(e for e in entries if e["name"] == "tap_gather_conv_implicit")[
+        "int8"]["planted_faults"] = conv_faults8
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -1492,7 +2173,8 @@ def main(argv=None):
          "build": {n: _build.BUILD_INFO[n]["seconds"] for n in KERNEL_FILES},
          "ptxas": {n: _build.BUILD_INFO[n]["log"] for n in KERNEL_FILES},
          "kernels": entries, "yi9b_shapes": rows, "moe_shapes": moe_rows,
-         "moe_serve": moe_e2e,
+         "int8_yi9b_shapes": rows8, "int8_moe_shapes": moe_rows8,
+         "int8_conv_shapes": conv_rows8, "moe_serve": moe_e2e,
          "conv_shapes": conv_rows, "floor_shapes": floor_rows,
          "serve": e2e, "conv_serve": conv_e2e},
         indent=1))

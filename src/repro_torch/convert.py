@@ -6,7 +6,9 @@ A packed layout crosses as a dict of its leaves plus ``block``/``shape``
 (``values``/``k_idx`` lists per bin, ``nnz``, ``perm``/``inv_perm`` or
 None, optionally ``conv_taps``) under a ``"packed"`` key; a dict carrying
 ``t_idx`` is a tap layout (``values``/``t_idx``/``k_full`` lists per bin,
-``nnz``, ``alive``, ``perm``/``inv_perm``, ``group``, ``shape``).  bf16
+``nnz``, ``alive``, ``perm``/``inv_perm``, ``group``, ``shape``); either
+may carry ``scales`` (a list per bin, or None), the fp32 scales of int8
+values (``core.quant``), so a quantized layout crosses whole.  bf16
 arrays arrive as ``ml_dtypes`` bfloat16, which ``torch.from_numpy``
 rejects: they cross bit for bit as an int16 view, recognised by
 ``dtype.name``.
@@ -36,6 +38,7 @@ def layout_from_numpy(d, device):
 
     def bins(k):
         return tuple(tensor_from_numpy(v, device) for v in d[k])
+    scales = bins("scales") if d.get("scales") is not None else None
     if "t_idx" in d:
         return TapLayout(
             values=bins("values"), t_idx=bins("t_idx"),
@@ -43,7 +46,7 @@ def layout_from_numpy(d, device):
             nnz=tensor_from_numpy(d["nnz"], device),
             alive=tensor_from_numpy(d["alive"], device), perm=opt("perm"),
             inv_perm=opt("inv_perm"), group=int(d["group"]),
-            shape=tuple(d["shape"]))
+            shape=tuple(d["shape"]), scales=scales)
     taps = d.get("conv_taps")
     return PackedLayout(
         values=bins("values"), k_idx=bins("k_idx"),
@@ -51,7 +54,7 @@ def layout_from_numpy(d, device):
         inv_perm=opt("inv_perm"), block=tuple(d["block"]),
         shape=tuple(d["shape"]),
         conv_taps=None if taps is None else tuple(
-            tuple(int(v) for v in t) for t in taps))
+            tuple(int(v) for v in t) for t in taps), scales=scales)
 
 
 def params_from_numpy(tree, device):

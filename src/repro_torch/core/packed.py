@@ -20,8 +20,13 @@ implicit conv kernel gathers through.
 (paper §2.1.1): per filter group, the list of surviving rows ("taps") of
 the im2col band, degree-sorted and binned the same way.
 
-This port holds float values only: no int8 scales and no tensor-parallel
-shards yet.
+Either layout may carry int8 values with a per-bin ``scales`` leaf tuple
+of fp32 (``core.quant``); the scale's rank against the values' encodes
+the granularity (one per stored block or tap slot, or one per output
+column).  The kernels dequantize ``q * s`` on the card before their
+fp32-accumulated products; ``to_dense`` of a quantized layout returns the
+DEQUANTIZED weight, the oracle of the int8 paths.  Tensor-parallel shards
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -29,6 +34,22 @@ from dataclasses import dataclass, replace
 from functools import cached_property
 
 import torch
+
+
+def _dequant(values, scale):
+    """One bin's values as fp32 times its scales, each scale broadcast over
+    the trailing value axes it does not name (every granularity the same
+    way); the values as they are when ``scale`` is None."""
+    if scale is None:
+        return values
+    s = scale.reshape(tuple(scale.shape)
+                      + (1,) * (values.ndim - scale.ndim))
+    return values.float() * s
+
+
+def _value_dtype(values) -> str:
+    """The stored values' dtype name ("int8" on a quantized layout)."""
+    return str(values[0].dtype).removeprefix("torch.")
 
 
 def _bin_slices(t, sizes):
@@ -54,6 +75,10 @@ class PackedLayout:
                  or None when the layout is in original column order
       inv_perm : (..., Nb) int32 original block column -> layout position,
                  or None (identity)
+      scales   : None for float values; for int8 values a tuple of per-bin
+                 fp32 tensors, (..., nb_b, L_b) — one scale per stored
+                 block ("block") — or (..., nb_b) — one per block column
+                 ("out").  All-zero blocks store scale 0.
 
     Static geometry: ``block`` (bk, bn) and ``shape`` (K, N) of one dense
     weight slice; ``conv_taps`` is None, or for an im2col-lowered conv
@@ -70,6 +95,7 @@ class PackedLayout:
     block: tuple = (128, 128)
     shape: tuple = (0, 0)
     conv_taps: tuple | None = None
+    scales: tuple | None = None
 
     # -- static geometry ------------------------------------------------------
 
@@ -120,6 +146,27 @@ class PackedLayout:
         count as executed)."""
         return max(0.0, 1.0 - self.executed_blocks / (self.Kb * self.Nb))
 
+    @property
+    def value_dtype(self) -> str:
+        """Dtype name of the stored values ("int8" on quantized layouts)."""
+        return _value_dtype(self.values)
+
+    @property
+    def scale_granularity(self) -> str | None:
+        """"block" (a scale per stored block), "out" (per block column) or
+        None (float values), read from the scales' rank."""
+        if self.scales is None:
+            return None
+        return ("block" if self.scales[0].ndim == self.values[0].ndim - 2
+                else "out")
+
+    def bin_scales(self) -> tuple:
+        """Per-bin scale tensors, or Nones on a float layout — what the
+        kernel wrappers zip alongside ``values``."""
+        if self.scales is None:
+            return (None,) * self.n_bins
+        return self.scales
+
     # -- data-dependent stats (host sync; report/test time only) -------------
 
     @property
@@ -149,7 +196,9 @@ class PackedLayout:
         return replace(self, values=tuple(v[i] for v in self.values),
                        k_idx=tuple(k[i] for k in self.k_idx),
                        nnz=self.nnz[i], perm=take(self.perm),
-                       inv_perm=take(self.inv_perm))
+                       inv_perm=take(self.inv_perm),
+                       scales=None if self.scales is None else tuple(
+                           s[i] for s in self.scales))
 
     @cached_property
     def bin_cols(self) -> tuple:
@@ -207,16 +256,20 @@ class PackedLayout:
 
     def to_dense(self):
         """Reconstruct the dense (K, N) weight of a single-slice layout —
-        the round-trip oracle."""
+        the round-trip oracle; the DEQUANTIZED fp32 weight (values *
+        scales) of a quantized layout."""
         assert self.values[0].ndim == 4, "to_dense needs an unstacked layout"
         K, N = self.shape
         bk, bn = self.block
         Kb, Nb = self.Kb, self.Nb
         dev = self.values[0].device
-        dense = torch.zeros((Kb, Nb, bk, bn), dtype=self.values[0].dtype,
-                            device=dev)
+        dense = torch.zeros((Kb, Nb, bk, bn), dtype=torch.float32
+                            if self.scales is not None
+                            else self.values[0].dtype, device=dev)
         start = 0
-        for vals, kidx, cols in zip(self.values, self.k_idx, self.bin_cols):
+        for vals, kidx, cols, sc in zip(self.values, self.k_idx,
+                                        self.bin_cols, self.bin_scales()):
+            vals = _dequant(vals, sc)
             nb_b, L_b = kidx.shape
             deg = self.nnz[start:start + nb_b].long()     # layout order
             live = torch.arange(L_b, device=dev)[None, :] < deg[:, None]
@@ -251,6 +304,9 @@ class TapLayout:
                  group, ascending
       perm     : (G,) int32 layout position -> original group, or None
       inv_perm : (G,) int32 original group -> layout position, or None
+      scales   : None for float values; for int8 values a tuple of per-bin
+                 fp32 tensors, (G_b, L_b) — one per tap slot ("block") —
+                 or (G_b, 1, group) — one per filter ("out").
 
     Static: ``group`` (filters per tap list) and ``shape`` (K, P).  Within
     a group the live slots are in ascending band-row order
@@ -270,10 +326,10 @@ class TapLayout:
     n_shards: int = 0
 
     def __post_init__(self):
-        if self.scales is not None or self.n_shards:
+        if self.n_shards:
             raise NotImplementedError(
-                "TapLayout: int8 scales and tensor-parallel shards are not "
-                "ported yet (slices 5 and 7)")
+                "TapLayout: tensor-parallel shards are not ported yet "
+                "(slice 7)")
 
     # -- static geometry ------------------------------------------------------
 
@@ -324,6 +380,25 @@ class TapLayout:
         executed / (K * n_groups), padding included."""
         K = self.shape[0]
         return max(0.0, 1.0 - self.executed_taps / (K * self.n_groups))
+
+    @property
+    def value_dtype(self) -> str:
+        """Dtype name of the stored values ("int8" on quantized layouts)."""
+        return _value_dtype(self.values)
+
+    @property
+    def scale_granularity(self) -> str | None:
+        """"block" (a scale per tap slot), "out" (per filter) or None
+        (float values), read from the scales' rank."""
+        if self.scales is None:
+            return None
+        return "block" if self.scales[0].ndim == 2 else "out"
+
+    def bin_scales(self) -> tuple:
+        """Per-bin scale tensors, or Nones on a float layout."""
+        if self.scales is None:
+            return (None,) * self.n_bins
+        return self.scales
 
     # -- data-dependent stats (host sync; report/test time only) -------------
 
@@ -387,13 +462,17 @@ class TapLayout:
 
     def to_dense(self):
         """Reconstruct the dense lowered (K, P) weight — the round-trip
-        oracle: equals ``core.bcs.conv_lower(w * mask)``."""
+        oracle: equals ``core.bcs.conv_lower(w * mask)`` (the DEQUANTIZED
+        fp32 weight of a quantized layout)."""
         K, P = self.shape
         dev = self.values[0].device
         dense = torch.zeros((K, self.n_groups, self.group),
-                            dtype=self.values[0].dtype, device=dev)
+                            dtype=torch.float32 if self.scales is not None
+                            else self.values[0].dtype, device=dev)
         start = 0
-        for vals, tidx, cols in zip(self.values, self.t_idx, self.bin_cols):
+        for vals, tidx, cols, sc in zip(self.values, self.t_idx,
+                                        self.bin_cols, self.bin_scales()):
+            vals = _dequant(vals, sc)
             G_b, L_b = tidx.shape
             deg = self.nnz[start:start + G_b].long()
             live = torch.arange(L_b, device=dev)[None, :] < deg[:, None]

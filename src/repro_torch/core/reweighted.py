@@ -26,6 +26,9 @@ class SchemeChoice:
     block: tuple = (64, 128)
     rate: float | None = None        # target rate for one-shot mode
     connectivity: float = 0.0        # pattern-based extra kernel pruning
+    value_dtype: str | None = None   # serving precision pick (None = keep
+    #                                  float values; "int8" = quantized
+    #                                  packed values, see core.quant)
 
 
 def match(spec, path: str) -> SchemeChoice | None:

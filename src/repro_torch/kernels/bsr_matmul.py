@@ -39,6 +39,13 @@ kernel 4 run over the alive band.  ``conv_plan`` chooses the tile;
 ``_bsr_tables`` / ``_tap_tables`` flatten the bins into the per-column
 tables the kernels walk.
 
+Int8 layouts (``core.quant``: int8 values, fp32 scales per block or
+tap slot, or per output column) run through the same four kernels under
+a bf16 or fp32 x: each kernel reads the int8 values (kernel 1 straight
+from the layout; kernels 2-4 through their tables) and the scales, and
+dequantizes ``q * s`` on the card before its fp32-accumulated products,
+in the same launch; no dequantized copy of a weight is ever made.
+
 The plain PyTorch versions (``kernels.ref``) run only for CPU tensors.
 For a CUDA tensor the kernel launches or the call raises; nothing falls
 back.  ``LAUNCHES`` counts kernel launches per kernel (CUDA only).
@@ -61,12 +68,15 @@ LAUNCHES = {"bsr_matmul": 0, "tap_gather_conv": 0, "bsr_conv2d_implicit": 0,
 
 _ACTS = {"none": 0, "silu": 1, "relu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the values: float (x's dtype), or int8 with a scale per stored block /
+# tap slot ("block") or per output column ("out")
+_QUANT = {None: 0, "block": 1, "out": 2}
 # C entry point -> (library, pointer args, int args); every entry ends
 # with the stream pointer
 _ENTRIES = {
-    "bsr_matmul_launch": ("bsr_matmul", 7, 12),
-    "bsr_conv_launch": ("bsr_matmul", 7, 6),
-    "tap_conv_launch": ("tap_gather", 6, 4),
+    "bsr_matmul_launch": ("bsr_matmul", 7, 13),
+    "bsr_conv_launch": ("bsr_matmul", 8, 6),
+    "tap_conv_launch": ("tap_gather", 6, 5),
 }
 _fns: dict = {}
 
@@ -372,12 +382,15 @@ def _column_meta(sizes, degrees, cols, width, dev):
 
 
 def _bsr_tables(layout):
-    """Kernel 3's tables, all bins flattened in layout order: values as
-    fp32 (slots, bk, bn) (exact for bf16), k_idx (slots,) int32 and the
-    column meta.  Cached per layout object."""
+    """Kernel 3's tables, all bins flattened in layout order: values
+    (slots, bk, bn) as fp32 (exact for bf16), or as the layout's int8,
+    k_idx (slots,) int32 and the column meta.  Cached per layout
+    object."""
     def build():
         dev = layout.nnz.device
-        vals = torch.cat([v.reshape(-1).float() for v in layout.values])
+        q = layout.scales is not None
+        vals = torch.cat([v.reshape(-1) if q else v.reshape(-1).float()
+                          for v in layout.values])
         kidx = torch.cat([k.reshape(-1) for k in layout.k_idx]).to(
             torch.int32)
         meta = _column_meta(layout.bin_sizes, layout.bin_degrees,
@@ -386,14 +399,34 @@ def _bsr_tables(layout):
     return _cached(layout, "bcs", build)
 
 
+def _bsr_scales(layout):
+    """Kernel 3's (slots,) fp32 scale of every slot of an int8 layout, in
+    the slot order of ``_bsr_tables`` (a column's "out" scale repeated
+    over its slots), or None for a float layout.  Cached per layout."""
+    def build():
+        if layout.scales is None:
+            return None
+        return torch.cat([
+            (sc if sc.ndim == 2 else sc[:, None].expand(-1, L)).reshape(-1)
+            for sc, L in zip(layout.scales, layout.bin_degrees)
+        ]).float().contiguous()
+    return _cached(layout, "bcs_scales", build)
+
+
+# kernel 4's packed int8 slot: the input word in the low 16 bits, q above
+TAP_WORD_BITS = 16
+
+
 def _tap_tables(layout, plan, band=False):
     """Kernel 4's tables for one tile geometry: (slots, 2) int32 of (the
     slot's input word in the staged tile, its value's fp32 bits) per
-    output column of the layout, in slot order, and the column meta.  The
-    word of input row k (tap = k // C, (dy, dx) = divmod(tap, kw), channel
-    ch = k % C) is ``(ch >> cg_log2) * chan_ld + (ch % 2**cg_log2) * s *
-    nph + dy * pitch + (dx % s) * nph + dx // s``; adding a position's ``r
-    * s * pitch + c`` gives its input.  k is the slot's ``k_full`` row of
+    output column of the layout, in slot order, and the column meta; on
+    an int8 layout (word + q * 2**16, the slot's fp32 scale bits), q in
+    [-127, 127] and the word below 2**16.  The word of input row k (tap
+    = k // C, (dy, dx) = divmod(tap, kw), channel ch = k % C) is ``(ch >>
+    cg_log2) * chan_ld + (ch % 2**cg_log2) * s * nph + dy * pitch + (dx %
+    s) * nph + dx // s``; adding a position's ``r * s * pitch + c`` gives
+    its input.  k is the slot's ``k_full`` row of
     the image's im2col band, or with ``band`` its ``t_idx`` row of the
     alive band (a 1 x 1 conv over its ``n_alive`` channels: kernel 2)."""
     C, kw, s, cg = plan.C, plan.kw, plan.stride, plan.cg_log2
@@ -402,9 +435,14 @@ def _tap_tables(layout, plan, band=False):
     def build():
         dev = layout.nnz.device
         g = layout.group
+        if (layout.scales is not None
+                and plan.x_floats > 1 << TAP_WORD_BITS):
+            raise ValueError(f"tap_gather_conv: an int8 slot addresses "
+                             f"{1 << TAP_WORD_BITS} staged words, the tile "
+                             f"stages {plan.x_floats}")
         ents = []
         rows = layout.t_idx if band else layout.bin_k_full()
-        for vals, kf in zip(layout.values, rows):
+        for vals, kf, sc in zip(layout.values, rows, layout.bin_scales()):
             G, L, _ = vals.shape
             k = kf.long()
             tap, ch = k // C, k % C
@@ -412,9 +450,17 @@ def _tap_tables(layout, plan, band=False):
             off = ((ch >> cg) * plan.chan_ld
                    + (ch & ((1 << cg) - 1)) * (s * plan.nph)
                    + dy * plan.pitch + (dx % s) * plan.nph + dx // s)
-            off = off[:, None, :].expand(G, g, L).to(torch.int32)
-            v = vals.float().permute(0, 2, 1).contiguous().view(torch.int32)
-            ents.append(torch.stack([off, v], -1).reshape(-1, 2))
+            off = off[:, None, :].expand(G, g, L)
+            if sc is None:
+                v = vals.float().permute(0, 2, 1)
+            else:
+                off = off + (vals.permute(0, 2, 1).long()
+                             << TAP_WORD_BITS)
+                v = (sc[:, None, :].expand(G, g, L) if sc.ndim == 2
+                     else sc.permute(0, 2, 1).expand(G, g, L))
+            v = v.float().contiguous().view(torch.int32)
+            ents.append(torch.stack([off.to(torch.int32), v],
+                                    -1).reshape(-1, 2))
         meta = _column_meta(layout.bin_sizes, layout.bin_degrees,
                             layout.bin_cols, g, dev)
         return torch.cat(ents).contiguous(), meta
@@ -463,8 +509,9 @@ class BsrPlan:
     tile (MT rows of ``xp`` elements in shared memory) and the value piece
     (KS rows of ``vp``), through a ring of ``stages``.  ``mma``: bf16 on
     the tensor cores; otherwise fp32 FMAs on CUDA cores (FM = 1).  ``E``
-    experts run side by side (grid y).  Field order up to ``smem`` is the
-    kernel's ``BsrShape``."""
+    experts run side by side (grid y).  ``ves``: bytes of a stored value
+    (1 for int8 values, whose chunk's scales are staged beside its
+    k_idx).  Field order up to ``smem`` is the kernel's ``BsrShape``."""
     M: int
     bk: int
     bn: int
@@ -488,6 +535,7 @@ class BsrPlan:
     N: int
     dtype: torch.dtype
     E: int = 1
+    ves: int = 4
 
     def args(self):
         """The ``BsrShape`` ints, in the kernel's field order."""
@@ -505,11 +553,13 @@ class BsrPlan:
 
 
 @functools.lru_cache(maxsize=256)
-def bsr_plan(M, K, N, dtype, bk, bn, E=1):
+def bsr_plan(M, K, N, dtype, bk, bn, E=1, ves=None):
     """Kernel 1's launch for x (M, K) @ a (K, N) layout of (bk, bn) blocks,
-    or for ``E`` such products of an expert stack side by side.
+    or for ``E`` such products of an expert stack side by side; ``ves``
+    bytes a stored value (None: x's; 1: int8 values with scales).
 
-    Path: tensor cores for bf16 with bk % 16 == 0 and bn % 8 == 0, else
+    Path: tensor cores for bf16 x with bk % 16 == 0 and bn % 8 == 0 (int8
+    values too: their B fragments are built from the staged bytes), else
     FMAs.  M tile: the least power of two >= M between 16 and 128 (64 on
     the FMA path); warps along M as the tile needs, the rest split the
     chunk's slots.  Chunk: S = ``BSR_CHUNK`` slots (short enough that all
@@ -529,6 +579,10 @@ def bsr_plan(M, K, N, dtype, bk, bn, E=1):
                          f"for ({K}, {N}) (bk a power of two >= 4, bn one "
                          f"from 4 to 256)")
     es = 2 if dtype == torch.bfloat16 else 4
+    ves = es if ves is None else ves
+    if ves not in (es, 1):
+        raise TypeError(f"bsr_matmul: {ves}-byte values under a {dtype} x "
+                        f"(the values take x's dtype, or int8)")
     mma = int(es == 2 and bk % 16 == 0 and bn % 8 == 0)
     MT = 16
     while MT < min(M, 128 if mma else 64):
@@ -545,28 +599,32 @@ def bsr_plan(M, K, N, dtype, bk, bn, E=1):
         SW *= 2
     while SW > 4 and tiles * -(-Kb // (WK * SW)) < BSR_TARGET_BLOCKS:
         SW //= 2
-    xp, vp = _odd16(KS * es) // es, _odd16(NW * es) // es
+    xp, vp = _odd16(KS * es) // es, _odd16(NW * ves) // ves
+    # the chunk's k_idx (and its scales, int8), ring or red tile, flag
+    head = _round_to(4 * WK * SW, 16, 0) * (2 if ves == 1 else 1)
 
-    def smem_of(U, stages):  # k_idx of a chunk, ring or red tile, flag
-        ring = stages * WK * U * (MT * xp + KS * vp) * es
+    def smem_of(U, stages):
+        ring = stages * WK * U * (MT * xp * es + KS * vp * ves)
         red = WK * MT * NW * 4
-        return _round_to(4 * WK * SW, 16, 0) + max(ring, red) + 16
+        return head + max(ring, red) + 16
     U, stages = next(((u, st) for u in BSR_UNITS for st in BSR_STAGES
                       if smem_of(u, st) <= BSR_SMEM_TARGET),
                      (1, BSR_STAGES[-1]))
     return BsrPlan(M, bk, bn, mma, MT, FM, WM, NW, KS, WK * SW, SW,
                    subcols, mtiles, xp, vp, U, stages, smem_of(U, stages),
-                   WK, K, N, dtype, E)
+                   WK, K, N, dtype, E, ves)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class BsrBins:
     """The bin table of one (layout, plan): ``table`` the BinDesc rows
     (values, k_idx and cols pointers, first workspace float, columns,
-    padded degree, chunks a column, first block, first tile, 0) as host
-    int64; ``items`` blocks, ``tiles`` counters and ``ws_floats`` of
-    workspace of one expert (the whole launch for an unstacked layout;
-    an expert stack's leaves are addressed by stride from expert 0's)."""
+    padded degree, chunks a column, first block, first tile, scales
+    pointer or 0) as host int64 (an expert's scales at e times one
+    expert's leaf, like its k_idx); ``items`` blocks, ``tiles`` counters
+    and ``ws_floats`` of workspace of one expert (the whole launch for an
+    unstacked layout; an expert stack's leaves are addressed by stride
+    from expert 0's)."""
     table: ctypes.Array
     n_bins: int
     items: int
@@ -587,16 +645,31 @@ def _bsr_bins(layout, plan, device):
         if (lead[0] if lead else 1) != plan.E:
             raise ValueError(f"bsr_matmul: the layout stacks {lead} "
                              f"experts, the plan {plan.E}")
+        gran = layout.scale_granularity
+        if (plan.ves == 1) != (gran is not None):
+            raise TypeError(f"bsr_matmul: the plan takes {plan.ves}-byte "
+                            f"values, the layout {layout.value_dtype}")
         rows, item, tile, ws = [], 0, 0, 0
-        for vals, kidx, cols in zip(layout.values, layout.k_idx,
-                                    layout.bin_cols):
+        for vals, kidx, cols, sc in zip(layout.values, layout.k_idx,
+                                        layout.bin_cols,
+                                        layout.bin_scales()):
             nb, L = kidx.shape[-2:]
             if any(t.device != device for t in (vals, kidx, cols)):
                 raise ValueError(f"bsr_matmul: the layout and x must share "
                                  f"one device ({device})")
-            if vals.dtype != plan.dtype:
-                raise TypeError(f"bsr_matmul: values dtype {vals.dtype} != "
-                                f"x dtype {plan.dtype}")
+            if vals.dtype != (torch.int8 if gran else plan.dtype):
+                raise TypeError(f"bsr_matmul: values dtype {vals.dtype} "
+                                f"under x dtype {plan.dtype} (x's dtype, or "
+                                f"int8 with scales)")
+            if sc is not None and (
+                    sc.dtype != torch.float32 or sc.device != device
+                    or not sc.is_contiguous()
+                    or tuple(sc.shape) != lead + ((nb, L) if gran == "block"
+                                                  else (nb,))):
+                raise ValueError(f"bsr_matmul: scales must be contiguous "
+                                 f"float32 {lead + (nb, L)} (block) or "
+                                 f"{lead + (nb,)} (out) on {device}, got "
+                                 f"{sc.dtype} {tuple(sc.shape)}")
             if kidx.dtype != torch.int32 or cols.dtype != torch.int32:
                 raise TypeError("bsr_matmul: k_idx and cols must be int32")
             if (tuple(vals.shape) != lead + (nb, L, plan.bk, plan.bn)
@@ -613,7 +686,8 @@ def _bsr_bins(layout, plan, device):
             nch = plan.chunks(L)
             tiles = nb * plan.subcols * plan.mtiles
             rows += [vals.data_ptr(), kidx.data_ptr(), cols.data_ptr(), ws,
-                     nb, L, nch, item, tile, 0]
+                     nb, L, nch, item, tile,
+                     0 if sc is None else sc.data_ptr()]
             item += tiles * nch
             tile += tiles
             if nch > 1:
@@ -698,7 +772,9 @@ def bsr_matmul_packed(x, layout, bias=None, act="none"):
                              or bias.dtype != x.dtype):
         raise ValueError(f"bsr_matmul: bias must be a contiguous "
                          f"{lead + (N,)} {x.dtype} tensor on {x.device}")
-    plan = bsr_plan(M, K, N, x.dtype, *layout.block, E)
+    gran = layout.scale_granularity
+    plan = bsr_plan(M, K, N, x.dtype, *layout.block, E,
+                    1 if gran else es)
     bins = _bsr_bins(layout, plan, x.device)
     out = torch.empty(lead + (M, N), dtype=x.dtype, device=x.device)
     if M == 0:
@@ -711,12 +787,13 @@ def bsr_matmul_packed(x, layout, bias=None, act="none"):
                     ctypes.addressof(plan.c_args),
                     ctypes.addressof(bins.table), bins.n_bins, bins.items,
                     x.stride(-2), out.stride(-2), _ACTS[act],
-                    _DTYPES[x.dtype], E, ldx_e, out.stride(0) if lead else 0,
+                    _DTYPES[x.dtype], _QUANT[gran], E, ldx_e,
+                    out.stride(0) if lead else 0,
                     N if lead and bias is not None else 0, bins.tiles,
                     bins.ws_floats, _stream(x))
     _raise_on(err, "bsr_matmul", f"E={E}, M={M}, K={K}, N={N}, block="
-                                 f"{layout.block}, dtype={x.dtype}, "
-                                 f"plan={plan.args()}")
+                                 f"{layout.block}, dtype={x.dtype}, values="
+                                 f"{layout.value_dtype}, plan={plan.args()}")
     LAUNCHES["bsr_matmul"] += 1
     return out
 
@@ -753,13 +830,19 @@ def _check_conv_input(name, x, layout, bias, act):
     if x.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {x.dtype} not supported "
                         f"(float32, bfloat16)")
-    tensors = list(layout.values) + ([bias] if bias is not None else [])
+    scales = list(layout.scales or ())
+    tensors = (list(layout.values) + scales
+               + ([bias] if bias is not None else []))
     if any(t.device != x.device for t in tensors):
         raise ValueError(f"{name}: the layout, bias and x must share one "
                          f"device")
-    if any(t.dtype != x.dtype for t in tensors):
-        raise TypeError(f"{name}: layout values and bias must have x's "
-                        f"dtype {x.dtype}")
+    vdt = torch.int8 if scales else x.dtype
+    if (any(t.dtype != vdt for t in layout.values)
+            or any(t.dtype != torch.float32 for t in scales)
+            or (bias is not None and bias.dtype != x.dtype)):
+        raise TypeError(f"{name}: layout values must have x's dtype "
+                        f"{x.dtype} (or be int8 with float32 scales), and "
+                        f"bias x's dtype")
     if act not in _ACTS:
         raise ValueError(f"{name}: unknown activation {act!r}")
     if bias is not None and (bias.shape != (layout.shape[1],)
@@ -803,18 +886,24 @@ def _bsr_conv(x, layout, plan, taps_of, bias, act, key):
     if sum(layout.bin_sizes) * bn != layout.shape[1]:
         raise ValueError(f"{key}: the bins cover {sum(layout.bin_sizes)} "
                          f"of {layout.shape[1] // bn} block columns")
-    vals, _, meta = _bsr_tables(layout)
+    vals, kidx, meta = _bsr_tables(layout)
+    scales = _bsr_scales(layout)
+    if scales is not None and scales.numel() != kidx.numel():
+        raise ValueError(f"{key}: {scales.numel()} scales for "
+                         f"{kidx.numel()} slots")
     soffs = _bsr_soffs(layout, plan, *taps_of)
     out = torch.empty((plan.B * plan.Ho * plan.Wo, plan.N), dtype=x.dtype,
                       device=x.device)
     err = _kernel("bsr_conv_launch")(
-        x.data_ptr(), vals.data_ptr(), soffs.data_ptr(), meta.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(),
-        ctypes.addressof(plan.c_args), out.stride(0), _ACTS[act],
-        _DTYPES[x.dtype], bk, bn, plan.smem_bytes, _stream(x))
+        x.data_ptr(), vals.data_ptr(),
+        None if scales is None else scales.data_ptr(), soffs.data_ptr(),
+        meta.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), ctypes.addressof(plan.c_args), out.stride(0),
+        _ACTS[act], _DTYPES[x.dtype], bk, bn, plan.smem_bytes, _stream(x))
     _raise_on(err, key, f"x {tuple(x.shape)}, block ({bk}, {bn}), tile "
                         f"{plan.tr}x{plan.tw}, R={plan.R}, smem "
-                        f"{plan.smem_bytes}, dtype={x.dtype}")
+                        f"{plan.smem_bytes}, dtype={x.dtype}, values "
+                        f"{layout.value_dtype}")
     LAUNCHES[key] += 1
     return out
 
@@ -886,10 +975,11 @@ def _tap_conv(x, layout, plan, band, bias, act, name):
         x.data_ptr(), slots.data_ptr(), meta.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         ctypes.addressof(plan.c_args), out.stride(0), _ACTS[act],
-        _DTYPES[x.dtype], plan.smem_bytes, _stream(x))
+        _DTYPES[x.dtype], int(layout.scales is not None), plan.smem_bytes,
+        _stream(x))
     _raise_on(err, name, f"x {tuple(x.shape)}, tile {plan.tr}x{plan.tw}, "
                          f"R={plan.R}, smem {plan.smem_bytes}, "
-                         f"dtype={x.dtype}")
+                         f"dtype={x.dtype}, values {layout.value_dtype}")
     LAUNCHES[name] += 1
     return out
 

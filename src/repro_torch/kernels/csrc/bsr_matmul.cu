@@ -65,6 +65,18 @@
 //     expert's (at most 16 bins), so the table never caps E; an unstacked
 //     layout is E = 1 (blockIdx.y = 0, every offset 0).
 //
+//   * int8 values (the dequant branch of `_kernel`, bsr_matmul.py:71-75:
+//     w = f32(q) * s before the fp32-accumulated dot): the value pieces
+//     stream as bytes (half the bf16 bytes), the chunk's scales (one per
+//     block, or the column's) are staged beside its k_idx, and each unit
+//     dequantizes in the reference's order on the FMA path (w = (float)q
+//     * s, then the FMAs).  On the tensor cores, rounding q * s to bf16
+//     would add up to 2^-9 relative error a weight, which the reference
+//     does not have; instead the mma runs on bf16(q) (exact, |q| <= 127),
+//     B fragments built by hand from the staged bytes (ldmatrix moves b16
+//     only), into a zeroed fragment a k16 step, and acc += s * part.  One
+//     launch a projection still; no dequantized weight exists anywhere.
+//
 // Numerics: inside a warp group's sub-chunk every output is one chain over
 // its slots in slot order (one MMA k-step, or bk FMAs, per slot and KS
 // piece, from 0).  A block adds its WK sub-chunk sums in sub-chunk order;
@@ -119,6 +131,11 @@
 // The tile, the lanes' R and the shared-memory bytes come from conv_plan
 // in repro_torch/kernels/bsr_matmul.py.
 //
+// int8 values (the dequant branch of `_conv_kernel`, bsr_matmul.py:465-466)
+// stream as bytes through the same rings, with a scale a slot beside the
+// slot's window offset; each value is dequantized at its read, (float)q *
+// s, then the same FMAs.
+//
 // Numerics: each output is one fp32 FMA chain over its column's reduction
 // rows q = l*bk + kk in increasing q, from 0, whatever the tile or R;
 // padding slots hold zero values and add exact zeros.  The implicit and
@@ -152,6 +169,9 @@ template <> __device__ __forceinline__ float to_f32<float>(float v) {
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(
     __nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+template <> __device__ __forceinline__ float to_f32<int8_t>(int8_t v) {
+  return (float)v;
 }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
@@ -221,7 +241,7 @@ struct BinDesc {
   long long ws0;                         // first workspace float of the bin
   long long ncols, L, nch;               // columns, padded degree, chunks
   long long item0, tile0;                // first block and tile of the bin
-  long long unused;
+  long long scales;                      // int8: (nb, L) or (nb,) fp32
 };
 static_assert(sizeof(BinDesc) == 10 * sizeof(long long),
               "BinDesc must match the wrapper's table rows");
@@ -229,6 +249,7 @@ static_assert(sizeof(BinDesc) == 10 * sizeof(long long),
 struct BsrArgs {
   BsrShape p;
   int ldx, ldo, act, n_bins;
+  int quant;                             // 0 float, 1 int8 "block", 2 "out"
   // one expert's stride in x, out and bias (elements), its tile counters
   // and workspace floats; all 0 for an unstacked layout
   long long ldx_e, ldo_e, ldb_e, tiles_e, ws_e;
@@ -280,6 +301,13 @@ __device__ __forceinline__ void ldsm_x2_t(unsigned (&r)[2], const void* p) {
       : "r"(a));
 }
 
+// two int8 values as the bf16 pair of one fragment register (exact:
+// |q| <= 127), lo in the low half
+__device__ __forceinline__ unsigned bf16_pair(int8_t lo, int8_t hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn((float)lo, (float)hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
 // d += a (16x16, row) @ b (16x8, col): bf16 in, fp32 accumulate
 __device__ __forceinline__ void mma_bf16(float* d, const unsigned (&a)[4],
                                          const unsigned (&b)[2]) {
@@ -294,29 +322,40 @@ __device__ __forceinline__ void mma_bf16(float* d, const unsigned (&a)[4],
 // rows [16*FM*wm, +16*FM) of the M tile and the slots [slot0 + wk*SW, +SW)
 // of the chunk, SW * bk / KS units (one slot's KS-deep piece each).  Stage
 // st of the ring holds, for each warp group g, the U units of the group's
-// current step, each the x tile (MT rows of xp elements; rows >= M are
-// never loaded and only feed output rows that are never stored) and then
-// the value piece (KS rows of vp elements); the group's own WM warps load
-// it.  NWT: NW at compile time on the tensor-core path, 0 on the FMA path
-// (NW from the shape, FM = 1).  The arguments stay in the parameter space
-// (__grid_constant__): the bins are indexed at run time.
-template <typename T, bool MMA, int FM, int WM, int NWT>
+// current step, each the x tile (MT rows of xp elements of T; rows >= M
+// are never loaded and only feed output rows that are never stored) and
+// then the value piece (KS rows of vp elements of V); the group's own WM
+// warps load it.  NWT: NW at compile time on the tensor-core path, 0 on
+// the FMA path (NW from the shape, FM = 1).  V = T, or int8_t for a
+// quantized layout: then the chunk's scales are staged beside its k_idx
+// (one per slot; an "out" layout's column scale repeated), and each unit
+// dequantizes in the reference's order -- w = (float)q * s before the FMA
+// on the FMA path; on the tensor cores, where rounding q * s to bf16 would
+// add error the reference does not have, the mma runs on bf16(q) (exact)
+// into a zeroed fragment per k16 step and acc += s * part.  The arguments
+// stay in the parameter space (__grid_constant__): the bins are indexed at
+// run time.
+template <typename T, typename V, bool MMA, int FM, int WM, int NWT>
 __global__ void __launch_bounds__(kBsrThreads, 4)
 bsr_matmul_kernel(const T* __restrict__ x, const T* __restrict__ bias,
                   T* __restrict__ out, float* __restrict__ ws,
                   int* __restrict__ counters,
                   const __grid_constant__ BsrArgs a) {
+  constexpr bool kQ = sizeof(V) == 1;
   constexpr int WK = kBsrWarps / WM;
   constexpr int MT = 16 * FM * WM;
   constexpr int TPG = kBsrThreads / WK;  // threads loading one group
   constexpr int kAcc = MMA ? FM * (NWT / 8) * 4 : 16;
   extern __shared__ uint4 smem_raw[];
   const BsrShape& p = a.p;
-  // shared memory: the chunk's k_idx (S ints, 16-byte padded), the ring
-  // (later the fp32 red tile), the last-arrival flag
+  // shared memory: the chunk's k_idx (S ints, 16-byte padded), with int8
+  // values its scales (S floats, the same), the ring (later the fp32 red
+  // tile), the last-arrival flag
+  const int head = (p.S * 4 + 15) & ~15;
   int* skid = reinterpret_cast<int*>(smem_raw);
-  char* ring = reinterpret_cast<char*>(smem_raw) + ((p.S * 4 + 15) & ~15);
-  T* sm = reinterpret_cast<T*>(ring);
+  float* sscale = reinterpret_cast<float*>(reinterpret_cast<char*>(smem_raw)
+                                           + head);
+  char* ring = reinterpret_cast<char*>(smem_raw) + (kQ ? 2 * head : head);
   int& s_last = *reinterpret_cast<int*>(reinterpret_cast<char*>(smem_raw) +
                                         p.smem - kFlagBytes);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -347,13 +386,14 @@ bsr_matmul_kernel(const T* __restrict__ x, const T* __restrict__ bias,
   const int bk = p.bk, bn = p.bn, KS = p.KS, nks = bk / KS;
   const int ns = p.stages;
   const size_t je = (size_t)ex * d.ncols + j;  // column j of expert ex
-  const T* vj = reinterpret_cast<const T*>(d.vals) + je * L * bk * bn +
+  const V* vj = reinterpret_cast<const V*>(d.vals) + je * L * bk * bn +
                 s * NW;
   const int* kj = reinterpret_cast<const int*>(d.kidx) + je * L;
   const int slot0 = c * p.S;
 
   const int U = p.U;
-  const int sub = MT * p.xp + KS * p.vp;  // elements of one unit
+  const int xbytes = MT * p.xp * (int)sizeof(T);
+  const int sub = xbytes + KS * p.vp * (int)sizeof(V);  // bytes of a unit
   const int stage = WK * U * sub;
   auto units_of = [&](int g) {           // units of warp group g
     const int n = L - (slot0 + g * p.SW);
@@ -361,17 +401,25 @@ bsr_matmul_kernel(const T* __restrict__ x, const T* __restrict__ bias,
   };
   const int nsteps = (units_of(0) + U - 1) / U, my_units = units_of(wk);
 
-  // the chunk's slots' K-blocks, read once (no step waits on a k_idx load)
+  // the chunk's slots' K-blocks (and scales), read once (no step waits on
+  // a k_idx or scale load); expert ex's scales at ex times its leaf, like
+  // its k_idx
   const int nkid = min(p.S, L - slot0);
-  for (int i = tid; i < nkid; i += kBsrThreads)
+  const float* sj = nullptr;
+  if constexpr (kQ)
+    sj = reinterpret_cast<const float*>(d.scales) +
+         (a.quant == 1 ? je * L + slot0 : je);
+  for (int i = tid; i < nkid; i += kBsrThreads) {
     skid[i] = __ldg(kj + slot0 + i);
+    if constexpr (kQ) sscale[i] = __ldg(sj + (a.quant == 1 ? i : 0));
+  }
   __syncthreads();
 
   // the 16-, 8- or 4-byte pieces of a unit: rows * xpc of x, KS * vpc of
   // the values; thread lq0 of group lg copies pieces lq0, lq0 + TPG, ...
-  constexpr int es = sizeof(T);
+  constexpr int es = sizeof(T), ves = sizeof(V);
   const int xpb = min(16, KS * es), xpc = KS * es / xpb, xpe = xpb / es;
-  const int vpb = min(16, NW * es), vpc = NW * es / vpb, vpe = vpb / es;
+  const int vpb = min(16, NW * ves), vpc = NW * ves / vpb, vpe = vpb / ves;
   const int lxpc = 31 - __clz(xpc), lvpc = 31 - __clz(vpc);
   const int lnks = 31 - __clz(nks);
   const int nx = rows * xpc, per = nx + KS * vpc;
@@ -379,20 +427,22 @@ bsr_matmul_kernel(const T* __restrict__ x, const T* __restrict__ bias,
   const int lg_units = units_of(lg);
   const T* xm = x + (size_t)m0 * a.ldx;
   auto load = [&](int t) {
-    T* dst = sm + (t % ns) * stage + lg * U * sub;
+    char* dst = ring + (t % ns) * stage + lg * U * sub;
     for (int i = 0, u = t * U; i < U && u < lg_units; ++i, ++u, dst += sub) {
       const int l = lg * p.SW + (u >> lnks);   // slot within the chunk
       const int k0 = (u & (nks - 1)) * KS;
       const T* xs = xm + (size_t)skid[l] * bk + k0;
-      const T* vs = vj + ((size_t)(slot0 + l) * bk + k0) * bn;
+      const V* vs = vj + ((size_t)(slot0 + l) * bk + k0) * bn;
+      T* xd = reinterpret_cast<T*>(dst);
+      V* vd = reinterpret_cast<V*>(dst + xbytes);
       for (int q = lq0; q < per; q += TPG) {
         if (q < nx) {
           const int row = q >> lxpc, pc = q & (xpc - 1);
-          cp_async_bytes<true>(dst + row * p.xp + pc * xpe,
+          cp_async_bytes<true>(xd + row * p.xp + pc * xpe,
                                xs + (size_t)row * a.ldx + pc * xpe, xpb);
         } else {
           const int q2 = q - nx, row = q2 >> lvpc, pc = q2 & (vpc - 1);
-          cp_async_bytes<false>(dst + MT * p.xp + row * p.vp + pc * vpe,
+          cp_async_bytes<false>(vd + row * p.vp + pc * vpe,
                                 vs + row * bn + pc * vpe, vpb);
         }
       }
@@ -415,10 +465,13 @@ bsr_matmul_kernel(const T* __restrict__ x, const T* __restrict__ bias,
     __syncthreads();                     // ... and step t - 1 is consumed
     load(t + ns - 1);
     cp_async_commit();
-    const T* xs = sm + (t % ns) * stage + wk * U * sub;
+    const char* us = ring + (t % ns) * stage + wk * U * sub;
     for (int ui = 0, u = t * U; ui < U && u < my_units;
-         ++ui, ++u, xs += sub) {
-      const T* vs = xs + MT * p.xp;
+         ++ui, ++u, us += sub) {
+      const T* xs = reinterpret_cast<const T*>(us);
+      const V* vs = reinterpret_cast<const V*>(us + xbytes);
+      float sc = 1.f;                    // the unit's slot's scale
+      if constexpr (kQ) sc = sscale[wk * p.SW + (u >> lnks)];
       if constexpr (MMA) {
         for (int k16 = 0; k16 < KS; k16 += 16) {
           unsigned af[FM][4];
@@ -427,7 +480,17 @@ bsr_matmul_kernel(const T* __restrict__ x, const T* __restrict__ bias,
             ldsm_x4(af[f], xs + (wm * 16 * FM + f * 16 + (lane & 15)) * p.xp
                                + k16 + (lane >> 4) * 8);
           unsigned bf[NWT / 8][2];
-          if constexpr (NWT == 8) {
+          if constexpr (kQ) {
+            // B fragment by hand (ldmatrix moves b16 only): lane holds
+            // rows 2 * (lane % 4) + {0, 1, 8, 9} of column lane / 4
+            const int kr = k16 + 2 * (lane & 3);
+#pragma unroll
+            for (int n = 0; n < NWT / 8; ++n) {
+              const V* cn = vs + n * 8 + (lane >> 2);
+              bf[n][0] = bf16_pair(cn[kr * p.vp], cn[(kr + 1) * p.vp]);
+              bf[n][1] = bf16_pair(cn[(kr + 8) * p.vp], cn[(kr + 9) * p.vp]);
+            }
+          } else if constexpr (NWT == 8) {
             ldsm_x2_t(bf[0], vs + (k16 + (lane & 15)) * p.vp);
           } else {
 #pragma unroll
@@ -444,13 +507,23 @@ bsr_matmul_kernel(const T* __restrict__ x, const T* __restrict__ bias,
 #pragma unroll
           for (int f = 0; f < FM; ++f)
 #pragma unroll
-            for (int n = 0; n < NWT / 8; ++n)
-              mma_bf16(acc + (f * (NWT / 8) + n) * 4, af[f], bf[n]);
+            for (int n = 0; n < NWT / 8; ++n) {
+              float* an = acc + (f * (NWT / 8) + n) * 4;
+              if constexpr (kQ) {
+                float part[4] = {0.f, 0.f, 0.f, 0.f};
+                mma_bf16(part, af[f], bf[n]);
+#pragma unroll
+                for (int i = 0; i < 4; ++i) an[i] = fmaf(sc, part[i], an[i]);
+              } else {
+                mma_bf16(an, af[f], bf[n]);
+              }
+            }
         }
       } else {
         const T* xr = xs + (wm * 16 + r0) * p.xp;
         for (int kk = 0; kk < KS; ++kk) {
-          const float w = to_f32(vs[kk * p.vp + fcol]);
+          float w = to_f32(vs[kk * p.vp + fcol]);
+          if constexpr (kQ) w = w * sc;  // the reference's f32(q) * s
 #pragma unroll
           for (int i = 0; i < kAcc; ++i)
             if (i < NW / 2)
@@ -525,19 +598,19 @@ bsr_matmul_kernel(const T* __restrict__ x, const T* __restrict__ bias,
   if (tid == 0) *ctr = 0;
 }
 
-template <typename T, bool MMA, int FM, int WM, int NWT>
+template <typename T, typename V, bool MMA, int FM, int WM, int NWT>
 cudaError_t bsr_launch_cfg(const void* x, const void* bias, void* out,
                            float* ws, int* counters, const BsrArgs& a,
                            int items, int n_exp, cudaStream_t stream) {
   static bool attr_set = false;          // once per instantiation
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        bsr_matmul_kernel<T, MMA, FM, WM, NWT>,
+        bsr_matmul_kernel<T, V, MMA, FM, WM, NWT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  bsr_matmul_kernel<T, MMA, FM, WM, NWT>
+  bsr_matmul_kernel<T, V, MMA, FM, WM, NWT>
       <<<dim3(items, n_exp), kBsrThreads, a.p.smem, stream>>>(
           static_cast<const T*>(x), static_cast<const T*>(bias),
           static_cast<T*>(out), ws, counters, a);
@@ -546,15 +619,15 @@ cudaError_t bsr_launch_cfg(const void* x, const void* bias, void* out,
 
 // (FM, WM) of the M tile: tensor cores (1, 1), (2, 1), (2, 2), (2, 4) for
 // MT = 16, 32, 64, 128; FMAs (1, 1), (1, 2), (1, 4) for MT = 16, 32, 64
-template <typename T, bool MMA, int NWT>
+template <typename T, typename V, bool MMA, int NWT>
 cudaError_t bsr_launch_tile(const void* x, const void* bias, void* out,
                             float* ws, int* counters, const BsrArgs& a,
                             int items, int n_exp, cudaStream_t stream) {
   const int fm = a.p.FM, wm = a.p.WM;
 #define BSR_CFG(FM_, WM_)                                                    \
   if (fm == FM_ && wm == WM_)                                                \
-  return bsr_launch_cfg<T, MMA, FM_, WM_, NWT>(x, bias, out, ws, counters, a, \
-                                               items, n_exp, stream)
+  return bsr_launch_cfg<T, V, MMA, FM_, WM_, NWT>(x, bias, out, ws, counters, \
+                                                  a, items, n_exp, stream)
   BSR_CFG(1, 1);
   if constexpr (MMA) {
     BSR_CFG(2, 1);
@@ -568,8 +641,11 @@ cudaError_t bsr_launch_tile(const void* x, const void* bias, void* out,
   return cudaErrorInvalidConfiguration;
 }
 
-bool bad_shape(const BsrShape& p, int n_bins, int items, int dtype) {
-  const int es = dtype == 0 ? 4 : 2;
+// quant: 0 float values of x's dtype, else int8 values (1 byte) with the
+// chunk's scales staged after its k_idx
+bool bad_shape(const BsrShape& p, int n_bins, int items, int dtype,
+               int quant) {
+  const int es = dtype == 0 ? 4 : 2, ves = quant ? 1 : es;
   const int MT = 16 * p.FM * p.WM;
   if (p.WM <= 0 || kBsrWarps % p.WM != 0) return true;
   const int WK = kBsrWarps / p.WM;
@@ -577,24 +653,24 @@ bool bad_shape(const BsrShape& p, int n_bins, int items, int dtype) {
                            : (p.NW == 4 || p.NW == 8 || p.NW == 16 ||
                               p.NW == 32);
   const size_t ring = (size_t)p.stages * WK * p.U *
-                      ((size_t)MT * p.xp + (size_t)p.KS * p.vp) * es;
+                      ((size_t)MT * p.xp * es + (size_t)p.KS * p.vp * ves);
   const size_t red = (size_t)WK * MT * p.NW * 4;
+  const size_t head = (size_t)((p.S * 4 + 15) & ~15) * (quant ? 2 : 1);
   return n_bins <= 0 || n_bins > kMaxBins || items <= 0 || p.M <= 0 ||
          p.MT != MT || !nw_ok || p.bn % p.NW != 0 ||
          p.subcols != p.bn / p.NW || p.KS <= 0 || (p.KS & (p.KS - 1)) ||
          p.bk % p.KS != 0 || ((p.bk / p.KS) & (p.bk / p.KS - 1)) ||
          (p.mma && (dtype != 1 || p.KS % 16 != 0 || p.FM > 2)) ||
          (!p.mma && p.FM != 1) || (p.KS * es) % 4 != 0 ||
-         (p.NW * es) % 4 != 0 || (p.xp * es) % 16 != 0 ||
-         (p.vp * es) % 16 != 0 || p.xp < p.KS || p.vp < p.NW ||
+         (p.NW * ves) % 4 != 0 || (p.xp * es) % 16 != 0 ||
+         (p.vp * ves) % 16 != 0 || p.xp < p.KS || p.vp < p.NW ||
          p.S != p.SW * WK || p.SW <= 0 || p.stages < 2 || p.U <= 0 ||
          p.stages > kMaxStages ||
          p.mtiles != (p.M + MT - 1) / MT || p.smem > kSmemMax ||
-         (size_t)p.smem < (size_t)((p.S * 4 + 15) & ~15) +
-                              (ring > red ? ring : red) + kFlagBytes;
+         (size_t)p.smem < head + (ring > red ? ring : red) + kFlagBytes;
 }
 
-template <typename T>
+template <typename T, typename V>
 cudaError_t bsr_launch_typed(const void* x, const void* bias, void* out,
                              float* ws, int* counters, const BsrArgs& a,
                              int items, int n_exp, cudaStream_t stream) {
@@ -602,21 +678,21 @@ cudaError_t bsr_launch_typed(const void* x, const void* bias, void* out,
     if (a.p.mma) {
       switch (a.p.NW) {
         case 8:
-          return bsr_launch_tile<T, true, 8>(x, bias, out, ws, counters, a,
-                                             items, n_exp, stream);
+          return bsr_launch_tile<T, V, true, 8>(x, bias, out, ws, counters,
+                                                a, items, n_exp, stream);
         case 16:
-          return bsr_launch_tile<T, true, 16>(x, bias, out, ws, counters, a,
-                                              items, n_exp, stream);
+          return bsr_launch_tile<T, V, true, 16>(x, bias, out, ws, counters,
+                                                 a, items, n_exp, stream);
         case 32:
-          return bsr_launch_tile<T, true, 32>(x, bias, out, ws, counters, a,
-                                              items, n_exp, stream);
+          return bsr_launch_tile<T, V, true, 32>(x, bias, out, ws, counters,
+                                                 a, items, n_exp, stream);
         default:
           return cudaErrorInvalidConfiguration;
       }
     }
   }
-  return bsr_launch_tile<T, false, 0>(x, bias, out, ws, counters, a, items,
-                                      n_exp, stream);
+  return bsr_launch_tile<T, V, false, 0>(x, bias, out, ws, counters, a,
+                                         items, n_exp, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -712,17 +788,25 @@ constexpr int kStages = 4;               // value blocks in flight per warp
 // time from the per-geometry table, one register a lane, broadcast by a
 // shuffle.  Per slot a lane reads R x bk staged inputs (float4) and the
 // value block (broadcast float4 reads) and does R * bk * BN FMAs into its
-// R x BN register tile.
-template <typename T, int BN, int R>
+// R x BN register tile.  V = float, or int8_t for a quantized layout: the
+// blocks stream as int8 (a quarter of the ring's room), the slots' scales
+// come with their offsets (scl, one per slot), and each value is
+// dequantized at its read, w = (float)q * s, the reference's order.
+template <typename T, typename V, int BN, int R>
 __global__ void __launch_bounds__(kConvThreads, 2)
-bsr_conv_kernel(const T* __restrict__ x, const float* __restrict__ vals,
+bsr_conv_kernel(const T* __restrict__ x, const V* __restrict__ vals,
+                const float* __restrict__ scl,
                 const int* __restrict__ soffs, const int4* __restrict__ meta,
                 const T* __restrict__ bias, T* __restrict__ out, int ldo,
                 int bk, int act, ConvTile g) {
+  constexpr bool kQ = sizeof(V) == 1;
+  constexpr int kVec = 16 / sizeof(V);   // values of a 16-byte piece
   extern __shared__ float4 smem4[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int blk = bk * BN;               // floats of one value block
-  float* ring = reinterpret_cast<float*>(smem4) + warp * kStages * blk;
+  const int blk = bk * BN;               // values of one block
+  // the rings keep a float's room a value, whatever V
+  V* ring = reinterpret_cast<V*>(reinterpret_cast<float*>(smem4) +
+                                 warp * kStages * blk);
   float* xs = reinterpret_cast<float*>(smem4) + kConvWarps * kStages * blk;
   int t = blockIdx.x;
   const int tx = t % g.tiles_w;
@@ -751,22 +835,27 @@ bsr_conv_kernel(const T* __restrict__ x, const float* __restrict__ vals,
   }
   __syncthreads();
 
-  const int nvec = blk >> 2;             // 16-byte pieces of a block
+  const int nvec = blk / kVec;           // 16-byte pieces of a block
   for (int j = wc; j < g.n_cols; j += warps_col) {
     const int4 mt = __ldg(meta + j);     // first slot, slots, column
-    const float* vj = vals + (size_t)mt.x * blk;
+    const V* vj = vals + (size_t)mt.x * blk;
     const int* sj = soffs + mt.x;
 #pragma unroll
     for (int q = 0; q < kStages - 1; ++q) {
       if (q < mt.y) {
-        float* dst = ring + q * blk;
+        V* dst = ring + q * blk;
         for (int v = lane; v < nvec; v += 32)
-          cp_async16(dst + 4 * v, vj + (size_t)q * blk + 4 * v, true);
+          cp_async16(dst + kVec * v, vj + (size_t)q * blk + kVec * v, true);
       }
       cp_async_commit();
     }
     int soff_cur = lane < mt.y ? __ldg(sj + lane) : 0;
     int soff_nxt = 32 + lane < mt.y ? __ldg(sj + 32 + lane) : 0;
+    float sc_cur = 0.f, sc_nxt = 0.f;    // the slots' scales (int8)
+    if constexpr (kQ) {
+      sc_cur = lane < mt.y ? __ldg(scl + mt.x + lane) : 0.f;
+      sc_nxt = 32 + lane < mt.y ? __ldg(scl + mt.x + 32 + lane) : 0.f;
+    }
     float acc[R][BN];
 #pragma unroll
     for (int i = 0; i < R; ++i)
@@ -776,19 +865,25 @@ bsr_conv_kernel(const T* __restrict__ x, const float* __restrict__ vals,
       if ((l & 31) == 0 && l > 0) {
         soff_cur = soff_nxt;
         soff_nxt = l + 32 + lane < mt.y ? __ldg(sj + l + 32 + lane) : 0;
+        if constexpr (kQ) {
+          sc_cur = sc_nxt;
+          sc_nxt = l + 32 + lane < mt.y ? __ldg(scl + mt.x + l + 32 + lane)
+                                        : 0.f;
+        }
       }
       const int q = l + kStages - 1;     // refill the stage freed at l - 1
       if (q < mt.y) {
-        float* dst = ring + (q % kStages) * blk;
+        V* dst = ring + (q % kStages) * blk;
         for (int v = lane; v < nvec; v += 32)
-          cp_async16(dst + 4 * v, vj + (size_t)q * blk + 4 * v, true);
+          cp_async16(dst + kVec * v, vj + (size_t)q * blk + kVec * v, true);
       }
       cp_async_commit();
       cp_async_wait<kStages - 1>();      // slot l's block has landed
       __syncwarp();
       const int soff = __shfl_sync(0xffffffffu, soff_cur, l & 31);
-      const float4* w4 = reinterpret_cast<const float4*>(
-          ring + (l % kStages) * blk);
+      float sc = 1.f;
+      if constexpr (kQ) sc = __shfl_sync(0xffffffffu, sc_cur, l & 31);
+      const V* wl = ring + (l % kStages) * blk;
       for (int k0 = 0; k0 < bk; k0 += 4) {
         float4 xv[R];
 #pragma unroll
@@ -799,11 +894,21 @@ bsr_conv_kernel(const T* __restrict__ x, const float* __restrict__ vals,
           float wr[BN];
 #pragma unroll
           for (int c4 = 0; c4 < BN / 4; ++c4) {
-            const float4 v = w4[(k0 + k) * (BN / 4) + c4];
-            wr[4 * c4] = v.x;
-            wr[4 * c4 + 1] = v.y;
-            wr[4 * c4 + 2] = v.z;
-            wr[4 * c4 + 3] = v.w;
+            if constexpr (kQ) {
+              const char4 v = reinterpret_cast<const char4*>(wl)[
+                  (k0 + k) * (BN / 4) + c4];
+              wr[4 * c4] = (float)v.x * sc;
+              wr[4 * c4 + 1] = (float)v.y * sc;
+              wr[4 * c4 + 2] = (float)v.z * sc;
+              wr[4 * c4 + 3] = (float)v.w * sc;
+            } else {
+              const float4 v = reinterpret_cast<const float4*>(wl)[
+                  (k0 + k) * (BN / 4) + c4];
+              wr[4 * c4] = v.x;
+              wr[4 * c4 + 1] = v.y;
+              wr[4 * c4 + 2] = v.z;
+              wr[4 * c4 + 3] = v.w;
+            }
           }
 #pragma unroll
           for (int i = 0; i < R; ++i) {
@@ -852,62 +957,65 @@ bsr_conv_kernel(const T* __restrict__ x, const float* __restrict__ vals,
   }
 }
 
-template <typename T, int BN, int R>
-cudaError_t launch_conv_r(const void* x, const float* vals, const int* soffs,
-                          const int4* meta, const void* bias, void* out,
-                          int ldo, int bk, int act, const ConvTile& g,
-                          int smem, cudaStream_t stream) {
+template <typename T, typename V, int BN, int R>
+cudaError_t launch_conv_r(const void* x, const void* vals, const float* scl,
+                          const int* soffs, const int4* meta,
+                          const void* bias, void* out, int ldo, int bk,
+                          int act, const ConvTile& g, int smem,
+                          cudaStream_t stream) {
   static bool attr_set = false;          // once per instantiation
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        bsr_conv_kernel<T, BN, R>,
+        bsr_conv_kernel<T, V, BN, R>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   const int grid = g.B * g.tiles_h * g.tiles_w;
-  bsr_conv_kernel<T, BN, R><<<grid, kConvThreads, smem, stream>>>(
-      static_cast<const T*>(x), vals, soffs, meta,
-      static_cast<const T*>(bias), static_cast<T*>(out), ldo, bk, act, g);
+  bsr_conv_kernel<T, V, BN, R><<<grid, kConvThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const V*>(vals), scl, soffs,
+      meta, static_cast<const T*>(bias), static_cast<T*>(out), ldo, bk, act,
+      g);
   return cudaGetLastError();
 }
 
-template <typename T, int BN>
-cudaError_t launch_conv_bn(const void* x, const float* vals, const int* soffs,
-                           const int4* meta, const void* bias, void* out,
-                           int ldo, int bk, int act, const ConvTile& g,
-                           int smem, cudaStream_t stream) {
+template <typename T, typename V, int BN>
+cudaError_t launch_conv_bn(const void* x, const void* vals, const float* scl,
+                           const int* soffs, const int4* meta,
+                           const void* bias, void* out, int ldo, int bk,
+                           int act, const ConvTile& g, int smem,
+                           cudaStream_t stream) {
   switch (g.R) {
     case 1:
-      return launch_conv_r<T, BN, 1>(x, vals, soffs, meta, bias, out, ldo,
-                                     bk, act, g, smem, stream);
+      return launch_conv_r<T, V, BN, 1>(x, vals, scl, soffs, meta, bias, out,
+                                        ldo, bk, act, g, smem, stream);
     case 2:
-      return launch_conv_r<T, BN, 2>(x, vals, soffs, meta, bias, out, ldo,
-                                     bk, act, g, smem, stream);
+      return launch_conv_r<T, V, BN, 2>(x, vals, scl, soffs, meta, bias, out,
+                                        ldo, bk, act, g, smem, stream);
     case 4:
       if constexpr (BN <= 8)
-        return launch_conv_r<T, BN, 4>(x, vals, soffs, meta, bias, out, ldo,
-                                       bk, act, g, smem, stream);
+        return launch_conv_r<T, V, BN, 4>(x, vals, scl, soffs, meta, bias,
+                                          out, ldo, bk, act, g, smem, stream);
       [[fallthrough]];
     default:
       return cudaErrorInvalidConfiguration;
   }
 }
 
-template <typename T>
-cudaError_t launch_conv(const void* x, const float* vals, const int* soffs,
-                        const int4* meta, const void* bias, void* out,
-                        int ldo, int bk, int bn, int act, const ConvTile& g,
-                        int smem, cudaStream_t stream) {
+template <typename T, typename V>
+cudaError_t launch_conv(const void* x, const void* vals, const float* scl,
+                        const int* soffs, const int4* meta, const void* bias,
+                        void* out, int ldo, int bk, int bn, int act,
+                        const ConvTile& g, int smem, cudaStream_t stream) {
   if (bn == 4)
-    return launch_conv_bn<T, 4>(x, vals, soffs, meta, bias, out, ldo, bk,
-                                act, g, smem, stream);
+    return launch_conv_bn<T, V, 4>(x, vals, scl, soffs, meta, bias, out, ldo,
+                                   bk, act, g, smem, stream);
   if (bn == 8)
-    return launch_conv_bn<T, 8>(x, vals, soffs, meta, bias, out, ldo, bk,
-                                act, g, smem, stream);
+    return launch_conv_bn<T, V, 8>(x, vals, scl, soffs, meta, bias, out, ldo,
+                                   bk, act, g, smem, stream);
   if (bn == 16)
-    return launch_conv_bn<T, 16>(x, vals, soffs, meta, bias, out, ldo, bk,
-                                 act, g, smem, stream);
+    return launch_conv_bn<T, V, 16>(x, vals, scl, soffs, meta, bias, out,
+                                    ldo, bk, act, g, smem, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -920,7 +1028,9 @@ cudaError_t launch_conv(const void* x, const float* vals, const int* soffs,
 // (host memory, one expert's); items: blocks of the launch per expert.
 // ws: the fp32 workspace of the chunked columns (None when no column is
 // cut); counters: one int32 per tile, all 0 on entry and again on exit.
-// dtype: 0 float32, 1 bfloat16 (x, values, bias and out share it).
+// dtype: 0 float32, 1 bfloat16 (x, bias and out share it).  quant: 0
+// values of x's dtype; 1 int8 values with a scale per stored block (the
+// bin's scales (nb, L) fp32), 2 with a scale per block column ((nb,)).
 // n_exp experts (1 for an unstacked layout; the bins' leaves then carry a
 // leading expert axis): x, out and bias of expert e start ldx_e, ldo_e
 // and ldb_e elements after expert e - 1's, its counters tiles_e and its
@@ -930,20 +1040,26 @@ extern "C" int bsr_matmul_launch(const void* x, const void* bias, void* out,
                                  void* ws, void* counters, const void* shape,
                                  const void* bins, int n_bins, int items,
                                  int ldx, int ldo, int act, int dtype,
-                                 int n_exp, int ldx_e, int ldo_e, int ldb_e,
-                                 int tiles_e, int ws_e, void* stream) {
+                                 int quant, int n_exp, int ldx_e, int ldo_e,
+                                 int ldb_e, int tiles_e, int ws_e,
+                                 void* stream) {
   BsrArgs a;
   memset(&a, 0, sizeof(a));
   memcpy(&a.p, shape, sizeof(a.p));
-  if (bad_shape(a.p, n_bins, items, dtype) || act < 0 || act > 2 ||
-      (dtype != 0 && dtype != 1) || n_exp < 1 || n_exp > 65535 ||
-      ldx_e < 0 || ldo_e < 0 || ldb_e < 0 || tiles_e < 0 || ws_e < 0)
+  if (quant < 0 || quant > 2 || bad_shape(a.p, n_bins, items, dtype, quant) ||
+      act < 0 || act > 2 || (dtype != 0 && dtype != 1) || n_exp < 1 ||
+      n_exp > 65535 || ldx_e < 0 || ldo_e < 0 || ldb_e < 0 || tiles_e < 0 ||
+      ws_e < 0)
     return (int)cudaErrorInvalidValue;
   memcpy(a.bins, bins, sizeof(BinDesc) * n_bins);
+  for (int b = 0; b < n_bins; ++b)
+    if ((a.bins[b].scales != 0) != (quant != 0))
+      return (int)cudaErrorInvalidValue;
   a.ldx = ldx;
   a.ldo = ldo;
   a.act = act;
   a.n_bins = n_bins;
+  a.quant = quant;
   a.ldx_e = ldx_e;
   a.ldo_e = ldo_e;
   a.ldb_e = ldb_e;
@@ -953,26 +1069,32 @@ extern "C" int bsr_matmul_launch(const void* x, const void* bias, void* out,
   float* w = static_cast<float*>(ws);
   int* ctr = static_cast<int*>(counters);
   if (dtype == 0)
-    return (int)bsr_launch_typed<float>(x, bias, out, w, ctr, a, items,
-                                        n_exp, s);
-  return (int)bsr_launch_typed<__nv_bfloat16>(x, bias, out, w, ctr, a, items,
-                                              n_exp, s);
+    return quant ? (int)bsr_launch_typed<float, int8_t>(x, bias, out, w, ctr,
+                                                        a, items, n_exp, s)
+                 : (int)bsr_launch_typed<float, float>(x, bias, out, w, ctr,
+                                                       a, items, n_exp, s);
+  return quant ? (int)bsr_launch_typed<__nv_bfloat16, int8_t>(
+                     x, bias, out, w, ctr, a, items, n_exp, s)
+               : (int)bsr_launch_typed<__nv_bfloat16, __nv_bfloat16>(
+                     x, bias, out, w, ctr, a, items, n_exp, s);
 }
 
 // Kernel 3, one launch over every degree bin of a conv PackedLayout:
 // x the unpadded NHWC input (B, H, W, C), vals the layout's values as fp32
-// (slots, bk, bn) with the bins concatenated in layout order, soffs their
-// (slots,) int32 offsets in the staged window (K-block kb's tap (dy, dx,
-// c0) under geom), meta (n_cols, 4) int32 (first slot, slots, original
-// block column, 0) per layout column, bias None or (N,) in original
-// order, out (B*Ho*Wo, N) rows in (b, ho, wo) order with row stride ldo.
-// geom: the ConvTile ints (host memory).  bk % 4 == 0, bk | C, bn in
-// {4, 8, 16}; smem includes the 8 warps' rings of kStages value blocks.
+// (slots, bk, bn) with the bins concatenated in layout order -- or, with
+// scales given, as int8 and scales their (slots,) fp32 scales (a column's
+// "out" scale repeated over its slots) -- soffs their (slots,) int32
+// offsets in the staged window (K-block kb's tap (dy, dx, c0) under geom),
+// meta (n_cols, 4) int32 (first slot, slots, original block column, 0) per
+// layout column, bias None or (N,) in original order, out (B*Ho*Wo, N)
+// rows in (b, ho, wo) order with row stride ldo.  geom: the ConvTile ints
+// (host memory).  bk % 4 == 0, bk | C, bn in {4, 8, 16}; smem includes
+// the 8 warps' rings of kStages value blocks (a float's room a value).
 extern "C" int bsr_conv_launch(const void* x, const void* vals,
-                               const void* soffs, const void* meta,
-                               const void* bias, void* out, const void* geom,
-                               int ldo, int act, int dtype, int bk, int bn,
-                               int smem, void* stream) {
+                               const void* scales, const void* soffs,
+                               const void* meta, const void* bias, void* out,
+                               const void* geom, int ldo, int act, int dtype,
+                               int bk, int bn, int smem, void* stream) {
   ConvTile g;
   memcpy(&g, geom, sizeof(g));
   if (g.B * g.Ho * g.Wo <= 0) return 0;
@@ -984,14 +1106,21 @@ extern "C" int bsr_conv_launch(const void* x, const void* vals,
                           g.x_floats))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* v = static_cast<const float*>(vals);
+  const float* sc = static_cast<const float*>(scales);
   const int* so = static_cast<const int*>(soffs);
   const int4* mt = static_cast<const int4*>(meta);
   if (dtype == 0)
-    return (int)launch_conv<float>(x, v, so, mt, bias, out, ldo, bk, bn, act,
-                                   g, smem, s);
+    return sc ? (int)launch_conv<float, int8_t>(x, vals, sc, so, mt, bias,
+                                                out, ldo, bk, bn, act, g,
+                                                smem, s)
+              : (int)launch_conv<float, float>(x, vals, sc, so, mt, bias, out,
+                                               ldo, bk, bn, act, g, smem, s);
   if (dtype == 1)
-    return (int)launch_conv<__nv_bfloat16>(x, v, so, mt, bias, out, ldo, bk,
-                                           bn, act, g, smem, s);
+    return sc ? (int)launch_conv<__nv_bfloat16, int8_t>(
+                    x, vals, sc, so, mt, bias, out, ldo, bk, bn, act, g,
+                    smem, s)
+              : (int)launch_conv<__nv_bfloat16, float>(
+                    x, vals, sc, so, mt, bias, out, ldo, bk, bn, act, g,
+                    smem, s);
   return (int)cudaErrorInvalidValue;
 }

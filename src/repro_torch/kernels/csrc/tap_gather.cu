@@ -40,6 +40,12 @@
 // The tile, the lanes' R, the row layout and the shared-memory bytes come
 // from conv_plan in repro_torch/kernels/bsr_matmul.py.
 //
+// int8 values (the dequant branch of `_tap_kernel` :296-300 and
+// `_tap_conv_kernel` :597-600, a scale per tap slot or per filter): a
+// slot's table entry stays 8 bytes, (input word + q * 2^16, its fp32
+// scale), the word below 2^16 as shared memory caps it; the kernel
+// dequantizes once a slot, w = (float)q * s, before its R FMAs.
+//
 // Numerics: every output is one fp32 FMA chain over its group's slots in
 // slot order l = 0 .. L-1, from 0, whatever the tile, R or binning;
 // padding slots come last with zero values and add exact zeros.  So the
@@ -165,6 +171,7 @@ __device__ __forceinline__ void stage_planes(float* xs,
 }
 
 constexpr int kSlotBuf = 32;             // slots a warp buffers at once
+constexpr int kWordBits = 16;            // an int8 slot's input word bits
 
 // Block (tile): stage the window, then every warp walks its output columns
 // j = wc, wc + 8 / warps_pos, ...: it copies a column's slots (input word,
@@ -172,8 +179,10 @@ constexpr int kSlotBuf = 32;             // slots a warp buffers at once
 // already in flight in registers (the next column's first 32 at a column's
 // end), and per slot one broadcast read of the buffer feeds R FMAs, one
 // per position of the lane, each reading the staged window at the slot's
-// word plus the position's.
-template <typename T, int R>
+// word plus the position's.  Q: an int8 layout's slots, (word + q * 2^16,
+// the slot's fp32 scale), each dequantized once a slot, w = (float)q * s
+// (the reference's order), before its R FMAs.
+template <typename T, bool Q, int R>
 __global__ void __launch_bounds__(kConvThreads, 2)
 tap_conv_kernel(const T* __restrict__ x, const int2* __restrict__ slots,
                 const int4* __restrict__ meta, const T* __restrict__ bias,
@@ -230,8 +239,12 @@ tap_conv_kernel(const T* __restrict__ x, const int2* __restrict__ slots,
 #pragma unroll 4
       for (int k = 0; k < n; ++k) {
         const int2 e = sbuf[k];
-        const float w = __int_as_float(e.y);
+        float w = __int_as_float(e.y);
         const float* xb = xs + e.x;
+        if constexpr (Q) {
+          w = (float)(e.x >> kWordBits) * w;
+          xb = xs + (e.x & ((1 << kWordBits) - 1));
+        }
 #pragma unroll
         for (int i = 0; i < R; ++i) acc[i] = fmaf(xb[poff[i]], w, acc[i]);
       }
@@ -263,45 +276,57 @@ tap_conv_kernel(const T* __restrict__ x, const int2* __restrict__ slots,
   }
 }
 
-template <typename T, int R>
+template <typename T, bool Q, int R>
 cudaError_t launch_conv_r(const void* x, const int2* slots, const int4* meta,
                           const void* bias, void* out, int ldo, int act,
                           const ConvTile& g, int smem, cudaStream_t stream) {
   static bool attr_set = false;          // once per instantiation
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        tap_conv_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kConvSmemMax);
+        tap_conv_kernel<T, Q, R>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kConvSmemMax);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   const int grid = g.B * g.tiles_h * g.tiles_w;
-  tap_conv_kernel<T, R><<<grid, kConvThreads, smem, stream>>>(
+  tap_conv_kernel<T, Q, R><<<grid, kConvThreads, smem, stream>>>(
       static_cast<const T*>(x), slots, meta, static_cast<const T*>(bias),
       static_cast<T*>(out), ldo, act, g);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool Q>
 cudaError_t launch_conv(const void* x, const int2* slots, const int4* meta,
                         const void* bias, void* out, int ldo, int act,
                         const ConvTile& g, int smem, cudaStream_t stream) {
   switch (g.R) {
     case 1:
-      return launch_conv_r<T, 1>(x, slots, meta, bias, out, ldo, act, g,
-                                 smem, stream);
+      return launch_conv_r<T, Q, 1>(x, slots, meta, bias, out, ldo, act, g,
+                                    smem, stream);
     case 2:
-      return launch_conv_r<T, 2>(x, slots, meta, bias, out, ldo, act, g,
-                                 smem, stream);
+      return launch_conv_r<T, Q, 2>(x, slots, meta, bias, out, ldo, act, g,
+                                    smem, stream);
     case 4:
-      return launch_conv_r<T, 4>(x, slots, meta, bias, out, ldo, act, g,
-                                 smem, stream);
+      return launch_conv_r<T, Q, 4>(x, slots, meta, bias, out, ldo, act, g,
+                                    smem, stream);
     case 8:
-      return launch_conv_r<T, 8>(x, slots, meta, bias, out, ldo, act, g,
-                                 smem, stream);
+      return launch_conv_r<T, Q, 8>(x, slots, meta, bias, out, ldo, act, g,
+                                    smem, stream);
     default:
       return cudaErrorInvalidConfiguration;
   }
+}
+
+template <typename T>
+cudaError_t launch_conv_q(const void* x, const int2* slots, const int4* meta,
+                          const void* bias, void* out, int ldo, int act,
+                          int quant, const ConvTile& g, int smem,
+                          cudaStream_t stream) {
+  if (quant)
+    return launch_conv<T, true>(x, slots, meta, bias, out, ldo, act, g, smem,
+                                stream);
+  return launch_conv<T, false>(x, slots, meta, bias, out, ldo, act, g, smem,
+                               stream);
 }
 
 }  // namespace
@@ -310,29 +335,31 @@ cudaError_t launch_conv(const void* x, const int2* slots, const int4* meta,
 // TapLayout: x the unpadded NHWC input (B, H, W, C) (kernel 2: the alive
 // band as (1, 1, M, R)), slots (total, 2) int32 of (input word
 // in the staged tile, fp32 value bits) per slot of every output column,
-// bins concatenated in layout order, meta (n_cols, 4) int32 (first slot,
-// slots, original output column, 0), bias None or (N,) in original order,
-// out (B*Ho*Wo, N) rows in (b, ho, wo) order with row stride ldo.  geom:
-// the ConvTile ints (host memory).
+// bins concatenated in layout order -- with quant, an int8 layout's (word
+// + q * 2^16, fp32 scale bits), the word below 2^16 -- meta (n_cols, 4)
+// int32 (first slot, slots, original output column, 0), bias None or (N,)
+// in original order, out (B*Ho*Wo, N) rows in (b, ho, wo) order with row
+// stride ldo.  geom: the ConvTile ints (host memory).
 extern "C" int tap_conv_launch(const void* x, const void* slots,
                                const void* meta, const void* bias, void* out,
                                const void* geom, int ldo, int act, int dtype,
-                               int smem, void* stream) {
+                               int quant, int smem, void* stream) {
   ConvTile g;
   memcpy(&g, geom, sizeof(g));
   if (g.B * g.Ho * g.Wo <= 0) return 0;
   if (g.C <= 0 || act < 0 || act > 2 || g.n_cols != g.N ||
       g.x_floats % 4 != 0 || smem > kConvSmemMax || g.warps_pos <= 0 ||
-      kConvWarps % g.warps_pos != 0)
+      kConvWarps % g.warps_pos != 0 || quant < 0 || quant > 1 ||
+      (quant && g.x_floats > (1 << kWordBits)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int2* sl = static_cast<const int2*>(slots);
   const int4* mt = static_cast<const int4*>(meta);
   if (dtype == 0)
-    return (int)launch_conv<float>(x, sl, mt, bias, out, ldo, act, g, smem,
-                                   s);
+    return (int)launch_conv_q<float>(x, sl, mt, bias, out, ldo, act, quant,
+                                     g, smem, s);
   if (dtype == 1)
-    return (int)launch_conv<__nv_bfloat16>(x, sl, mt, bias, out, ldo, act, g,
-                                           smem, s);
+    return (int)launch_conv_q<__nv_bfloat16>(x, sl, mt, bias, out, ldo, act,
+                                             quant, g, smem, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -11,7 +11,9 @@ launch of the same kernel.
 ``sparse_conv2d`` runs a block-punched conv through the BCS conv kernel
 (over im2col patches, or implicit: staged from the image in the kernel)
 and ``sparse_conv2d_pattern`` a pattern/connectivity conv through the
-tap-gather kernels.  ``pack`` / ``pack_taps`` build the layouts.
+tap-gather kernels.  ``pack`` / ``pack_taps`` build the layouts, float
+or int8 with fp32 scales (``core.quant``); every path above runs either,
+the kernels dequantizing on the card.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import bcs as BCS
+from repro_torch.core import quant as QUANT
 from repro_torch.core.packed import PackedLayout, TapLayout
 from repro_torch.kernels import ref
 from repro_torch.kernels.bsr_matmul import (bsr_conv2d_implicit,
@@ -44,13 +47,16 @@ from repro_torch.kernels.bsr_matmul import (bsr_conv2d_implicit,
 # as a 1 x M image.
 
 
-def pack(w, mask, block=(128, 128), *, reorder=False, n_bins=4, conv=None
-         ) -> PackedLayout:
+def pack(w, mask, block=(128, 128), *, reorder=False, n_bins=4, conv=None,
+         value_dtype=None, scale_granularity="block") -> PackedLayout:
     """Pack a pruned (K, N) weight into the kernel layout on its device.
     With ``reorder`` the block columns are degree-sorted and split into
     ``n_bins`` bins (``core.bcs.pack_csc_reordered``); without it the layout
     is one bin in original column order.  ``conv=(kh, kw, cin)`` marks an
-    im2col-lowered conv weight and attaches its ``conv_taps`` table."""
+    im2col-lowered conv weight and attaches its ``conv_taps`` table.
+    ``value_dtype="int8"`` quantizes the packed values at
+    ``scale_granularity`` ("block" or "out"), as the reference's
+    ``ops.pack`` does: the float pack first, then ``core.quant``."""
     if reorder:
         out = BCS.pack_csc_reordered(w, mask, block, n_bins=n_bins)
     else:
@@ -61,15 +67,26 @@ def pack(w, mask, block=(128, 128), *, reorder=False, n_bins=4, conv=None
         kh, kw, cin = conv
         out = dataclasses.replace(
             out, conv_taps=BCS.conv_tap_table(kh, kw, cin, block[0]))
+    if value_dtype is not None:
+        out = QUANT.quantize_layout(out, value_dtype=value_dtype,
+                                    scale_granularity=scale_granularity)
     return out
 
 
-def pack_taps(w, mask, *, group=1, reorder=True, n_bins=8) -> TapLayout:
+def pack_taps(w, mask, *, group=1, reorder=True, n_bins=8,
+              value_dtype=None, scale_granularity="block") -> TapLayout:
     """Pack a pattern/connectivity-pruned (P, Q, Kh, Kw) conv weight into
     the tap-gather layout (``core.bcs.pattern_lower``), degree-sorted into
-    ``n_bins`` bins when ``reorder`` is set."""
-    return BCS.pattern_lower(w, mask, group=group, n_bins=n_bins,
-                             reorder=reorder)
+    ``n_bins`` bins when ``reorder`` is set.  ``value_dtype="int8"``
+    quantizes the tap values (``core.quant``); "out" (a scale per filter)
+    suits group = 1 layouts, where a per-slot scale costs 4 bytes per
+    stored value."""
+    out = BCS.pattern_lower(w, mask, group=group, n_bins=n_bins,
+                            reorder=reorder)
+    if value_dtype is not None:
+        out = QUANT.quantize_layout(out, value_dtype=value_dtype,
+                                    scale_granularity=scale_granularity)
+    return out
 
 
 def sparse_linear(x, packed: PackedLayout | None = None, w=None, mask=None,

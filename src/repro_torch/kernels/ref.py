@@ -8,7 +8,11 @@ not depend on the binning (padding slots add exact zeros).  The implicit
 conv versions gather their inputs from the padded image through the same
 offset tables the kernels read (``conv_taps`` for the BCS conv, ``k_full``
 for the tap conv), never through ``im2col``; they sum in the same order as
-the materialized versions, so implicit and materialized agree bitwise."""
+the materialized versions, so implicit and materialized agree bitwise.
+
+On a quantized layout every version first dequantizes each slot's values,
+``q.float() * s`` (the reference kernels' order), then multiplies in fp32:
+the int8 kernels are held to the dequantized weight."""
 from __future__ import annotations
 
 import torch
@@ -46,26 +50,34 @@ def _x_blocks(x, bk):
     return lambda kb: xb[kb.long()]
 
 
-def _bsr_sums(x_blocks, values, k_idx, M):
+def _bsr_sums(x_blocks, values, k_idx, M, scales=None):
     """fp32 (M, nb * bn) products of one bin, in layout column order,
     summed slot by slot in slot order (one batched (M, bk) @ (bk, bn)
     product per slot): like the kernel's, a column's sum does not depend
     on which bin it sits in, and padding slots add exact zeros.
-    ``x_blocks(kb)`` gives the (nb, M, bk) x rows of K-blocks kb."""
+    ``x_blocks(kb)`` gives the (nb, M, bk) x rows of K-blocks kb; int8
+    values dequantize by ``scales``, (nb, L) per block or (nb,) per
+    column."""
     nb, L, bk, bn = values.shape
     acc = torch.zeros((nb, M, bn), dtype=torch.float32,
                       device=values.device)
     for l in range(L):
-        acc += torch.bmm(x_blocks(k_idx[:, l]), values[:, l].float())
+        w = values[:, l].float()
+        if scales is not None:
+            s = scales[:, l] if scales.ndim == 2 else scales
+            w = w * s[:, None, None]
+        acc += torch.bmm(x_blocks(k_idx[:, l]), w)
     return acc.transpose(0, 1).reshape(M, nb * bn)
 
 
-def bsr_matmul_ref(x, values, k_idx, bias=None, act="none", out_dtype=None):
+def bsr_matmul_ref(x, values, k_idx, bias=None, act="none", out_dtype=None,
+                   scales=None):
     """x (M, K) @ one bin of BCS W -> (M, nb * bn) in layout column order:
-    fp32 product, bias + activation on the fp32 result, one rounding to
-    ``out_dtype`` (default x.dtype)."""
+    fp32 product (int8 values dequantized by ``scales``), bias +
+    activation on the fp32 result, one rounding to ``out_dtype`` (default
+    x.dtype)."""
     y = _epilogue(_bsr_sums(_x_blocks(x, values.shape[2]), values, k_idx,
-                            x.shape[0]), bias, act)
+                            x.shape[0], scales), bias, act)
     return y.to(out_dtype or x.dtype)
 
 
@@ -84,10 +96,10 @@ def _bsr_packed(x_blocks, M, layout, bias, act):
     bn = layout.block[1]
     acc = torch.empty((M, layout.shape[1]), dtype=torch.float32,
                       device=layout.nnz.device)
-    for vals, kidx, cols in zip(layout.values, layout.k_idx,
-                                layout.bin_cols):
+    for vals, kidx, cols, sc in zip(layout.values, layout.k_idx,
+                                    layout.bin_cols, layout.bin_scales()):
         acc.view(M, -1, bn)[:, cols.long()] = _bsr_sums(
-            x_blocks, vals, kidx, M).view(M, -1, bn)
+            x_blocks, vals, kidx, M, sc).view(M, -1, bn)
     return _epilogue(acc, bias, act)
 
 
@@ -133,14 +145,19 @@ def bsr_conv2d_implicit_ref(xp, layout, taps, geom, bias=None, act="none"):
                        act).to(xp.dtype)
 
 
-def _tap_sums(x_taps, values, slots, M):
+def _tap_sums(x_taps, values, slots, M, scales=None):
     """fp32 (M, G * group) of one bin in layout order: each output summed
     slot by slot in slot order.  ``x_taps(s)`` gives the (M, G) inputs of
-    slot column s (one entry per group)."""
+    slot column s (one entry per group); int8 values dequantize by
+    ``scales``, (G, L) per slot or (G, 1, group) per filter."""
     G, L, gp = values.shape
     acc = torch.zeros((M, G, gp), dtype=torch.float32, device=values.device)
     for l in range(L):
-        acc += x_taps(slots[:, l])[:, :, None] * values[:, l].float()
+        w = values[:, l].float()
+        if scales is not None:
+            w = w * (scales[:, l][:, None] if scales.ndim == 2
+                     else scales[:, 0])
+        acc += x_taps(slots[:, l])[:, :, None] * w
     return acc.reshape(M, G * gp)
 
 
@@ -150,18 +167,20 @@ def _tap_packed(x_taps, M, layout, slot_tables, bias, act):
     gp = layout.group
     acc = torch.empty((M, layout.shape[1]), dtype=torch.float32,
                       device=layout.nnz.device)
-    for vals, slots, cols in zip(layout.values, slot_tables,
-                                 layout.bin_cols):
+    for vals, slots, cols, sc in zip(layout.values, slot_tables,
+                                     layout.bin_cols, layout.bin_scales()):
         acc.view(M, -1, gp)[:, cols.long()] = _tap_sums(
-            x_taps, vals, slots, M).view(M, -1, gp)
+            x_taps, vals, slots, M, sc).view(M, -1, gp)
     return _epilogue(acc, bias, act)
 
 
-def tap_gather_ref(x, values, t_idx, bias=None, act="none"):
+def tap_gather_ref(x, values, t_idx, bias=None, act="none", scales=None):
     """x (M, R) alive band through one tap bin -> (M, G * group) in layout
-    order; bias (G * group,) in layout order."""
+    order; bias (G * group,) in layout order; int8 values dequantized by
+    ``scales``."""
     xf = x.float()
-    y = _tap_sums(lambda t: xf[:, t.long()], values, t_idx, x.shape[0])
+    y = _tap_sums(lambda t: xf[:, t.long()], values, t_idx, x.shape[0],
+                  scales)
     return _epilogue(y, bias, act).to(x.dtype)
 
 

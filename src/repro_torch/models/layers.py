@@ -65,8 +65,9 @@ def linear(params, x, mask=None, act="none"):
 
     A layer carrying a packed layout (``params["packed"]``, installed by
     ``serve.compile.compile_model``) runs the BCS kernel — one launch per
-    degree bin, bias + activation fused into its epilogue; any ``mask`` is
-    ignored there (it was baked in at pack time).  Otherwise a dense
+    projection over all its degree bins (int8 values dequantized in the
+    same launch), bias + activation fused into its epilogue; any ``mask``
+    is ignored there (it was baked in at pack time).  Otherwise a dense
     matmul runs, with an optional pruning ``mask``."""
     packed = params.get("packed")
     if packed is not None:

@@ -12,8 +12,11 @@ Row reordering for load balance (Fig 4) happens here by default
 every slice's per-bin degree is padded to the stack max (``_pack_stacked``)
 so one layout serves the whole stack.
 
-Int8 values, tensor-parallel shards and the artifact store come with
-later slices.
+``spec.value_dtype="int8"`` turns on the quantized value path
+(``core.quant``): packed values are stored int8 with fp32 scale leaves and
+the kernels dequantize on the card; a per-layer ``SchemeChoice.value_dtype``
+overrides the spec.  Tensor-parallel shards and the artifact store come
+with later slices.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import math
 import torch
 
 from repro_torch.core import bcs as BCS
+from repro_torch.core import quant as QUANT
 from repro_torch.core import reweighted as RW
 from repro_torch.core.packed import PackedLayout
 from repro_torch.kernels import ops
@@ -35,6 +39,9 @@ BLOCK_SCHEMES = ("block", "block_row", "block_col")
 CONV_SCHEMES = ("block_punched",)
 PATTERN_SCHEMES = ("pattern",)
 PACKABLE_SCHEMES = BLOCK_SCHEMES + CONV_SCHEMES + PATTERN_SCHEMES
+
+# value dtypes the packed executors serve (None = keep float values)
+VALUE_DTYPES = (None, "int8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +59,14 @@ class CompileSpec:
     implicit : conv x-operand hint for serving dispatch (None = auto, see
         ``kernels.ops._pick_implicit``); recorded with the report, it does
         not change the layouts.
+    value_dtype : serving precision of packed values — None keeps float,
+        "int8" quantizes symmetrically with fp32 scale leaves
+        (``core.quant``); a layer's ``SchemeChoice.value_dtype`` overrides
+        it.
+    scale_granularity : scale group of quantized BCS layouts — "block"
+        (one fp32 per stored block) or "out" (one per block column).  Tap
+        layouts always quantize per filter ("out"): a group = 1 slot holds
+        one value, so a per-slot scale would cost 4 bytes per value.
     exclude : path substrings never packed (embeddings/head, §5.2.4).
     """
     keep_dense: bool = True
@@ -60,9 +75,18 @@ class CompileSpec:
     block_override: tuple | None = None
     min_saving: float = 0.0
     implicit: bool | None = None
+    value_dtype: str | None = None
+    scale_granularity: str = "block"
     exclude: tuple = ("router", "embed", "head")
 
     def __post_init__(self):
+        if self.value_dtype not in VALUE_DTYPES:
+            raise ValueError(f"value_dtype {self.value_dtype!r} not in "
+                             f"{VALUE_DTYPES}")
+        if self.scale_granularity not in QUANT.GRANULARITIES:
+            raise ValueError(
+                f"scale_granularity {self.scale_granularity!r} not in "
+                f"{QUANT.GRANULARITIES}")
         if self.block_override is not None:
             bo = tuple(int(b) for b in self.block_override)
             if len(bo) != 2:
@@ -76,10 +100,11 @@ class CompileSpec:
 
 @dataclasses.dataclass(frozen=True)
 class LayerReport:
-    """One layer's line of the compile log: the layout geometry and the
+    """One layer's line of the compile log: the layout geometry, the
     load-balance lever (pre-reorder padded degree ``L`` -> post-reorder
-    ``L_reordered`` of ``Kb`` column blocks) for packed rows, the
-    ``reason`` for skipped ones."""
+    ``L_reordered`` of ``Kb`` column blocks) and the served
+    ``value_dtype`` (None = float) for packed rows, the ``reason`` for
+    skipped ones."""
     path: str
     packed: bool
     kind: str | None = None
@@ -94,6 +119,7 @@ class LayerReport:
     density: float | None = None
     flops_saved: float | None = None
     layers: int | None = None
+    value_dtype: str | None = None
     patch_b_per_pos: int | None = None
 
 
@@ -111,10 +137,13 @@ class CompileReport:
         return tuple(r for r in self.rows if r.packed)
 
 
-def _pack_stacked(w, mask, block, *, reorder=True, n_bins=4):
+def _pack_stacked(w, mask, block, *, reorder=True, n_bins=4,
+                  value_dtype=None, scale_granularity="block"):
     """Pack (..., K, N) weights slice by slice, pad every slice's per-bin
     column degree to the stack max, and restack -> a ``PackedLayout``
-    whose leaves carry the leading stack dims.  Returns (layout, stats)."""
+    whose leaves carry the leading stack dims; ``value_dtype="int8"``
+    quantizes the STACKED layout (``core.quant``), as the reference does.
+    Returns (layout, stats)."""
     mask = mask.expand(w.shape) if mask.ndim else mask
     lead = tuple(w.shape[:-2])
     K, N = w.shape[-2:]
@@ -145,6 +174,10 @@ def _pack_stacked(w, mask, block, *, reorder=True, n_bins=4):
         perm=restack(lambda lay: lay.perm) if reorder else None,
         inv_perm=restack(lambda lay: lay.inv_perm) if reorder else None,
         block=tuple(block), shape=(K, N))
+    if value_dtype is not None:
+        stacked = QUANT.quantize_layout(
+            stacked, value_dtype=value_dtype,
+            scale_granularity=scale_granularity)
     L_pre = max(1, int(nnz.max()))
     L_eff = stacked.L_effective
     stats = {
@@ -239,9 +272,14 @@ def compile_model(params, masks=None, mapping=(), spec=None, device="cuda"):
             return skip("no mask (layer not pruned)")
         mask = mask.to(dev)
         block = tuple(spec.block_override or choice.block)
+        # per-layer precision: the mapper's pick wins over the spec
+        vdt = choice.value_dtype or spec.value_dtype
+        if vdt not in VALUE_DTYPES:
+            return skip(f"unsupported value_dtype {vdt!r}")
         if kind == "pattern_conv":
             packed = ops.pack_taps(w, mask, reorder=spec.reorder,
-                                   n_bins=tap_bins)
+                                   n_bins=tap_bins, value_dtype=vdt,
+                                   scale_granularity="out")
             stats = _tap_stats(packed, w)
         elif kind == "conv":
             gemm_block, why = BCS.conv_gemm_block(block, tuple(w.shape))
@@ -250,7 +288,8 @@ def compile_model(params, masks=None, mapping=(), spec=None, device="cuda"):
             P, Q, Kh, Kw = w.shape
             packed, stats = _pack_stacked(
                 BCS.conv_lower(w), BCS.conv_lower(mask.expand(w.shape)),
-                gemm_block, reorder=spec.reorder, n_bins=gemm_bins)
+                gemm_block, reorder=spec.reorder, n_bins=gemm_bins,
+                value_dtype=vdt, scale_granularity=spec.scale_granularity)
             # the static tap table the implicit kernel gathers through
             packed = dataclasses.replace(
                 packed,
@@ -260,9 +299,9 @@ def compile_model(params, masks=None, mapping=(), spec=None, device="cuda"):
             K, N = w.shape[-2:]
             if K % block[0] or N % block[1]:
                 return skip(f"block {block} does not divide ({K}, {N})")
-            packed, stats = _pack_stacked(w, mask, block,
-                                          reorder=spec.reorder,
-                                          n_bins=gemm_bins)
+            packed, stats = _pack_stacked(
+                w, mask, block, reorder=spec.reorder, n_bins=gemm_bins,
+                value_dtype=vdt, scale_granularity=spec.scale_granularity)
         if stats["flops_saved"] <= spec.min_saving:
             return skip(f"no effective saving (L={stats['L']} of "
                         f"Kb={stats['Kb']} column blocks survive)")
@@ -270,7 +309,8 @@ def compile_model(params, masks=None, mapping=(), spec=None, device="cuda"):
         if not spec.keep_dense:
             del out["w"]
         rows.append(LayerReport(path=wpath, packed=True, kind=kind,
-                                scheme=choice.scheme, **stats))
+                                scheme=choice.scheme, value_dtype=vdt,
+                                **stats))
         return out
 
     exec_params = walk(params, masks, "")
@@ -279,8 +319,9 @@ def compile_model(params, masks=None, mapping=(), spec=None, device="cuda"):
 
 def compiled_summary(report) -> str:
     """One line per layer: the load-balance lever (pre-reorder L ->
-    post-reorder effective L and the gain) or the skip reason; conv rows
-    add the patch bytes per output position the implicit mode avoids."""
+    post-reorder effective L and the gain) or the skip reason; quantized
+    rows add ``values=int8``, conv rows the patch bytes per output position
+    the implicit mode avoids."""
     lines = []
     for r in report:
         if r.packed:
@@ -290,6 +331,8 @@ def compiled_summary(report) -> str:
                 f"L={r.L}->{r.L_reordered}/{r.Kb} "
                 f"(reorder_gain={r.reorder_gain:.2f}x) "
                 f"flops_saved={r.flops_saved:.2f}")
+            if r.value_dtype:
+                line += f" values={r.value_dtype}"
             if r.patch_b_per_pos is not None:
                 line += f" implicit_avoids={r.patch_b_per_pos}B/pos"
             lines.append(line)

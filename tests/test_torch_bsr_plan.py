@@ -14,7 +14,11 @@ shuffled order), and the epilogue; an MoE expert stack's blocks
 workspace by the strides the wrapper passes.  The emulation must equal
 itself bitwise on reordered and unreordered layouts and the plain version
 within tolerance.  A last group emulates ``ldmatrix`` and ``mma.sync``
-fragment by fragment on the kernel's shared-memory addresses.  The
+fragment by fragment on the kernel's shared-memory addresses.  Int8
+layouts: the plan at 1-byte values, the bin table's scales pointer and
+its expert stride, the emulated kernel dequantizing as the card does
+(``q * s`` at the value read on the FMA path, ``s * (x @ q)`` a k16 step
+on the tensor cores) and the hand-built B fragments of int8 values.  The
 kernels themselves run on the card (``test_torch_cuda.py``)."""
 import random
 
@@ -108,7 +112,8 @@ def test_plan_rejects_blocks_the_kernel_does_not_take():
 
 # -- the bin table -----------------------------------------------------------
 
-def _layout(K_, N_, block, dtype, reorder, n_bins=4, seed=0, density=0.4):
+def _layout(K_, N_, block, dtype, reorder, n_bins=4, seed=0, density=0.4,
+            gran=None):
     rng = np.random.RandomState(seed)
     bk, bn = block
     live = rng.rand(K_ // bk, N_ // bn) < density
@@ -117,7 +122,9 @@ def _layout(K_, N_, block, dtype, reorder, n_bins=4, seed=0, density=0.4):
     live[rng.randint(K_ // bk), 0] = True    # one of degree 1
     mask = torch.from_numpy(np.repeat(np.repeat(live, bk, 0), bn, 1))
     w = torch.from_numpy(rng.randn(K_, N_).astype(np.float32)).to(dtype)
-    return ops.pack(w, mask, block, reorder=reorder, n_bins=n_bins)
+    return ops.pack(w, mask, block, reorder=reorder, n_bins=n_bins,
+                    value_dtype=gran and "int8",
+                    scale_granularity=gran or "block")
 
 
 @pytest.mark.parametrize("n_bins", [1, 2, 4, 8])
@@ -196,7 +203,8 @@ def emulate_bsr(x, layout, bias, act, seed=0):
     M, Kd = x.shape[-2:]
     bk, bn = layout.block
     N = layout.shape[1]
-    p = K.bsr_plan(M, Kd, N, x.dtype, bk, bn, E)
+    gran = layout.scale_granularity
+    p = K.bsr_plan(M, Kd, N, x.dtype, bk, bn, E, 1 if gran else None)
     bins = K._bsr_bins(layout, p, CPU)
     MT, NW, KS = p.MT, p.NW, p.KS
     nks = bk // KS
@@ -231,8 +239,21 @@ def emulate_bsr(x, layout, bias, act, seed=0):
                 xt[:rows] = xe[e, m0:m0 + rows,
                                kb * bk + k0:kb * bk + k0 + KS]
                 vt = _strided(vals, (je * L + l) * bk * bn + k0 * bn
-                              + s * NW, (KS, NW), (bn, 1))
-                acc = acc + xt.float() @ vt.float()
+                              + s * NW, (KS, NW), (bn, 1)).float()
+                if gran is None:
+                    acc = acc + xt.float() @ vt
+                    continue
+                # the bin's scales pointer; expert e's at e times its leaf
+                sc = layout.scales[b]
+                assert r[9] == sc.data_ptr()
+                sv = float(_strided(sc, je * L + l if gran == "block"
+                                    else je, (1,), (1,))[0])
+                if p.mma:                      # s * (x @ q), a k16 step
+                    for k in range(0, KS, 16):
+                        acc = acc + sv * (xt[:, k:k + 16].float()
+                                          @ vt[k:k + 16])
+                else:                          # q * s at the value read
+                    acc = acc + xt.float() @ (vt * sv)
             sums.append(acc)
         y = sums[0]
         for a in sums[1:]:                     # the groups, in order
@@ -295,7 +316,8 @@ def test_emulated_kernel_matches_plain_and_is_bitwise_reorder_stable(
 
 # -- kernel 1's expert axis (MoE) ---------------------------------------------
 
-def _expert_stack(E, K_, N_, block, dtype, reorder, n_bins=4, seed=0):
+def _expert_stack(E, K_, N_, block, dtype, reorder, n_bins=4, seed=0,
+                  gran=None):
     """An (E, K, N) expert stack packed as ``compile_model`` packs MoE
     experts (``_pack_stacked``): one dense column, one empty, per expert."""
     rng = np.random.RandomState(seed)
@@ -306,7 +328,9 @@ def _expert_stack(E, K_, N_, block, dtype, reorder, n_bins=4, seed=0):
     mask = torch.from_numpy(np.repeat(np.repeat(live, bk, 1), bn, 2))
     w = torch.from_numpy(rng.randn(E, K_, N_).astype(np.float32)).to(dtype)
     lay, _ = C._pack_stacked(w * mask.to(dtype), mask, block,
-                             reorder=reorder, n_bins=n_bins)
+                             reorder=reorder, n_bins=n_bins,
+                             value_dtype=gran and "int8",
+                             scale_granularity=gran or "block")
     return lay
 
 
@@ -420,6 +444,104 @@ def test_wrapper_refuses_x_that_does_not_match_the_stack():
         K.bsr_matmul_packed(torch.zeros(2, 64), lay)
 
 
+# -- int8 values --------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [FP32, BF16])
+@pytest.mark.parametrize("block", MENU)
+@pytest.mark.parametrize("M", [4, 17, 128])
+def test_plan_at_int8_values(M, block, dtype):
+    """1-byte values: the float plan's path, tiles and chunk; value rows
+    of odd 16-byte units; the chunk's scales staged after its k_idx; the
+    ring counting x in x's bytes and the values in one byte each."""
+    bk, bn = block
+    fl = K.bsr_plan(M, 2048, 4096, dtype, bk, bn)
+    p = K.bsr_plan(M, 2048, 4096, dtype, bk, bn, 1, 1)
+    es = _es(dtype)
+    assert p.ves == 1 and fl.ves == es
+    assert p.args()[:9] == fl.args()[:9]
+    assert (p.S, p.SW, p.WK, p.xp) == (fl.S, fl.SW, fl.WK, fl.xp)
+    assert p.vp >= p.NW and p.vp % 16 == 0 and (p.vp // 16) % 2 == 1
+
+    def smem(u, st):               # k_idx and scales, ring or red, flag
+        ring = st * p.WK * u * (p.MT * p.xp * es + p.KS * p.vp)
+        return (2 * -(-4 * p.S // 16) * 16
+                + max(ring, p.WK * p.MT * p.NW * 4) + 16)
+    assert p.smem == smem(p.U, p.stages) <= K.SMEM_MAX
+    better = [(u, st) for u in K.BSR_UNITS for st in K.BSR_STAGES
+              if u > p.U or (u == p.U and st > p.stages)]
+    assert all(smem(u, st) > K.BSR_SMEM_TARGET for u, st in better)
+    with pytest.raises(TypeError):
+        K.bsr_plan(M, 2048, 4096, dtype, bk, bn, 1, 6 - es)
+
+
+@pytest.mark.parametrize("gran", ["block", "out"])
+@pytest.mark.parametrize("E", [1, 4, 64])
+def test_int8_bin_table_carries_scales_by_expert_stride(E, gran):
+    """Each bin's row ends with its scales pointer; the kernel's offset
+    (je * L + slot for "block", je for "out", je = e * nb + j) reads
+    expert e's scale of column j; a float plan refuses the int8 layout
+    and an int8 plan a float one."""
+    if E == 1:
+        lay = _layout(64, 256, (16, 16), BF16, True, gran=gran)
+    else:
+        lay = _expert_stack(E, 64, 256, (16, 16), BF16, True, gran=gran)
+    p = K.bsr_plan(4, 64, 256, BF16, 16, 16, E, 1)
+    rows = torch.tensor(list(K._bsr_bins(lay, p, CPU).table)).reshape(
+        -1, 10).tolist()
+    for r, sc, kidx in zip(rows, lay.scales, lay.k_idx):
+        nb, L = kidx.shape[-2:]
+        assert r[9] == sc.data_ptr() and sc.is_contiguous()
+        assert sc.dtype == torch.float32
+        per_col = L if gran == "block" else 1
+        sv = sc.reshape(E, nb, per_col)
+        for e in {0, min(1, E - 1), E - 1}:
+            for j in {0, nb - 1}:
+                for l in {0, per_col - 1}:
+                    off = (e * nb + j) * per_col + l
+                    assert _strided(sc, off, (1,), (1,))[0] == sv[e, j, l]
+    with pytest.raises(TypeError):
+        K._bsr_bins(lay, K.bsr_plan(4, 64, 256, BF16, 16, 16, E), CPU)
+    fl = _layout(64, 256, (16, 16), BF16, True)
+    with pytest.raises(TypeError):
+        K._bsr_bins(fl, K.bsr_plan(4, 64, 256, BF16, 16, 16, 1, 1), CPU)
+
+
+@pytest.mark.parametrize("gran", ["block", "out"])
+@pytest.mark.parametrize("dtype", [FP32, BF16])
+@pytest.mark.parametrize("block", [(16, 16), (8, 16), (32, 64)])
+@pytest.mark.parametrize("M", [4, 129])
+def test_emulated_int8_kernel_matches_plain_and_is_bitwise_reorder_stable(
+        M, block, dtype, gran):
+    Kd, N = 512, 128
+    lays = [_layout(Kd, N, block, dtype, True, n, gran=gran)
+            for n in (4, 8)]
+    lays.append(_layout(Kd, N, block, dtype, False, gran=gran))
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.randn(M, Kd).astype(np.float32)).to(dtype)
+    b = torch.from_numpy(rng.randn(N).astype(np.float32)).to(dtype)
+    ys = [emulate_bsr(x, lay, b, "silu", seed=i)
+          for i, lay in enumerate(lays)]
+    for y in ys[1:]:
+        assert torch.equal(y, ys[0])
+    want = ref.bsr_matmul_packed_ref(x.float(), lays[0], b.float(), "silu")
+    tol = 1e-4 if dtype == FP32 else 1e-2
+    torch.testing.assert_close(ys[0].float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("gran", ["block", "out"])
+def test_emulated_int8_expert_launch_matches_plain(gran):
+    E, Kd, N = 4, 1088, 64          # 68 K-blocks: the dense column chunked
+    lays = [_expert_stack(E, Kd, N, (16, 16), BF16, True, gran=gran),
+            _expert_stack(E, Kd, N, (16, 16), BF16, False, gran=gran)]
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.randn(E, 4, Kd).astype(np.float32)).to(BF16)
+    ys = [emulate_bsr(x, lay, None, "none", seed=i)
+          for i, lay in enumerate(lays)]
+    assert torch.equal(ys[0], ys[1])
+    want = ref.bsr_matmul_experts_ref(x.float(), lays[0], None, "none")
+    torch.testing.assert_close(ys[0].float(), want, rtol=1e-2, atol=1e-2)
+
+
 # -- ldmatrix and mma.sync, fragment by fragment ------------------------------
 
 def _ldmatrix(smem, addr, n, trans):
@@ -520,6 +642,48 @@ def test_fragments_of_the_tensor_core_path(M, block):
             red[row, col], red[row, col + 1] = q[0], q[1]
             red[row + 8, col], red[row + 8, col + 1] = q[2], q[3]
     torch.testing.assert_close(red, xt.double() @ vt.double())
+
+
+@pytest.mark.parametrize("M,block", [(4, (16, 16)), (17, (16, 32)),
+                                     (128, (16, 8)), (64, (32, 64))])
+def test_int8_b_fragments_built_by_hand(M, block):
+    """int8 values staged as bytes (rows of ``vp``): lane (g, t) = (lane /
+    4, lane % 4) builds n-tile n's B fragment from rows k16 + 2t + {0, 1}
+    and k16 + 2t + {8, 9} of column n * 8 + g — the layout mma.m16n8k16
+    reads; the k16 steps' products scaled and summed give x @ (q * s)."""
+    bk, bn = block
+    p = K.bsr_plan(M, 4 * bk, 4 * bn, BF16, bk, bn, 1, 1)
+    assert p.mma and p.ves == 1
+    g = torch.Generator().manual_seed(1)
+    xt = torch.randn(16, p.KS, generator=g).to(BF16).float()
+    q = torch.randint(-127, 128, (p.KS, p.NW), generator=g).float()
+    vs = torch.full((p.KS * p.vp,), float("nan"))
+    for r in range(p.KS):
+        vs[r * p.vp:r * p.vp + p.NW] = q[r]
+    s = 0.0123
+    acc = torch.zeros(16, p.NW, dtype=torch.float64)
+    for k16 in range(0, p.KS, 16):
+        a = [[None] * 4 for _ in range(32)]
+        for lane in range(32):
+            gg, t = lane // 4, lane % 4
+            for i, (r, k) in enumerate(((gg, 2 * t), (gg + 8, 2 * t),
+                                        (gg, 2 * t + 8),
+                                        (gg + 8, 2 * t + 8))):
+                a[lane][i] = (xt[r, k16 + k], xt[r, k16 + k + 1])
+        for n in range(p.NW // 8):
+            bb = []
+            for lane in range(32):
+                kr, col = k16 + 2 * (lane & 3), n * 8 + (lane >> 2)
+                bb.append([(vs[kr * p.vp + col], vs[(kr + 1) * p.vp + col]),
+                           (vs[(kr + 8) * p.vp + col],
+                            vs[(kr + 9) * p.vp + col])])
+            d = _mma(a, bb)
+            for lane in range(32):
+                row, col = lane >> 2, n * 8 + 2 * (lane & 3)
+                for i, (dr, dc) in enumerate(((0, 0), (0, 1), (8, 0),
+                                              (8, 1))):
+                    acc[row + dr, col + dc] += s * float(d[lane][i])
+    torch.testing.assert_close(acc, xt.double() @ (q.double() * s))
 
 
 @pytest.mark.parametrize("NW", [4, 8, 16, 32])

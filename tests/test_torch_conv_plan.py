@@ -11,7 +11,12 @@ the staged window in the kernels' shared-memory layout, the per-lane
 position words and the per-slot words of the tables — and hold the result
 against the plain versions: an index that disagrees between the plan, the
 tables and the staging layout reads a NaN-poisoned or a wrong word here.
-The kernels themselves run on the card (``test_torch_cuda.py``)."""
+Int8 layouts go through the same emulation with their tables decoded as
+the kernels decode them (kernel 3: int8 values and a scale a slot; kernel
+4: the word and q packed in one int32 beside the slot's scale).  The
+kernels themselves run on the card (``test_torch_cuda.py``)."""
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -217,6 +222,7 @@ def emulate_bcs(x, layout, taps_of, plan, bias, act):
     """Kernel 3 on ``plan`` with the tables it reads: the window offsets
     of the (kh, kw, C) = ``taps_of`` tap table."""
     vals, _, meta = K._bsr_tables(layout)
+    scales = K._bsr_scales(layout)
     soffs = K._bsr_soffs(layout, plan, *taps_of).long()
     bk, bn = layout.block
     out = torch.full((plan.B * plan.Ho * plan.Wo, plan.N), float("nan"))
@@ -233,6 +239,9 @@ def emulate_bcs(x, layout, taps_of, plan, bias, act):
             xv = xs[poff[:, None, None] + soffs[sl][None, :, None]
                     + kk[None, None, :]]                    # (lanes, L, bk)
             w = vals.reshape(-1, bk, bn)[sl]                # (L, bk, bn)
+            if scales is not None:                          # q * s, fp32
+                assert w.dtype == torch.int8
+                w = w.float() * scales[sl][:, None, None]
             acc = torch.einsum("plk,lkc->pc", xv.double(), w.double())
             keep = p < plan.tr * plan.tw
             tile[p[keep], col * bn:(col + 1) * bn] = acc[keep].float()
@@ -247,6 +256,12 @@ def emulate_tap(x, layout, plan, bias, act, band=False):
     slots, meta = K._tap_tables(layout, plan, band)
     off, vbits = slots[:, 0].long(), slots[:, 1].contiguous()
     vals = vbits.view(torch.float32)
+    if layout.scales is not None:         # (word + q * 2**16, scale bits)
+        q = off >> K.TAP_WORD_BITS
+        off = off & ((1 << K.TAP_WORD_BITS) - 1)
+        assert bool((q.abs() <= 127).all()) and bool((off < plan.x_floats)
+                                                     .all())
+        vals = q.float() * vals
     out = torch.full((plan.B * plan.Ho * plan.Wo, plan.N), float("nan"))
     owners = _owners(plan)
     p, poff = _lanes(plan)
@@ -332,6 +347,75 @@ def test_tap_kernel_addressing_matches_plain(P, Q, k, stride, B, H, W, act):
     _check_plan(plan)
     got = emulate_tap(x, lay, plan, bias, act)
     torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("gran", ["block", "out"])
+@pytest.mark.parametrize("P,Q,k,stride,B,H,W", [EDGE[1], EDGE[4]])
+def test_int8_bcs_kernel_addressing_matches_plain(P, Q, k, stride, B, H, W,
+                                                  gran):
+    """Kernel 3's int8 tables: values kept int8 (no dequantized copy) and
+    one fp32 scale a slot, on the image and on its patch matrix."""
+    w, mask = _punched(P, Q, k)
+    lay = ops.pack(BCS.conv_lower(w), BCS.conv_lower(mask), (8, 8),
+                   reorder=True, n_bins=4, conv=(k, k, Q),
+                   value_dtype="int8", scale_granularity=gran)
+    vals, kidx, _ = K._bsr_tables(lay)
+    scales = K._bsr_scales(lay)
+    assert vals.dtype == torch.int8 and scales.dtype == torch.float32
+    assert scales.shape == kidx.shape
+    x = _rand(1, B, H, W, Q)
+    bias = _rand(2, P)
+    want = K.bsr_conv2d_implicit(x, lay, kh=k, kw=k, stride=stride,
+                                 bias=bias, act="relu").reshape(-1, P)
+    plan = K.conv_plan("bcs", x.shape, k, k, stride, "SAME", lay.Nb, P, 8,
+                       8)
+    got = emulate_bcs(x, lay, (k, k, Q), plan, bias, "relu")
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    patches = ops.im2col(x, k, k, stride).reshape(-1, k * k * Q)
+    pp = K.conv_plan("bcs", (1, 1) + tuple(patches.shape), 1, 1, 1,
+                     "VALID", lay.Nb, P, 8, 8)
+    got = emulate_bcs(patches.reshape(1, 1, *patches.shape), lay,
+                      (1, 1, k * k * Q), pp, bias, "relu")
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("gran", ["block", "out"])
+@pytest.mark.parametrize("P,Q,k,stride,B,H,W", [EDGE[0], EDGE[3]])
+def test_int8_tap_kernel_addressing_matches_plain(P, Q, k, stride, B, H, W,
+                                                  gran):
+    """Kernel 4 (and 2, over the alive band) on int8 slots: the word in the
+    low 16 bits, q above, the slot's scale (its filter's, "out") in the
+    value word."""
+    w, mask = _pattern(P, Q, k)
+    lay = ops.pack_taps(w, mask, reorder=True, n_bins=8, value_dtype="int8",
+                        scale_granularity=gran)
+    x = _rand(3, B, H, W, Q)
+    bias = _rand(4, P)
+    want = K.tap_gather_conv_implicit(x, lay, kh=k, kw=k, stride=stride,
+                                      bias=bias, act="relu").reshape(-1, P)
+    plan = K.conv_plan("tap", x.shape, k, k, stride, "SAME", P, P)
+    got = emulate_tap(x, lay, plan, bias, "relu")
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    band = ops.im2col(x, k, k, stride).reshape(-1, k * k * Q)
+    band = band.index_select(1, lay.alive.long())
+    bp = K.conv_plan("tap", (1, 1) + tuple(band.shape), 1, 1, 1, "VALID",
+                     P, P)
+    got = emulate_tap(band.reshape(1, 1, *band.shape), lay, bp, bias,
+                      "relu", band=True)
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+def test_int8_tap_slot_refuses_a_tile_past_its_word_bits():
+    w, mask = _pattern(32, 16, 3)
+    lay = ops.pack_taps(w, mask, value_dtype="int8",
+                        scale_granularity="out")
+    plan = K.conv_plan("tap", (2, 8, 8, 16), 3, 3, 1, "SAME", 32, 32)
+    assert plan.x_floats <= 1 << K.TAP_WORD_BITS
+    big = dataclasses.replace(plan, x_floats=(1 << K.TAP_WORD_BITS) + 4)
+    with pytest.raises(ValueError, match="staged words"):
+        K._tap_tables(lay, big)
+    # every plan fits: the shared memory caps the staged words
+    assert K.SMEM_MAX // 4 <= 1 << K.TAP_WORD_BITS
 
 
 def test_bins_of_one_slot_and_fewer_columns_than_a_block():

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card
-(kernel 1 also over an MoE expert stack).
+(kernel 1 also over an MoE expert stack; every kernel also on int8
+layouts, dequantized on the card).
 
 Every test here is marked ``cuda`` and skips without a card (the kernel
 has no CPU mode).  This file imports neither jax nor the JAX package, so
@@ -32,14 +33,16 @@ def cuda():
     return torch.device("cuda")
 
 
-def _layout(dev, K_, N_, block, dtype, reorder, seed=0):
+def _layout(dev, K_, N_, block, dtype, reorder, seed=0, gran=None):
     rng = np.random.RandomState(seed)
     bk, bn = block
     live = rng.rand(K_ // bk, N_ // bn) < 0.4
     live[:, -1] = True
     mask = torch.from_numpy(np.repeat(np.repeat(live, bk, 0), bn, 1)).to(dev)
     w = torch.from_numpy(rng.randn(K_, N_).astype(np.float32)).to(dev, dtype)
-    return ops.pack(w, mask, block, reorder=reorder), w * mask.to(dtype)
+    return ops.pack(w, mask, block, reorder=reorder,
+                    value_dtype=gran and "int8",
+                    scale_granularity=gran or "block"), w * mask.to(dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -135,7 +138,7 @@ def test_generate_on_card_matches_cpu(cuda):
 
 # -- kernel 1 over an MoE expert stack ---------------------------------------
 
-def _expert_stack(dev, E, K_, N_, dtype, reorder, seed=0):
+def _expert_stack(dev, E, K_, N_, dtype, reorder, seed=0, gran=None):
     rng = np.random.RandomState(seed)
     live = rng.rand(E, K_ // 16, N_ // 16) < 0.4
     live[:, :, -1] = True
@@ -143,7 +146,9 @@ def _expert_stack(dev, E, K_, N_, dtype, reorder, seed=0):
     w = torch.from_numpy(rng.randn(E, K_, N_).astype(np.float32)).to(dev,
                                                                      dtype)
     lay, _ = C._pack_stacked(w * mask.to(dtype), mask, (16, 16),
-                             reorder=reorder, n_bins=4)
+                             reorder=reorder, n_bins=4,
+                             value_dtype=gran and "int8",
+                             scale_granularity=gran or "block")
     return lay
 
 
@@ -220,7 +225,8 @@ def test_moe_generate_on_card_matches_cpu(cuda):
 # -- the conv kernels (2: tap gather on the alive band, 3: the BCS conv
 # from the image or from im2col patches, 4: the tap conv from the image) --
 
-def _conv_layout(dev, scheme, P, Q, k, dtype, reorder, n_bins, seed=0):
+def _conv_layout(dev, scheme, P, Q, k, dtype, reorder, n_bins, seed=0,
+                 gran=None):
     from repro_torch.core import bcs as BCS
     from repro_torch.core import regularity as R
     g = torch.Generator().manual_seed(seed)
@@ -229,12 +235,15 @@ def _conv_layout(dev, scheme, P, Q, k, dtype, reorder, n_bins, seed=0):
         mask = (R.pattern_mask(w, 0.5) if k == 3
                 else R.connectivity_mask(w, rate=0.5))
         lay = ops.pack_taps(w.to(dev, dtype), mask.to(dev), reorder=reorder,
-                            n_bins=n_bins)
+                            n_bins=n_bins, value_dtype=gran and "int8",
+                            scale_granularity=gran or "block")
     else:
         mask = R.block_punched_mask(w, (8, 8), rate=0.5)
         lay = ops.pack(BCS.conv_lower(w).to(dev, dtype),
                        BCS.conv_lower(mask).to(dev), (8, 8), reorder=reorder,
-                       n_bins=n_bins, conv=(k, k, Q))
+                       n_bins=n_bins, conv=(k, k, Q),
+                       value_dtype=gran and "int8",
+                       scale_granularity=gran or "block")
     return lay, (w * mask).to(dev)
 
 
@@ -435,3 +444,117 @@ def _layout_to(layout, dev):
             v = tuple(t.to(dev) for t in v)
         out[f.name] = v
     return type(layout)(**out)
+
+
+# -- int8 layouts: every kernel dequantizes q * s on the card ---------------
+
+@pytest.mark.parametrize("gran", ["block", "out"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", [(16, 16), (8, 16), (4, 4), (16, 32)])
+@pytest.mark.parametrize("M", [1, 4, 17, 129])
+def test_int8_kernel_matches_plain(cuda, M, block, dtype, gran):
+    """Kernel 1 on int8 values under a bf16 (tensor cores, or FMAs for the
+    small blocks) or fp32 x: one launch, reordered == unreordered bitwise,
+    within tolerance of the plain version on the dequantized weight."""
+    lay, _ = _layout(cuda, 256, 384, block, dtype, True, gran=gran)
+    unre, _ = _layout(cuda, 256, 384, block, dtype, False, gran=gran)
+    assert lay.value_dtype == "int8" and lay.scale_granularity == gran
+    x = torch.randn(M, 256, device=cuda).to(dtype)
+    b = torch.randn(384, device=cuda).to(dtype)
+    for act in ("none", "silu"):
+        before = K.LAUNCHES["bsr_matmul"]
+        y = K.bsr_matmul_packed(x, lay, bias=b, act=act)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["bsr_matmul"] - before == 1
+        assert torch.equal(y, K.bsr_matmul_packed(x, unre, bias=b, act=act))
+        want = ref.bsr_matmul_packed_ref(x.float(), lay, b.float(), act)
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        torch.testing.assert_close(y.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("gran", ["block", "out"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_expert_launch_matches_plain_and_replays(cuda, dtype, gran):
+    """An int8 expert stack with chunked columns: one launch over the
+    experts, against the plain version expert by expert, and the same
+    bits from a CUDA-graph replay."""
+    lay = _expert_stack(cuda, 8, 4096, 256, dtype, True, gran=gran)
+    x = torch.randn(8, 4, 4096, device=cuda).to(dtype)
+    plan = K.bsr_plan(4, 4096, 256, dtype, 16, 16, 8, 1)
+    assert K._bsr_bins(lay, plan, x.device).ws_floats > 0
+    want = ops.sparse_expert_linear(x, lay, act="silu")
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y = ops.sparse_expert_linear(x, lay, act="silu")
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, want)
+        assert int(K._COUNTERS[x.device].abs().sum()) == 0
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(
+        want.float(), ref.bsr_matmul_experts_ref(x.float(), lay, None,
+                                                 "silu"),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("gran", ["block", "out"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scheme,P,Q,k,stride,H,W", [
+    ("pattern", 64, 32, 3, 2, 13, 10), ("pattern", 64, 64, 1, 1, 13, 10),
+    ("punched", 64, 32, 3, 2, 13, 10), ("punched", 64, 64, 1, 1, 13, 10)])
+def test_int8_conv_kernels_match_plain(cuda, scheme, P, Q, k, stride, H, W,
+                                       dtype, gran):
+    """Kernels 2-4 on int8 layouts: implicit == materialized and
+    reordered == unreordered bitwise, within tolerance of the plain
+    version on the dequantized weight."""
+    n_bins = 8 if scheme == "pattern" else 4
+    lay, _ = _conv_layout(cuda, scheme, P, Q, k, dtype, True, n_bins,
+                          gran=gran)
+    unre, _ = _conv_layout(cuda, scheme, P, Q, k, dtype, False, n_bins,
+                           gran=gran)
+    conv = (ops.sparse_conv2d_pattern if scheme == "pattern"
+            else ops.sparse_conv2d)
+    x = torch.randn(3, H, W, Q, device=cuda).to(dtype)
+    b = torch.randn(P, device=cuda).to(dtype)
+    ys = [conv(x, lay_, kh=k, kw=k, stride=stride, bias=b, act="relu",
+               implicit=imp) for lay_ in (lay, unre) for imp in (True, False)]
+    torch.cuda.synchronize()
+    for y in ys[1:]:
+        assert torch.equal(y, ys[0])
+    want = _conv_plain(x, lay, k, stride, b, "relu")
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(ys[0].float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("gran", ["block", "out"])
+def test_int8_quantization_on_the_card_equals_the_host(cuda, gran):
+    """core.quant on the card gives the host's int8 values and fp32 scales
+    bit for bit (a packed and a tap layout)."""
+    from repro_torch.core import quant as Q
+    lay, _ = _layout(cuda, 512, 384, (16, 16), torch.bfloat16, True)
+    tap, _ = _conv_layout(cuda, "pattern", 64, 32, 3, torch.float32, True,
+                          8)
+    for fl in (lay, tap):
+        a = Q.quantize_layout(fl, scale_granularity=gran)
+        b = Q.quantize_layout(_layout_to(fl, "cpu"), scale_granularity=gran)
+        for u, v in zip(a.values + a.scales, b.values + b.scales):
+            assert torch.equal(u.cpu(), v)
+
+
+def test_int8_wrappers_reject_unscaled_or_misshapen_layouts(cuda):
+    import dataclasses
+    lay, _ = _layout(cuda, 128, 64, (16, 16), torch.float32, False,
+                     gran="block")
+    x = torch.randn(5, 128, device=cuda)
+    with pytest.raises(TypeError):               # int8 values, no scales
+        K.bsr_matmul_packed(x, dataclasses.replace(lay, scales=None))
+    with pytest.raises(ValueError, match="scales"):
+        K.bsr_matmul_packed(x, dataclasses.replace(
+            lay, scales=tuple(s[:, :1].contiguous() for s in lay.scales)))
+    tap, _ = _conv_layout(cuda, "pattern", 32, 16, 3, torch.float32, True,
+                          8, gran="out")
+    with pytest.raises(TypeError):
+        K.tap_gather_conv_implicit(torch.randn(2, 8, 8, 16, device=cuda),
+                                   dataclasses.replace(tap, scales=None),
+                                   kh=3, kw=3)

@@ -36,12 +36,16 @@ def ref_to_numpy(tree):
 
     def opt(a):
         return None if a is None else np.asarray(a)
+
+    def opt_bins(t):
+        return None if t is None else [np.asarray(a) for a in t]
     if isinstance(tree, RefLayout):
         return {"values": [np.asarray(v) for v in tree.values],
                 "k_idx": [np.asarray(k) for k in tree.k_idx],
                 "nnz": np.asarray(tree.nnz), "perm": opt(tree.perm),
                 "inv_perm": opt(tree.inv_perm), "block": tree.block,
-                "shape": tree.shape, "conv_taps": tree.conv_taps}
+                "shape": tree.shape, "conv_taps": tree.conv_taps,
+                "scales": opt_bins(tree.scales)}
     if isinstance(tree, RefTapLayout):
         return {"values": [np.asarray(v) for v in tree.values],
                 "t_idx": [np.asarray(t) for t in tree.t_idx],
@@ -49,7 +53,8 @@ def ref_to_numpy(tree):
                            else [np.asarray(k) for k in tree.k_full]),
                 "nnz": np.asarray(tree.nnz), "alive": np.asarray(tree.alive),
                 "perm": opt(tree.perm), "inv_perm": opt(tree.inv_perm),
-                "group": tree.group, "shape": tree.shape}
+                "group": tree.group, "shape": tree.shape,
+                "scales": opt_bins(tree.scales)}
     return np.asarray(tree)
 
 
@@ -81,9 +86,20 @@ def block_case(K, N, block, dtype=np.float32, keep=0.45, seed=0):
     return w.astype(dtype), mask.astype(np.float32)
 
 
+def _assert_scales_equal(port, ref):
+    """The fp32 scale leaves of two quantized layouts bit-equal (or both
+    float layouts)."""
+    assert (port.scales is None) == (ref.scales is None)
+    for p, r in zip(port.scales or (), ref.scales or ()):
+        r = np.asarray(r)
+        assert p.dtype == torch.float32 and tuple(p.shape) == r.shape
+        np.testing.assert_array_equal(p.cpu().numpy().view(np.int32),
+                                      r.view(np.int32))
+
+
 def assert_layout_equal(port, ref):
-    """Leaf-for-leaf equality: integer leaves equal, values bit-equal (and
-    the same ``conv_taps``)."""
+    """Leaf-for-leaf equality: integer leaves equal, values and scales
+    bit-equal (and the same ``conv_taps``)."""
     assert port.block == tuple(ref.block) and port.shape == tuple(ref.shape)
     assert port.conv_taps == ref.conv_taps
     assert port.n_bins == ref.n_bins
@@ -100,10 +116,12 @@ def assert_layout_equal(port, ref):
         r = tensor_from_numpy(np.asarray(r), "cpu")
         assert p.dtype == r.dtype and p.shape == r.shape
         assert torch.equal(p.cpu(), r)
+    _assert_scales_equal(port, ref)
 
 
 def assert_tap_layout_equal(port, ref):
-    """TapLayout leaf for leaf: integer leaves equal, values bit-equal."""
+    """TapLayout leaf for leaf: integer leaves equal, values and scales
+    bit-equal."""
     assert port.group == ref.group and port.shape == tuple(ref.shape)
     assert port.n_bins == ref.n_bins
     assert (port.perm is None) == (ref.perm is None)
@@ -120,6 +138,7 @@ def assert_tap_layout_equal(port, ref):
         r = tensor_from_numpy(np.asarray(r), "cpu")
         assert p.dtype == r.dtype and p.shape == r.shape
         assert torch.equal(p.cpu(), r)
+    _assert_scales_equal(port, ref)
 
 
 # -- tests --------------------------------------------------------------------
