@@ -268,15 +268,20 @@ def kernel1_cases(mods, gen, shapes, layouts, acts):
     return checks, max_err
 
 
+def kernel1_shapes():
+    """The (K, N) kernel 1 is checked at outside the expert stacks: yi-9b's
+    projections and mixtral-8x7b's attention (its experts are checked in
+    the MoE phases)."""
+    return sorted({(k, n) for _, k, n, _ in PROJECTIONS}
+                  | attention_shapes(moe_config()))
+
+
 def kernel_phase(mods, flush):
     """Kernel vs plain at every main-path shape; timings in bf16."""
-    RW, ops, ref, K = mods["RW"], mods["ops"], mods["ref"], mods["K"]
+    RW, ops = mods["RW"], mods["ops"]
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
-    # yi-9b's projections and mixtral-8x7b's attention (its experts are
-    # checked in moe_kernel_phase)
-    shapes = sorted({(k, n) for _, k, n, _ in PROJECTIONS}
-                    | attention_shapes(moe_config()))
+    shapes = kernel1_shapes()
     checks, max_err = kernel1_cases(
         mods, gen, shapes,
         lambda w, mask: [("float", ops.pack(w, mask, BLOCK, reorder=True,
@@ -284,40 +289,74 @@ def kernel_phase(mods, flush):
                           ops.pack(w, mask, BLOCK))],
         (("none", False), ("none", True), ("silu", True), ("relu", True)))
     print(f"kernel vs plain: {checks} cases at (K, N) in {shapes} (yi-9b's "
-          f"projections, mixtral-8x7b's attention), M in {CHECK_M}, bf16 + fp32, bias with none/silu/relu, "
-          f"reordered == unreordered bitwise; max abs err {max_err:.3e}")
+          f"projections, mixtral-8x7b's attention), M in {CHECK_M}, bf16 + "
+          f"fp32, bias with none/silu/relu, reordered == unreordered "
+          f"bitwise; max abs err {max_err:.3e}")
 
-    rows = []
-    # a plain read of as many bytes as a projection's values, under the
-    # same flush: what the memory system gives a stream of that size
-    stream_buf = torch.ones(DFF * D, dtype=torch.bfloat16, device=DEV)
-    for name, Kd, Nd, act in PROJECTIONS:
+    def make(name, Kd, Nd):
         w, mask = weight_and_mask(RW, Kd, Nd, gen, torch.bfloat16)
-        lay = ops.pack(w, mask, BLOCK, reorder=True, n_bins=N_BINS)
-        dense = w * mask.to(w.dtype)
-        nnzb = int(lay.nnz.sum())
-        n_vals = sum(v.numel() for v in lay.values)
-        stream_ms = time_ms(lambda: stream_buf[:n_vals].sum(), 30, flush)
-        for M in (4, 128):
-            x = torch.randn(M, Kd, generator=gen, device=DEV).to(
-                torch.bfloat16)
-            rows.append(timed_row(
-                lambda: K.bsr_matmul_packed(x, lay, None, act),
-                lambda: ref.bsr_matmul_packed_ref(x, lay, None, act),
-                lambda: torch.matmul(x, dense), stream_ms,
-                nnzb * (BLOCK[0] * BLOCK[1] * 2 + 4) + M * (Kd + Nd) * 2,
-                2 * M * nnzb * BLOCK[0] * BLOCK[1], flush, proj=name, M=M,
-                K=Kd, N=Nd, act=act, dtype="bfloat16", density=lay.density,
-                executed_frac=1 - lay.flops_saved, bins=lay.n_bins))
-        del w, mask, lay, dense
-    del stream_buf
+        return (ops.pack(w, mask, BLOCK, reorder=True, n_bins=N_BINS),
+                w * mask.to(w.dtype))
+    rows = kernel1_timings(mods, gen, flush, PROJECTIONS, (4, 128), make)
     print_timings("main-path timings (bf16, L2 flushed, median ms; device "
                   "time by CUDA-graph replay, and the kernel's eager call "
-                  "for the host's share; stream = one torch sum over as "
-                  "many bytes as the live values, same flush):", rows,
+                  "for the host's share; stream = one torch sum over the "
+                  "bound's bytes, same flush):", rows,
                   "torch.matmul", "yi-9b layer (7 projections)",
                   ((4, "decode"), (128, "prefill")))
     return rows, max_err
+
+
+def kernel1_bytes(lay):
+    """Bytes kernel 1 must read of a layout's weights: each live block's
+    values and k_idx, and with int8 values its scale ("block") or each
+    block column's ("out")."""
+    bk, bn = lay.block
+    nnzb = int(lay.nnz.sum())
+    es = lay.values[0].element_size()
+    gran = lay.scale_granularity
+    return (nnzb * (bk * bn * es + 4 + (4 if gran == "block" else 0))
+            + (4 * lay.nnz.numel() if gran == "out" else 0))
+
+
+def kernel1_timings(mods, gen, flush, projs, Ms, make, E=None):
+    """Kernel 1 timed at each (name, K, N, act) of ``projs`` and M of
+    ``Ms``, bf16 x: ``make(name, K, N)`` gives (layout, masked dense
+    weight), an (E, K, N) expert stack (one launch a projection, beside
+    ``torch.bmm``) when E is given, else one projection (beside
+    ``torch.matmul``).  The bound from ``kernel1_bytes`` and the x and
+    out bytes; stream = one torch sum over as many bytes."""
+    ops, ref, K = mods["ops"], mods["ref"], mods["K"]
+    rows, stream_buf = [], None
+    for name, Kd, Nd, act in projs:
+        lay, dense = make(name, Kd, Nd)
+        nnzb = int(lay.nnz.sum())
+        for M in Ms:
+            x = torch.randn((M, Kd) if E is None else (E, M, Kd),
+                            generator=gen, device=DEV).to(torch.bfloat16)
+            nbytes = kernel1_bytes(lay) + (E or 1) * M * (Kd + Nd) * 2
+            if stream_buf is None or stream_buf.numel() < nbytes // 2:
+                stream_buf = torch.ones(nbytes // 2, dtype=torch.bfloat16,
+                                        device=DEV)
+            stream_ms = time_ms(lambda: stream_buf[:nbytes // 2].sum(), 30,
+                                flush)
+            if E is None:
+                fns = (lambda: K.bsr_matmul_packed(x, lay, None, act),
+                       lambda: ref.bsr_matmul_packed_ref(x, lay, None, act),
+                       lambda: torch.matmul(x, dense))
+            else:
+                fns = (lambda: ops.sparse_expert_linear(x, lay, act=act),
+                       lambda: ref.bsr_matmul_experts_ref(x, lay, None, act),
+                       lambda: torch.bmm(x, dense))
+            rows.append(timed_row(
+                *fns, stream_ms, nbytes, 2 * M * nnzb * BLOCK[0] * BLOCK[1],
+                flush, proj=name, M=M, K=Kd, N=Nd, act=act,
+                dtype="bfloat16", values=lay.value_dtype,
+                density=lay.density, executed_frac=1 - lay.flops_saved,
+                bins=lay.n_bins, **({} if E is None else {"E": E})))
+        del lay, dense
+    del stream_buf
+    return rows
 
 
 def timed_row(kernel_fn, plain_fn, lib_fn, stream_ms, nbytes, flops, flush,
@@ -1188,6 +1227,16 @@ def expert_stack(mods, E, Kd, Nd, gen, dtype, reorder, gran=None):
     return lays, dense
 
 
+def stack_maker(mods, E, gen, gran=None):
+    """``kernel1_timings``' ``make`` over reordered E-expert bf16 stacks
+    (int8 at ``gran`` if given)."""
+    def make(name, Kd, Nd):
+        (lay,), dense = expert_stack(mods, E, Kd, Nd, gen, torch.bfloat16,
+                                     (True,), gran)
+        return lay, dense
+    return make
+
+
 def expert_cases(mods, gen, E, shapes, grans, acts, after=None):
     """Kernel 1 over E-expert stacks (one launch a call) vs the plain
     version expert by expert at every (K, N) of ``shapes`` and M of
@@ -1240,7 +1289,6 @@ def moe_kernel_phase(mods, flush):
     (M = the capacity of the prefill's dispatch group) beside
     ``torch.bmm`` of the masked dense stack, the byte bound and a plain
     read of the same bytes."""
-    ops, ref = mods["ops"], mods["ref"]
     cfg = moe_config()
     E = cfg.n_experts
     gen = torch.Generator(device=DEV)
@@ -1253,32 +1301,9 @@ def moe_kernel_phase(mods, flush):
           f"launch per call, reordered == unreordered bitwise; max abs err "
           f"{max_err:.3e}")
 
-    rows = []
-    stream_buf = None
-    for name, Kd, Nd, act in moe_projections(cfg):
-        (lay,), dense = expert_stack(mods, E, Kd, Nd, gen, torch.bfloat16,
-                                     (True,))
-        nnzb = int(lay.nnz.sum())
-        for M in (4, prefill_capacity(cfg)):
-            x = torch.randn(E, M, Kd, generator=gen, device=DEV).to(
-                torch.bfloat16)
-            nbytes = (nnzb * (BLOCK[0] * BLOCK[1] * 2 + 4)
-                      + E * M * (Kd + Nd) * 2)
-            if stream_buf is None or stream_buf.numel() < nbytes // 2:
-                stream_buf = torch.ones(nbytes // 2, dtype=torch.bfloat16,
-                                        device=DEV)
-            stream_ms = time_ms(lambda: stream_buf[:nbytes // 2].sum(), 30,
-                                flush)
-            rows.append(timed_row(
-                lambda: ops.sparse_expert_linear(x, lay, act=act),
-                lambda: ref.bsr_matmul_experts_ref(x, lay, None, act),
-                lambda: torch.bmm(x, dense), stream_ms, nbytes,
-                2 * M * nnzb * BLOCK[0] * BLOCK[1], flush, proj=name, E=E,
-                M=M, K=Kd, N=Nd, act=act, dtype="bfloat16",
-                density=lay.density, executed_frac=1 - lay.flops_saved,
-                bins=lay.n_bins))
-        del lay, dense
-    del stream_buf
+    rows = kernel1_timings(mods, gen, flush, moe_projections(cfg),
+                           (4, prefill_capacity(cfg)),
+                           stack_maker(mods, E, gen), E)
     print_timings(f"experts timed (bf16, E = {E}, one launch per "
                   f"projection, L2 flushed, median ms by CUDA-graph replay; "
                   f"torch.bmm of the masked dense (E, K, N) stack; stream = "
@@ -1585,39 +1610,31 @@ def int8_pack(ops, w, mask, gran, reorder):
                     value_dtype="int8", scale_granularity=gran)
 
 
-def int8_bound_bytes(lay):
-    """Bytes kernel 1 must read of an int8 layout: each live block's values
-    (1 byte a value), its k_idx and its scale ("block")."""
-    bk, bn = lay.block
-    nnzb = int(lay.nnz.sum())
-    per_scale = 4 if lay.scale_granularity == "block" else 0
-    cols = lay.nnz.numel() if lay.scale_granularity == "out" else 0
-    return nnzb * (bk * bn + 4 + per_scale) + 4 * cols
-
-
 def int8_kernel_phase(mods, flush):
-    """Kernel 1's int8 branch at yi-9b's projection shapes: quantization
-    on the card == on the host; kernel vs plain at CHECK_M, bf16 and fp32,
-    both granularities, reordered == unreordered bitwise; planted scale
-    faults; the value bytes and the timings of one layer at decode and
-    prefill (the served granularity, "block")."""
+    """Kernel 1's int8 branch: quantization on the card == on the host;
+    kernel vs plain at ``kernel1_shapes`` (yi-9b's projections, mixtral's
+    attention) and CHECK_M, bf16 and fp32, both granularities, reordered
+    == unreordered bitwise; planted scale faults; the value bytes and the
+    timings of one yi-9b layer at decode and prefill (the served
+    granularity, "block")."""
     RW, ops, ref, K = mods["RW"], mods["ops"], mods["ref"], mods["K"]
     gen = torch.Generator(device=DEV)
     gen.manual_seed(3)
     w, mask = weight_and_mask(RW, D, D, gen, torch.bfloat16)
     quant_on_card_check(mods, ops.pack(w, mask, BLOCK, reorder=True,
                                        n_bins=N_BINS))
-    shapes = sorted({(k, n) for _, k, n, _ in PROJECTIONS})
+    shapes = kernel1_shapes()
     checks, max_err = kernel1_cases(
         mods, gen, shapes,
         lambda w, mask: [(gran, int8_pack(ops, w, mask, gran, True),
                           int8_pack(ops, w, mask, gran, False))
                          for gran in INT8_GRANS],
         (("none", False), ("silu", True)))
-    print(f"[int8] kernel 1 vs plain: {checks} cases at (K, N) in {shapes}, "
-          f"M in {CHECK_M}, bf16 + fp32, scales per block and per column, "
-          f"bias + silu and none, reordered == unreordered bitwise; max abs "
-          f"err {max_err:.3e}")
+    print(f"[int8] kernel 1 vs plain: {checks} cases at (K, N) in {shapes} "
+          f"(yi-9b's projections, mixtral-8x7b's attention), M in "
+          f"{CHECK_M}, bf16 + fp32, scales per block and per column, bias + "
+          f"silu and none, reordered == unreordered bitwise; max abs err "
+          f"{max_err:.3e}")
     x = torch.randn(4, D, generator=gen, device=DEV).to(torch.bfloat16)
     faults = faults_caught(
         f"kernel 1 ({D} x {D}, M = 4, bf16)",
@@ -1628,38 +1645,22 @@ def int8_kernel_phase(mods, flush):
         torch.bfloat16)
     del w, mask
 
-    rows = []
-    stream_buf = torch.ones(DFF * D, dtype=torch.bfloat16, device=DEV)
     print("[int8] stored value bytes of one yi-9b layer (rate 0.6, 4 bins, "
           "padding slots included): bf16 vs int8 + fp32 scales per block")
-    tot16 = tot8 = 0
-    for name, Kd, Nd, act in PROJECTIONS:
+    tot = [0, 0]
+
+    def make(name, Kd, Nd):
         w, mask = weight_and_mask(RW, Kd, Nd, gen, torch.bfloat16)
         lay = int8_pack(ops, w, mask, "block", True)
-        dense = w * mask.to(w.dtype)
-        nnzb = int(lay.nnz.sum())
         n_vals = sum(v.numel() for v in lay.values)
         b16 = 2 * n_vals
-        b8 = n_vals + sum(s.numel() * 4 for s in lay.scales)
-        tot16, tot8 = tot16 + b16, tot8 + b8
+        b8 = n_vals + sum(sc.numel() * 4 for sc in lay.scales)
+        tot[0], tot[1] = tot[0] + b16, tot[1] + b8
         print(f"  {name:5s} bf16 {b16 / 2**20:8.2f} MiB  int8 + scales "
               f"{b8 / 2**20:8.2f} MiB ({b8 / b16:.3f})")
-        live = int8_bound_bytes(lay)
-        stream_ms = time_ms(lambda: stream_buf[:live // 2].sum(), 30, flush)
-        for M in (4, 128):
-            x = torch.randn(M, Kd, generator=gen, device=DEV).to(
-                torch.bfloat16)
-            rows.append(timed_row(
-                lambda: K.bsr_matmul_packed(x, lay, None, act),
-                lambda: ref.bsr_matmul_packed_ref(x, lay, None, act),
-                lambda: torch.matmul(x, dense), stream_ms,
-                live + M * (Kd + Nd) * 2,
-                2 * M * nnzb * BLOCK[0] * BLOCK[1], flush, proj=name, M=M,
-                K=Kd, N=Nd, act=act, dtype="bfloat16", values="int8",
-                value_bytes_bf16=b16, value_bytes_int8=b8,
-                density=lay.density, bins=lay.n_bins))
-        del w, mask, lay, dense
-    del stream_buf
+        return lay, w * mask.to(w.dtype)
+    rows = kernel1_timings(mods, gen, flush, PROJECTIONS, (4, 128), make)
+    tot16, tot8 = tot
     print(f"  layer bf16 {tot16 / 2**20:.2f} MiB, int8 + scales "
           f"{tot8 / 2**20:.2f} MiB ({tot8 / tot16:.3f})")
     print_timings("[int8] kernel 1 timings (bf16 x, int8 values, a scale "
@@ -1677,7 +1678,7 @@ def int8_moe_kernel_phase(mods, flush):
     granularities, reordered == unreordered bitwise, one launch a call;
     one CUDA-graph replay of a chunked int8 expert launch; one MoE
     layer's three projections timed at decode and prefill."""
-    ops, ref, K = mods["ops"], mods["ref"], mods["K"]
+    ops, K = mods["ops"], mods["K"]
     cfg = moe_config()
     E = cfg.n_experts
     gen = torch.Generator(device=DEV)
@@ -1694,30 +1695,9 @@ def int8_moe_kernel_phase(mods, flush):
           f"granularities), one launch per call, reordered == unreordered "
           f"bitwise; max abs err {max_err:.3e}")
 
-    rows = []
-    stream_buf = None
-    for name, Kd, Nd, act in moe_projections(cfg):
-        (lay,), dense = expert_stack(mods, E, Kd, Nd, gen, torch.bfloat16,
-                                     (True,), "block")
-        nnzb = int(lay.nnz.sum())
-        for M in (4, prefill_capacity(cfg)):
-            x = torch.randn(E, M, Kd, generator=gen, device=DEV).to(
-                torch.bfloat16)
-            nbytes = int8_bound_bytes(lay) + E * M * (Kd + Nd) * 2
-            if stream_buf is None or stream_buf.numel() < nbytes // 2:
-                stream_buf = torch.ones(nbytes // 2, dtype=torch.bfloat16,
-                                        device=DEV)
-            stream_ms = time_ms(lambda: stream_buf[:nbytes // 2].sum(), 30,
-                                flush)
-            rows.append(timed_row(
-                lambda: ops.sparse_expert_linear(x, lay, act=act),
-                lambda: ref.bsr_matmul_experts_ref(x, lay, None, act),
-                lambda: torch.bmm(x, dense), stream_ms, nbytes,
-                2 * M * nnzb * BLOCK[0] * BLOCK[1], flush, proj=name, E=E,
-                M=M, K=Kd, N=Nd, act=act, dtype="bfloat16", values="int8",
-                density=lay.density, bins=lay.n_bins))
-        del lay, dense
-    del stream_buf
+    rows = kernel1_timings(mods, gen, flush, moe_projections(cfg),
+                           (4, prefill_capacity(cfg)),
+                           stack_maker(mods, E, gen, "block"), E)
     print_timings(f"[int8] experts timed (bf16 x, int8 values, a scale per "
                   f"block, E = {E}, one launch per projection, L2 flushed, "
                   f"median ms by CUDA-graph replay; torch.bmm of the bf16 "

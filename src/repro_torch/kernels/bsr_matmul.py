@@ -68,14 +68,15 @@ LAUNCHES = {"bsr_matmul": 0, "tap_gather_conv": 0, "bsr_conv2d_implicit": 0,
 
 _ACTS = {"none": 0, "silu": 1, "relu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the values: float (x's dtype), or int8 with a scale per stored block /
-# tap slot ("block") or per output column ("out")
+# the values, passed as ``quant`` to every C entry point: float (x's
+# dtype), or int8 with a scale per stored block / tap slot ("block") or
+# per output column ("out")
 _QUANT = {None: 0, "block": 1, "out": 2}
 # C entry point -> (library, pointer args, int args); every entry ends
 # with the stream pointer
 _ENTRIES = {
     "bsr_matmul_launch": ("bsr_matmul", 7, 13),
-    "bsr_conv_launch": ("bsr_matmul", 8, 6),
+    "bsr_conv_launch": ("bsr_matmul", 8, 7),
     "tap_conv_launch": ("tap_gather", 6, 5),
 }
 _fns: dict = {}
@@ -899,7 +900,8 @@ def _bsr_conv(x, layout, plan, taps_of, bias, act, key):
         None if scales is None else scales.data_ptr(), soffs.data_ptr(),
         meta.data_ptr(), None if bias is None else bias.data_ptr(),
         out.data_ptr(), ctypes.addressof(plan.c_args), out.stride(0),
-        _ACTS[act], _DTYPES[x.dtype], bk, bn, plan.smem_bytes, _stream(x))
+        _ACTS[act], _DTYPES[x.dtype], _QUANT[layout.scale_granularity], bk,
+        bn, plan.smem_bytes, _stream(x))
     _raise_on(err, key, f"x {tuple(x.shape)}, block ({bk}, {bn}), tile "
                         f"{plan.tr}x{plan.tw}, R={plan.R}, smem "
                         f"{plan.smem_bytes}, dtype={x.dtype}, values "
@@ -975,7 +977,7 @@ def _tap_conv(x, layout, plan, band, bias, act, name):
         x.data_ptr(), slots.data_ptr(), meta.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         ctypes.addressof(plan.c_args), out.stride(0), _ACTS[act],
-        _DTYPES[x.dtype], int(layout.scales is not None), plan.smem_bytes,
+        _DTYPES[x.dtype], _QUANT[layout.scale_granularity], plan.smem_bytes,
         _stream(x))
     _raise_on(err, name, f"x {tuple(x.shape)}, tile {plan.tr}x{plan.tw}, "
                          f"R={plan.R}, smem {plan.smem_bytes}, "

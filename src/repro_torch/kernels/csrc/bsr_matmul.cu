@@ -1052,9 +1052,6 @@ extern "C" int bsr_matmul_launch(const void* x, const void* bias, void* out,
       ws_e < 0)
     return (int)cudaErrorInvalidValue;
   memcpy(a.bins, bins, sizeof(BinDesc) * n_bins);
-  for (int b = 0; b < n_bins; ++b)
-    if ((a.bins[b].scales != 0) != (quant != 0))
-      return (int)cudaErrorInvalidValue;
   a.ldx = ldx;
   a.ldo = ldo;
   a.act = act;
@@ -1082,8 +1079,9 @@ extern "C" int bsr_matmul_launch(const void* x, const void* bias, void* out,
 // Kernel 3, one launch over every degree bin of a conv PackedLayout:
 // x the unpadded NHWC input (B, H, W, C), vals the layout's values as fp32
 // (slots, bk, bn) with the bins concatenated in layout order -- or, with
-// scales given, as int8 and scales their (slots,) fp32 scales (a column's
-// "out" scale repeated over its slots) -- soffs their (slots,) int32
+// quant (as kernel 1's) not 0, as int8 and scales their (slots,) fp32
+// scales (a column's "out" scale repeated over its slots; else None) --
+// soffs their (slots,) int32
 // offsets in the staged window (K-block kb's tap (dy, dx, c0) under geom),
 // meta (n_cols, 4) int32 (first slot, slots, original block column, 0) per
 // layout column, bias None or (N,) in original order, out (B*Ho*Wo, N)
@@ -1094,12 +1092,14 @@ extern "C" int bsr_conv_launch(const void* x, const void* vals,
                                const void* scales, const void* soffs,
                                const void* meta, const void* bias, void* out,
                                const void* geom, int ldo, int act, int dtype,
-                               int bk, int bn, int smem, void* stream) {
+                               int quant, int bk, int bn, int smem,
+                               void* stream) {
   ConvTile g;
   memcpy(&g, geom, sizeof(g));
   if (g.B * g.Ho * g.Wo <= 0) return 0;
   if (bk <= 0 || bk % 4 != 0 || g.C % bk != 0 || g.C % 4 != 0 ||
-      act < 0 || act > 2 || g.n_cols * bn != g.N || ldo % 4 != 0 ||
+      act < 0 || act > 2 || quant < 0 || quant > 2 ||
+      g.n_cols * bn != g.N || ldo % 4 != 0 ||
       g.chan_ld % 4 != 0 || g.x_floats % 4 != 0 || smem > kSmemMax ||
       g.warps_pos <= 0 || kConvWarps % g.warps_pos != 0 ||
       (size_t)smem < 4 * ((size_t)kConvWarps * kStages * bk * bn +
@@ -1110,17 +1110,18 @@ extern "C" int bsr_conv_launch(const void* x, const void* vals,
   const int* so = static_cast<const int*>(soffs);
   const int4* mt = static_cast<const int4*>(meta);
   if (dtype == 0)
-    return sc ? (int)launch_conv<float, int8_t>(x, vals, sc, so, mt, bias,
-                                                out, ldo, bk, bn, act, g,
-                                                smem, s)
-              : (int)launch_conv<float, float>(x, vals, sc, so, mt, bias, out,
-                                               ldo, bk, bn, act, g, smem, s);
+    return quant ? (int)launch_conv<float, int8_t>(x, vals, sc, so, mt,
+                                                   bias, out, ldo, bk, bn,
+                                                   act, g, smem, s)
+                 : (int)launch_conv<float, float>(x, vals, sc, so, mt, bias,
+                                                  out, ldo, bk, bn, act, g,
+                                                  smem, s);
   if (dtype == 1)
-    return sc ? (int)launch_conv<__nv_bfloat16, int8_t>(
-                    x, vals, sc, so, mt, bias, out, ldo, bk, bn, act, g,
-                    smem, s)
-              : (int)launch_conv<__nv_bfloat16, float>(
-                    x, vals, sc, so, mt, bias, out, ldo, bk, bn, act, g,
-                    smem, s);
+    return quant ? (int)launch_conv<__nv_bfloat16, int8_t>(
+                       x, vals, sc, so, mt, bias, out, ldo, bk, bn, act, g,
+                       smem, s)
+                 : (int)launch_conv<__nv_bfloat16, float>(
+                       x, vals, sc, so, mt, bias, out, ldo, bk, bn, act, g,
+                       smem, s);
   return (int)cudaErrorInvalidValue;
 }

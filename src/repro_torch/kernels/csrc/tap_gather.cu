@@ -335,11 +335,13 @@ cudaError_t launch_conv_q(const void* x, const int2* slots, const int4* meta,
 // TapLayout: x the unpadded NHWC input (B, H, W, C) (kernel 2: the alive
 // band as (1, 1, M, R)), slots (total, 2) int32 of (input word
 // in the staged tile, fp32 value bits) per slot of every output column,
-// bins concatenated in layout order -- with quant, an int8 layout's (word
-// + q * 2^16, fp32 scale bits), the word below 2^16 -- meta (n_cols, 4)
-// int32 (first slot, slots, original output column, 0), bias None or (N,)
-// in original order, out (B*Ho*Wo, N) rows in (b, ho, wo) order with row
-// stride ldo.  geom: the ConvTile ints (host memory).
+// bins concatenated in layout order -- with quant (as kernel 1's: 1 a
+// scale a slot, 2 a filter's scale repeated over its slots) not 0, an
+// int8 layout's (word + q * 2^16, fp32 scale bits), the word below 2^16
+// -- meta (n_cols, 4) int32 (first slot, slots, original output column,
+// 0), bias None or (N,) in original order, out (B*Ho*Wo, N) rows in (b,
+// ho, wo) order with row stride ldo.  geom: the ConvTile ints (host
+// memory).
 extern "C" int tap_conv_launch(const void* x, const void* slots,
                                const void* meta, const void* bias, void* out,
                                const void* geom, int ldo, int act, int dtype,
@@ -349,7 +351,7 @@ extern "C" int tap_conv_launch(const void* x, const void* slots,
   if (g.B * g.Ho * g.Wo <= 0) return 0;
   if (g.C <= 0 || act < 0 || act > 2 || g.n_cols != g.N ||
       g.x_floats % 4 != 0 || smem > kConvSmemMax || g.warps_pos <= 0 ||
-      kConvWarps % g.warps_pos != 0 || quant < 0 || quant > 1 ||
+      kConvWarps % g.warps_pos != 0 || quant < 0 || quant > 2 ||
       (quant && g.x_floats > (1 << kWordBits)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
