@@ -74,6 +74,26 @@
    each path's bound, the fp32 LMs at 2 layers gated on logits and greedy
    tokens, prefill / decode / forward times, busy shares and mixtral's
    int8 peak memory.  Each kernel's JSON entry carries an ``int8`` branch.
+8. The SSM and hybrid families, after the MoE state is freed: kernel 1
+   vs its plain version at every projection shape of mamba2-1.3b and
+   hymba-1.5b ((16, 8) blocks on the mixers' in/out_proj, (16, 16) on
+   hymba's attention and FFN; CHECK_M, bf16 and fp32, float and int8,
+   reordered == unreordered bitwise), one layer of each timed at decode
+   (M = 4) and prefill (M = 128); then each model served at full width
+   and full depth (48 and 32 layers, bf16, seed 0, rate 0.6, 4 bins,
+   B = 4 x 32, 16 new tokens): 1632 and 4896 kernel-1 launches a
+   ``generate`` asserted, warm times and busy shares, every layer's mixer
+   packed vs masked-dense on one input (yi-9b's bounds), whole-model
+   logits held to the bf16 noise floor (BF16_NOISE_FACTOR times the
+   masked-dense bf16 model's distance to the fp32 one), a dropped bin
+   of ssm/in_proj (mamba2) or ssm/out_proj (hymba) breaking both; at 2
+   fp32 layers (TF32 off) logits and greedy tokens packed vs
+   masked-dense, and ``decode_step`` after ``prefill`` of S - 1 tokens vs
+   ``forward`` of S at position S - 1, each with a planted fault (a
+   dropped bin; a zeroed SSM state, or hymba's state taken from the
+   layer output as the reference's prefill takes it); peak memory.
+   Kernel 1's JSON entry carries an ``ssm`` branch.  Each phase's start
+   is stamped (seconds into the run).
 
 No phase is caught: any failure exits non-zero.  The last two lines are
 the kernels JSON and ``{"ok": true, "device": {...}}``.  Full detail goes
@@ -84,6 +104,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -222,26 +243,26 @@ def check_close(y, want, dtype, what):
     return err
 
 
-def weight_and_mask(RW, K, N, gen, dtype):
+def weight_and_mask(RW, K, N, gen, dtype, block=BLOCK):
     w = (torch.randn(K, N, generator=gen, device=DEV) * K ** -0.5).to(
         dtype)
-    spec = [(r"w$", RW.SchemeChoice("block", BLOCK))]
+    spec = [(r"w$", RW.SchemeChoice("block", block))]
     mask = RW.magnitude_block_masks({"w": w}, spec, None,
                                     rate=PRUNE_RATE)["w"]
     return w, mask
 
 
-def kernel1_cases(mods, gen, shapes, layouts, acts):
+def kernel1_cases(mods, gen, shapes, layouts, acts, block=BLOCK):
     """Kernel 1 vs its plain version at every (K, N) of ``shapes`` and M of
-    CHECK_M, fp32 and bf16: ``layouts(w, mask)`` gives the (label,
-    reordered, unreordered) layouts of a weight, ``acts`` the (activation,
-    with bias) cases; reordered == unreordered bitwise.  Returns (cases,
-    max abs error)."""
+    CHECK_M, fp32 and bf16, weights masked in ``block`` blocks:
+    ``layouts(w, mask)`` gives the (label, reordered, unreordered) layouts
+    of a weight, ``acts`` the (activation, with bias) cases; reordered ==
+    unreordered bitwise.  Returns (cases, max abs error)."""
     RW, ref, K = mods["RW"], mods["ref"], mods["K"]
     checks, max_err = 0, 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for (Kd, Nd) in shapes:
-            w, mask = weight_and_mask(RW, Kd, Nd, gen, dtype)
+            w, mask = weight_and_mask(RW, Kd, Nd, gen, dtype, block)
             for label, reord, unre in layouts(w, mask):
                 for M in CHECK_M:
                     x = torch.randn(M, Kd, generator=gen, device=DEV).to(
@@ -349,7 +370,7 @@ def kernel1_timings(mods, gen, flush, projs, Ms, make, E=None):
                        lambda: ref.bsr_matmul_experts_ref(x, lay, None, act),
                        lambda: torch.bmm(x, dense))
             rows.append(timed_row(
-                *fns, stream_ms, nbytes, 2 * M * nnzb * BLOCK[0] * BLOCK[1],
+                *fns, stream_ms, nbytes, 2 * M * nnzb * math.prod(lay.block),
                 flush, proj=name, M=M, K=Kd, N=Nd, act=act,
                 dtype="bfloat16", values=lay.value_dtype,
                 density=lay.density, executed_frac=1 - lay.flops_saved,
@@ -380,11 +401,11 @@ def print_timings(title, rows, lib, layer, Ms):
     """The timing rows as a table, then their sums over a layer at each
     M of ``Ms`` ((M, what) pairs)."""
     print(title)
-    print(f"  {'proj':5s} {'M':>4s} {'kernel':>9s} {'eager':>9s} "
+    print(f"  {'proj':8s} {'M':>4s} {'kernel':>9s} {'eager':>9s} "
           f"{'bound':>9s} {'stream':>9s} {'plain':>9s} {lib:>12s}  "
           f"bound_by")
     for r in rows:
-        print(f"  {r['proj']:5s} {r['M']:4d} {r['ms']:9.4f} "
+        print(f"  {r['proj']:8s} {r['M']:4d} {r['ms']:9.4f} "
               f"{r['eager_ms']:9.4f} {r['bound_ms']:9.4f} "
               f"{r['stream_ms']:9.4f} {r['plain_ms']:9.4f} "
               f"{r['library_ms']:12.4f}  {r['bound_by']}")
@@ -534,12 +555,13 @@ def build_served(mods, cfg, dtype):
     return pm, exec_p, report, init_s, compile_s, masks
 
 
-def serve_counted(mods, exec_p, cfg, full, compile_s, how):
+def serve_counted(mods, exec_p, cfg, full, compile_s, how, per_layer=7):
     """The main path: greedy ``generate`` of B prompts of S tokens, the
     kernel counts set to 0 just before and read just after, kernel 1 held
-    to layers x 7 projections x (1 + N_NEW) forwards; then warm prefill and
-    generate wall times and one traced prefill and ``generate`` (the
-    card's busy share).  Returns (e2e, launches, prompts, tokens)."""
+    to layers x ``per_layer`` packed projections x (1 + N_NEW) forwards;
+    then warm prefill and generate wall times and one traced prefill and
+    ``generate`` (the card's busy share).  Returns (e2e, launches, prompts,
+    tokens)."""
     E, K = mods["E"], mods["K"]
     prompts = np.random.RandomState(0).randint(0, cfg.vocab, size=(B, S))
     tokens = torch.as_tensor(prompts, device=DEV)
@@ -551,10 +573,11 @@ def serve_counted(mods, exec_p, cfg, full, compile_s, how):
     sync()
     gen_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
-    want = cfg.n_layers * 7 * (1 + N_NEW)
+    want = cfg.n_layers * per_layer * (1 + N_NEW)
     print(f"generate {tuple(out.shape)}: bsr_matmul launches "
-          f"{launches['bsr_matmul']} (expected layers {cfg.n_layers} x 7 "
-          f"projections x (1 + {N_NEW}) forwards = {want}, {how})")
+          f"{launches['bsr_matmul']} (expected layers {cfg.n_layers} x "
+          f"{per_layer} projections x (1 + {N_NEW}) forwards = {want}, "
+          f"{how})")
     if launches["bsr_matmul"] != want:
         raise AssertionError("the main path did not go through the kernel "
                              "the expected number of times")
@@ -1605,8 +1628,8 @@ def faults_caught(what, lay_block, lay_out, kernel, plain, dtype):
     return dict(out)
 
 
-def int8_pack(ops, w, mask, gran, reorder):
-    return ops.pack(w, mask, BLOCK, reorder=reorder, n_bins=N_BINS,
+def int8_pack(ops, w, mask, gran, reorder, block=BLOCK):
+    return ops.pack(w, mask, block, reorder=reorder, n_bins=N_BINS,
                     value_dtype="int8", scale_granularity=gran)
 
 
@@ -2001,6 +2024,380 @@ def vgg_int8_serve(mods, name, spec, pm, masks, x):
              "device": dev, "busy_share": busy}, launches)
 
 
+# -- the SSM and hybrid families: kernel 1 on mamba2 and hymba ---------------
+
+SSM_ARCHS = ("mamba2-1.3b", "hymba-1.5b")
+SSM_BLOCK = (16, 8)      # the serving spec's block on ssm in/out_proj
+# bf16 whole-model logits of mamba2 / hymba at full depth, against the
+# fp32 masked-dense model: the masked-dense bf16 model itself drifts 0.13
+# / 0.094 (mamba2, 48 layers) and 0.050 / 0.050 (hymba, 32 layers) of
+# max / mean |logit| through the roundings of its depth, beyond yi-9b's
+# 5 % / 2 %, and the packed bf16 model 0.118 / 0.094 and 0.052 / 0.050
+# (H100, PERF.md); a dropped bin moves it 1.3 of max |logit|
+BF16_NOISE_FACTOR = 1.5
+# fp32 decode step after a prefill of S - 1 tokens against ``forward`` at
+# position S - 1 (TF32 off): the chunked SSD scan and the O(1) step sum in
+# other orders, and kernel 1 runs at other M; about 1e-7 of max |logit|
+# on the CPU at SMOKE size.  A state taken from the wrong input moves the
+# logits by a large share of max |logit| (the reference's hybrid prefill:
+# 0.56 against 0.45 at hymba SMOKE on the CPU)
+DECODE_FORWARD_REL = 1e-4
+
+
+def ssm_config(arch):
+    """mamba2-1.3b or hymba-1.5b at its published widths (the rehearsal
+    on the CPU swaps in the SMOKE configs)."""
+    from repro_torch import configs
+    return configs.get(arch)
+
+
+def ssm_projections(cfg):
+    """(name, K, N, epilogue, block) of every packed projection of one
+    layer: the mixer's in/out_proj at SSM_BLOCK; hymba's attention and
+    FFN at BLOCK, as the serving spec maps them."""
+    d, di = cfg.d_model, cfg.ssm_expand * cfg.d_model
+    heads = di // cfg.ssm_headdim
+    mixer = [("in_proj", d, 2 * di + 2 * cfg.ssm_state + heads, "none",
+              SSM_BLOCK), ("out_proj", di, d, "none", SSM_BLOCK)]
+    if cfg.family == "ssm":
+        return mixer
+    q, kv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    return ([("wq", d, q, "none", BLOCK), ("wk", d, kv, "none", BLOCK),
+             ("wv", d, kv, "none", BLOCK), ("wo", q, d, "none", BLOCK)]
+            + mixer
+            + [("gate", d, cfg.d_ff, "silu", BLOCK),
+               ("up", d, cfg.d_ff, "none", BLOCK),
+               ("down", cfg.d_ff, d, "none", BLOCK)])
+
+
+def ssm_shapes():
+    """{block: sorted (K, N)} of every packed projection of both archs."""
+    out = {}
+    for arch in SSM_ARCHS:
+        for _, k, n, _, blk in ssm_projections(ssm_config(arch)):
+            out.setdefault(blk, set()).add((k, n))
+    return {blk: sorted(v) for blk, v in out.items()}
+
+
+def ssm_kernel_phase(mods, flush):
+    """Kernel 1 at the SSM and hybrid shapes: vs the plain version at
+    CHECK_M, bf16 and fp32, reordered == unreordered bitwise, float and
+    int8 (both granularities), (16, 8) blocks on the mixers' in/out_proj
+    and (16, 16) on hymba's attention and FFN; then one mamba2 layer and
+    one hymba layer timed at decode (M = B = 4) and prefill (M = B x S =
+    128)."""
+    RW, ops = mods["RW"], mods["ops"]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(5)
+    checks, max_err, checks8, err8 = 0, 0.0, 0, 0.0
+    for blk, shapes in ssm_shapes().items():
+        n, err = kernel1_cases(
+            mods, gen, shapes,
+            lambda w, mask: [("float", ops.pack(w, mask, blk, reorder=True,
+                                                n_bins=N_BINS),
+                              ops.pack(w, mask, blk))],
+            (("none", False), ("none", True), ("silu", True)), blk)
+        checks, max_err = checks + n, max(max_err, err)
+        n, err = kernel1_cases(
+            mods, gen, shapes,
+            lambda w, mask: [(gran, int8_pack(ops, w, mask, gran, True, blk),
+                              int8_pack(ops, w, mask, gran, False, blk))
+                             for gran in INT8_GRANS],
+            (("none", False), ("silu", True)), blk)
+        checks8, err8 = checks8 + n, max(err8, err)
+        print(f"[ssm] kernel 1 vs plain at {blk} blocks, (K, N) in {shapes}:"
+              f" M in {CHECK_M}, bf16 + fp32, reordered == unreordered "
+              f"bitwise; float (bias with none/silu) and int8 (scales per "
+              f"block and per column)")
+    print(f"[ssm] kernel 1 vs plain: {checks} float cases, max abs err "
+          f"{max_err:.3e}; {checks8} int8 cases, max abs err {err8:.3e}")
+
+    rows = {}
+    for arch in SSM_ARCHS:
+        projs = ssm_projections(ssm_config(arch))
+        blocks = {name: blk for name, _, _, _, blk in projs}
+
+        def make(name, Kd, Nd):
+            w, mask = weight_and_mask(RW, Kd, Nd, gen, torch.bfloat16,
+                                      blocks[name])
+            return (ops.pack(w, mask, blocks[name], reorder=True,
+                             n_bins=N_BINS), w * mask.to(w.dtype))
+        rows[arch] = kernel1_timings(
+            mods, gen, flush, [p[:4] for p in projs], (4, B * S), make)
+        print_timings(f"[ssm] {arch} timings (bf16, L2 flushed, median ms "
+                      f"by CUDA-graph replay; stream = one torch sum over "
+                      f"the bound's bytes):", rows[arch], "torch.matmul",
+                      f"{arch} layer ({len(projs)} projections)",
+                      ((4, "decode"), (B * S, "prefill")))
+    return rows, (checks, max_err, checks8, err8)
+
+
+def dropped_last_bin(params, name):
+    """``params`` with the ssm projection ``name``'s last degree bin
+    zeroed in every layer."""
+    lay = params["layers"]["ssm"][name]["packed"]
+    values = lay.values[:-1] + (torch.zeros_like(lay.values[-1]),)
+    return with_layout(params, "ssm", name,
+                       dataclasses.replace(lay, values=values))
+
+
+def grow_ring(cache, pos):
+    """A prefill cache whose KV ring (if any) has one more, free slot: the
+    next decode step, at ``pos``, evicts no position."""
+    kv = cache.get("kv")
+    if kv is not None:
+        pad = torch.zeros_like(kv["k"][:, :, :1])
+        kv["k"] = torch.cat([kv["k"], pad], 2)
+        kv["v"] = torch.cat([kv["v"], pad], 2)
+        kv["pos"] = torch.cat([kv["pos"],
+                               torch.full_like(kv["pos"][:, :1], pos)], 1)
+    return cache
+
+
+def cast_tree(tree, dtype):
+    """A param tree with every bf16 leaf cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.dtype == torch.bfloat16 else tree
+
+
+def layer_chain(mods, params, cfg, tokens):
+    """``forward`` layer by layer: (the residual entering each layer and
+    the last layer's output, n_layers + 1 of them; logits (B, S, V))."""
+    T, L = mods["T"], mods["L"]
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    xs = [L.embed(params["embed"], tokens)]
+    for lp in T.layer_params(params):
+        xs.append(T._layer_fwd(lp, xs[-1], positions, cfg)[0])
+    return xs, L.unembed(params["head"], L.rmsnorm(params["norm_f"], xs[-1]))
+
+
+def mixer_gaps(mods, exec_p, dense_p, xs):
+    """Per layer: the mixer (``ssm``) with packed and with masked-dense
+    params on the same normed input (from the layer inputs ``xs``):
+    (max, mean) relative gaps."""
+    T, L, SSM = mods["T"], mods["L"], mods["SSM"]
+    gaps = []
+    for lp_x, lp_d, x in zip(T.layer_params(exec_p), T.layer_params(dense_p),
+                             xs):
+        h = L.rmsnorm(lp_x["ln1"], x)
+        gaps.append(logit_gap(SSM.ssm(lp_d["ssm"], h)[0],
+                              SSM.ssm(lp_x["ssm"], h)[0]))
+    return gaps
+
+
+def state_on_layer_output(mods, params, cfg, tokens):
+    """Each layer's mixer state on its normed OUTPUT: what the reference's
+    hybrid prefill caches (a planted fault of the port's decode)."""
+    T, L, SSM = mods["T"], mods["L"], mods["SSM"]
+    xs, _ = layer_chain(mods, params, cfg, tokens)
+    states = [SSM.ssm(lp["ssm"], L.rmsnorm(lp["ln1"], x))[1]
+              for lp, x in zip(T.layer_params(params), xs[1:])]
+    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+
+
+def decode_forward_gap(mods, params, cfg, tokens, fault=None):
+    """max |decode_step at S - 1 after prefill(S - 1) - forward(S) at
+    S - 1| / max |forward|; ``fault(cache)`` edits the prefill cache
+    first."""
+    T, E = mods["T"], mods["E"]
+    Sq = tokens.shape[1]
+    want = T.forward(params, cfg, tokens)[:, -1]
+    _, cache = E.prefill(params, cfg, tokens[:, :-1])
+    cache = grow_ring(cache, Sq - 1)
+    if fault is not None:
+        fault(cache)
+    pos = torch.full((tokens.shape[0], 1), Sq - 1, dtype=torch.int32,
+                     device=tokens.device)
+    got, _ = T.decode_step(params, cfg, tokens[:, -1:], cache, pos)
+    return ((got[:, 0].float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def ssm_serve_phase(mods, arch):
+    """``arch`` (mamba2-1.3b or hymba-1.5b) at full width and depth
+    through the port's entry points: bf16, seed 0, rate 0.6, 4 bins,
+    B = 4 x 32, 16 new tokens; kernel 1's launches over the ``generate``
+    asserted; bf16 prefill logits vs masked-dense and a planted fault;
+    then fp32 at 2 layers (TF32 off): logits and greedy tokens packed vs
+    masked-dense, and ``decode_step`` after ``prefill`` vs ``forward``,
+    each with a planted fault; compile seconds and peak memory."""
+    T, C, E = mods["T"], mods["C"], mods["E"]
+    cfg = full = ssm_config(arch)
+    projs = ssm_projections(cfg)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    print(f"[ssm] {arch} at full width and depth ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, d_inner {cfg.ssm_expand * cfg.d_model}, "
+          f"SSD heads {cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim} x "
+          f"{cfg.ssm_headdim}, state {cfg.ssm_state}"
+          + (f", attention {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd} "
+             f"window {cfg.sliding_window}, d_ff {cfg.d_ff}"
+             if cfg.family == "hybrid" else "")
+          + f", vocab {cfg.vocab}); no cut")
+    pm, exec_p, report, init_s, compile_s, masks = build_served(
+        mods, cfg, torch.bfloat16)
+    del masks
+    print(f"init + masks {init_s:.2f}s; compile_model {compile_s:.2f}s:")
+    print(C.compiled_summary(report))
+    lays = {name: node["packed"] for g in exec_p["layers"].values()
+            if isinstance(g, dict) for name, node in g.items()
+            if isinstance(node, dict) and "packed" in node}
+    want_blocks = {name: blk for name, _, _, _, blk in projs}
+    if ({n: lay.block for n, lay in lays.items()} != want_blocks
+            or any(lay.n_bins != min(N_BINS, lay.Nb)
+                   for lay in lays.values())):
+        raise AssertionError(f"expected {want_blocks} packed in {N_BINS} "
+                             f"bins: {C.compiled_summary(report)}")
+    e2e, launches, prompts, tokens = serve_counted(
+        mods, exec_p, cfg, full, compile_s, f"{arch}: one launch a packed "
+        f"projection over the {N_BINS} bins, the hybrid state from the "
+        f"mixer's one run", per_layer=len(projs))
+
+    if DEV == "cuda":
+        e2e["serve_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # bf16 gates.  Each layer's mixer, packed vs masked-dense on one input
+    # (the packed run's), within yi-9b's bounds.  The whole model is held
+    # to the bf16 noise floor instead: its logits drift from the fp32
+    # masked-dense model's through the depth's roundings (masked-dense
+    # bf16 drifts as far), so the packed bf16 model must stay within
+    # BF16_NOISE_FACTOR of the masked-dense bf16 model's distance to it
+    fault_name = "in_proj" if cfg.family == "ssm" else "out_proj"
+    faulty = dropped_last_bin(exec_p, fault_name)
+    with torch.no_grad():
+        xs, s_logits = layer_chain(mods, exec_p, cfg, tokens)
+        layer_gaps = mixer_gaps(mods, exec_p, pm, xs[:-1])
+        fault_gaps = mixer_gaps(mods, faulty, pm, xs[:-1])
+        del xs
+        d_logits = layer_chain(mods, pm, cfg, tokens)[1]
+        f_logits = layer_chain(mods, faulty, cfg, tokens)[1]
+        pm32 = cast_tree(pm, torch.float32)
+        del pm, faulty
+        d32 = layer_chain(mods, pm32, cfg, tokens)[1]
+        del pm32
+        gap = logit_gap(d_logits, s_logits)
+        floor = logit_gap(d32, d_logits)
+        packed32 = logit_gap(d32, s_logits)
+        fault32 = logit_gap(d32, f_logits)
+    sync()
+    agree = (d32.argmax(-1) == s_logits.argmax(-1)).float().mean().item()
+    agree_d = (d32.argmax(-1) == d_logits.argmax(-1)).float().mean().item()
+
+    def near_floor(g):
+        return all(a <= BF16_NOISE_FACTOR * b for a, b in zip(g, floor))
+    worst = max(layer_gaps, key=lambda g: g[0])
+    worst_f = max(fault_gaps, key=lambda g: g[0])
+    print(f"[ssm] {arch} per-layer ssm() packed vs masked-dense on the "
+          f"packed run's input (bf16): worst layer {worst[0]:.4f} / "
+          f"{worst[1]:.4f} (bound {LOGIT_MAX_REL} / {LOGIT_MEAN_REL}); "
+          f"planted fault, ssm/{fault_name}: last bin dropped, every layer: "
+          f"worst layer {worst_f[0]:.4f} / {worst_f[1]:.4f}"
+          f"{'  (NOT CAUGHT)' if all(map(within_bound, fault_gaps)) else ''}")
+    print(f"[ssm] {arch} whole-model logits (B x S positions) against the "
+          f"fp32 masked-dense model: masked-dense bf16 {floor[0]:.4f} / "
+          f"{floor[1]:.4f} (argmax agree {agree_d:.3f}), packed bf16 "
+          f"{packed32[0]:.4f} / {packed32[1]:.4f} (argmax agree {agree:.3f};"
+          f" bound {BF16_NOISE_FACTOR} x the masked-dense bf16 gap), planted "
+          f"fault {fault32[0]:.4f} / {fault32[1]:.4f}"
+          f"{'  (NOT CAUGHT)' if near_floor(fault32) else ''}; packed vs "
+          f"masked-dense bf16 {gap[0]:.4f} / {gap[1]:.4f} (printed, not "
+          f"gated)")
+    e2e.update(layer_gaps=layer_gaps, fault_layer_gaps=fault_gaps,
+               logits_gap_bf16=gap, bf16_vs_fp32_dense=floor,
+               bf16_vs_fp32_packed=packed32, bf16_vs_fp32_fault=fault32,
+               argmax_agree_fp32_packed=agree,
+               argmax_agree_fp32_dense=agree_d)
+    if not (torch.isfinite(s_logits).all()
+            and all(map(within_bound, layer_gaps))
+            and near_floor(packed32)):
+        raise AssertionError(f"{arch}: packed bf16 disagrees with "
+                             f"masked-dense beyond the stated bounds")
+    if all(map(within_bound, fault_gaps)) or near_floor(fault32):
+        raise AssertionError(f"{arch}: a bf16 bound does not catch the "
+                             f"dropped ssm/{fault_name} bin")
+    del exec_p, s_logits, d_logits, f_logits, d32
+    if DEV == "cuda":
+        e2e["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[ssm] {arch} peak device memory: serve "
+              f"{e2e['serve_peak_mem_gb']:.2f} GB, with the bf16 gates' "
+              f"fp32 oracle {e2e['peak_mem_gb']:.2f} GB (torch.cuda."
+              f"max_memory_allocated)")
+        torch.cuda.empty_cache()
+
+    cfg32 = full.replace(n_layers=2)
+    pm, exec_p, _, _, _, _ = build_served(mods, cfg32, torch.float32)
+    with torch.no_grad():
+        d32 = T.forward(pm, cfg32, tokens)
+        gap32 = logit_gap(d32, T.forward(exec_p, cfg32, tokens))[0]
+        fault32 = logit_gap(d32, T.forward(
+            dropped_last_bin(exec_p, fault_name), cfg32, tokens))[0]
+        tok_d = E.generate(pm, cfg32, prompts, N_NEW, device=DEV)
+        tok_s = E.generate(exec_p, cfg32, prompts, N_NEW, device=DEV)
+        dec = decode_forward_gap(mods, exec_p, cfg32, tokens)
+        if cfg.family == "ssm":
+            bad_name = "h zeroed"
+
+            def bad(cache):
+                cache["ssm"]["h"].zero_()
+        else:
+            bad_name = "the reference's state (mixer on the layer output)"
+            wrong = state_on_layer_output(mods, exec_p, cfg32,
+                                          tokens[:, :-1])
+
+            def bad(cache):
+                cache["ssm"] = wrong
+        dec_fault = decode_forward_gap(mods, exec_p, cfg32, tokens, bad)
+    same = bool(torch.equal(tok_d, tok_s))
+    print(f"[ssm] {arch} fp32 (2 layers, TF32 off): logits packed vs "
+          f"masked-dense {gap32:.2e} of max|logit| (bound "
+          f"{MOE_FP32_LOGIT_REL}), planted fault {fault32:.3f}; greedy "
+          f"tokens identical: {same}; decode_step after prefill({S - 1}) "
+          f"vs forward({S}) at position {S - 1}: {dec:.2e} of max|logit| "
+          f"(bound {DECODE_FORWARD_REL}), planted fault ({bad_name}) "
+          f"{dec_fault:.3f}")
+    e2e.update(fp32_logit_gap=gap32, fp32_fault=fault32,
+               fp32_tokens_identical=same, decode_vs_forward=dec,
+               decode_vs_forward_fault=dec_fault, compile_s=compile_s)
+    if not (gap32 <= MOE_FP32_LOGIT_REL and same
+            and dec <= DECODE_FORWARD_REL):
+        raise AssertionError(f"{arch}: an fp32 gate failed")
+    if fault32 <= MOE_FP32_LOGIT_REL or dec_fault <= DECODE_FORWARD_REL:
+        raise AssertionError(f"{arch}: an fp32 gate does not catch its "
+                             f"planted fault")
+    del exec_p, pm
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return e2e, launches
+
+
+def ssm_entry(rows, launches, checks):
+    """Kernel 1's ``ssm`` branch: the launches of each serve, the checks,
+    and the timing rows and per-layer sums of both archs."""
+    n, err, n8, err8 = checks
+    out = {"launches_by_path": {f"{a} generate": launches[a]["bsr_matmul"]
+                                for a in SSM_ARCHS},
+           "float_cases": n, "max_abs_err": err, "int8_cases": n8,
+           "int8_max_abs_err": err8,
+           "measured_at": f"sum over one layer's packed projections, bf16, "
+                          f"rate 0.6, 4 bins, {SSM_BLOCK} blocks on ssm "
+                          f"in/out_proj and {BLOCK} on attention and FFN; "
+                          f"decode M=4, prefill M={B * S}; library = "
+                          f"torch.matmul on the masked dense weight"}
+    for arch in SSM_ARCHS:
+        out[arch] = {
+            "decode": layer_sum(rows[arch], 4),
+            "prefill": layer_sum(rows[arch], B * S),
+            "shapes": [{"layer": f"{arch}/{r['proj']}", "M": r["M"],
+                        "K": r["K"], "N": r["N"], "ms": r["ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "plain_ms": r["plain_ms"],
+                        "library_ms": r["library_ms"],
+                        "stream_ms": r["stream_ms"]} for r in rows[arch]]}
+    return out
+
+
 def int8_entry(launches, max_err, ms, plain_ms, bound_ms, bound_by,
                library_ms, **extra):
     """The ``int8`` branch of a kernel's JSON entry."""
@@ -2026,7 +2423,9 @@ def main(argv=None):
         from repro_torch.kernels import _build, ops, ref
         from repro_torch.kernels import bsr_matmul as K
         from repro_torch.models import convnet as CN
+        from repro_torch.models import layers as L
         from repro_torch.models import moe as MOE
+        from repro_torch.models import ssm as SSM
         from repro_torch.models import transformer as T
         from repro_torch.serve import compile as C
         from repro_torch.serve import engine as E
@@ -2035,7 +2434,7 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     mods = dict(RW=RW, ops=ops, ref=ref, K=K, T=T, C=C, E=E, CN=CN,
-                BCS=BCS, MOE=MOE)
+                BCS=BCS, MOE=MOE, L=L, SSM=SSM)
     # the oracles (masked-dense matmul and F.conv2d) run in full fp32: a
     # float32 conv goes through cuDNN in TF32 unless told otherwise
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2059,27 +2458,51 @@ def main(argv=None):
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {lib}:", line.strip())
 
+    t_run, phase_s = time.perf_counter(), {}
+
+    def stamp(phase):
+        """Record and print when ``phase`` starts (seconds into the run)."""
+        phase_s[phase] = time.perf_counter() - t_run
+        print(f"[{phase_s[phase]:.1f} s] {phase}", flush=True)
+    stamp("kernel 1 (yi-9b, float and int8)")
     flush = torch.empty(64 << 20, dtype=torch.float32, device=DEV)
     rows, max_err = kernel_phase(mods, flush)
     rows8, err8, faults8, vbytes = int8_kernel_phase(mods, flush)
     torch.cuda.empty_cache()
+    stamp("yi-9b served")
     e2e, launches, launches8 = serve_phase(mods, args)
     torch.cuda.empty_cache()
+    stamp("kernels 2-4 (VGG_TINY, MOBILE_TINY)")
     conv_rows, conv_err = conv_kernel_phase(mods, flush)
     conv_rows8, conv_err8, conv_faults8 = int8_conv_kernel_phase(mods,
                                                                  flush)
     floor_rows = floor_phase(mods, flush)
     del flush
     torch.cuda.empty_cache()
+    stamp("VGG_TINY served")
     conv_e2e, conv_launches, conv_launches8 = conv_serve_phase(mods)
     # the MoE path, after the yi-9b and VGG state is gone
     torch.cuda.empty_cache()
+    stamp("kernel 1 over mixtral's experts")
     flush = torch.empty(64 << 20, dtype=torch.float32, device=DEV)
     moe_rows, moe_err = moe_kernel_phase(mods, flush)
     moe_rows8, moe_err8 = int8_moe_kernel_phase(mods, flush)
     del flush
     torch.cuda.empty_cache()
+    stamp("mixtral-8x7b served")
     moe_e2e, moe_launches, moe_launches8 = moe_serve_phase(mods)
+    # the SSM and hybrid families, after the MoE state is gone
+    torch.cuda.empty_cache()
+    stamp("kernel 1 at mamba2 and hymba shapes")
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=DEV)
+    ssm_rows, ssm_checks = ssm_kernel_phase(mods, flush)
+    del flush
+    torch.cuda.empty_cache()
+    ssm_e2e, ssm_launches = {}, {}
+    for arch in SSM_ARCHS:
+        stamp(f"{arch} served")
+        ssm_e2e[arch], ssm_launches[arch] = ssm_serve_phase(mods, arch)
+    stamp("done")
 
     decode, prefill = layer_sum(rows, 4), layer_sum(rows, 128)
     moe_m = prefill_capacity(moe_config())
@@ -2087,13 +2510,16 @@ def main(argv=None):
         "name": "bsr_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bsr_matmul.cu",
         "replaces": "src/repro/kernels/bsr_matmul.py:143",
-        # the yi-9b and the mixtral generate, each counted alone (the CNN
-        # path runs kernel 3 instead)
-        "launches": launches["bsr_matmul"] + moe_launches["bsr_matmul"],
+        # the yi-9b, mixtral, mamba2 and hymba generates, each counted
+        # alone (the CNN path runs kernel 3 instead)
+        "launches": (launches["bsr_matmul"] + moe_launches["bsr_matmul"]
+                     + sum(n["bsr_matmul"] for n in ssm_launches.values())),
         "launches_by_path": {
             "yi-9b generate": launches["bsr_matmul"],
-            "mixtral-8x7b generate": moe_launches["bsr_matmul"]},
-        "max_abs_err": max(max_err, moe_err),
+            "mixtral-8x7b generate": moe_launches["bsr_matmul"],
+            **{f"{a} generate": n["bsr_matmul"]
+               for a, n in ssm_launches.items()}},
+        "max_abs_err": max(max_err, moe_err, ssm_checks[1]),
         # one decode step's 7 projections of one layer (M = 4), summed
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
@@ -2123,11 +2549,12 @@ def main(argv=None):
              "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
              "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
              "stream_ms": r["stream_ms"]} for r in moe_rows]}
+    entry["ssm"] = ssm_entry(ssm_rows, ssm_launches, ssm_checks)
     d8 = layer_sum(rows8, 4)
     entry["int8"] = int8_entry(
         launches8["bsr_matmul"] + moe_launches8["bsr_matmul"],
-        max(err8, moe_err8), d8["ms"], d8["plain_ms"], d8["bound_ms"],
-        d8["bound_by"], d8["library_ms"],
+        max(err8, moe_err8, ssm_checks[3]), d8["ms"], d8["plain_ms"],
+        d8["bound_ms"], d8["bound_by"], d8["library_ms"],
         launches_by_path={
             "yi-9b generate": launches8["bsr_matmul"],
             "mixtral-8x7b generate": moe_launches8["bsr_matmul"]},
@@ -2156,7 +2583,8 @@ def main(argv=None):
          "int8_yi9b_shapes": rows8, "int8_moe_shapes": moe_rows8,
          "int8_conv_shapes": conv_rows8, "moe_serve": moe_e2e,
          "conv_shapes": conv_rows, "floor_shapes": floor_rows,
-         "serve": e2e, "conv_serve": conv_e2e},
+         "serve": e2e, "conv_serve": conv_e2e, "ssm_shapes": ssm_rows,
+         "ssm_serve": ssm_e2e, "phase_start_s": phase_s},
         indent=1))
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))

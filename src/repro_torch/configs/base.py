@@ -15,7 +15,7 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                 # dense | moe (the families ported so far)
+    family: str                 # dense | moe | ssm | hybrid (those ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -27,6 +27,10 @@ class ArchConfig:
     n_experts: int = 0
     top_k: int = 0
     moe_group: int = 1024       # tokens per dispatch group
+    # SSM (mamba2 mixers: the ssm family, and hybrid's parallel heads)
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
     sliding_window: int = 0
     rope_theta: float = 10000.0
     kv_chunk: int = 1024        # KV chunk of the online-softmax attention
@@ -45,6 +49,8 @@ class ArchConfig:
 ALIASES = {
     "yi-9b": "yi_9b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "mamba2-1.3b": "mamba2_1p3b",
+    "hymba-1.5b": "hymba_1p5b",
 }
 
 

@@ -3,6 +3,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --sparse \\
       --layers 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
+      --sparse
 
 ``--layers`` cuts depth only, never width.  ``--smoke`` takes the reduced
 test config instead of the published one; ``--device cpu`` runs the plain
@@ -25,7 +27,12 @@ from repro_torch.serve.engine import generate
 from repro_torch.train.trainer import apply_masks
 
 SPARSE_SPEC = [(r"(attn/w[qkvo]|(ffn|moe)/(gate|up|down))/w",
-                RW.SchemeChoice("block", (16, 16)))]
+                RW.SchemeChoice("block", (16, 16))),
+               # the SSM in/out projections, as the reference's spec: the
+               # narrower (16, 8) block tiles SMOKE mamba2's in_proj
+               # (proj dim 296 = 37 x 8)
+               (r"ssm/(in_proj|out_proj)/w",
+                RW.SchemeChoice("block", (16, 8)))]
 
 
 def _sync(device):

@@ -1,5 +1,6 @@
 """Shared layer primitives: RMSNorm, rotary embeddings, linear (dense,
-masked, or packed BCS-sparse), embedding tables, SwiGLU FFN."""
+masked, or packed BCS-sparse), embedding tables, SwiGLU FFN, and the
+depthwise causal conv1d of the SSM mixers."""
 from __future__ import annotations
 
 import torch
@@ -120,3 +121,38 @@ def ffn(params, x, masks=None):
     g = linear(params["gate"], x, m.get("gate"), act="silu")
     u = linear(params["up"], x, m.get("up"))
     return linear(params["down"], g * u, m.get("down"))
+
+
+# -- Depthwise causal conv1d (mamba/hymba mixers; never pruned, §5.2.4) -------
+
+def conv1d_init(channels, width, generator, n=None, dtype=torch.bfloat16,
+                device="cpu"):
+    """Weight (width, C) (``n`` stacked layers: (n, width, C)), the
+    truncated normal at scale ``width ** -0.5``, as the reference's."""
+    shape = (width, channels) if n is None else (n, width, channels)
+    return {"w": M.dense_init(shape, generator, dtype, device,
+                              scale=width ** -0.5)}
+
+
+def causal_conv1d(params, x):
+    """x (batch, seq, C) -> (batch, seq, C), depthwise and causal: tap i
+    reads position t - (width - 1) + i.  Taps are summed in the
+    reference's order (tap 0 first), each product and sum in x's dtype."""
+    w = params["w"]                              # (width, C)
+    width, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, width - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(width):
+        out = out + xp[:, i:i + S, :] * w[i]
+    return out
+
+
+def conv1d_step(params, state, x_t):
+    """One decode step.  state (batch, width - 1, C) holds the last inputs,
+    x_t (batch, C) the new one.  Returns (new state, output (batch, C)):
+    the window's taps summed in fp32 and rounded once to x's dtype, as
+    the reference's einsum contracts them."""
+    w = params["w"]
+    window = torch.cat([state, x_t[:, None, :]], dim=1)   # (b, width, C)
+    out = (window.float() * w.float()).sum(dim=1).to(x_t.dtype)
+    return window[:, 1:, :], out

@@ -1,10 +1,12 @@
-"""Model assembly for the dense and MoE decoder families.
+"""Model assembly for the dense, MoE, SSM and hybrid decoder families.
 
 Per-layer params are stacked on a leading layer dim, as in the reference;
 where the reference scans over that dim, the port loops over the layer
 index in Python and hands each layer its slice (``module.take_layer``).
 Packed layouts are sliced too, never re-packed, so every layer executes
-the stack's padded slots.
+the stack's padded slots.  An ``ssm`` layer is a mamba2 mixer on the
+normed residual; a ``hybrid`` (hymba) layer runs attention and the mixer
+in parallel on the same normed input, averages them, then the FFN.
 """
 from __future__ import annotations
 
@@ -14,17 +16,20 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import module as M
+from repro_torch.models import ssm as S
 from repro_torch.models.moe import moe, moe_init
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def init_lm(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
             device="cuda"):
     """Random LM params from ``seed`` (a ``torch.Generator`` on the
-    device), layer leaves stacked on a leading ``n_layers`` dim; an MoE
-    layer's FFN is ``{"moe": ...}`` (router in fp32) in place of
-    ``{"ffn": ...}``."""
+    device), layer leaves stacked on a leading ``n_layers`` dim, as the
+    reference's ``_layer_init`` lays them out by family: dense
+    {ln1, attn, ln2, ffn}; moe {ln1, attn, ln2, moe} (router in fp32);
+    ssm {ln1, ssm}; hybrid {ln1, attn, ssm, ln2, ffn}.  The mixer's
+    A_log, D and dt_bias stay fp32."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     dev = M.resolve_device(device)
@@ -32,16 +37,24 @@ def init_lm(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
     gen.manual_seed(seed)
     n, d = cfg.n_layers, cfg.d_model
     kw = dict(dtype=dtype, device=dev)
-    layers = {
-        "ln1": {"scale": torch.ones((n, d), **kw)},
-        "attn": A.attn_init(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, gen,
-                            n=n, **kw),
-        "ln2": {"scale": torch.ones((n, d), **kw)},
-    }
-    if cfg.family == "moe":
-        layers["moe"] = moe_init(d, cfg.d_ff, cfg.n_experts, gen, n=n, **kw)
-    else:
-        layers["ffn"] = L.ffn_init(d, cfg.d_ff, gen, n=n, **kw)
+    fam = cfg.family
+    attn = fam != "ssm"
+    # drawn in the reference's order: attention, mixer, FFN
+    layers = {"ln1": {"scale": torch.ones((n, d), **kw)}}
+    if attn:
+        layers["attn"] = A.attn_init(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                     gen, n=n, **kw)
+    if fam in ("ssm", "hybrid"):
+        layers["ssm"] = S.ssm_init(d, cfg.ssm_state, gen,
+                                   headdim=cfg.ssm_headdim,
+                                   expand=cfg.ssm_expand, n=n, **kw)
+    if attn:
+        layers["ln2"] = {"scale": torch.ones((n, d), **kw)}
+        if fam == "moe":
+            layers["moe"] = moe_init(d, cfg.d_ff, cfg.n_experts, gen, n=n,
+                                     **kw)
+        else:
+            layers["ffn"] = L.ffn_init(d, cfg.d_ff, gen, n=n, **kw)
     return {
         "embed": L.embedding_init(cfg.vocab, d, gen, **kw),
         "head": L.embedding_init(cfg.vocab, d, gen, **kw),
@@ -70,14 +83,24 @@ def _ffn(p, h, cfg: ArchConfig):
 
 
 def _layer_fwd(p, x, positions, cfg: ArchConfig):
-    """One layer.  Returns (x, (k, v)) with the layer's roped KV."""
+    """One layer.  Returns (x, (k, v), ssm state): the layer's roped KV
+    (None for ``ssm``) and its mixer's decode state (None for dense and
+    moe), both from this one run.  The hybrid state is the mixer's on the
+    layer's normed INPUT, the same input its output came from."""
     h = L.rmsnorm(p["ln1"], x)
+    kv = st = None
+    if cfg.family == "ssm":
+        sm, st = S.ssm(p["ssm"], h)
+        return x + sm, kv, st
     att, kv = A.mha(p["attn"], h, positions, cfg.n_heads, cfg.n_kv_heads,
                     cfg.hd, window=cfg.sliding_window,
                     rope_theta=cfg.rope_theta, kv_chunk=cfg.kv_chunk)
+    if cfg.family == "hybrid":
+        sm, st = S.ssm(p["ssm"], h)
+        att = (att + sm) * 0.5
     x = x + att
     x = x + _ffn(p, L.rmsnorm(p["ln2"], x), cfg)
-    return x, kv
+    return x, kv, st
 
 
 def forward(params, cfg: ArchConfig, tokens, positions=None):
@@ -87,23 +110,33 @@ def forward(params, cfg: ArchConfig, tokens, positions=None):
         positions = torch.arange(Sq, dtype=torch.int32, device=tokens.device)
     x = L.embed(params["embed"], tokens)
     for lp in layer_params(params):
-        x, _ = _layer_fwd(lp, x, positions, cfg)
+        x, _, _ = _layer_fwd(lp, x, positions, cfg)
     x = L.rmsnorm(params["norm_f"], x)
     return L.unembed(params["head"], x)
 
 
 def init_cache(params, cfg: ArchConfig, batch, seq, dtype=torch.bfloat16):
-    """Fixed-shape KV caches, stacked on the layer dim as in the
-    reference: k/v (n_layers, B, S, KV, hd), pos (n_layers, S); the same
-    for both families."""
-    eff = min(seq, cfg.sliding_window) if cfg.sliding_window else seq
+    """Fixed-shape caches, stacked on the layer dim as in the reference:
+    "kv" (dense, moe, hybrid) k/v (n_layers, B, S, KV, hd), pos
+    (n_layers, S), S cut to the attention window; "ssm" (ssm, hybrid)
+    the zero mixer state, h (n_layers, B, H, P, N) fp32 and conv
+    (n_layers, B, width - 1, conv_dim)."""
     dev = params["embed"]["table"].device
     n = n_layers(params)
-    shape = (n, batch, eff, cfg.n_kv_heads, cfg.hd)
-    pos = torch.arange(eff, dtype=torch.int32, device=dev)
-    return {"kv": {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                   "v": torch.zeros(shape, dtype=dtype, device=dev),
-                   "pos": pos.expand(n, eff).contiguous()}}
+    cache = {}
+    if cfg.family != "ssm":
+        eff = min(seq, cfg.sliding_window) if cfg.sliding_window else seq
+        shape = (n, batch, eff, cfg.n_kv_heads, cfg.hd)
+        pos = torch.arange(eff, dtype=torch.int32, device=dev)
+        cache["kv"] = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                       "v": torch.zeros(shape, dtype=dtype, device=dev),
+                       "pos": pos.expand(n, eff).contiguous()}
+    if cfg.family in ("ssm", "hybrid"):
+        one = S.ssm_state_init(M.take_layer(params["layers"]["ssm"], 0),
+                               batch, dtype)
+        cache["ssm"] = {k: v.expand((n,) + v.shape).contiguous()
+                        for k, v in one.items()}
+    return cache
 
 
 def decode_step(params, cfg: ArchConfig, token, cache, pos, layers=None):
@@ -113,12 +146,24 @@ def decode_step(params, cfg: ArchConfig, token, cache, pos, layers=None):
     x = L.embed(params["embed"], token)
     if layers is None:
         layers = layer_params(params)
+    fam = cfg.family
     for i, lp in enumerate(layers):
+        hn = L.rmsnorm(lp["ln1"], x)
+        if fam in ("ssm", "hybrid"):
+            sm, st = S.ssm_decode(lp["ssm"], hn,
+                                  M.take_layer(cache["ssm"], i))
+            for k, v in st.items():
+                cache["ssm"][k][i] = v
+        if fam == "ssm":
+            x = x + sm
+            continue
         c = M.take_layer(cache["kv"], i)          # views into the stack
-        att, _ = A.mha_decode(lp["attn"], L.rmsnorm(lp["ln1"], x), c, pos,
-                              cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+        att, _ = A.mha_decode(lp["attn"], hn, c, pos, cfg.n_heads,
+                              cfg.n_kv_heads, cfg.hd,
                               window=cfg.sliding_window,
                               rope_theta=cfg.rope_theta)
+        if fam == "hybrid":
+            att = (att + sm) * 0.5
         x = x + att
         x = x + _ffn(lp, L.rmsnorm(lp["ln2"], x), cfg)
     x = L.rmsnorm(params["norm_f"], x)

@@ -1,6 +1,7 @@
 """Serving: ``prefill`` (a forward pass that also emits the per-layer KV
-caches) and ``generate`` (prefill, then the greedy decode loop).  Works
-with dense, masked, and ``compile_model``-packed params alike."""
+caches and SSM states) and ``generate`` (prefill, then the greedy decode
+loop).  Works with dense, masked, and ``compile_model``-packed params
+alike."""
 from __future__ import annotations
 
 import torch
@@ -20,21 +21,35 @@ def _window_kv(k, v, S_len, window):
 
 
 def prefill(params, cfg: ArchConfig, tokens):
-    """tokens (B, S) -> (last-token logits (B, 1, V), cache).  The cache
-    is exactly as long as the prompt (a ring of S slots, stacked on the
-    layer dim like ``models.transformer.init_cache``)."""
+    """tokens (B, S) -> (last-token logits (B, 1, V), cache).  The KV
+    cache (dense, moe, hybrid) is exactly as long as the prompt, cut to
+    the attention window (a ring stacked on the layer dim like
+    ``models.transformer.init_cache``); the ssm and hybrid families add
+    each layer's mixer state, stacked the same way.
+
+    The hybrid state is the one the layer's own mixer run computed on the
+    layer's normed input.  The reference (``repro.serve.engine.prefill``)
+    runs the mixer a second time on the layer's OUTPUT ("recompute state
+    cheaply"), so its decode continues from a state no ``forward`` ever
+    had; the port does not copy that, and saves the second run."""
     _, Sq = tokens.shape
     positions = torch.arange(Sq, dtype=torch.int32, device=tokens.device)
     x = L.embed(params["embed"], tokens)
-    ks, vs, ps = [], [], []
+    kvs, states = [], []
     for lp in T.layer_params(params):
-        x, (k, v) = T._layer_fwd(lp, x, positions, cfg)
-        k, v, pos = _window_kv(k, v, Sq, cfg.sliding_window)
-        ks.append(k)
-        vs.append(v)
-        ps.append(pos)
-    cache = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs),
-                    "pos": torch.stack(ps)}}
+        x, kv, st = T._layer_fwd(lp, x, positions, cfg)
+        if kv is not None:
+            kvs.append(_window_kv(*kv, Sq, cfg.sliding_window))
+        if st is not None:
+            states.append(st)
+    cache = {}
+    if kvs:
+        k, v, pos = zip(*kvs)
+        cache["kv"] = {"k": torch.stack(k), "v": torch.stack(v),
+                       "pos": torch.stack(pos)}
+    if states:
+        cache["ssm"] = {name: torch.stack([st[name] for st in states])
+                        for name in states[0]}
     x = L.rmsnorm(params["norm_f"], x[:, -1:, :])
     return L.unembed(params["head"], x), cache
 

@@ -45,16 +45,11 @@ def _layout(dev, K_, N_, block, dtype, reorder, seed=0, gran=None):
                     scale_granularity=gran or "block"), w * mask.to(dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("block", [(16, 16), (8, 16), (4, 4), (16, 32)])
-@pytest.mark.parametrize("M", [1, 4, 15, 16, 17, 129])
-def test_kernel_matches_plain(cuda, M, block, dtype):
-    """At the plan's path boundaries (M tiles of 16, 32 and 128 rows, the
-    tensor-core path and the FMA path), one launch over all bins."""
-    lay, _ = _layout(cuda, 256, 384, block, dtype, reorder=True)
-    unre, _ = _layout(cuda, 256, 384, block, dtype, reorder=False)
-    x = torch.randn(M, 256, device=cuda).to(dtype)
-    b = torch.randn(384, device=cuda).to(dtype)
+def _kernel_vs_plain(dev, M, K_, N_, block, dtype):
+    lay, _ = _layout(dev, K_, N_, block, dtype, reorder=True)
+    unre, _ = _layout(dev, K_, N_, block, dtype, reorder=False)
+    x = torch.randn(M, K_, device=dev).to(dtype)
+    b = torch.randn(N_, device=dev).to(dtype)
     for act in ("none", "silu", "relu"):
         before = K.LAUNCHES["bsr_matmul"]
         y = K.bsr_matmul_packed(x, lay, bias=b, act=act)
@@ -64,6 +59,30 @@ def test_kernel_matches_plain(cuda, M, block, dtype):
         want = ref.bsr_matmul_packed_ref(x.float(), lay, b.float(), act)
         tol = 1e-4 if dtype == torch.float32 else 1e-2
         torch.testing.assert_close(y.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", [(16, 16), (8, 16), (4, 4), (16, 32),
+                                   (16, 8)])
+@pytest.mark.parametrize("M", [1, 4, 15, 16, 17, 129])
+def test_kernel_matches_plain(cuda, M, block, dtype):
+    """At the plan's path boundaries (M tiles of 16, 32 and 128 rows, the
+    tensor-core path and the FMA path; (16, 8) is the tensor-core tile of
+    one n8 fragment a warp), one launch over all bins."""
+    _kernel_vs_plain(cuda, M, 256, 384, block, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,block", [((1600, 320), (16, 16)),
+                                         ((1600, 6464), (16, 8)),
+                                         ((2048, 8512), (16, 8))])
+@pytest.mark.parametrize("M", [4, 129])
+def test_kernel_matches_plain_at_ssm_and_hybrid_widths(cuda, M, shape, block,
+                                                       dtype):
+    """Column counts of the SSM/hybrid path: hymba's wk/wv (20 block
+    columns, a launch of few blocks), hymba's and mamba2's in_proj (808
+    and 1064 block columns of 8)."""
+    _kernel_vs_plain(cuda, M, *shape, block, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -133,6 +152,32 @@ def test_generate_on_card_matches_cpu(cuda):
                                     device=dev).cpu()
         launches = K.LAUNCHES["bsr_matmul"]
         assert launches == (cfg.n_layers * 7 * 11 if dev == "cuda" else 0)
+    assert torch.equal(outs["cuda"], outs["cpu"])
+
+
+@pytest.mark.parametrize("arch,per_layer", [("mamba2-1.3b", 2),
+                                            ("hymba-1.5b", 9)])
+def test_ssm_generate_on_card_matches_cpu(cuda, arch, per_layer):
+    """fp32 mamba2 / hymba SMOKE under the serving spec ((16, 8) blocks on
+    the SSM in/out projections): the card's greedy tokens equal the CPU
+    plain path's, kernel 1 launched once a packed projection a forward."""
+    from repro_torch.launch.serve import SPARSE_SPEC
+    cfg = configs.get(arch, smoke=True)
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab, size=(2, 8))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = T.init_lm(cfg, seed=0, dtype=torch.float32, device="cpu")
+        masks = RW.magnitude_block_masks(p, SPARSE_SPEC, None, rate=0.6)
+        exec_p, report = C.compile_model(
+            apply_masks(p, masks), masks, SPARSE_SPEC,
+            spec=C.CompileSpec(keep_dense=False), device=dev)
+        assert len(report.packed) == per_layer
+        K.reset_launches()
+        outs[dev] = engine.generate(exec_p, cfg, tokens, 10,
+                                    device=dev).cpu()
+        launches = K.LAUNCHES["bsr_matmul"]
+        assert launches == (cfg.n_layers * per_layer * 11
+                            if dev == "cuda" else 0)
     assert torch.equal(outs["cuda"], outs["cpu"])
 
 
