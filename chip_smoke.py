@@ -92,8 +92,25 @@
    ``forward`` of S at position S - 1, each with a planted fault (a
    dropped bin; a zeroed SSM state, or hymba's state taken from the
    layer output as the reference's prefill takes it); peak memory.
-   Kernel 1's JSON entry carries an ``ssm`` branch.  Each phase's start
-   is stamped (seconds into the run).
+   Kernel 1's JSON entry carries an ``ssm`` branch.
+9. The paper's scheme mapping (after the VGG_TINY phases): yi-9b at full
+   width (depth ``--layers``) mapped by ``map_rules`` (B x S tokens,
+   dataset_hard, compression 1 / (1 - 0.6), V5E) and served under those
+   picks: magnitude block masks at each rule's own block on the rules
+   ``compile_model`` packs, every layer quantized as picked, the
+   ``generate`` counted; bf16 prefill logits against masked-dense on the
+   dequantized weights and the fp32 model at 2 layers (logits, greedy
+   tokens), each with a dropped bin breaking its bound.  Kernel 1 vs its
+   plain version at each mapped block and projection shape (CHECK_M,
+   float and int8, bitwise across the reorder), and timed at decode and
+   prefill.  VGG_TINY mapped with dataset_hard True (pattern) and False
+   (block-punched), masks built as the reference's serving callers build
+   them, served and gated as in step 5, each packed layer's kernel vs
+   plain at its block and precision and timed.  Then the latency model
+   against the card (modelled V5E ms beside measured ms for every served
+   layer) and the picks of a target calibrated to this run's rates,
+   printed.  Kernels' JSON entries carry a ``mapped`` branch.  Each
+   phase's start is stamped (seconds into the run).
 
 No phase is caught: any failure exits non-zero.  The last two lines are
 the kernels JSON and ``{"ok": true, "device": {...}}``.  Full detail goes
@@ -516,15 +533,16 @@ def device_time(fn):
             "events": len(spans)}
 
 
-def build_masked(mods, cfg, dtype):
-    """Seeded init at ``cfg`` on the card and the serving CLI's magnitude
-    block masks at PRUNE_RATE: (masked-dense params, masks, seconds)."""
+def build_masked(mods, cfg, dtype, rules=None):
+    """Seeded init at ``cfg`` on the card and magnitude block masks at
+    PRUNE_RATE, each rule at its own block (``rules``, default the serving
+    CLI's): (masked-dense params, masks, seconds)."""
     T, RW = mods["T"], mods["RW"]
     from repro_torch.launch.serve import SPARSE_SPEC
     from repro_torch.train.trainer import apply_masks
     t0 = time.perf_counter()
     params = T.init_lm(cfg, seed=0, dtype=dtype, device=DEV)
-    masks = RW.magnitude_block_masks(params, SPARSE_SPEC, None,
+    masks = RW.magnitude_block_masks(params, rules or SPARSE_SPEC, None,
                                      rate=PRUNE_RATE)
     pm = apply_masks(params, masks)
     del params
@@ -2024,6 +2042,454 @@ def vgg_int8_serve(mods, name, spec, pm, masks, x):
              "device": dev, "busy_share": busy}, launches)
 
 
+# -- the paper's scheme mapping: the rule mapper's own picks, served ---------
+
+# yi-9b is mapped at the compression its masks give (rate 0.6) and priced at
+# the served prompt (B x S tokens); VGG_TINY at rate 0.5
+MAP_COMPRESSION = 1 / (1 - PRUNE_RATE)
+VGG_MAP_RATE = 0.5
+VGG_MAP_COMPRESSION = 1 / (1 - VGG_MAP_RATE)
+
+
+def lm_config():
+    """yi-9b at its published widths (the rehearsal on the CPU swaps in
+    the SMOKE config)."""
+    from repro_torch import configs
+    return configs.get("yi-9b")
+
+
+def lm_mapping(mods, cfg, target):
+    """``map_rules`` over ``cfg``'s GEMMs at B x S tokens, dataset_hard,
+    on ``target``: (spec, report)."""
+    MR = mods["MR"]
+    return MR.map_rules(MR.lm_layers(cfg, tokens=B * S), dataset_hard=True,
+                        compression=MAP_COMPRESSION, target=target)
+
+
+def vgg_specs(CN):
+    """VGG_TINY as ``conv_layers`` takes it at a CONV_HW input: (name,
+    feat, Cin, Cout, kh, kw, depthwise), feat the output side (halved at
+    each stride-2 layer)."""
+    out, feat, cin = [], CONV_HW, 3
+    for (name, cout, kh, kw, stride, dw) in CN.VGG_TINY:
+        feat //= stride
+        out.append((name, feat, cin, cout, kh, kw, dw))
+        cin = cout
+    return out
+
+
+def vgg_mapping(mods, hard, target):
+    MR = mods["MR"]
+    return MR.map_rules(MR.conv_layers(vgg_specs(mods["CN"])),
+                        dataset_hard=hard, compression=VGG_MAP_COMPRESSION,
+                        target=target)
+
+
+def mapping_rows(report):
+    """The mapper's report as printable rows."""
+    return [f"  {r['path']:18s} {r['kind']:8s} {r['scheme']:14s} "
+            f"{str(r['block']):11s} {str(r['value_dtype']):5s} "
+            f"{r['latency_s']:11.4e} x{r['count']}" for r in report]
+
+
+def served_rules(C, spec):
+    """The rules of the layers ``compile_model`` packs (a packable scheme,
+    a path its spec does not exclude: embed / head, §5.2.4), and the
+    paths of the others.  The others stay out of the masks too:
+    ``magnitude_block_masks`` prunes every leaf a rule matches whose block
+    tiles it, a "none" rule's too (yi-9b's embed table at full width)."""
+    excl = C.CompileSpec().exclude
+    rules = [(p, c) for p, c in spec if c.scheme in C.PACKABLE_SCHEMES
+             and not any(e in p for e in excl)]
+    return rules, [p for p, c in spec if (p, c) not in rules]
+
+
+def mapped_lm_serve(mods, args):
+    """yi-9b at full width (depth ``--layers``) served under the rule
+    mapper's picks on V5E: magnitude block masks at each rule's own block,
+    ``compile_model`` quantizing each layer by its pick, the main path
+    counted; bf16 prefill logits against masked-dense on the dequantized
+    weights and the fp32 model at 2 layers, each with a dropped bin of
+    ``down`` breaking its bound."""
+    C, E, T = mods["C"], mods["E"], mods["T"]
+    from repro_torch.core import latency_model as LM
+    full = lm_config()
+    cfg = full.replace(n_layers=args.layers)
+    spec, mreport = lm_mapping(mods, cfg, LM.V5E)
+    print(f"[mapped] map_rules(lm_layers(yi-9b, tokens={B * S}), "
+          f"dataset_hard=True, compression={MAP_COMPRESSION:.2f}, V5E): "
+          f"path, kind, scheme, block, values, modelled latency_s, count")
+    print("\n".join(mapping_rows(mreport)))
+    rules, dropped = served_rules(C, spec)
+    print(f"[mapped] served rules: {[p for p, _ in rules]}; not masked or "
+          f"packed: {dropped}")
+    pm, masks, init_s = build_masked(mods, cfg, torch.bfloat16, rules)
+    exec_p, report, compile_s = compile_timed(mods, pm, masks, rules)
+    print(f"[mapped] init + masks {init_s:.2f}s; compile_model "
+          f"{compile_s:.2f}s:")
+    print(C.compiled_summary(report))
+    for r in report.packed:
+        choice = mods["RW"].match(rules, r.path)
+        if (r.block, r.value_dtype) != (tuple(choice.block),
+                                        choice.value_dtype):
+            raise AssertionError(f"[mapped] {r.path} packed at {r.block} "
+                                 f"{r.value_dtype}, mapped {choice}")
+    per_layer = len(report.packed)
+    if not per_layer:
+        raise AssertionError("[mapped] compile_model packed no layer")
+    # the fault: the last packed projection's last bin dropped, every layer
+    _, group, fault_proj, _ = report.packed[-1].path.split("/")
+    e2e, launches, prompts, tokens = serve_counted(
+        mods, exec_p, cfg, full, compile_s, "the mapper's blocks and "
+        "values, one launch each", per_layer=per_layer)
+    with torch.no_grad():
+        deq = dequantized(pm, exec_p)
+        d = E.prefill(deq, cfg, tokens)[0]
+        s8 = E.prefill(exec_p, cfg, tokens)[0]
+        broken = dropped_last_bin(exec_p, fault_proj, group)
+        fault = logit_gap(d, E.prefill(broken, cfg, tokens)[0])
+    gap = logit_gap(d, s8)
+    agree = (d.argmax(-1) == s8.argmax(-1)).float().mean().item()
+    print(f"[mapped] prefill logits packed vs masked-dense on the "
+          f"dequantized weights (bf16): {gap[0]:.4f} / {gap[1]:.4f} of max "
+          f"/ mean |logit| (bound {LOGIT_MAX_REL} / {LOGIT_MEAN_REL}); "
+          f"argmax agree {agree:.2f}; planted fault ({fault_proj}'s last "
+          f"bin dropped): {fault[0]:.4f} / {fault[1]:.4f}")
+    if not (torch.isfinite(s8).all() and within_bound(gap)):
+        raise AssertionError("[mapped] packed prefill logits disagree with "
+                             "the dequantized masked-dense ones")
+    if within_bound(fault):
+        raise AssertionError("[mapped] the logit bound does not catch a "
+                             "dropped bin")
+    e2e.update(logits_gap=gap, fault_gap=fault, mapping=mreport,
+               report=C.compiled_summary(report))
+    del deq, exec_p, broken, d, s8, pm, masks
+    torch.cuda.empty_cache()
+
+    cfg2 = full.replace(n_layers=2)
+    pm32, masks32, _ = build_masked(mods, cfg2, torch.float32, rules)
+    exec32, _, _ = compile_timed(mods, pm32, masks32, rules)
+    with torch.no_grad():
+        deq = dequantized(pm32, exec32)
+        want = T.forward(deq, cfg2, tokens)
+        gap32 = logit_gap(want, T.forward(exec32, cfg2, tokens))[0]
+        fault32 = logit_gap(want, T.forward(
+            dropped_last_bin(exec32, fault_proj, group), cfg2, tokens))[0]
+        tok_d = E.generate(deq, cfg2, prompts, N_NEW, device=DEV)
+        tok_s = E.generate(exec32, cfg2, prompts, N_NEW, device=DEV)
+    same = bool(torch.equal(tok_d, tok_s))
+    print(f"[mapped] yi-9b fp32 (2 layers, TF32 off): logits packed vs "
+          f"masked-dense on the dequantized weights {gap32:.2e} of "
+          f"max|logit| (bound {MOE_FP32_LOGIT_REL}), planted fault "
+          f"{fault32:.3f}; greedy tokens identical: {same}")
+    if not (gap32 <= MOE_FP32_LOGIT_REL and same
+            and fault32 > MOE_FP32_LOGIT_REL):
+        raise AssertionError("[mapped] fp32 yi-9b disagrees with its "
+                             "dequantized masked-dense run, or the bound "
+                             "misses the fault")
+    e2e.update(fp32_logit_gap=gap32, fp32_fault_gap=fault32,
+               fp32_tokens_identical=same)
+    del deq, exec32, pm32, masks32
+    torch.cuda.empty_cache()
+    return e2e, launches, rules
+
+
+def mapped_projections(mods, rules):
+    """(name, K, N, act, block, values) of each yi-9b projection a rule
+    serves, at its mapped block and precision."""
+    RW = mods["RW"]
+    out = []
+    for name, Kd, Nd, act in PROJECTIONS:
+        group = "attn" if name.startswith("w") else "ffn"
+        c = RW.match(rules, f"layers/{group}/{name}/w")
+        if c is not None:
+            out.append((name, Kd, Nd, act, tuple(c.block), c.value_dtype))
+    return out
+
+
+def mapped_kernel1_phase(mods, flush, rules):
+    """Kernel 1 at each served projection's mapped block: vs its plain
+    version at CHECK_M, float and int8, bf16 and fp32, reordered ==
+    unreordered bitwise; each projection timed at decode (M = 4) and
+    prefill (M = B x S), int8 (the served precision) and float."""
+    RW, ops = mods["RW"], mods["ops"]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(6)
+    projs = mapped_projections(mods, rules)
+    checks, max_err = 0, 0.0
+    for block in sorted({p[4] for p in projs}):
+        shapes = sorted({(k, n) for _, k, n, _, b, _ in projs if b == block})
+        n, err = kernel1_cases(
+            mods, gen, shapes,
+            lambda w, mask, block=block: [
+                ("float", ops.pack(w, mask, block, reorder=True,
+                                   n_bins=N_BINS), ops.pack(w, mask, block)),
+                ("int8", int8_pack(ops, w, mask, "block", True, block),
+                 int8_pack(ops, w, mask, "block", False, block))],
+            (("none", False), ("silu", True)), block=block)
+        checks, max_err = checks + n, max(max_err, err)
+        print(f"[mapped] kernel 1 vs plain at block {block}: {n} cases at "
+              f"(K, N) in {shapes}, M in {CHECK_M}, bf16 + fp32, float and "
+              f"int8 (a scale per block), bias + silu and none, reordered "
+              f"== unreordered bitwise; max abs err {err:.3e}")
+    blocks = {p[0]: p[4] for p in projs}
+
+    def make(int8):
+        def mk(name, Kd, Nd):
+            w, mask = weight_and_mask(RW, Kd, Nd, gen, torch.bfloat16,
+                                      blocks[name])
+            lay = (int8_pack(ops, w, mask, "block", True, blocks[name])
+                   if int8 else ops.pack(w, mask, blocks[name], reorder=True,
+                                         n_bins=N_BINS))
+            return lay, w * mask.to(w.dtype)
+        return mk
+    plain = [p[:4] for p in projs]
+    rows = {}
+    for values in ("int8", "float"):
+        rows[values] = kernel1_timings(mods, gen, flush, plain, (4, B * S),
+                                       make(values == "int8"))
+        for r in rows[values]:
+            r["block"] = blocks[r["proj"]]
+        print_timings(f"[mapped] kernel 1 timings at the mapped blocks "
+                      f"({sorted(set(blocks.values()))}), {values} values, "
+                      f"bf16 x (L2 flushed, median ms by CUDA-graph replay; "
+                      f"torch.matmul on the bf16 masked dense weight):",
+                      rows[values], "torch.matmul",
+                      f"yi-9b layer ({len(plain)} projections)",
+                      ((4, "decode"), (B * S, "prefill")))
+    return rows, checks, max_err
+
+
+def vgg_mapped_masks(mods, params, spec):
+    """The masks the reference's serving callers build for a mapped
+    VGG_TINY: its pattern rules through ``masks_for_spec``, its
+    block-punched rules through ``punched_conv_masks`` at each rule's own
+    block.  A layer neither mask function tiles stays unpruned: a block that
+    does not divide (filters, channels), an FC block on the 1x1 c5."""
+    RW = mods["RW"]
+    pat = RW.masks_for_spec(params, [r for r in spec
+                                     if r[1].scheme == "pattern"])
+    pun = RW.punched_conv_masks(params, [r for r in spec
+                                         if r[1].scheme == "block_punched"],
+                                None, rate=VGG_MAP_RATE)
+    return {name: {k: (pat[name][k] if pat[name][k].ndim else pun[name][k])
+                   for k in node} for name, node in params.items()}
+
+
+def vgg_mapped_serve(mods, flush):
+    """VGG_TINY served under the rule mapper's picks on V5E, dataset_hard
+    True (pattern) and False (block-punched): masks as ``vgg_mapped_masks``
+    builds them, ``compile_model`` under the whole mapping, one forward
+    counted, fp32 logits against masked-dense on the dequantized weights
+    (TF32 off) with a dropped bin of the last packed layer; then each
+    packed layer's kernel vs its plain version at its block and precision
+    (reordered == unreordered, implicit == materialized bitwise) and
+    timed."""
+    CN, C, K, ops, RW = (mods["CN"], mods["C"], mods["K"], mods["ops"],
+                         mods["RW"])
+    from repro_torch.core import latency_model as LM
+    from repro_torch.core.packed import TapLayout
+    from repro_torch.train.trainer import apply_masks
+    params = CN.convnet_init(CN.VGG_TINY, seed=0, device=DEV)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    x, _ = CN.synthetic_images(gen, CONV_B, size=CONV_HW)
+    out, launches_all = {}, {}
+    max_err = {k: 0.0 for k in K.LAUNCHES}
+    for hard in (True, False):
+        tag = f"dataset_hard={hard}"
+        spec, mreport = vgg_mapping(mods, hard, LM.V5E)
+        print(f"[mapped VGG_TINY, {tag}] map_rules(conv_layers(...), "
+              f"compression={VGG_MAP_COMPRESSION}, V5E):")
+        print("\n".join(mapping_rows(mreport)))
+        masks = vgg_mapped_masks(mods, params, spec)
+        unpruned = [n for n, *_ in CN.VGG_TINY if masks[n]["w"].ndim == 0]
+        pm = apply_masks(params, masks)
+        exec_p, report, compile_s = compile_timed(mods, pm, masks, spec)
+        # the same compile without the reorder: the bitwise reference
+        unre_p, _, _ = compile_timed(mods, pm, masks, spec, reorder=False)
+        print(f"[mapped VGG_TINY, {tag}] unpruned (no mask function tiles "
+              f"them): {unpruned}; compile_model {compile_s:.2f}s:")
+        print(C.compiled_summary(report))
+        want = expected_conv_launches(ops, CN.VGG_TINY, exec_p, CONV_HW,
+                                      CONV_B)
+        K.reset_launches()
+        sync()
+        with torch.no_grad():
+            logits = CN.convnet_apply(exec_p, x, CN.VGG_TINY)
+        sync()
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        print(f"[mapped VGG_TINY, {tag}] one forward: launches {launches} "
+              f"(from the layouts: {want})")
+        if launches != want:
+            raise AssertionError(f"[mapped VGG_TINY, {tag}] the forward did "
+                                 f"not go through the kernels the layouts "
+                                 f"imply")
+        for k, v in launches.items():
+            launches_all[k] = launches_all.get(k, 0) + v
+        packed = [n for n, *_ in CN.VGG_TINY if "packed" in exec_p[n]]
+        last = exec_p[packed[-1]]["packed"]
+        broken = dict(exec_p, **{packed[-1]: dict(
+            exec_p[packed[-1]], packed=dataclasses.replace(
+                last, values=last.values[:-1]
+                + (torch.zeros_like(last.values[-1]),)))})
+        with torch.no_grad():
+            dense = CN.convnet_apply(dequantized(pm, exec_p), x, CN.VGG_TINY)
+            gap = conv_logit_gap(dense, logits)
+            agree = (dense.argmax(-1) == logits.argmax(-1)).float().mean()
+            fault = conv_logit_gap(dense, CN.convnet_apply(broken, x,
+                                                           CN.VGG_TINY))
+            for _ in range(2):
+                CN.convnet_apply(exec_p, x, CN.VGG_TINY)
+            sync()
+            n_fw = 10
+            t0 = time.perf_counter()
+            for _ in range(n_fw):
+                CN.convnet_apply(exec_p, x, CN.VGG_TINY)
+            sync()
+            fw_ms = (time.perf_counter() - t0) * 1e3 / n_fw
+            graph_ms = time_ms(lambda: CN.convnet_apply(exec_p, x,
+                                                        CN.VGG_TINY), 10,
+                               None)
+        print(f"[mapped VGG_TINY, {tag}] logits packed vs masked-dense on "
+              f"the dequantized weights (fp32, TF32 off): {gap:.2e} of "
+              f"max|logit| (bound {CONV_LOGIT_REL}); argmax agree "
+              f"{agree.item():.3f}; planted fault ({packed[-1]}'s last bin "
+              f"dropped): {fault:.3f}; forward {fw_ms:.3f} ms warm = "
+              f"{CONV_B / fw_ms * 1e3:.0f} images/s, device work by graph "
+              f"replay {graph_ms:.3f} ms")
+        if not (torch.isfinite(logits).all() and gap <= CONV_LOGIT_REL
+                and agree.item() == 1.0):
+            raise AssertionError(f"[mapped VGG_TINY, {tag}] packed logits "
+                                 f"disagree with the masked-dense ones")
+        if fault <= CONV_LOGIT_REL:
+            raise AssertionError(f"[mapped VGG_TINY, {tag}] the logit bound "
+                                 f"does not catch a dropped bin")
+        rows = []
+        for lname, kh, kw, stride, shape in layer_inputs(CN.VGG_TINY,
+                                                         CONV_HW, CONV_B):
+            lay = exec_p[lname].get("packed")
+            if lay is None:
+                continue
+            choice = RW.match(spec, f"{lname}/w")
+            wm = pm[lname]["w"]
+            conv = (ops.sparse_conv2d_pattern if isinstance(lay, TapLayout)
+                    else ops.sparse_conv2d)
+            xin = torch.randn(shape, generator=gen, device=DEV)
+            b = torch.randn(wm.shape[0], generator=gen, device=DEV) * 0.1
+            conv_check(mods, f"[mapped {tag}] {lname} {choice.scheme} "
+                       f"{tuple(choice.block)} {choice.value_dtype}", conv,
+                       [lay, unre_p[lname]["packed"]], xin, b, "relu", kh,
+                       kw, stride, max_err)
+            row = conv_timing(mods, f"vgg/{lname}/{choice.scheme}", lay,
+                              xin, b, wm, kh, kw, stride, conv, flush)
+            # the pick's block (none for a pattern pick) in the mapper's
+            # coordinates; the layout's GEMM block is lay.block
+            row.update(block=(None if choice.scheme == "pattern"
+                              else tuple(choice.block)),
+                       mapped_values=choice.value_dtype, kh=kh, kw=kw,
+                       Q=wm.shape[1], stride=stride, choice=choice)
+            rows.append(row)
+        print(f"[mapped VGG_TINY, {tag}] each packed layer's kernel vs "
+              f"plain at its block and precision (fp32, bias + relu, "
+              f"implicit == materialized, reordered == unreordered "
+              f"bitwise): max abs err " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in max_err.items() if v))
+        print_conv_timings(f"[mapped VGG_TINY, {tag}] timings (as the conv "
+                           f"phase's):", rows)
+        out[tag] = {"mapping": mreport, "unpruned": unpruned,
+                    "report": C.compiled_summary(report),
+                    "launches": launches, "logit_gap": gap,
+                    "argmax_agree": agree.item(), "fault_gap": fault,
+                    "forward_ms": fw_ms, "graph_ms": graph_ms,
+                    "images_per_s": CONV_B / fw_ms * 1e3, "rows": rows}
+        del exec_p, unre_p, broken, pm, masks
+    return out, launches_all, max_err
+
+
+def modelled_ms(LM, target, M, K, N, choice, compression, taps=0):
+    """``matmul_latency`` of one served layer under its pick, in ms, priced
+    as ``map_rules`` prices it (conv: the implicit path's x traffic; a
+    pattern pick at its executed-tap fraction)."""
+    vb = 1 if choice.value_dtype == "int8" else None
+    xf = LM.im2col_x_frac(taps) if taps > 1 else None
+    if choice.scheme == "pattern":
+        frac = LM.pattern_executed_frac(choice.connectivity)
+        return 1e3 * LM.matmul_latency(
+            M, K, N, scheme="pattern", compression=1 / frac, target=target,
+            value_bytes=vb, executed_frac=frac, x_frac=xf)
+    return 1e3 * LM.matmul_latency(
+        M, K, N, scheme=choice.scheme, block=tuple(choice.block),
+        compression=compression, target=target, value_bytes=vb, x_frac=xf)
+
+
+def latency_model_check(mods, args, lm_rows, rules, vgg):
+    """The latency model against the card: every served (layer, block,
+    values) modelled on V5E beside its measured kernel time (the LM at
+    decode and prefill, the convs at the served batch); then one target
+    calibrated to this run's rates (``torch.matmul``'s dense bf16 FLOP
+    rate at yi-9b's gate at M = B x S, kernel 1's live-byte rate over a
+    mapped layer at decode) and its picks beside V5E's, printed only."""
+    RW = mods["RW"]
+    from repro_torch.core import latency_model as LM
+    rows = []
+    for r in lm_rows["int8"]:
+        group = "attn" if r["proj"].startswith("w") else "ffn"
+        c = RW.match(rules, f"layers/{group}/{r['proj']}/w")
+        rows.append((f"yi-9b/{r['proj']} M={r['M']}", c,
+                     modelled_ms(LM, LM.V5E, r["M"], r["K"], r["N"], c,
+                                 MAP_COMPRESSION), r["ms"]))
+    for tag, v in vgg.items():
+        for r in v["rows"]:
+            rows.append((f"{r['layer']} ({tag})", r["choice"], modelled_ms(
+                LM, LM.V5E, r["M"], r["kh"] * r["kw"] * r["Q"], r["N"],
+                r["choice"], VGG_MAP_COMPRESSION, r["kh"] * r["kw"]),
+                r["implicit_ms"]))
+    print("[mapped] latency model (V5E) against the card: layer, scheme, "
+          "block, values, modelled ms, measured kernel ms, measured / "
+          "modelled")
+    out = []
+    for name, c, mod, meas in rows:
+        block = "-" if c.scheme == "pattern" else str(tuple(c.block))
+        print(f"  {name:42s} {c.scheme:13s} {block:11s} "
+              f"{str(c.value_dtype):5s} {mod:9.4f} {meas:9.4f} "
+              f"{meas / mod:7.2f}")
+        out.append({"layer": name, "scheme": c.scheme,
+                    "block": None if c.scheme == "pattern" else tuple(
+                        c.block), "values": c.value_dtype,
+                    "modelled_ms": mod, "measured_ms": meas,
+                    "ratio": meas / mod})
+    gate = next(r for r in lm_rows["float"]
+                if r["proj"] == "gate" and r["M"] == B * S)
+    flops = 2 * gate["M"] * gate["K"] * gate["N"] / (gate["library_ms"]
+                                                     / 1e3)
+    dec = [r for r in lm_rows["int8"] if r["M"] == 4]
+    bytes_rate = sum(r["bytes"] for r in dec) / (sum(r["ms"] for r in dec)
+                                                 / 1e3)
+    card = LM.calibrate(LM.V5E, measured_flops_per_s=flops,
+                        measured_bytes_per_s=bytes_rate)
+    print(f"[mapped] calibrate(V5E, measured_flops_per_s={flops:.4g} "
+          f"(torch.matmul, bf16, {gate['M']} x {gate['K']} x {gate['N']}), "
+          f"measured_bytes_per_s={bytes_rate:.4g} (kernel 1's live bytes "
+          f"over a mapped yi-9b layer at decode)); picks, V5E | "
+          f"calibrated:")
+    picks = {}
+    cfg = lm_config().replace(n_layers=args.layers)
+    for what, fn in [("yi-9b", lambda t: lm_mapping(mods, cfg, t)[1])] + [
+            (f"VGG_TINY dataset_hard={h}",
+             lambda t, h=h: vgg_mapping(mods, h, t)[1]) for h in (True,
+                                                                 False)]:
+        v5e, cal = fn(LM.V5E), fn(card)
+        picks[what] = {"v5e": v5e, "calibrated": cal}
+        for a, b in zip(v5e, cal):
+            print(f"  {what:26s} {a['path']:16s} {a['scheme']:13s} "
+                  f"{str(a['block']):11s} {str(a['value_dtype']):5s} | "
+                  f"{b['scheme']:13s} {str(b['block']):11s} "
+                  f"{b['value_dtype']}")
+    return {"rows": out, "flops_per_s": flops, "bytes_per_s": bytes_rate,
+            "picks": picks}
+
+
 # -- the SSM and hybrid families: kernel 1 on mamba2 and hymba ---------------
 
 SSM_ARCHS = ("mamba2-1.3b", "hymba-1.5b")
@@ -2132,12 +2598,12 @@ def ssm_kernel_phase(mods, flush):
     return rows, (checks, max_err, checks8, err8)
 
 
-def dropped_last_bin(params, name):
-    """``params`` with the ssm projection ``name``'s last degree bin
+def dropped_last_bin(params, name, group="ssm"):
+    """``params`` with the projection ``group``/``name``'s last degree bin
     zeroed in every layer."""
-    lay = params["layers"]["ssm"][name]["packed"]
+    lay = params["layers"][group][name]["packed"]
     values = lay.values[:-1] + (torch.zeros_like(lay.values[-1]),)
-    return with_layout(params, "ssm", name,
+    return with_layout(params, group, name,
                        dataclasses.replace(lay, values=values))
 
 
@@ -2398,6 +2864,33 @@ def ssm_entry(rows, launches, checks):
     return out
 
 
+def mapped_entry(rows, launches, checks, max_err, e2e):
+    """Kernel 1's ``mapped`` branch: the mapped yi-9b generate's launches,
+    the checks at the mapped blocks, and a layer's sums at decode and
+    prefill with int8 values (served) and float."""
+    return {"launches": launches["bsr_matmul"], "cases": checks,
+            "max_abs_err": max_err,
+            "blocks": sorted({str(r["block"]) for r in rows["int8"]}),
+            **{v: {"decode": layer_sum(rows[v], 4),
+                   "prefill": layer_sum(rows[v], B * S)} for v in rows},
+            "shapes": [{"layer": f"yi-9b/{r['proj']}", "block": r["block"],
+                        "values": v, "M": r["M"], "K": r["K"], "N": r["N"],
+                        "ms": r["ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "plain_ms": r["plain_ms"],
+                        "library_ms": r["library_ms"],
+                        "stream_ms": r["stream_ms"]}
+                       for v in rows for r in rows[v]],
+            "serve": {k: e2e[k] for k in ("prefill_ms", "decode_ms_per_token",
+                                          "tok_per_s", "logits_gap",
+                                          "fp32_logit_gap") if k in e2e},
+            "measured_at": f"yi-9b under map_rules' picks on V5E (tokens "
+                           f"{B * S}, compression {MAP_COMPRESSION:.2f}), "
+                           f"rate 0.6, 4 bins; a layer's projections "
+                           f"summed at decode M=4 and prefill M={B * S}, "
+                           f"bf16 x; library = torch.matmul on the bf16 "
+                           f"masked dense weight"}
+
+
 def int8_entry(launches, max_err, ms, plain_ms, bound_ms, bound_by,
                library_ms, **extra):
     """The ``int8`` branch of a kernel's JSON entry."""
@@ -2419,6 +2912,7 @@ def main(argv=None):
     sys.path.insert(0, str(ROOT / "src"))
     try:
         from repro_torch.core import bcs as BCS
+        from repro_torch.core import mapper_rule as MR
         from repro_torch.core import reweighted as RW
         from repro_torch.kernels import _build, ops, ref
         from repro_torch.kernels import bsr_matmul as K
@@ -2434,7 +2928,7 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     mods = dict(RW=RW, ops=ops, ref=ref, K=K, T=T, C=C, E=E, CN=CN,
-                BCS=BCS, MOE=MOE, L=L, SSM=SSM)
+                BCS=BCS, MOE=MOE, L=L, SSM=SSM, MR=MR)
     # the oracles (masked-dense matmul and F.conv2d) run in full fp32: a
     # float32 conv goes through cuDNN in TF32 unless told otherwise
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2481,6 +2975,20 @@ def main(argv=None):
     torch.cuda.empty_cache()
     stamp("VGG_TINY served")
     conv_e2e, conv_launches, conv_launches8 = conv_serve_phase(mods)
+    torch.cuda.empty_cache()
+    # the paper's scheme mapping: the rule mapper's own picks, served
+    stamp("mapped: yi-9b served under map_rules' picks")
+    map_e2e, map_launches, map_rules = mapped_lm_serve(mods, args)
+    torch.cuda.empty_cache()
+    stamp("mapped: kernel 1 at the mapped blocks")
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=DEV)
+    map_rows, map_checks, map_err = mapped_kernel1_phase(mods, flush,
+                                                         map_rules)
+    stamp("mapped: VGG_TINY served under map_rules' picks")
+    map_vgg, map_conv_launches, map_conv_err = vgg_mapped_serve(mods, flush)
+    del flush
+    map_model = latency_model_check(mods, args, map_rows, map_rules,
+                                    map_vgg)
     # the MoE path, after the yi-9b and VGG state is gone
     torch.cuda.empty_cache()
     stamp("kernel 1 over mixtral's experts")
@@ -2513,13 +3021,15 @@ def main(argv=None):
         # the yi-9b, mixtral, mamba2 and hymba generates, each counted
         # alone (the CNN path runs kernel 3 instead)
         "launches": (launches["bsr_matmul"] + moe_launches["bsr_matmul"]
-                     + sum(n["bsr_matmul"] for n in ssm_launches.values())),
+                     + sum(n["bsr_matmul"] for n in ssm_launches.values())
+                     + map_launches["bsr_matmul"]),
         "launches_by_path": {
             "yi-9b generate": launches["bsr_matmul"],
+            "yi-9b mapped generate": map_launches["bsr_matmul"],
             "mixtral-8x7b generate": moe_launches["bsr_matmul"],
             **{f"{a} generate": n["bsr_matmul"]
                for a, n in ssm_launches.items()}},
-        "max_abs_err": max(max_err, moe_err, ssm_checks[1]),
+        "max_abs_err": max(max_err, moe_err, ssm_checks[1], map_err),
         # one decode step's 7 projections of one layer (M = 4), summed
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
@@ -2568,8 +3078,25 @@ def main(argv=None):
         measured_at="as above with int8 values and a scale per block; "
                     "bound from the int8 bytes; library = torch.matmul / "
                     "torch.bmm on the bf16 masked dense weight")
+    entry["mapped"] = mapped_entry(map_rows, map_launches, map_checks,
+                                   map_err, map_e2e)
     entries = [entry] + conv_entries(conv_rows, conv_err, conv_launches,
                                      conv_rows8, conv_err8, conv_launches8)
+    for e in entries[1:]:
+        n = map_conv_launches.get(e["name"], 0)
+        e["launches"] += n
+        e["mapped"] = {
+            "launches": n, "max_abs_err": map_conv_err[e["name"]],
+            "shapes": [dict(conv_shape_row(r, "implicit"), block=r["block"],
+                            values=r["mapped_values"],
+                            mapping=tag) for tag, v in map_vgg.items()
+                       for r in v["rows"]
+                       if r["kernel_implicit"] == e["name"]
+                       or r["kernel_materialized"] == e["name"]],
+            "measured_at": "VGG_TINY under map_rules' picks on V5E "
+                           "(dataset_hard True and False), B=256 32x32, "
+                           "fp32, bias + relu; launches of one forward of "
+                           "each mapping"}
     next(e for e in entries if e["name"] == "tap_gather_conv_implicit")[
         "int8"]["planted_faults"] = conv_faults8
     out_dir = ROOT / "build"
@@ -2584,8 +3111,10 @@ def main(argv=None):
          "int8_conv_shapes": conv_rows8, "moe_serve": moe_e2e,
          "conv_shapes": conv_rows, "floor_shapes": floor_rows,
          "serve": e2e, "conv_serve": conv_e2e, "ssm_shapes": ssm_rows,
-         "ssm_serve": ssm_e2e, "phase_start_s": phase_s},
-        indent=1))
+         "ssm_serve": ssm_e2e, "mapped_serve": map_e2e,
+         "mapped_shapes": map_rows, "mapped_vgg": map_vgg,
+         "latency_model": map_model, "phase_start_s": phase_s},
+        indent=1, default=str))
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

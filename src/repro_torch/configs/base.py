@@ -48,8 +48,12 @@ class ArchConfig:
 # canonical external ids -> module names
 ALIASES = {
     "yi-9b": "yi_9b",
-    "mixtral-8x7b": "mixtral_8x7b",
+    "granite-8b": "granite_8b",
+    "minitron-8b": "minitron_8b",
+    "phi3-medium-14b": "phi3_medium_14b",
     "mamba2-1.3b": "mamba2_1p3b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "hymba-1.5b": "hymba_1p5b",
 }
 

@@ -1,0 +1,12 @@
+"""Granite-8B (code) — llama-arch dense GQA [arXiv:2405.04324; hf]."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-8b", family="dense",
+    n_layers=36, d_model=4096, n_heads=32, n_kv_heads=8,
+    d_ff=14336, vocab=49152, head_dim=128,
+    rope_theta=10000.0,
+)
+
+SMOKE = CONFIG.replace(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                       d_ff=128, vocab=256, head_dim=16)

@@ -22,12 +22,13 @@ from repro_torch.core.packed import PackedLayout, TapLayout
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
-    """One numpy array (or scalar) -> tensor, bf16 bits preserved."""
-    a = np.asarray(a)
+    """One numpy array (or scalar) -> tensor of the same shape (a 0-d
+    array stays 0-d: the mask trees' sentinels), bf16 bits preserved."""
+    a = np.array(a, order="C")
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
-        return t.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
 
 
 def layout_from_numpy(d, device):

@@ -147,7 +147,8 @@ def pattern_lower(w, mask, *, group=1, n_bins=4, reorder=True, n_shards=0):
     the host (it sets the padded shapes)."""
     if n_shards:
         raise NotImplementedError("pattern_lower(n_shards > 0): "
-                                  "tensor-parallel layouts come with slice 7")
+                                  "tensor-parallel layouts are not ported "
+                                  "yet")
     if w.ndim != 4:
         raise ValueError(f"pattern_lower needs a (P, Q, Kh, Kw) conv "
                          f"weight, got {tuple(w.shape)}")

@@ -328,8 +328,7 @@ class TapLayout:
     def __post_init__(self):
         if self.n_shards:
             raise NotImplementedError(
-                "TapLayout: tensor-parallel shards are not ported yet "
-                "(slice 7)")
+                "TapLayout: tensor-parallel shards are not ported yet")
 
     # -- static geometry ------------------------------------------------------
 

@@ -1,6 +1,10 @@
-"""Scheme choices and the one-shot masks the serving paths use: whole
-blocks of FC weights (paper §4.2's structured collapse), block-punched
-conv kernels (§4.1.2) and pattern/connectivity conv masks (§2.1.1).
+"""Scheme choices and the masks they give: whole blocks of FC weights
+(paper §4.2's structured collapse, magnitude or random), block-punched
+conv kernels (§4.1.2), pattern/connectivity conv masks (§2.1.1), every
+scheme of ``core.regularity`` through ``masks_for_spec`` (at a rate, or at
+one global threshold over the reweighted penalty's groups, §4.2), and
+the per-layer sparsity report.  The reweighted penalty itself
+(``init_alphas``, ``update_alphas``, ``penalty``) comes with training.
 
 A prune spec is an ordered list of (path-regex, SchemeChoice); the first
 match wins and non-matching leaves are never pruned.  Mask trees mirror the
@@ -11,6 +15,7 @@ elsewhere (so ``train.trainer.apply_masks`` is a plain tree map).
 from __future__ import annotations
 
 import re
+import zlib
 from dataclasses import dataclass
 
 import torch
@@ -40,6 +45,69 @@ def match(spec, path: str) -> SchemeChoice | None:
 
 def _sentinel(leaf):
     return torch.ones((), dtype=torch.float32, device=leaf.device)
+
+
+def _leaves(tree, path=""):
+    """(path_str, leaf) of every non-dict leaf of a nested dict, in the
+    tree's own order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}" if path else str(k))
+    else:
+        yield path, tree
+
+
+def _iter_prunable(params, spec):
+    """(path, leaf, choice) of every leaf the reweighted penalty groups:
+    matched by a rule whose scheme is neither "none" nor "pattern"
+    (pattern is assigned one-shot), at least 2-D."""
+    for s, leaf in _leaves(params):
+        choice = match(spec, s)
+        if choice is not None and choice.scheme not in ("none", "pattern") \
+                and leaf.ndim >= 2:
+            yield s, leaf, choice
+
+
+def group_sqnorms(w, choice: SchemeChoice) -> dict:
+    """{group_kind: sqnorm tensor} of the penalty groups of ``w`` (fp32)."""
+    sq = torch.square(w.float())
+    sch = choice.scheme
+    if sch == "unstructured":
+        return {"w": sq}
+    if sch == "structured_row":
+        return {"row": sq.sum(dim=-1)}
+    if sch == "structured_col":
+        return {"col": sq.sum(dim=-2)}
+    if sch in ("block", "block_row", "block_col"):
+        bp, bq = choice.block
+        wb = R._to_blocks(sq, bp, bq)             # (..., Pb, Qb, bp, bq)
+        out = {}
+        if sch in ("block", "block_row"):
+            out["row"] = wb.sum(dim=-1)           # (..., Pb, Qb, bp)
+        if sch in ("block", "block_col"):
+            out["col"] = wb.sum(dim=-2)           # (..., Pb, Qb, bq)
+        return out
+    if sch == "block_punched":
+        bp, bq = choice.block
+        P, Q, Kh, Kw = w.shape
+        return {"punch": sq.reshape(P // bp, bp, Q // bq, bq, Kh, Kw).sum(
+            dim=(1, 3))}
+    raise ValueError(sch)
+
+
+def global_threshold(params, spec, target_rate: float) -> float:
+    """One threshold tau over ALL group norms such that ~target_rate of
+    groups fall below it.  Each leaf's group sqnorms are divided by their
+    mean first (scale invariance: layers at different init scales compete
+    on relative group importance); ``masks_for_spec(threshold=tau)``
+    scales tau back by each leaf's mean."""
+    rel = []
+    for _, leaf, choice in _iter_prunable(params, spec):
+        for sq in group_sqnorms(leaf, choice).values():
+            rel.append((sq / (torch.mean(sq) + 1e-30)).reshape(-1).cpu())
+    if not rel:
+        return 0.0
+    return float(R.quantile(torch.cat(rel), target_rate))
 
 
 def block_masks_from(params, spec, block, keep_fn):
@@ -83,17 +151,31 @@ def magnitude_block_masks(params, spec, block=(16, 16), rate=0.5):
     return block_masks_from(params, spec, block, keep_fn)
 
 
+def random_block_masks(params, spec, block=(16, 16), keep_prob=0.5, seed=0):
+    """Bernoulli whole-block masks on spec-matched leaves, scalar sentinels
+    elsewhere: each leaf's blocks are drawn from a ``torch.Generator``
+    seeded with crc32(path) + seed (not ``hash()``), so the outcome is
+    stable across calls and processes.  The draws are torch's, not the
+    reference's PRNG."""
+
+    def keep_fn(s, leaf, grid):
+        g = torch.Generator(device=leaf.device)
+        g.manual_seed((zlib.crc32(s.encode()) + seed) % (2 ** 31))
+        return torch.rand(grid, generator=g, device=leaf.device) < keep_prob
+
+    return block_masks_from(params, spec, block, keep_fn)
+
+
 def masks_for_spec(params, spec, threshold=None, default_rate=None):
     """Full-structure mask tree: float32 {0, 1} masks for prunable leaves,
     scalar sentinels elsewhere.  A ``pattern`` choice gives 3x3 conv
     kernels ``pattern_mask`` (with the choice's connectivity), other 4-D
     kernels ``connectivity_mask`` when ``connectivity > 0``, and leaves
-    the rest unpruned; other schemes go through ``regularity.make_mask``
-    at ``choice.rate`` (else ``default_rate``)."""
-    if threshold is not None:
-        raise NotImplementedError(
-            "masks_for_spec(threshold=...) (group_sqnorms / "
-            "global_threshold) comes with port slice 6")
+    the rest unpruned; other schemes go through ``regularity.make_mask``:
+    with ``threshold`` (``global_threshold``'s, on mean-normalised group
+    sqnorms) at that threshold times the leaf's mean group sqnorm (its
+    first group kind's), else at ``choice.rate`` (else
+    ``default_rate``)."""
 
     def build(s, leaf):
         choice = match(spec, s)
@@ -105,6 +187,11 @@ def masks_for_spec(params, spec, threshold=None, default_rate=None):
             if leaf.ndim == 4 and choice.connectivity > 0:
                 return R.connectivity_mask(leaf, rate=choice.connectivity)
             return _sentinel(leaf)
+        if threshold is not None:
+            sq1 = next(iter(group_sqnorms(leaf, choice).values()))
+            mean_sq = float(torch.mean(sq1))
+            return R.make_mask(leaf, choice.scheme, choice.block,
+                               threshold=threshold * (mean_sq + 1e-30))
         rate = choice.rate if choice.rate is not None else default_rate
         return R.make_mask(leaf, choice.scheme, choice.block, rate=rate,
                            connectivity_rate=choice.connectivity)
@@ -129,3 +216,26 @@ def punched_conv_masks(params, spec, block=(8, 8), rate=0.5):
         return R.block_punched_mask(leaf, (bp, bq), rate=rate)
 
     return M.tree_map_with_path(build, params)
+
+
+def sparsity_report(params, masks) -> dict:
+    """Per-layer + overall density/compression: a row per masked leaf
+    (the mask at the leaf's path), sentinel leaves counted dense in
+    ``__overall__``."""
+    rep, tot_w, tot_kept = {}, 0, 0.0
+    for s, p in _leaves(params):
+        m = masks
+        for k in s.split("/"):
+            m = m[k]
+        if m.ndim == 0:     # sentinel
+            tot_w += p.numel()
+            tot_kept += p.numel()
+            continue
+        kept = float(torch.sum(m.float()))
+        rep[s] = {"density": kept / m.numel(),
+                  "compression": m.numel() / max(kept, 1.0)}
+        tot_w += p.numel()
+        tot_kept += kept
+    rep["__overall__"] = {"density": tot_kept / tot_w,
+                          "compression": tot_w / max(tot_kept, 1.0)}
+    return rep

@@ -76,7 +76,7 @@ _QUANT = {None: 0, "block": 1, "out": 2}
 # with the stream pointer
 _ENTRIES = {
     "bsr_matmul_launch": ("bsr_matmul", 7, 13),
-    "bsr_conv_launch": ("bsr_matmul", 8, 7),
+    "bsr_conv_launch": ("bsr_matmul", 8, 8),
     "tap_conv_launch": ("tap_gather", 6, 5),
 }
 _fns: dict = {}
@@ -142,7 +142,23 @@ SMEM_MAX = 232448          # bytes of shared memory a block may use (H100)
 SMEM_SOFT = 113 * 1024     # a tile this small leaves room for two blocks
 SMS = 132                  # streaming multiprocessors of an H100 SXM
 TAP_SLOT_BYTES = CONV_WARPS * 32 * 8   # kernel 4's per-warp slot buffers
-BCS_STAGES = 4             # kernel 3's value blocks in flight per warp
+BCS_STAGES = 4             # kernel 3's value pieces in flight per warp
+BCS_PIECE = 512            # kernel 3: most values of one staged piece
+BCS_REG_COLS = 16          # kernel 3: most block columns a lane holds
+
+
+def conv_piece(bk, bn):
+    """(sb, kp) of kernel 3 for (bk, bn) blocks: a lane holds ``sb`` =
+    min(bn, 16) columns (a wider block column is walked as bn / sb
+    subcolumns, each its own work item), and a warp stages the values of
+    one slot ``kp`` rows at a time: the block's bk rows halved while a
+    (kp, sb) piece holds more than ``BCS_PIECE`` values (and kp stays a
+    multiple of 4)."""
+    sb = min(bn, BCS_REG_COLS)
+    kp = bk
+    while kp * sb > BCS_PIECE and kp % 8 == 0:
+        kp //= 2
+    return sb, kp
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -246,10 +262,11 @@ def conv_plan(kind, x_shape, kh, kw, stride, padding, n_cols, N, bn=1,
               bk=1):
     """The tile, grid and shared-memory bytes of one conv-kernel launch.
 
-    kind "bcs" (kernel 3; ``n_cols`` block columns of (bk, bn) blocks) or
-    "tap" (kernel 4; ``n_cols`` = N filter columns); x_shape (B, H, W, C)
-    the unpadded NHWC input; N the output width.  Warps go to columns
-    first (up to 8), the rest to positions.  The tile spans the output
+    kind "bcs" (kernel 3; ``n_cols`` block columns of (bk, bn) blocks,
+    walked as ``conv_piece``'s subcolumns: the plan's ``n_cols`` counts
+    those) or "tap" (kernel 4; ``n_cols`` = N filter columns); x_shape
+    (B, H, W, C) the unpadded NHWC input; N the output width.  Warps go to
+    columns first (up to 8), the rest to positions.  The tile spans the output
     width (halved while it does not fit) and as many rows as wastes the
     fewest lane positions over the launch (overhanging tiles and idle
     lanes alike; ties to the taller), within two blocks an SM
@@ -263,11 +280,14 @@ def conv_plan(kind, x_shape, kh, kw, stride, padding, n_cols, N, bn=1,
     (ph0, _), (pw0, _), Ho, Wo = conv_geometry(H, W, kh, kw, stride,
                                               padding)
     s = stride
+    if kind == "bcs":
+        sb, kp = conv_piece(bk, bn)
+        n_cols *= bn // sb
     wc = 1
     while wc * 2 <= min(CONV_WARPS, n_cols):
         wc *= 2
     warps_pos = CONV_WARPS // wc
-    r_max = 8 if kind == "tap" else (4 if bn <= 8 else 2)
+    r_max = 8 if kind == "tap" else (4 if sb <= 8 else 2)
     cap = 32 * warps_pos * r_max
 
     def geom(tr, tw):
@@ -298,7 +318,7 @@ def conv_plan(kind, x_shape, kh, kw, stride, padding, n_cols, N, bn=1,
         if kind == "tap":
             smem += TAP_SLOT_BYTES
         else:
-            smem += 4 * CONV_WARPS * BCS_STAGES * bk * bn
+            smem += 4 * CONV_WARPS * BCS_STAGES * kp * sb
         return (rows_in, cols_in, nph, pitch, chan_ld, cg_log2, out_ld,
                 x_floats, smem)
 
@@ -852,7 +872,6 @@ def _check_conv_input(name, x, layout, bias, act):
                          f"({layout.shape[1]},), got {tuple(bias.shape)}")
 
 
-_CONV_BN = (4, 8, 16)
 
 
 def _bsr_soffs(layout, plan, kh, kw, C):
@@ -880,10 +899,10 @@ def _bsr_conv(x, layout, plan, taps_of, bias, act, key):
     (B, H, W, C) image ``plan`` tiles, ``taps_of`` = (kh, kw, C) of the tap
     table its K-blocks read; returns (B*Ho*Wo, N)."""
     bk, bn = layout.block
-    if bk % 4 or bn not in _CONV_BN:
+    if bk % 4 or bn not in (4, 8) and bn % BCS_REG_COLS:
         raise ValueError(f"{key}: block ({bk}, {bn}) not supported by the "
-                         f"conv kernel (bk a multiple of 4, bn in "
-                         f"{_CONV_BN})")
+                         f"conv kernel (bk a multiple of 4, bn 4, 8 or a "
+                         f"multiple of {BCS_REG_COLS})")
     if sum(layout.bin_sizes) * bn != layout.shape[1]:
         raise ValueError(f"{key}: the bins cover {sum(layout.bin_sizes)} "
                          f"of {layout.shape[1] // bn} block columns")
@@ -901,7 +920,7 @@ def _bsr_conv(x, layout, plan, taps_of, bias, act, key):
         meta.data_ptr(), None if bias is None else bias.data_ptr(),
         out.data_ptr(), ctypes.addressof(plan.c_args), out.stride(0),
         _ACTS[act], _DTYPES[x.dtype], _QUANT[layout.scale_granularity], bk,
-        bn, plan.smem_bytes, _stream(x))
+        bn, conv_piece(bk, bn)[1], plan.smem_bytes, _stream(x))
     _raise_on(err, key, f"x {tuple(x.shape)}, block ({bk}, {bn}), tile "
                         f"{plan.tr}x{plan.tw}, R={plan.R}, smem "
                         f"{plan.smem_bytes}, dtype={x.dtype}, values "

@@ -119,17 +119,22 @@
 //     pitch of 4 mod 8 floats so 8 lanes' float4 reads hit 8 bank quads;
 //     stride-s columns split into s phases so neighbouring outputs are
 //     neighbouring pixels), and walks every block column against it;
-//   * a lane owns R positions x the bn columns of a block column in
-//     registers: per slot it reads R x bk inputs (float4) and the (bk, bn)
-//     value block once, and does R * bk * bn FMAs (256 at R = 4, (8, 8));
-//   * each warp streams its column's value blocks through its own ring of
-//     kStages blocks (cp.async, kStages - 1 ahead), and reads the slots'
-//     window offsets from a per-geometry table (no k_idx -> tap -> offset
-//     chain of dependent loads);
-//   * results go from registers straight to the output row: a lane's bn
-//     columns of a position are one contiguous 32-byte run (fp32).
-// The tile, the lanes' R and the shared-memory bytes come from conv_plan
-// in repro_torch/kernels/bsr_matmul.py.
+//   * a lane owns R positions x the BN = min(bn, 16) columns of a block
+//     column in registers (a wider block column is walked as bn / 16
+//     subcolumns, each a work item of its own): per slot it reads R x bk
+//     inputs (float4) and the (bk, BN) values once, and does R * bk * BN
+//     FMAs (256 at R = 4, (8, 8));
+//   * each warp streams its work item's values through its own ring of
+//     kStages pieces (cp.async, kStages - 1 ahead): a piece is kp rows of
+//     the slot's (bk, BN) values, the whole of them unless that passes 512
+//     values (so (64, 32) and (128, 128) blocks fit the ring), and reads
+//     the slots' window offsets from a per-geometry table (no k_idx -> tap
+//     -> offset chain of dependent loads);
+//   * results go from registers straight to the output row: a lane's BN
+//     columns of a position are one contiguous run (32 bytes or more in
+//     fp32).
+// The tile, the lanes' R, the piece (conv_piece) and the shared-memory
+// bytes come from conv_plan in repro_torch/kernels/bsr_matmul.py.
 //
 // int8 values (the dequant branch of `_conv_kernel`, bsr_matmul.py:465-466)
 // stream as bytes through the same rings, with a scale a slot beside the
@@ -137,7 +142,8 @@
 // s, then the same FMAs.
 //
 // Numerics: each output is one fp32 FMA chain over its column's reduction
-// rows q = l*bk + kk in increasing q, from 0, whatever the tile or R;
+// rows q = l*bk + kk in increasing q, from 0, whatever the tile, R, piece
+// or subcolumn;
 // padding slots hold zero values and add exact zeros.  The implicit and
 // the materialized conv are this one kernel over the same slots, so they
 // agree bitwise, as do reordered and unreordered layouts.  Bias and
@@ -145,9 +151,10 @@
 //
 // ptxas -v (CUDA 12.8, -O3, sm_90a): fp32 with (8, 8) blocks 112
 // registers at R = 4, 95 at R = 2, 99 at R = 1 (64-112 over every
-// instantiation, bf16 included), no spills, under __launch_bounds__(256,
-// 2); dynamic shared memory per conv_plan, 42-91 KB at VGG_TINY's punched
-// layers (two blocks an SM).
+// whole-block instantiation, bf16 included), no spills, under
+// __launch_bounds__(256, 2); chip_smoke.py prints every instantiation's
+// count at build time.  Dynamic shared memory per conv_plan, 42-91 KB at
+// VGG_TINY's punched (8, 8) layers (two blocks an SM).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (see repro_torch/kernels/_build.py); bound with ctypes.
@@ -779,35 +786,46 @@ __device__ __forceinline__ void stage_pixels(float* xs,
   if constexpr (sizeof(T) == 4) cp_async_wait_all();
 }
 
-constexpr int kStages = 4;               // value blocks in flight per warp
+constexpr int kStages = 4;               // value pieces in flight per warp
 
-// Block (tile): stage the window, then every warp walks its block columns
-// j = wc, wc + 8 / warps_pos, ...  A column's (bk, BN) value blocks stream
-// through the warp's own ring of kStages blocks in shared memory
-// (cp.async, kStages - 1 ahead); its slots' window offsets come 32 at a
-// time from the per-geometry table, one register a lane, broadcast by a
-// shuffle.  Per slot a lane reads R x bk staged inputs (float4) and the
-// value block (broadcast float4 reads) and does R * bk * BN FMAs into its
-// R x BN register tile.  V = float, or int8_t for a quantized layout: the
-// blocks stream as int8 (a quarter of the ring's room), the slots' scales
-// come with their offsets (scl, one per slot), and each value is
-// dequantized at its read, w = (float)q * s, the reference's order.
-template <typename T, typename V, int BN, int R>
+// Block (tile): stage the window, then every warp walks its work items
+// w = wc, wc + 8 / warps_pos, ... of n_cols, item w being subcolumn
+// w % (bn / BN) of block column w / (bn / BN).  An item's values stream
+// slot by slot, kp rows at a time, through the warp's own ring of kStages
+// (kp, BN) pieces in shared memory (cp.async, kStages - 1 ahead); its
+// slots' window offsets come 32 at a time from the per-geometry table, one
+// register a lane, broadcast by a shuffle.  Per piece a lane reads R x kp
+// staged inputs (float4) and the piece (broadcast float4 reads) and does
+// R * kp * BN FMAs into its R x BN register tile.  V = float, or int8_t
+// for a quantized layout: the pieces stream as int8 (a quarter of the
+// ring's room), the slots' scales come with their offsets (scl, one per
+// slot), and each value is dequantized at its read, w = (float)q * s, the
+// reference's order.  kSplit false (a block of BN columns staged whole:
+// bn == BN, kp == bk) compiles the piece and subcolumn bookkeeping away.
+template <typename T, typename V, int BN, int R, bool kSplit>
 __global__ void __launch_bounds__(kConvThreads, 2)
 bsr_conv_kernel(const T* __restrict__ x, const V* __restrict__ vals,
                 const float* __restrict__ scl,
                 const int* __restrict__ soffs, const int4* __restrict__ meta,
                 const T* __restrict__ bias, T* __restrict__ out, int ldo,
-                int bk, int act, ConvTile g) {
+                int bk, int bn, int kp, int act, ConvTile g) {
   constexpr bool kQ = sizeof(V) == 1;
-  constexpr int kVec = 16 / sizeof(V);   // values of a 16-byte piece
+  constexpr int kVec = 16 / sizeof(V);   // values of a 16-byte copy
+  // 16-byte copies a piece row holds when rows are strided (bn > BN,
+  // which makes BN = 16)
+  constexpr int kRowVec = BN >= kVec ? BN / kVec : 1;
   extern __shared__ float4 smem4[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int blk = bk * BN;               // values of one block
+  const int blk = bk * (kSplit ? bn : BN);  // values of a stored block
+  const int rows = kSplit ? kp : bk;     // rows of a staged piece
+  const int piece = rows * BN;           // values of a staged piece
+  const int npc = kSplit ? bk / kp : 1;  // pieces of a slot
+  const int subs = kSplit ? bn / BN : 1;  // subcolumns of a block column
   // the rings keep a float's room a value, whatever V
   V* ring = reinterpret_cast<V*>(reinterpret_cast<float*>(smem4) +
-                                 warp * kStages * blk);
-  float* xs = reinterpret_cast<float*>(smem4) + kConvWarps * kStages * blk;
+                                 warp * kStages * piece);
+  float* xs =
+      reinterpret_cast<float*>(smem4) + kConvWarps * kStages * piece;
   int t = blockIdx.x;
   const int tx = t % g.tiles_w;
   t /= g.tiles_w;
@@ -835,18 +853,36 @@ bsr_conv_kernel(const T* __restrict__ x, const V* __restrict__ vals,
   }
   __syncthreads();
 
-  const int nvec = blk / kVec;           // 16-byte pieces of a block
-  for (int j = wc; j < g.n_cols; j += warps_col) {
+  const int nvec = piece / kVec;         // 16-byte copies of a piece
+  for (int w = wc; w < g.n_cols; w += warps_col) {
+    const int j = w / subs, sub = w - j * subs;
     const int4 mt = __ldg(meta + j);     // first slot, slots, column
-    const V* vj = vals + (size_t)mt.x * blk;
+    const V* vj = vals + (size_t)mt.x * blk + sub * BN;
     const int* sj = soffs + mt.x;
+    const int units = mt.y * npc;        // pieces of the item, in order
+    // piece u: rows (u % npc) * rows ... of slot u / npc's block (u
+    // itself unless kSplit), contiguous when the block is BN wide, else
+    // rows of BN values bn apart; loads run kStages - 1 pieces ahead of
+    // the FMAs
+    auto load = [&](int u) {
+      const int ql = u / npc;
+      const V* src =
+          vj + (size_t)ql * blk + (size_t)(u - ql * npc) * rows * bn;
+      V* dst = ring + (u % kStages) * piece;
+      if (!kSplit || bn == BN) {
+        for (int v = lane; v < nvec; v += 32)
+          cp_async16(dst + kVec * v, src + kVec * v, true);
+      } else {
+        for (int v = lane; v < nvec; v += 32) {
+          const int r = v / kRowVec, c = v - r * kRowVec;
+          cp_async16(dst + r * BN + kVec * c, src + (size_t)r * bn + kVec * c,
+                     true);
+        }
+      }
+    };
 #pragma unroll
     for (int q = 0; q < kStages - 1; ++q) {
-      if (q < mt.y) {
-        V* dst = ring + q * blk;
-        for (int v = lane; v < nvec; v += 32)
-          cp_async16(dst + kVec * v, vj + (size_t)q * blk + kVec * v, true);
-      }
+      if (q < units) load(q);
       cp_async_commit();
     }
     int soff_cur = lane < mt.y ? __ldg(sj + lane) : 0;
@@ -861,8 +897,9 @@ bsr_conv_kernel(const T* __restrict__ x, const V* __restrict__ vals,
     for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int c = 0; c < BN; ++c) acc[i][c] = 0.f;
-    for (int l = 0; l < mt.y; ++l) {
-      if ((l & 31) == 0 && l > 0) {
+    for (int u = 0; u < units; ++u) {
+      const int l = u / npc, pc = u - l * npc;
+      if (pc == 0 && (l & 31) == 0 && l > 0) {
         soff_cur = soff_nxt;
         soff_nxt = l + 32 + lane < mt.y ? __ldg(sj + l + 32 + lane) : 0;
         if constexpr (kQ) {
@@ -871,20 +908,17 @@ bsr_conv_kernel(const T* __restrict__ x, const V* __restrict__ vals,
                                         : 0.f;
         }
       }
-      const int q = l + kStages - 1;     // refill the stage freed at l - 1
-      if (q < mt.y) {
-        V* dst = ring + (q % kStages) * blk;
-        for (int v = lane; v < nvec; v += 32)
-          cp_async16(dst + kVec * v, vj + (size_t)q * blk + kVec * v, true);
-      }
+      const int q = u + kStages - 1;     // refill the stage freed at u - 1
+      if (q < units) load(q);
       cp_async_commit();
-      cp_async_wait<kStages - 1>();      // slot l's block has landed
+      cp_async_wait<kStages - 1>();      // piece u has landed
       __syncwarp();
-      const int soff = __shfl_sync(0xffffffffu, soff_cur, l & 31);
+      const int soff = __shfl_sync(0xffffffffu, soff_cur, l & 31) +
+                       pc * rows;
       float sc = 1.f;
       if constexpr (kQ) sc = __shfl_sync(0xffffffffu, sc_cur, l & 31);
-      const V* wl = ring + (l % kStages) * blk;
-      for (int k0 = 0; k0 < bk; k0 += 4) {
+      const V* wl = ring + (u % kStages) * piece;
+      for (int k0 = 0; k0 < rows; k0 += 4) {
         float4 xv[R];
 #pragma unroll
         for (int i = 0; i < R; ++i)
@@ -925,7 +959,7 @@ bsr_conv_kernel(const T* __restrict__ x, const V* __restrict__ vals,
     }
     // epilogue from registers: a lane's BN columns of a position are one
     // contiguous run of the output row (a whole 32-byte sector in fp32)
-    const int oc0 = mt.z * BN;
+    const int oc0 = mt.z * bn + sub * BN;
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       if (orow[i] < 0) continue;
@@ -957,65 +991,87 @@ bsr_conv_kernel(const T* __restrict__ x, const V* __restrict__ vals,
   }
 }
 
-template <typename T, typename V, int BN, int R>
+template <typename T, typename V, int BN, int R, bool kSplit>
 cudaError_t launch_conv_r(const void* x, const void* vals, const float* scl,
                           const int* soffs, const int4* meta,
                           const void* bias, void* out, int ldo, int bk,
-                          int act, const ConvTile& g, int smem,
-                          cudaStream_t stream) {
+                          int bn, int kp, int act, const ConvTile& g,
+                          int smem, cudaStream_t stream) {
   static bool attr_set = false;          // once per instantiation
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        bsr_conv_kernel<T, V, BN, R>,
+        bsr_conv_kernel<T, V, BN, R, kSplit>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   const int grid = g.B * g.tiles_h * g.tiles_w;
-  bsr_conv_kernel<T, V, BN, R><<<grid, kConvThreads, smem, stream>>>(
+  bsr_conv_kernel<T, V, BN, R, kSplit>
+      <<<grid, kConvThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const V*>(vals), scl, soffs,
-      meta, static_cast<const T*>(bias), static_cast<T*>(out), ldo, bk, act,
-      g);
+      meta, static_cast<const T*>(bias), static_cast<T*>(out), ldo, bk, bn,
+      kp, act, g);
   return cudaGetLastError();
 }
 
-template <typename T, typename V, int BN>
-cudaError_t launch_conv_bn(const void* x, const void* vals, const float* scl,
-                           const int* soffs, const int4* meta,
-                           const void* bias, void* out, int ldo, int bk,
-                           int act, const ConvTile& g, int smem,
-                           cudaStream_t stream) {
+template <typename T, typename V, int BN, bool kSplit>
+cudaError_t launch_conv_split(const void* x, const void* vals,
+                              const float* scl, const int* soffs,
+                              const int4* meta, const void* bias, void* out,
+                              int ldo, int bk, int bn, int kp, int act,
+                              const ConvTile& g, int smem,
+                              cudaStream_t stream) {
   switch (g.R) {
     case 1:
-      return launch_conv_r<T, V, BN, 1>(x, vals, scl, soffs, meta, bias, out,
-                                        ldo, bk, act, g, smem, stream);
+      return launch_conv_r<T, V, BN, 1, kSplit>(x, vals, scl, soffs, meta,
+                                                bias, out, ldo, bk, bn, kp,
+                                                act, g, smem, stream);
     case 2:
-      return launch_conv_r<T, V, BN, 2>(x, vals, scl, soffs, meta, bias, out,
-                                        ldo, bk, act, g, smem, stream);
+      return launch_conv_r<T, V, BN, 2, kSplit>(x, vals, scl, soffs, meta,
+                                                bias, out, ldo, bk, bn, kp,
+                                                act, g, smem, stream);
     case 4:
       if constexpr (BN <= 8)
-        return launch_conv_r<T, V, BN, 4>(x, vals, scl, soffs, meta, bias,
-                                          out, ldo, bk, act, g, smem, stream);
+        return launch_conv_r<T, V, BN, 4, kSplit>(x, vals, scl, soffs, meta,
+                                                  bias, out, ldo, bk, bn, kp,
+                                                  act, g, smem, stream);
       [[fallthrough]];
     default:
       return cudaErrorInvalidConfiguration;
   }
 }
 
+template <typename T, typename V, int BN>
+cudaError_t launch_conv_bn(const void* x, const void* vals, const float* scl,
+                           const int* soffs, const int4* meta,
+                           const void* bias, void* out, int ldo, int bk,
+                           int bn, int kp, int act, const ConvTile& g,
+                           int smem, cudaStream_t stream) {
+  if (bn == BN && kp == bk)
+    return launch_conv_split<T, V, BN, false>(x, vals, scl, soffs, meta,
+                                              bias, out, ldo, bk, bn, kp,
+                                              act, g, smem, stream);
+  return launch_conv_split<T, V, BN, true>(x, vals, scl, soffs, meta, bias,
+                                           out, ldo, bk, bn, kp, act, g,
+                                           smem, stream);
+}
+
+// BN, the columns a lane holds: bn itself for bn in {4, 8, 16}, else 16
+// (bn / 16 subcolumns of a block column).
 template <typename T, typename V>
 cudaError_t launch_conv(const void* x, const void* vals, const float* scl,
                         const int* soffs, const int4* meta, const void* bias,
-                        void* out, int ldo, int bk, int bn, int act,
+                        void* out, int ldo, int bk, int bn, int kp, int act,
                         const ConvTile& g, int smem, cudaStream_t stream) {
   if (bn == 4)
     return launch_conv_bn<T, V, 4>(x, vals, scl, soffs, meta, bias, out, ldo,
-                                   bk, act, g, smem, stream);
+                                   bk, bn, kp, act, g, smem, stream);
   if (bn == 8)
     return launch_conv_bn<T, V, 8>(x, vals, scl, soffs, meta, bias, out, ldo,
-                                   bk, act, g, smem, stream);
-  if (bn == 16)
+                                   bk, bn, kp, act, g, smem, stream);
+  if (bn % 16 == 0)
     return launch_conv_bn<T, V, 16>(x, vals, scl, soffs, meta, bias, out,
-                                    ldo, bk, act, g, smem, stream);
+                                    ldo, bk, bn, kp, act, g, smem, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1083,26 +1139,31 @@ extern "C" int bsr_matmul_launch(const void* x, const void* bias, void* out,
 // scales (a column's "out" scale repeated over its slots; else None) --
 // soffs their (slots,) int32
 // offsets in the staged window (K-block kb's tap (dy, dx, c0) under geom),
-// meta (n_cols, 4) int32 (first slot, slots, original block column, 0) per
-// layout column, bias None or (N,) in original order, out (B*Ho*Wo, N)
+// meta (columns, 4) int32 (first slot, slots, original block column, 0)
+// per layout column, bias None or (N,) in original order, out (B*Ho*Wo, N)
 // rows in (b, ho, wo) order with row stride ldo.  geom: the ConvTile ints
-// (host memory).  bk % 4 == 0, bk | C, bn in {4, 8, 16}; smem includes
-// the 8 warps' rings of kStages value blocks (a float's room a value).
+// (host memory), its n_cols the work items (block columns times bn / BN
+// subcolumns).  bk % 4 == 0, bk | C, bn in {4, 8} or a multiple of 16;
+// kp (conv_piece's) divides bk, a multiple of 4; smem includes the 8
+// warps' rings of kStages (kp, BN) pieces (a float's room a value).
 extern "C" int bsr_conv_launch(const void* x, const void* vals,
                                const void* scales, const void* soffs,
                                const void* meta, const void* bias, void* out,
                                const void* geom, int ldo, int act, int dtype,
-                               int quant, int bk, int bn, int smem,
+                               int quant, int bk, int bn, int kp, int smem,
                                void* stream) {
   ConvTile g;
   memcpy(&g, geom, sizeof(g));
   if (g.B * g.Ho * g.Wo <= 0) return 0;
+  const int sb = bn < 16 ? bn : 16;      // launch_conv's BN
   if (bk <= 0 || bk % 4 != 0 || g.C % bk != 0 || g.C % 4 != 0 ||
+      kp <= 0 || kp % 4 != 0 || bk % kp != 0 ||
+      (bn != 4 && bn != 8 && bn % 16 != 0) ||
       act < 0 || act > 2 || quant < 0 || quant > 2 ||
-      g.n_cols * bn != g.N || ldo % 4 != 0 ||
+      g.n_cols * sb != g.N || ldo % 4 != 0 ||
       g.chan_ld % 4 != 0 || g.x_floats % 4 != 0 || smem > kSmemMax ||
       g.warps_pos <= 0 || kConvWarps % g.warps_pos != 0 ||
-      (size_t)smem < 4 * ((size_t)kConvWarps * kStages * bk * bn +
+      (size_t)smem < 4 * ((size_t)kConvWarps * kStages * kp * sb +
                           g.x_floats))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1112,16 +1173,16 @@ extern "C" int bsr_conv_launch(const void* x, const void* vals,
   if (dtype == 0)
     return quant ? (int)launch_conv<float, int8_t>(x, vals, sc, so, mt,
                                                    bias, out, ldo, bk, bn,
-                                                   act, g, smem, s)
+                                                   kp, act, g, smem, s)
                  : (int)launch_conv<float, float>(x, vals, sc, so, mt, bias,
-                                                  out, ldo, bk, bn, act, g,
-                                                  smem, s);
+                                                  out, ldo, bk, bn, kp, act,
+                                                  g, smem, s);
   if (dtype == 1)
     return quant ? (int)launch_conv<__nv_bfloat16, int8_t>(
-                       x, vals, sc, so, mt, bias, out, ldo, bk, bn, act, g,
-                       smem, s)
+                       x, vals, sc, so, mt, bias, out, ldo, bk, bn, kp, act,
+                       g, smem, s)
                  : (int)launch_conv<__nv_bfloat16, float>(
-                       x, vals, sc, so, mt, bias, out, ldo, bk, bn, act, g,
-                       smem, s);
+                       x, vals, sc, so, mt, bias, out, ldo, bk, bn, kp, act,
+                       g, smem, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -104,16 +104,20 @@ def test_punched_conv_masks_match_reference(arch):
 
 
 def test_make_mask_dispatch():
+    """Every scheme of the dispatch on a conv weight, at a rate and (the
+    block-punched groups) at a threshold, bit-equal to the reference."""
     w = _t(_np(2, 16, 8, 3, 3))
+    wj = jnp.asarray(w.numpy())
     assert torch.equal(R.make_mask(w, "none"), torch.ones(w.shape))
-    np.testing.assert_array_equal(
-        R.make_mask(w, "block_punched", (8, 8), rate=0.5).numpy(),
-        np.asarray(ref_R.make_mask(jnp.asarray(w.numpy()), "block_punched",
-                                   (8, 8), rate=0.5)))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        R.make_mask(w, "unstructured", rate=0.5)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        R.block_punched_mask(w, (8, 8), threshold=0.1)
+    for scheme, kw in [("block_punched", dict(block=(8, 8), rate=0.5)),
+                       ("block_punched", dict(block=(8, 8), threshold=0.1)),
+                       ("unstructured", dict(rate=0.5)),
+                       ("structured_row", dict(rate=0.5)),
+                       ("block", dict(block=(3, 3), rate=0.5)),
+                       ("pattern", dict(connectivity_rate=0.5))]:
+        np.testing.assert_array_equal(
+            R.make_mask(w, scheme, **kw).numpy(),
+            np.asarray(ref_R.make_mask(wj, scheme, **kw)), err_msg=scheme)
 
 
 # -- lowering -----------------------------------------------------------------

@@ -220,31 +220,40 @@ def _epilogue(acc, bias, act):
 
 def emulate_bcs(x, layout, taps_of, plan, bias, act):
     """Kernel 3 on ``plan`` with the tables it reads: the window offsets
-    of the (kh, kw, C) = ``taps_of`` tap table."""
+    of the (kh, kw, C) = ``taps_of`` tap table; work item w is subcolumn
+    w % (bn / sb) of block column w // (bn / sb), its slots read a (kp,
+    sb) piece at a time (``conv_piece``)."""
     vals, _, meta = K._bsr_tables(layout)
     scales = K._bsr_scales(layout)
     soffs = K._bsr_soffs(layout, plan, *taps_of).long()
     bk, bn = layout.block
+    sb, kp = K.conv_piece(bk, bn)
+    assert plan.n_cols == layout.Nb * (bn // sb) and bk % kp == 0
+    vals = vals.reshape(-1, bk, bn)
     out = torch.full((plan.B * plan.Ho * plan.Wo, plan.N), float("nan"))
     owners = _owners(plan)
     p, poff = _lanes(plan)
-    kk = torch.arange(bk)
     for t in range(plan.grid):
         xs = _stage(x, plan, t)
         m = owners[t].reshape(-1)
         tile = torch.full((plan.tr * plan.tw, plan.N), float("nan"))
-        for j in range(plan.n_cols):
+        for w in range(plan.n_cols):
+            j, sub = divmod(w, bn // sb)
             start, L, col, _ = meta[j].tolist()
             sl = torch.arange(start, start + L)
-            xv = xs[poff[:, None, None] + soffs[sl][None, :, None]
-                    + kk[None, None, :]]                    # (lanes, L, bk)
-            w = vals.reshape(-1, bk, bn)[sl]                # (L, bk, bn)
-            if scales is not None:                          # q * s, fp32
-                assert w.dtype == torch.int8
-                w = w.float() * scales[sl][:, None, None]
-            acc = torch.einsum("plk,lkc->pc", xv.double(), w.double())
+            acc = torch.zeros(p.numel(), sb, dtype=torch.float64)
+            for pc in range(bk // kp):
+                kk = torch.arange(pc * kp, (pc + 1) * kp)
+                xv = xs[poff[:, None, None] + soffs[sl][None, :, None]
+                        + kk[None, None, :]]                # (lanes, L, kp)
+                wv = vals[sl][:, kk, sub * sb:(sub + 1) * sb]  # (L, kp, sb)
+                if scales is not None:                      # q * s, fp32
+                    assert wv.dtype == torch.int8
+                    wv = wv.float() * scales[sl][:, None, None]
+                acc += torch.einsum("plk,lkc->pc", xv.double(), wv.double())
             keep = p < plan.tr * plan.tw
-            tile[p[keep], col * bn:(col + 1) * bn] = acc[keep].float()
+            c0 = col * bn + sub * sb
+            tile[p[keep], c0:c0 + sb] = acc[keep].float()
         ok = m >= 0
         out[m[ok]] = tile[p[ok]]
     return _epilogue(out, bias, act).to(x.dtype)
@@ -331,6 +340,42 @@ def test_bcs_kernel_addressing_matches_plain(P, Q, k, stride, B, H, W, act):
     _check_plan(pp)
     got = emulate_bcs(patches.reshape(1, 1, *patches.shape), lay,
                       (1, 1, k * k * Q), pp, bias, act)
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("values", [None, "int8"])
+@pytest.mark.parametrize("P,Q,k,stride,kblock", [
+    (64, 64, 3, 1, (32, 64)), (128, 128, 3, 2, (128, 128)),
+    (64, 32, 3, 2, (64, 16))])
+def test_bcs_kernel_addressing_at_wide_blocks(P, Q, k, stride, kblock,
+                                              values):
+    """The rule mapper's conv blocks (VGG_TINY's c3 at kernel block (32,
+    64) = GEMM block (64, 32), c6 at (128, 128)) and a 16-wide block of 64
+    rows: subcolumns of 16 and slots staged kp rows at a time, on the
+    image and on its patch matrix."""
+    from repro_torch.core import regularity as R
+    w = _rand(5, P, Q, k, k) * 0.1
+    mask = R.block_punched_mask(w, kblock, rate=0.5)
+    gb, _ = BCS.conv_gemm_block(kblock, tuple(w.shape))
+    lay = ops.pack(BCS.conv_lower(w), BCS.conv_lower(mask), gb, reorder=True,
+                   n_bins=4, conv=(k, k, Q), value_dtype=values)
+    sb, kp = K.conv_piece(*gb)
+    assert kp * sb <= K.BCS_PIECE and (gb[1] > 16) == (sb < gb[1])
+    x = _rand(6, 2, 9, 7, Q)
+    bias = _rand(7, P)
+    want = K.bsr_conv2d_implicit(x, lay, kh=k, kw=k, stride=stride,
+                                 bias=bias, act="relu").reshape(-1, P)
+    plan = K.conv_plan("bcs", x.shape, k, k, stride, "SAME", lay.Nb, P,
+                       gb[1], gb[0])
+    _check_plan(plan)
+    got = emulate_bcs(x, lay, (k, k, Q), plan, bias, "relu")
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    patches = ops.im2col(x, k, k, stride).reshape(-1, k * k * Q)
+    pp = K.conv_plan("bcs", (1, 1) + tuple(patches.shape), 1, 1, 1,
+                     "VALID", lay.Nb, P, gb[1], gb[0])
+    _check_plan(pp)
+    got = emulate_bcs(patches.reshape(1, 1, *patches.shape), lay,
+                      (1, 1, k * k * Q), pp, bias, "relu")
     torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
 
 

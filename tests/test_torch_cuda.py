@@ -45,9 +45,9 @@ def _layout(dev, K_, N_, block, dtype, reorder, seed=0, gran=None):
                     scale_granularity=gran or "block"), w * mask.to(dtype)
 
 
-def _kernel_vs_plain(dev, M, K_, N_, block, dtype):
-    lay, _ = _layout(dev, K_, N_, block, dtype, reorder=True)
-    unre, _ = _layout(dev, K_, N_, block, dtype, reorder=False)
+def _kernel_vs_plain(dev, M, K_, N_, block, dtype, gran=None):
+    lay, _ = _layout(dev, K_, N_, block, dtype, reorder=True, gran=gran)
+    unre, _ = _layout(dev, K_, N_, block, dtype, reorder=False, gran=gran)
     x = torch.randn(M, K_, device=dev).to(dtype)
     b = torch.randn(N_, device=dev).to(dtype)
     for act in ("none", "silu", "relu"):
@@ -61,15 +61,26 @@ def _kernel_vs_plain(dev, M, K_, N_, block, dtype):
         torch.testing.assert_close(y.float(), want, rtol=tol, atol=tol)
 
 
+# the rule mapper's blocks (core.mapper_rule.map_rules: (256, 256) on every
+# full-width LM projection, (32, 64) / (64, 128) / (128, 32) at SMOKE,
+# (128, 128) from the block menu), each also with int8 values
+MAPPER_BLOCKS = [(32, 64), (64, 128), (128, 32), (128, 128), (256, 256)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("block", [(16, 16), (8, 16), (4, 4), (16, 32),
-                                   (16, 8)])
+@pytest.mark.parametrize("block,values", [
+    (b, None) for b in [(16, 16), (8, 16), (4, 4), (16, 32), (16, 8)]
+    + MAPPER_BLOCKS] + [(b, "int8") for b in MAPPER_BLOCKS])
 @pytest.mark.parametrize("M", [1, 4, 15, 16, 17, 129])
-def test_kernel_matches_plain(cuda, M, block, dtype):
+def test_kernel_matches_plain(cuda, M, block, values, dtype):
     """At the plan's path boundaries (M tiles of 16, 32 and 128 rows, the
     tensor-core path and the FMA path; (16, 8) is the tensor-core tile of
-    one n8 fragment a warp), one launch over all bins."""
-    _kernel_vs_plain(cuda, M, 256, 384, block, dtype)
+    one n8 fragment a warp), one launch over all bins; a block that does
+    not tile (256, 384) runs at (512, 768)."""
+    K_, N_ = ((256, 384) if 256 % block[0] == 0 and 384 % block[1] == 0
+              else (512, 768))
+    _kernel_vs_plain(cuda, M, K_, N_, block, dtype,
+                     gran=values and "block")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -348,6 +359,44 @@ def test_conv_kernels_match_plain(cuda, scheme, P, Q, k, stride, H, W,
         want = _conv_plain(x, lay, k, stride, bias, act)
         tol = 1e-4 if dtype == torch.float32 else 2e-2
         torch.testing.assert_close(ys[0].float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("values", [None, "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P,Q,stride,kblock", [(64, 64, 1, (32, 64)),
+                                               (128, 128, 2, (128, 128)),
+                                               (64, 32, 2, (64, 16))])
+def test_conv_kernel_matches_plain_at_wide_blocks(cuda, P, Q, stride, kblock,
+                                                  dtype, values):
+    """Kernel 3 at the rule mapper's conv blocks (VGG_TINY's c3 at kernel
+    block (32, 64) = GEMM block (64, 32), c6 at (128, 128)) and at a
+    16-wide block of 64 rows: subcolumns of 16 and slots staged in
+    pieces; implicit == materialized and reordered == unreordered
+    bitwise."""
+    from repro_torch.core import bcs as BCS
+    from repro_torch.core import regularity as R
+    g = torch.Generator().manual_seed(3)
+    w = torch.randn(P, Q, 3, 3, generator=g) * 0.1
+    mask = R.block_punched_mask(w, kblock, rate=0.5)
+    gb, _ = BCS.conv_gemm_block(kblock, tuple(w.shape))
+    lays = [ops.pack(BCS.conv_lower(w).to(cuda, dtype),
+                     BCS.conv_lower(mask).to(cuda), gb, reorder=r, n_bins=4,
+                     conv=(3, 3, Q), value_dtype=values) for r in (True,
+                                                                   False)]
+    x = torch.randn(3, 13, 10, Q, device=cuda).to(dtype)
+    b = torch.randn(P, device=cuda).to(dtype)
+    K.reset_launches()
+    ys = [ops.sparse_conv2d(x, lay, kh=3, kw=3, stride=stride, bias=b,
+                            act="relu", implicit=imp)
+          for lay in lays for imp in (True, False)]
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["bsr_conv2d_implicit"] == 2
+    assert K.LAUNCHES["bsr_conv2d_materialized"] == 2
+    for y in ys[1:]:
+        assert torch.equal(y, ys[0])
+    want = _conv_plain(x, lays[0], 3, stride, b, "relu")
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(ys[0].float(), want, rtol=tol, atol=tol)
 
 
 def _net_launches(exec_p, arch, x_shape):

@@ -34,7 +34,11 @@ def _env():
 def test_importing_every_port_module_loads_no_jax_and_no_repro():
     mods = list(_port_modules())
     for m in ("repro_torch.kernels.bsr_matmul", "repro_torch.models.convnet",
-              "repro_torch.core.regularity"):
+              "repro_torch.core.regularity",
+              "repro_torch.core.latency_model",
+              "repro_torch.core.mapper_rule",
+              "repro_torch.core.mapper_search",
+              "repro_torch.configs.kimi_k2_1t_a32b"):
         assert m in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"

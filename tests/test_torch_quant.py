@@ -42,7 +42,8 @@ from repro_torch.serve import compile as C  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
 
 from test_torch_reference import (SPEC_RE, assert_layout_equal,  # noqa: E402
-                                  assert_tap_layout_equal, to_port)
+                                  assert_tap_layout_equal, packed_nodes,
+                                  to_port)
 
 TOL = dict(rtol=1e-5, atol=1e-5)   # the reference's own (test_quant.py)
 RTOL = ATOL = 2e-4                 # fp32 logits (test_torch_model.py)
@@ -228,20 +229,6 @@ def test_int8_tap_matches_reference_kernel(gran, implicit):
 
 # -- compile_model(value_dtype="int8") ----------------------------------------
 
-def _packed_nodes(tree, path=""):
-    """{path: layout} of every ``packed`` entry of a param tree."""
-    if not isinstance(tree, dict):
-        return {}
-    out = {}
-    for k, v in tree.items():
-        p = f"{path}/{k}" if path else k
-        if k == "packed":
-            out[path] = v
-        else:
-            out.update(_packed_nodes(v, p))
-    return out
-
-
 def _lm(arch, gran):
     """An LM SMOKE config's reference params (fp32) masked at rate 0.6 in
     (16, 16) blocks, and both packages' int8 compiles of them."""
@@ -270,7 +257,7 @@ def test_compile_int8_lm_matches_reference(arch, gran):
     params and masks; fp32 logits within the port's LM bound and greedy
     tokens identical."""
     rcfg, pcfg, rexec, pexec, prep = _lm(arch, gran)
-    got, want = _packed_nodes(pexec), _packed_nodes(rexec)
+    got, want = packed_nodes(pexec), packed_nodes(rexec)
     assert sorted(got) == sorted(want) and len(got) == 7
     for path, lay in got.items():
         assert lay.value_dtype == "int8" and lay.scale_granularity == gran
@@ -294,9 +281,9 @@ def test_reference_int8_params_cross_whole():
     logits bit for bit."""
     rcfg, pcfg, rexec, pexec, _ = _lm("yi-9b", "block")
     crossed = to_port(rexec)
-    for path, lay in _packed_nodes(crossed).items():
+    for path, lay in packed_nodes(crossed).items():
         assert lay.scales is not None
-        assert_layout_equal(lay, _packed_nodes(rexec)[path])
+        assert_layout_equal(lay, packed_nodes(rexec)[path])
     tokens = torch.from_numpy(np.random.RandomState(2).randint(
         0, rcfg.vocab, size=(2, 8)))
     assert torch.equal(T.forward(crossed, pcfg, tokens),
@@ -324,7 +311,7 @@ def test_compile_int8_vgg_tiny_matches_reference(mapping):
         to_port(rpm), to_port(rmasks), pspec,
         spec=C.CompileSpec(keep_dense=False, value_dtype="int8"),
         device="cpu")
-    got, want = _packed_nodes(pexec), _packed_nodes(rexec)
+    got, want = packed_nodes(pexec), packed_nodes(rexec)
     assert sorted(got) == sorted(want) and got
     for path, lay in got.items():
         if mapping == "pattern":
@@ -358,7 +345,7 @@ def test_scheme_choice_value_dtype_overrides_the_spec():
     rexec, rrep = ref_compile.compile_model(rpm, rmasks, rspec)
     pexec, prep = C.compile_model(to_port(rpm), to_port(rmasks), pspec,
                                   device="cpu")
-    got, want = _packed_nodes(pexec), _packed_nodes(rexec)
+    got, want = packed_nodes(pexec), packed_nodes(rexec)
     for path, lay in got.items():
         assert_layout_equal(lay, want[path])
         assert (lay.value_dtype == "int8") == ("wq" in path)
@@ -371,7 +358,7 @@ def test_scheme_choice_value_dtype_overrides_the_spec():
         to_port(rpm), to_port(rmasks), [(SPEC_RE, RW.SchemeChoice(
             "block", (16, 16)))], spec=C.CompileSpec(value_dtype="int8"),
         device="cpu")
-    assert {lay.value_dtype for lay in _packed_nodes(pexec2).values()} == {
+    assert {lay.value_dtype for lay in packed_nodes(pexec2).values()} == {
         "int8"}
 
 

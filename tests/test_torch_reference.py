@@ -86,6 +86,20 @@ def block_case(K, N, block, dtype=np.float32, keep=0.45, seed=0):
     return w.astype(dtype), mask.astype(np.float32)
 
 
+def packed_nodes(tree, path=""):
+    """{path: layout} of every ``packed`` entry of a param tree."""
+    if not isinstance(tree, dict):
+        return {}
+    out = {}
+    for k, v in tree.items():
+        p = f"{path}/{k}" if path else k
+        if k == "packed":
+            out[path] = v
+        else:
+            out.update(packed_nodes(v, p))
+    return out
+
+
 def _assert_scales_equal(port, ref):
     """The fp32 scale leaves of two quantized layouts bit-equal (or both
     float layouts)."""
