@@ -111,6 +111,32 @@
    layer) and the picks of a target calibrated to this run's rates,
    printed.  Kernels' JSON entries carry a ``mapped`` branch.  Each
    phase's start is stamped (seconds into the run).
+10. The continuous-batching engine (``serve.engine.ServingEngine``,
+   ``[engine]`` lines), run inside the yi-9b, mixtral-8x7b and hymba-1.5b
+   serve phases on the params each already holds: ENGINE_SLOTS = 8
+   slots, rings of 64, ENGINE_REQUESTS = 16 prompts of 32 and 16 tokens
+   in turn, N_NEW tokens each, the step captured once an engine as a
+   CUDA graph (one capture asserted).  Gates, each with a planted fault
+   on yi-9b that must break it: the first step replayed from the graph
+   == the eager ``decode_step_ragged`` on a copy of the same cache,
+   bitwise (a cache rebound instead of written in place); each slot's
+   first-step bf16 logits within LOGIT_MAX_REL / LOGIT_MEAN_REL of a
+   B = 1 ``decode_step`` of its request (the prefill written into the
+   neighbour's row); kernel-1 launches of an eager step == layers x
+   packed projections (``down`` served dense); a slot poisoned with NaN
+   quarantined alone, every other request's tokens unchanged (a second
+   slot poisoned); at 2 fp32 layers (TF32 off; yi-9b's the int8 gate's
+   compile) the engine's tokens == one B = 1 ``generate`` per request
+   (keys and values written one ring index late).  Then the counted
+   saturated run (all 16 at step 0; launches == (warm-up + replayed
+   steps) x the step's + admissions' prefills: a capture records the
+   step's launches without running them, and the engine counts them once
+   a replay, where they run), a decode-only step's wall
+   ms, tok/s, mean occupancy, the busy share of one traced replayed step
+   beside ``generate``'s B = 4 step, the admission ms, and for yi-9b the
+   open-loop run at one arrival a step.  Kernel 1's JSON entry carries an
+   ``engine`` branch (M = 8: a yi-9b layer's time, bound and library
+   call, each engine's launches a step and step ms).
 
 No phase is caught: any failure exits non-zero.  The last two lines are
 the kernels JSON and ``{"ok": true, "device": {...}}``.  Full detail goes
@@ -127,6 +153,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -157,9 +184,10 @@ FP32_TOL = 1e-4          # rtol = atol for fp32 outputs vs the plain version
 LOGIT_MAX_REL = 0.05     # max |diff| <= this * max |dense logit|
 LOGIT_MEAN_REL = 0.02    # mean |diff| <= this * mean |dense logit|
 B, S, N_NEW = 4, 32, 16  # prompts, prompt length, new tokens
-# kernel 1's M cases: decode and prefill, and the edges of bsr_plan's M
-# tiles (16, 32, 128 rows; two tiles past 128)
-CHECK_M = (1, 4, 15, 16, 17, 128, 129)
+# kernel 1's M cases: decode, the engine's step (ENGINE_SLOTS rows) and
+# prefill, and the edges of bsr_plan's M tiles (16, 32, 128 rows; two
+# tiles past 128)
+CHECK_M = (1, 4, 8, 15, 16, 17, 128, 129)
 
 # the CNN path: VGG_TINY on CIFAR-10-shaped images
 CONV_RE = r"(^|/)(c|pw|dw)\d+/w"
@@ -170,9 +198,10 @@ CONV_B, CONV_HW = 256, 32
 CONV_LOGIT_REL = 1e-3    # max |diff| <= this * max |dense logit|
 KERNEL_FILES = {"bsr_matmul": "bsr_matmul.cu", "tap_gather": "tap_gather.cu"}
 # the MoE path: mixtral-8x7b's expert stacks.  Kernel 1's M cases over the
-# experts: decode (4) and prefill (40 = the capacity of one 128-token
-# group), and bsr_plan's M-tile edges around them
-MOE_CHECK_M = (1, 4, 15, 16, 17, 40, 64, 65)
+# experts: decode (4), the engine's step (8 slots x capacity 1 at
+# group=1), prefill (40 = the capacity of one 128-token group), and
+# bsr_plan's M-tile edges around them
+MOE_CHECK_M = (1, 4, 8, 15, 16, 17, 40, 64, 65)
 MOE_LAYERS = 4           # depth cut of the bf16 serve (width is never cut)
 MOE_FP32_LAYERS = 2
 # fp32 logits, packed vs masked-dense on the card (TF32 off): the two
@@ -181,6 +210,20 @@ MOE_FP32_LAYERS = 2
 # of max |logit| (PERF.md)
 MOE_FP32_LOGIT_REL = 1e-3
 DEV = "cuda"             # the conv phases' device
+# the continuous-batching engine: slots (kernel 1 runs every packed
+# projection of its step at M = ENGINE_SLOTS), each slot's ring capacity,
+# and the workload: ENGINE_REQUESTS prompts of ENGINE_PROMPTS tokens in
+# turn (the reference CLI's long and short buckets), N_NEW tokens each
+ENGINE_SLOTS, ENGINE_SEQ_CAP, ENGINE_REQUESTS = 8, 64, 16
+ENGINE_PROMPTS = (32, 16)
+# when the run started and when each phase began (``stamp``)
+RUN = {"t0": time.perf_counter(), "phase_s": {}}
+
+
+def stamp(phase):
+    """Record and print when ``phase`` starts (seconds into the run)."""
+    RUN["phase_s"][phase] = time.perf_counter() - RUN["t0"]
+    print(f"[{RUN['phase_s'][phase]:.1f} s] {phase}", flush=True)
 
 
 def smi_line() -> str:
@@ -335,13 +378,15 @@ def kernel_phase(mods, flush):
         w, mask = weight_and_mask(RW, Kd, Nd, gen, torch.bfloat16)
         return (ops.pack(w, mask, BLOCK, reorder=True, n_bins=N_BINS),
                 w * mask.to(w.dtype))
-    rows = kernel1_timings(mods, gen, flush, PROJECTIONS, (4, 128), make)
+    rows = kernel1_timings(mods, gen, flush, PROJECTIONS,
+                           (4, ENGINE_SLOTS, 128), make)
     print_timings("main-path timings (bf16, L2 flushed, median ms; device "
                   "time by CUDA-graph replay, and the kernel's eager call "
                   "for the host's share; stream = one torch sum over the "
                   "bound's bytes, same flush):", rows,
                   "torch.matmul", "yi-9b layer (7 projections)",
-                  ((4, "decode"), (128, "prefill")))
+                  ((4, "decode"), (ENGINE_SLOTS, "the engine's step"),
+                   (128, "prefill")))
     return rows, max_err
 
 
@@ -494,24 +539,34 @@ def planted_faults(params):
     ]
 
 
-def device_time(fn):
+def device_time(fn, warm=None):
     """Trace ``fn`` with ``torch.profiler``: the card's busy milliseconds
     (union of the intervals of every kernel and copy it ran), the share of
     them in the BCS kernels (``bsr_matmul_kernel``, ``bsr_conv_kernel``:
     kernels 1 and 3) and in the tap kernel (``tap_conv_kernel``: kernels
     2 and 4), each kernel's own time and traced
     launches, and the number of device events; None when the profiler saw
-    no device activity.  A trace can miss device events (the conv serve
-    phase holds the traced launches against the counted ones)."""
+    no device activity.  ``warm`` (default ``fn``) runs first in the same
+    trace and only the device events of ``fn``'s run after it are read: a
+    trace can lose the first device events after the profiler starts."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        (warm or fn)()
         sync()
+        with record_function("device_time: read"):
+            fn()
+            sync()
+    events = prof.events()
+    t0 = min(e.time_range.start for e in events
+             if e.name == "device_time: read")
+    # the mark's own device-side range spans the whole run, gaps included
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+                   for e in events
+                   if e.device_type == DeviceType.CUDA
+                   and e.time_range.start >= t0
+                   and e.name != "device_time: read")
     if not spans:
         return None
     busy, lo, hi = 0.0, spans[0][0], spans[0][1]
@@ -616,8 +671,10 @@ def serve_counted(mods, exec_p, cfg, full, compile_s, how, per_layer=7):
         sync()
         gen_warm_s = time.perf_counter() - t0
         dev_prefill = device_time(lambda: E.prefill(exec_p, cfg, tokens))
+        # warmed by a prefill: a second generate doubles a long trace
         dev_gen = device_time(lambda: E.generate(exec_p, cfg, prompts, N_NEW,
-                                                 device=DEV))
+                                                 device=DEV),
+                              warm=lambda: E.prefill(exec_p, cfg, tokens))
     decode_ms = (gen_warm_s * 1e3 - prefill_ms) / N_NEW
     e2e = {"layers": cfg.n_layers, "of_layers": full.n_layers, "batch": B,
            "prompt": S, "new_tokens": N_NEW, "compile_s": compile_s,
@@ -700,10 +757,15 @@ def serve_phase(mods, args):
     missed = [name for name, g in faults if within_bound(g)]
     if missed:
         raise AssertionError(f"the logit bound does not catch: {missed}")
-    del exec_p, faults
+    del faults
+    e2e["engine"] = engine_phase(
+        mods, exec_p, cfg, "yi-9b", 7, dense_p=pm,
+        generate_busy_share=e2e.get("device", {}).get("decode_busy_share"))
+    del exec_p
     torch.cuda.empty_cache()
     e2e["int8"], launches8 = lm_int8_phase(mods, pm, masks, cfg, full,
                                            tokens)
+    e2e["engine"]["fp32"] = e2e["int8"].pop("engine_fp32")
     return e2e, launches, launches8
 
 # -- the CNN path: kernels 2-4 (kernel 3 also on im2col patches) ------------
@@ -1523,7 +1585,11 @@ def moe_serve_phase(mods):
     missed = [n for n, fg in fault_gaps if all(map(within_bound, fg))]
     if missed:
         raise AssertionError(f"the per-layer bound does not catch: {missed}")
-    del exec_p, s_logits, d_logits, s_in, d_in, fault_gaps
+    del s_logits, d_logits, s_in, d_in, fault_gaps
+    e2e["engine"] = engine_phase(
+        mods, exec_p, cfg, "mixtral-8x7b", 7,
+        generate_busy_share=e2e.get("device", {}).get("decode_busy_share"))
+    del exec_p
     if DEV == "cuda":
         torch.cuda.empty_cache()
     # int8: the same masked params compiled again, int8 values
@@ -1559,6 +1625,8 @@ def moe_serve_phase(mods):
     if missed:
         raise AssertionError(f"the fp32 logit bound does not catch: "
                              f"{missed}")
+    e2e["engine"]["fp32"] = engine_fp32_gate(mods, exec_p, cfg32,
+                                             "mixtral-8x7b")
     del exec_p
     int8.update(fp32_int8_gate(mods, pm, masks, cfg32, tokens, prompts,
                                "mixtral-8x7b"))
@@ -1882,7 +1950,8 @@ def lm_int8_phase(mods, pm, masks, cfg, full, tokens):
     """yi-9b's masked params compiled again with int8 values: the main
     path counted (kernel 1 still one launch a projection), bf16 prefill
     logits against masked-dense on the dequantized weights, then the fp32
-    model at 2 layers against its dequantized weights."""
+    model at 2 layers against its dequantized weights, and the engine's
+    fp32 token gate on that compile."""
     C, E = mods["C"], mods["E"]
     from repro_torch.launch.serve import SPARSE_SPEC
     exec8, report, compile_s = compile_timed(mods, pm, masks, SPARSE_SPEC,
@@ -1913,14 +1982,17 @@ def lm_int8_phase(mods, pm, masks, cfg, full, tokens):
     cfg2 = full.replace(n_layers=2)
     pm32, masks32, _ = build_masked(mods, cfg2, torch.float32)
     e2e.update(fp32_int8_gate(mods, pm32, masks32, cfg2, tokens, prompts,
-                              "yi-9b"))
+                              "yi-9b", engine=True))
     return e2e, launches
 
 
-def fp32_int8_gate(mods, pm, masks, cfg, tokens, prompts, arch):
+def fp32_int8_gate(mods, pm, masks, cfg, tokens, prompts, arch,
+                   engine=False):
     """An fp32 model compiled int8 (TF32 off): its logits within
     MOE_FP32_LOGIT_REL of max |logit| of the masked-dense run on the
-    dequantized weights, and identical greedy tokens."""
+    dequantized weights, and identical greedy tokens.  With ``engine``,
+    the engine's fp32 token gate on the same compiled params, its ring
+    fault planted (``engine_fp32``)."""
     T, E = mods["T"], mods["E"]
     from repro_torch.launch.serve import SPARSE_SPEC
     exec8, _, _ = compile_timed(mods, pm, masks, SPARSE_SPEC,
@@ -1939,7 +2011,11 @@ def fp32_int8_gate(mods, pm, masks, cfg, tokens, prompts, arch):
     if not (gap <= MOE_FP32_LOGIT_REL and same):
         raise AssertionError(f"int8 fp32 {arch} disagrees with its "
                              f"dequantized masked-dense run")
-    return {"fp32_logit_gap": gap, "fp32_tokens_identical": same}
+    out = {"fp32_logit_gap": gap, "fp32_tokens_identical": same}
+    if engine:
+        out["engine_fp32"] = engine_fp32_gate(
+            mods, exec8, cfg, f"{arch} (int8 values)", fault=True)
+    return out
 
 
 def moe_int8_phase(mods, pm, masks, cfg, full, tokens):
@@ -2723,6 +2799,11 @@ def ssm_serve_phase(mods, arch):
 
     if DEV == "cuda":
         e2e["serve_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if cfg.family == "hybrid":
+        e2e["engine"] = engine_phase(
+            mods, exec_p, cfg, arch, len(projs),
+            generate_busy_share=e2e.get("device", {}).get(
+                "decode_busy_share"))
 
     # bf16 gates.  Each layer's mixer, packed vs masked-dense on one input
     # (the packed run's), within yi-9b's bounds.  The whole model is held
@@ -2832,6 +2913,8 @@ def ssm_serve_phase(mods, arch):
     if fault32 <= MOE_FP32_LOGIT_REL or dec_fault <= DECODE_FORWARD_REL:
         raise AssertionError(f"{arch}: an fp32 gate does not catch its "
                              f"planted fault")
+    if cfg.family == "hybrid":
+        e2e["engine"]["fp32"] = engine_fp32_gate(mods, exec_p, cfg32, arch)
     del exec_p, pm
     if DEV == "cuda":
         torch.cuda.empty_cache()
@@ -2899,6 +2982,388 @@ def int8_entry(launches, max_err, ms, plain_ms, bound_ms, bound_by,
                  "bound_by": bound_by, "library_ms": library_ms}, **extra)
 
 
+# -- the continuous-batching engine (serve.engine.ServingEngine) -------------
+
+def engine_prompts(cfg):
+    """ENGINE_REQUESTS seeded prompts, ENGINE_PROMPTS tokens in turn."""
+    rng = np.random.RandomState(1)
+    return [rng.randint(1, cfg.vocab, size=ENGINE_PROMPTS[i % 2]).tolist()
+            for i in range(ENGINE_REQUESTS)]
+
+
+def new_engine(mods, exec_p, cfg):
+    """A ServingEngine of ENGINE_SLOTS slots: its step captured once on
+    the card (eager on the CPU rehearsal)."""
+    eng = mods["E"].ServingEngine(exec_p, cfg, n_slots=ENGINE_SLOTS,
+                                  seq_cap=ENGINE_SEQ_CAP, device=DEV)
+    want = 1 if DEV == "cuda" else 0
+    if eng.stats["graph_captures"] != want:
+        raise AssertionError(f"expected {want} graph capture per engine, "
+                             f"got {eng.stats['graph_captures']}")
+    return eng
+
+
+def engine_serve(mods, exec_p, cfg, prompts, rate=0, poison=()):
+    """``prompts`` through a new engine, N_NEW tokens each, arriving at
+    ``rate`` a step (0: all at step 0); the slots in ``poison`` get NaN
+    rows after the second step.  Returns (engine, each request's tokens,
+    wall seconds of the run, ms of each decode-only step: every slot
+    that ran was already live, the number of steps that ran the decode
+    step)."""
+    KV = mods["KV"]
+    eng = new_engine(mods, exec_p, cfg)
+    rids = [eng.submit(p, N_NEW, arrival=int(i / rate) if rate else 0)
+            for i, p in enumerate(prompts)]
+    step_ms, runs = [], 0
+    sync()
+    t0 = time.perf_counter()
+    while eng.sched.has_work():
+        admitted, t = eng.stats["admitted"], time.perf_counter()
+        ran = eng.step() > 0
+        runs += ran
+        if ran and eng.stats["admitted"] == admitted:
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        if eng.stats["steps"] == 2:
+            for slot in poison:
+                KV.poison_slot(eng.cache, slot)
+    sync()
+    return (eng, [eng.requests[r].tokens for r in rids],
+            time.perf_counter() - t0, step_ms, runs)
+
+
+def copy_cache(cache):
+    return {g: {k: t.clone() for k, t in d.items()}
+            for g, d in cache.items()}
+
+
+def step_gate(mods, exec_p, cfg, prompts):
+    """A new engine, the first ENGINE_SLOTS prompts admitted, then its
+    first step replayed from the graph against the eager
+    ``decode_step_ragged`` on a copy of the same cache.  Returns (engine,
+    bitwise equal: logits, next tokens, finite probe and the written
+    cache)."""
+    T = mods["T"]
+    eng = new_engine(mods, exec_p, cfg)
+    for p in prompts[:ENGINE_SLOTS]:
+        eng.submit(p, N_NEW)
+    eng._admit()
+    copy = copy_cache(eng.cache)
+    ops = torch.as_tensor(eng._ops, device=DEV)
+    with torch.no_grad():
+        want, _ = T.decode_step_ragged(exec_p, cfg, ops[0][:, None], copy,
+                                       ops[1][:, None], ops[2])
+    nxt, ok = eng._run()
+    sync()
+    last = want[:, -1].float()
+    same = (torch.equal(eng.logits, want)
+            and (nxt == last.argmax(-1).int().cpu().numpy()).all()
+            and (ok == torch.isfinite(last).all(-1).int().cpu().numpy()).all()
+            and all(torch.equal(t, copy[g][k]) for g, d in eng.cache.items()
+                    for k, t in d.items()))
+    return eng, bool(same)
+
+
+def slot_references(mods, exec_p, cfg, prompts):
+    """Each of the first ENGINE_SLOTS requests' first-step logits by a
+    B = 1 ``prefill`` and ``decode_step``: what its slot must give."""
+    T, E = mods["T"], mods["E"]
+    out = []
+    with torch.no_grad():
+        for p in prompts[:ENGINE_SLOTS]:
+            logits, cache = E.prefill(exec_p, cfg, torch.tensor([p],
+                                                                device=DEV))
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            pos = torch.full((1, 1), len(p), dtype=torch.int32, device=DEV)
+            out.append(T.decode_step(exec_p, cfg, tok, cache, pos)[0][0])
+    return out
+
+
+def slot_gaps(logits, refs):
+    """(max, mean) relative gap of each slot's logits to its B = 1
+    reference, and how many argmaxes agree."""
+    gaps = [logit_gap(r, logits[i]) for i, r in enumerate(refs)]
+    agree = sum(int(logits[i, -1].argmax() == r[-1].argmax())
+                for i, r in enumerate(refs))
+    return gaps, agree
+
+
+def eager_step_launches(mods, params, cfg):
+    """Kernel-1 launches of one eager ``decode_step_ragged`` over an
+    all-free slot cache."""
+    T, K, KV = mods["T"], mods["K"], mods["KV"]
+    cache = KV.init_slots(params, cfg, ENGINE_SLOTS, ENGINE_SEQ_CAP,
+                          dtype=params["embed"]["table"].dtype)
+    zero = torch.zeros((ENGINE_SLOTS, 1), dtype=torch.int32, device=DEV)
+    one = torch.ones((ENGINE_SLOTS,), dtype=torch.int32, device=DEV)
+    before = K.LAUNCHES["bsr_matmul"]
+    with torch.no_grad():
+        T.decode_step_ragged(params, cfg, zero, cache, zero, one)
+    sync()
+    return K.LAUNCHES["bsr_matmul"] - before
+
+
+def neighbour_write(real):
+    """A planted fault: the prefill written into the next slot's row."""
+    def write(cache, slot, rc):
+        return real(cache, (slot + 1) % ENGINE_SLOTS, rc)
+    return write
+
+
+def rebinding_write(real):
+    """A planted fault: the slot cache copied and the copy written (its
+    tensors rebound), so a captured graph reads the stale ones."""
+    def write(cache, slot, rc):
+        return real(copy_cache(cache), slot, rc)
+    return write
+
+
+def ring_shifted_write(real):
+    """A planted fault: the prefill's keys and values written one ring
+    index late (positions in place)."""
+    def write(cache, slot, rc):
+        real(cache, slot, rc)
+        for name in ("k", "v"):
+            row = cache["kv"][name][:, slot]
+            row.copy_(torch.roll(row, 1, dims=1))
+        return cache
+    return write
+
+
+def quarantine_gate(toks, clean, eng, slots):
+    """The request admitted into each of ``slots`` is quarantined with
+    its first 3 tokens, every other request finishes with the tokens of
+    the clean run."""
+    reqs = [eng.requests[r] for r in sorted(eng.requests)]
+    bad = [i for i, r in enumerate(reqs) if r.status == "quarantined"]
+    return (bad == list(slots)
+            and all(toks[i] == clean[i][:3] for i in slots)
+            and all(r.status == "finished" and toks[i] == clean[i]
+                    for i, r in enumerate(reqs) if i not in slots))
+
+
+def engine_phase(mods, exec_p, cfg, arch, per_layer, dense_p=None,
+                 generate_busy_share=None):
+    """The continuous-batching engine on a phase's compiled bf16 params.
+
+    Gates: the first step replayed from the graph == the eager step
+    bitwise; each slot's first-step logits within the bf16 bound of a
+    B = 1 ``decode_step`` of its request; launches of an eager step ==
+    layers x ``per_layer``; one capture an engine; a poisoned slot
+    quarantined alone.  Then the counted saturated run (ENGINE_REQUESTS
+    requests at step 0; kernel 1 counted over construction, admissions
+    and the run), the device busy share of one traced replayed step (its
+    kernel-1 events held to the step's launches), the
+    admission time, and (yi-9b, ``dense_p`` given) the open-loop run at
+    one arrival a step and a planted fault breaking each gate (a rebound
+    cache, the prefill in the neighbour's row, a dense ``down``, a second
+    poisoned slot)."""
+    K = mods["K"]
+    stamp(f"engine: {arch}")
+    t_phase = time.perf_counter()
+    prompts = engine_prompts(cfg)
+    per_step = cfg.n_layers * per_layer
+    out = {"n_slots": ENGINE_SLOTS, "seq_cap": ENGINE_SEQ_CAP,
+           "requests": ENGINE_REQUESTS, "prompts": ENGINE_PROMPTS,
+           "new_tokens": N_NEW, "per_step_launches": per_step}
+    refs = slot_references(mods, exec_p, cfg, prompts)
+
+    eng, same = step_gate(mods, exec_p, cfg, prompts)
+    gaps, agree = slot_gaps(eng.logits, refs)
+    launches = eager_step_launches(mods, exec_p, cfg)
+    trace = device_time(eng.step)
+    del eng
+    worst = max(gaps, key=lambda g: g[0])
+    print(f"[engine] {arch}: graph replay == eager decode_step_ragged "
+          f"bitwise: {same}; first-step logits of each slot vs a B = 1 "
+          f"decode_step (bf16): worst {worst[0]:.4f} / {worst[1]:.4f} (bound "
+          f"{LOGIT_MAX_REL} / {LOGIT_MEAN_REL}), argmax agree {agree} of "
+          f"{ENGINE_SLOTS} (printed, not gated: M = {ENGINE_SLOTS} and "
+          f"M = 1 take different kernel-1 paths); kernel-1 launches of an "
+          f"eager step {launches} (expected {cfg.n_layers} layers x "
+          f"{per_layer} = {per_step})")
+    out.update(graph_equals_eager=same, first_step_gaps=gaps,
+               first_step_argmax_agree=agree, eager_step_launches=launches)
+    if not (same and all(map(within_bound, gaps)) and launches == per_step):
+        raise AssertionError(f"{arch}: an engine step gate failed")
+
+    # the main path: construction (warm-up + capture), admissions, run
+    K.reset_launches()
+    eng, clean, wall, step_ms, runs = engine_serve(mods, exec_p, cfg,
+                                                   prompts)
+    counted = dict(K.LAUNCHES)
+    n_adm = eng.stats["admitted"]
+    # on the card the uncaptured warm-up runs the step once more, and the
+    # capture records it without running it (the engine counts a replay's
+    # launches where it runs); the CPU rehearsal runs every step eagerly
+    warm = 1 if DEV == "cuda" else 0
+    want = per_step * (warm + runs) + n_adm * per_step
+    step = statistics.median(step_ms)
+    sat = {"wall_s": wall, "tokens": eng.stats["tokens"],
+           "tok_per_s": eng.stats["tokens"] / wall, "step_ms": step,
+           "steps": eng.stats["steps"], "decode_steps": len(step_ms),
+           "mean_occupancy": eng.mean_occupancy(), "launches": counted,
+           "expected_launches": want, "decode_steps_run": runs}
+    print(f"[engine] {arch} saturated ({ENGINE_REQUESTS} requests at step "
+          f"0, {ENGINE_SLOTS} slots): {eng.stats['finished']} finished, "
+          f"{eng.stats['tokens']} tokens in {wall:.3f} s = "
+          f"{sat['tok_per_s']:.1f} tok/s (incl. {n_adm} admissions); "
+          f"{eng.stats['steps']} steps, decode-only step {step:.3f} ms "
+          f"(median of {len(step_ms)}); mean occupancy "
+          f"{eng.mean_occupancy():.3f}; kernel-1 launches "
+          f"{counted['bsr_matmul']} (expected ({warm} warm-up + {runs} "
+          f"decode steps) x {per_step} + {n_adm} prefills x {per_step} "
+          f"= {want})")
+    if (counted["bsr_matmul"] != want
+            or eng.stats["finished"] != ENGINE_REQUESTS
+            or any(len(t) != N_NEW for t in clean)):
+        raise AssertionError(f"{arch}: the saturated engine run is off")
+    # one admission of each prompt length, timed (prefill + slot write)
+    adm = {}
+    for p in (prompts[0], prompts[1]):
+        eng.submit(p, N_NEW)
+        sync()
+        t0 = time.perf_counter()
+        eng._admit()
+        sync()
+        adm[len(p)] = (time.perf_counter() - t0) * 1e3
+    del eng
+    sat["admission_ms"] = adm
+    if trace is None:
+        print(f"[engine] {arch} busy share: not measured (the profiler saw "
+              f"no device activity)")
+    else:
+        sat["device"] = trace
+        sat["busy_share"] = trace["busy_ms"] / step
+        traced = trace["by_kernel_events"].get("bsr_matmul_kernel", 0)
+        print(f"[engine] {arch} one traced replayed step: device busy "
+              f"{trace['busy_ms']:.3f} ms ({trace['bsr_ms']:.3f} in "
+              f"bsr_matmul, {traced} kernel-1 events traced of {per_step} "
+              f"launched) = {sat['busy_share']:.3f} of the unprofiled step "
+              f"(generate's B = {B} decode step in this run: "
+              + (f"{generate_busy_share:.3f})" if generate_busy_share
+                 is not None else "not measured)"))
+        sat["traced_kernel1_events"] = traced
+        if traced != per_step:
+            raise AssertionError(f"{arch}: a traced replayed step ran "
+                                 f"{traced} kernel-1 kernels, not "
+                                 f"{per_step}")
+    print(f"[engine] {arch} admission (B = 1 prefill + slot write): "
+          + ", ".join(f"{n} tokens {ms:.2f} ms" for n, ms in adm.items()))
+    sat["generate_decode_busy_share"] = generate_busy_share
+    out["saturated"] = sat
+
+    # quarantine: a poisoned live slot is evicted alone
+    eng, toks, *_ = engine_serve(mods, exec_p, cfg, prompts, poison=(3,))
+    q_ok = quarantine_gate(toks, clean, eng, (3,))
+    print(f"[engine] {arch} slot 3 poisoned after step 2: quarantined "
+          f"{eng.stats['quarantined']}, every other request's tokens "
+          f"unchanged: {q_ok}")
+    out["quarantine"] = q_ok
+    if not q_ok:
+        raise AssertionError(f"{arch}: the quarantine gate failed")
+    del eng
+
+    if dense_p is not None:
+        # open loop: one arrival a step
+        eng, _, wall, step_ms, _ = engine_serve(mods, exec_p, cfg, prompts,
+                                                rate=1)
+        out["open_loop"] = {
+            "rate_per_step": 1, "wall_s": wall,
+            "tokens": eng.stats["tokens"],
+            "tok_per_s": eng.stats["tokens"] / wall,
+            "step_ms": statistics.median(step_ms) if step_ms else None,
+            "steps": eng.stats["steps"],
+            "mean_occupancy": eng.mean_occupancy()}
+        ol = out["open_loop"]
+        print(f"[engine] {arch} open loop (1 arrival a step): "
+              f"{eng.stats['finished']} finished, {ol['tokens']} tokens in "
+              f"{wall:.3f} s = {ol['tok_per_s']:.1f} tok/s; "
+              f"{ol['steps']} steps, decode-only step "
+              f"{ol['step_ms'] or float('nan'):.3f} ms (median of "
+              f"{len(step_ms)}), mean occupancy "
+              f"{ol['mean_occupancy']:.3f}")
+        if eng.stats["finished"] != ENGINE_REQUESTS:
+            raise AssertionError(f"{arch}: the open-loop run is off")
+        del eng
+        out["faults"] = engine_faults(mods, exec_p, dense_p, cfg, prompts,
+                                      refs, clean, per_step)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[engine] {arch} phase {out['phase_s']:.1f} s")
+    return out
+
+
+def engine_faults(mods, exec_p, dense_p, cfg, prompts, refs, clean,
+                  per_step):
+    """A planted fault for each engine gate, each of which must break it."""
+    KV = mods["KV"]
+    faults = {}
+    with mock.patch.object(KV, "write_prefill",
+                           rebinding_write(KV.write_prefill)):
+        eng, same = step_gate(mods, exec_p, cfg, prompts)
+    faults["cache rebound, not written in place: graph == eager"] = same
+    # on the CPU rehearsal the step is eager, and the rebound cache is
+    # read as it should be: no graph to catch
+    caught = {"rebound": not same or DEV != "cuda"}
+    with mock.patch.object(KV, "write_prefill",
+                           neighbour_write(KV.write_prefill)):
+        eng, _ = step_gate(mods, exec_p, cfg, prompts)
+        gaps, _ = slot_gaps(eng.logits, refs)
+    worst = max(gaps, key=lambda g: g[0])
+    faults["prefill in the neighbour's row: worst first-step gap"] = worst
+    caught["neighbour"] = not all(map(within_bound, gaps))
+    layers = dict(exec_p["layers"], ffn=dict(exec_p["layers"]["ffn"]))
+    layers["ffn"]["down"] = {"w": dense_p["layers"]["ffn"]["down"]["w"]}
+    n = eager_step_launches(mods, dict(exec_p, layers=layers), cfg)
+    faults["ffn/down served dense: eager-step launches"] = n
+    caught["launches"] = n != per_step
+    eng, toks, *_ = engine_serve(mods, exec_p, cfg, prompts,
+                                 poison=(3, 4))
+    q = quarantine_gate(toks, clean, eng, (3,))
+    faults["slots 3 and 4 poisoned: slot 3's gate holds"] = q
+    caught["quarantine"] = not q
+    del eng
+    for name, v in faults.items():
+        print(f"  [engine] planted fault, {name}: {v}")
+    if not all(caught.values()):
+        raise AssertionError(f"an engine gate misses its planted fault: "
+                             f"{caught}")
+    return {"readings": faults, "caught": caught}
+
+
+def engine_fp32_gate(mods, exec32, cfg32, arch, fault=False):
+    """The fp32 model at 2 layers (TF32 off): the engine's tokens (the
+    saturated workload) equal one B = 1 ``generate`` per request; with
+    ``fault``, the prefill's keys and values written one ring index late
+    must change some request's tokens."""
+    E, KV = mods["E"], mods["KV"]
+    prompts = engine_prompts(cfg32)
+    with torch.no_grad():
+        want = [E.generate(exec32, cfg32, np.asarray([p]), N_NEW,
+                           device=DEV)[0].tolist() for p in prompts]
+    _, toks, *_ = engine_serve(mods, exec32, cfg32, prompts)
+    same = toks == want
+    out = {"fp32_tokens_equal_generate": same}
+    msg = ""
+    if fault:
+        with mock.patch.object(KV, "write_prefill",
+                               ring_shifted_write(KV.write_prefill)):
+            _, bad, *_ = engine_serve(mods, exec32, cfg32, prompts)
+        n_diff = sum(a != b for a, b in zip(bad, want))
+        out["ring_shift_fault_requests_differing"] = n_diff
+        msg = (f"; planted fault (keys and values one ring index late): "
+               f"{n_diff} of {len(prompts)} requests differ")
+    print(f"[engine] {arch} fp32 ({cfg32.n_layers} layers, TF32 off): "
+          f"engine tokens == one B = 1 generate per request for all "
+          f"{len(prompts)}: {same}{msg}")
+    if not same:
+        raise AssertionError(f"{arch}: fp32 engine tokens differ from "
+                             f"generate")
+    if fault and not out["ring_shift_fault_requests_differing"]:
+        raise AssertionError(f"{arch}: the fp32 token gate misses the "
+                             f"ring-shift fault")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=8,
@@ -2923,12 +3388,13 @@ def main(argv=None):
         from repro_torch.models import transformer as T
         from repro_torch.serve import compile as C
         from repro_torch.serve import engine as E
+        from repro_torch.serve import kvcache as KV
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 2
     mods = dict(RW=RW, ops=ops, ref=ref, K=K, T=T, C=C, E=E, CN=CN,
-                BCS=BCS, MOE=MOE, L=L, SSM=SSM, MR=MR)
+                BCS=BCS, MOE=MOE, L=L, SSM=SSM, MR=MR, KV=KV)
     # the oracles (masked-dense matmul and F.conv2d) run in full fp32: a
     # float32 conv goes through cuDNN in TF32 unless told otherwise
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2952,12 +3418,7 @@ def main(argv=None):
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {lib}:", line.strip())
 
-    t_run, phase_s = time.perf_counter(), {}
-
-    def stamp(phase):
-        """Record and print when ``phase`` starts (seconds into the run)."""
-        phase_s[phase] = time.perf_counter() - t_run
-        print(f"[{phase_s[phase]:.1f} s] {phase}", flush=True)
+    RUN["t0"] = time.perf_counter()
     stamp("kernel 1 (yi-9b, float and int8)")
     flush = torch.empty(64 << 20, dtype=torch.float32, device=DEV)
     rows, max_err = kernel_phase(mods, flush)
@@ -3014,21 +3475,27 @@ def main(argv=None):
 
     decode, prefill = layer_sum(rows, 4), layer_sum(rows, 128)
     moe_m = prefill_capacity(moe_config())
+    engines = {"yi-9b": e2e["engine"], "mixtral-8x7b": moe_e2e["engine"],
+               "hymba-1.5b": ssm_e2e["hymba-1.5b"]["engine"]}
+    engine_launches = {f"{a} engine": v["saturated"]["launches"]["bsr_matmul"]
+                       for a, v in engines.items()}
     entry = {
         "name": "bsr_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bsr_matmul.cu",
         "replaces": "src/repro/kernels/bsr_matmul.py:143",
-        # the yi-9b, mixtral, mamba2 and hymba generates, each counted
-        # alone (the CNN path runs kernel 3 instead)
+        # the yi-9b, mixtral, mamba2 and hymba generates and the three
+        # engine runs, each counted alone (the CNN path runs kernel 3)
         "launches": (launches["bsr_matmul"] + moe_launches["bsr_matmul"]
                      + sum(n["bsr_matmul"] for n in ssm_launches.values())
-                     + map_launches["bsr_matmul"]),
+                     + map_launches["bsr_matmul"]
+                     + sum(engine_launches.values())),
         "launches_by_path": {
             "yi-9b generate": launches["bsr_matmul"],
             "yi-9b mapped generate": map_launches["bsr_matmul"],
             "mixtral-8x7b generate": moe_launches["bsr_matmul"],
             **{f"{a} generate": n["bsr_matmul"]
-               for a, n in ssm_launches.items()}},
+               for a, n in ssm_launches.items()},
+            **engine_launches},
         "max_abs_err": max(max_err, moe_err, ssm_checks[1], map_err),
         # one decode step's 7 projections of one layer (M = 4), summed
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
@@ -3080,6 +3547,24 @@ def main(argv=None):
                     "torch.bmm on the bf16 masked dense weight")
     entry["mapped"] = mapped_entry(map_rows, map_launches, map_checks,
                                    map_err, map_e2e)
+    at_m = layer_sum(rows, ENGINE_SLOTS)
+    entry["engine"] = {
+        "M": ENGINE_SLOTS,
+        "launches_per_step": {a: v["per_step_launches"]
+                              for a, v in engines.items()},
+        "launches": engine_launches,
+        "ms": at_m["ms"], "plain_ms": at_m["plain_ms"],
+        "bound_ms": at_m["bound_ms"], "bound_by": at_m["bound_by"],
+        "library_ms": at_m["library_ms"], "stream_ms": at_m["stream_ms"],
+        "step_ms": {a: v["saturated"]["step_ms"] for a, v in engines.items()},
+        "measured_at": f"ms/bound/plain/library: sum over one yi-9b layer's "
+                       f"7 projections at M={ENGINE_SLOTS} (the engine's "
+                       f"step over {ENGINE_SLOTS} slots), bf16, (16,16) "
+                       f"blocks, rate 0.6, 4 bins; step_ms: the median "
+                       f"decode-only ServingEngine step (a CUDA-graph "
+                       f"replay) of each saturated run; launches: each "
+                       f"saturated run's warm-up step, admissions and "
+                       f"replayed steps, counted"}
     entries = [entry] + conv_entries(conv_rows, conv_err, conv_launches,
                                      conv_rows8, conv_err8, conv_launches8)
     for e in entries[1:]:
@@ -3113,7 +3598,8 @@ def main(argv=None):
          "serve": e2e, "conv_serve": conv_e2e, "ssm_shapes": ssm_rows,
          "ssm_serve": ssm_e2e, "mapped_serve": map_e2e,
          "mapped_shapes": map_rows, "mapped_vgg": map_vgg,
-         "latency_model": map_model, "phase_start_s": phase_s},
+         "latency_model": map_model,
+         "phase_start_s": RUN["phase_s"]},
         indent=1, default=str))
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))

@@ -734,8 +734,11 @@ def _expert_dims(layout):
 
 # per device: kernel 1's per-tile arrival counters, all 0 between launches
 # (the last block of a tile resets its own); launches on one device run
-# on one stream at a time
+# on one stream at a time.  A CUDA graph keeps the address of the counters
+# it was captured with, so a grown tensor never frees the one it replaces
+# (``_RETIRED``): a graph captured before the growth replays on its own.
 _COUNTERS: dict = {}
+_RETIRED: list = []
 
 
 def _counters(device, n):
@@ -745,7 +748,10 @@ def _counters(device, n):
             raise RuntimeError("bsr_matmul: the tile counters must grow "
                                "before a CUDA graph is captured (run the "
                                "call once uncaptured)")
-        c = torch.zeros(max(n, 1 << 16), dtype=torch.int32, device=device)
+        if c is not None:
+            _RETIRED.append(c)
+        size = max(n, 1 << 16, 0 if c is None else 2 * c.numel())
+        c = torch.zeros(size, dtype=torch.int32, device=device)
         _COUNTERS[device] = c
     return c
 

@@ -6,6 +6,15 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
       --sparse
 
+With ``--batch-size`` / ``--arrival-rate`` the continuous-batching engine
+replaces the one-shot ``generate``: ``--requests`` prompts of three
+lengths arrive at ``--arrival-rate`` a step (default: all at step 0) and
+stream through ``serve.engine.ServingEngine``, with a log line every
+``--log-every`` steps (occupancy, admitted / evicted / queued, tokens):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --sparse \\
+      --layers 8 --batch-size 8 --arrival-rate 1 --requests 16
+
 ``--layers`` cuts depth only, never width.  ``--smoke`` takes the reduced
 test config instead of the published one; ``--device cpu`` runs the plain
 PyTorch versions of the kernels (for small configs).
@@ -23,7 +32,7 @@ from repro_torch.core import reweighted as RW
 from repro_torch.models import transformer as T
 from repro_torch.serve.compile import (CompileSpec, compile_model,
                                        compiled_summary)
-from repro_torch.serve.engine import generate
+from repro_torch.serve.engine import ServingEngine, generate
 from repro_torch.train.trainer import apply_masks
 
 SPARSE_SPEC = [(r"(attn/w[qkvo]|(ffn|moe)/(gate|up|down))/w",
@@ -54,6 +63,20 @@ def main(argv=None):
                          "kernel")
     ap.add_argument("--prune-rate", type=float, default=0.6)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--batch-size", type=int, default=0, metavar="SLOTS",
+                    help="continuous-batching engine slot count; > 0 "
+                         "switches from one-shot generate to the "
+                         "ServingEngine workload")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="open-loop arrivals per engine step (default: "
+                         "saturate, everything arrives at step 0); implies "
+                         "the engine path")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="engine path: number of requests")
+    ap.add_argument("--seq-cap", type=int, default=128,
+                    help="engine path: per-slot KV ring capacity")
+    ap.add_argument("--log-every", type=int, default=8,
+                    help="engine path: steps between log lines")
     args = ap.parse_args(argv)
 
     cfg = configs.get(args.arch, smoke=args.smoke)
@@ -77,6 +100,9 @@ def main(argv=None):
         del masks
 
     mode = "sparse" if args.sparse else "dense"
+    if args.batch_size or args.arrival_rate:
+        _run_engine(params, cfg, args, mode)
+        return
     t0 = time.perf_counter()
     out = generate(params, cfg, prompts, args.new_tokens, device=args.device)
     _sync(args.device)
@@ -86,6 +112,44 @@ def main(argv=None):
           f"({args.batch * args.new_tokens / dt:.1f} tok/s incl. prefill "
           f"and first-use kernel build)")
     print("sample:", out[0][:16].tolist())
+
+
+def _run_engine(params, cfg, args, mode):
+    """``--requests`` prompts of three lengths (``--prompt-len``, half and
+    three quarters of it) arriving at ``--arrival-rate`` a step through
+    the continuous-batching engine, ``--new-tokens`` each."""
+    n_slots = args.batch_size or 8
+    eng = ServingEngine(params, cfg, n_slots=n_slots, seq_cap=args.seq_cap,
+                        device=args.device)
+    rng = np.random.RandomState(0)
+    rate = args.arrival_rate
+    lengths = (args.prompt_len, max(2, args.prompt_len // 2),
+               max(2, 3 * args.prompt_len // 4))
+    for i in range(args.requests):
+        prompt = rng.randint(1, cfg.vocab,
+                             size=lengths[i % len(lengths)]).tolist()
+        eng.submit(prompt, args.new_tokens,
+                   arrival=int(i / rate) if rate else 0)
+
+    _sync(args.device)
+    t0 = time.perf_counter()
+    while eng.sched.has_work():
+        eng.step()
+        if eng.stats["steps"] % args.log_every == 0:
+            s = eng.stats
+            print(f"step {s['steps']:>4}: occupancy "
+                  f"{eng.mean_occupancy():.2f} admitted {s['admitted']} "
+                  f"evicted {s['evicted']} queued {eng.sched.queued()} "
+                  f"tokens {s['tokens']}")
+    _sync(args.device)
+    dt = time.perf_counter() - t0
+    s = eng.stats
+    print(f"{args.arch} [{mode}, {cfg.n_layers} layers, engine B={n_slots}"
+          + (f", rate={rate}/step" if rate else ", saturated")
+          + f", {s['graph_captures']} graph capture(s)]: {s['finished']}/"
+          f"{args.requests} requests, {s['tokens']} tokens in {dt:.2f}s "
+          f"({s['tokens'] / dt:.1f} tok/s incl. prefills), mean occupancy "
+          f"{eng.mean_occupancy():.2f}")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,12 @@
 """GQA attention: KV-chunked online softmax for prefill, the direct cached
-step for decode.  All four projections (wq/wk/wv/wo) go through
-``layers.linear``, so layers compiled by ``serve.compile`` run on the BCS
-kernel transparently.  The attention math itself is plain PyTorch, as the
-reference leaves it to XLA."""
+step for decode (one shared position for the batch, or ragged: one per
+slot of the continuous-batching engine).  All four projections
+(wq/wk/wv/wo) go through ``layers.linear``, so layers compiled by
+``serve.compile`` run on the BCS kernel transparently.  The attention math
+itself is plain PyTorch, as the reference leaves it to XLA.
+
+The decode steps neither synchronise with the host nor move host data to
+the card, so the engine can capture them in a CUDA graph."""
 from __future__ import annotations
 
 import torch
@@ -95,17 +99,28 @@ def attend(q, k, v, q_pos, k_pos, causal=True, window=0, kv_chunk=1024):
 
 
 def attend_cached(q, k_cache, v_cache, q_pos, k_pos, window=0):
-    """Single-token decode over a KV cache with batch-shared positions.
+    """Single-token decode over a KV cache.
 
-    q: (B, Q, KV, G, hd); caches: (B, Sk, KV, hd); q_pos (Q,), k_pos (Sk,).
-    Entries whose position is after the query's fail the causal mask."""
+    q: (B, Q, KV, G, hd); caches: (B, Sk, KV, hd).  Positions come either
+    batch-shared (``q_pos (Q,)``, ``k_pos (Sk,)``: ``generate``) or per
+    slot (``q_pos (B, Q)``, ``k_pos (B, Sk)``: the engine, where every
+    slot holds its own history; never-written entries carry
+    ``serve.kvcache.INVALID_POS``).  Entries whose position is after the
+    query's fail the causal mask; the masked softmax is the same
+    elementwise either way."""
     hd = q.shape[-1]
     s = torch.einsum("bqkgh,bskh->bkgqs", q.float() * hd ** -0.5,
                      k_cache.float())
-    mask = k_pos[None, :] <= q_pos[:, None]                     # (Q, Sk)
+    if k_pos.dim() == 1:
+        kp, qp = k_pos[None, :], q_pos[:, None]                 # (Q, Sk)
+    else:
+        kp, qp = k_pos[:, None, :], q_pos[:, :, None]           # (B, Q, Sk)
+    mask = kp <= qp
     if window > 0:
-        mask &= k_pos[None, :] > q_pos[:, None] - window
-    s = torch.where(mask, s, torch.tensor(NEG_INF, device=s.device))
+        mask &= kp > qp - window
+    if k_pos.dim() == 2:
+        mask = mask[:, None, None]                              # (B,1,1,Q,Sk)
+    s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", p, v_cache.float())
     return out.to(q.dtype)
@@ -152,5 +167,37 @@ def mha_decode(params, x, cache, pos, n_heads, n_kv, head_dim, *,
 
     out = attend_cached(_grouped(q, n_kv), cache["k"], cache["v"],
                         pos[0, 0:1], cache["pos"], window=window)
+    out = out.reshape(B, 1, n_heads * head_dim)
+    return _proj(params, "wo", out, m), cache
+
+
+def mha_decode_ragged(params, x, cache, pos, cap, n_heads, n_kv, head_dim,
+                      *, window=0, rope_theta=10000.0, masks=None):
+    """One-token decode across RAGGED slot histories (continuous batching).
+
+    Each slot ``b`` carries its own position ``pos[b]`` ((B, 1) int) and
+    ring capacity ``cap[b]`` ((B,) int: its request's prefill length,
+    ``serve.kvcache.slot_capacity``).  cache = dict(k=(B, S, KV, hd),
+    v=..., pos=(B, S)) slot tensors; the new token overwrites ring index
+    ``pos[b] % max(cap[b], 1)`` of row ``b``, the drop-oldest rule of
+    ``mha_decode`` per slot, with one scatter by a device index (no host
+    loop, no sync), IN PLACE.  Entries past a slot's capacity keep
+    ``INVALID_POS``.  Returns (out, cache)."""
+    m = masks or {}
+    B = x.shape[0]
+    q = _proj(params, "wq", x, m).reshape(B, 1, n_heads, head_dim)
+    k = _proj(params, "wk", x, m).reshape(B, 1, n_kv, head_dim)
+    v = _proj(params, "wv", x, m).reshape(B, 1, n_kv, head_dim)
+    q = L.apply_rotary(q, pos, rope_theta)
+    k = L.apply_rotary(k, pos, rope_theta)
+
+    rows = torch.arange(B, device=x.device)
+    slots = torch.remainder(pos[:, 0], torch.clamp_min(cap, 1)).long()
+    cache["k"].index_put_((rows, slots), k[:, 0].to(cache["k"].dtype))
+    cache["v"].index_put_((rows, slots), v[:, 0].to(cache["v"].dtype))
+    cache["pos"].index_put_((rows, slots), pos[:, 0].to(cache["pos"].dtype))
+
+    out = attend_cached(_grouped(q, n_kv), cache["k"], cache["v"], pos,
+                        cache["pos"], window=window)
     out = out.reshape(B, 1, n_heads * head_dim)
     return _proj(params, "wo", out, m), cache

@@ -74,11 +74,13 @@ def layer_params(params) -> list:
     return [M.take_layer(params["layers"], i) for i in range(n_layers(params))]
 
 
-def _ffn(p, h, cfg: ArchConfig):
-    """The layer's FFN on its normed input: SwiGLU, or the MoE experts
-    (their aux loss is a training quantity, dropped when serving)."""
+def _ffn(p, h, cfg: ArchConfig, group=None):
+    """The layer's FFN on its normed input: SwiGLU, or the MoE experts in
+    dispatch groups of ``group`` tokens (default ``cfg.moe_group``; their
+    aux loss is a training quantity, dropped when serving)."""
     if cfg.family == "moe":
-        return moe(p["moe"], h, top_k=cfg.top_k, group=cfg.moe_group)[0]
+        return moe(p["moe"], h, top_k=cfg.top_k,
+                   group=cfg.moe_group if group is None else group)[0]
     return L.ffn(p["ffn"], h)
 
 
@@ -139,10 +141,11 @@ def init_cache(params, cfg: ArchConfig, batch, seq, dtype=torch.bfloat16):
     return cache
 
 
-def decode_step(params, cfg: ArchConfig, token, cache, pos, layers=None):
-    """token (B, 1) int; pos (B, 1) int current position; returns
-    (logits (B, 1, V), cache) — the cache is updated in place.  ``layers``
-    is ``layer_params(params)`` when the caller already has it."""
+def _decode(params, cfg: ArchConfig, token, cache, layers, attn,
+            moe_group=None):
+    """The decode step's layer loop.  ``attn(lp, hn, kv_cache)`` is the
+    attention of one layer on its normed input and that layer's KV views;
+    every cache write is in place."""
     x = L.embed(params["embed"], token)
     if layers is None:
         layers = layer_params(params)
@@ -157,17 +160,56 @@ def decode_step(params, cfg: ArchConfig, token, cache, pos, layers=None):
         if fam == "ssm":
             x = x + sm
             continue
-        c = M.take_layer(cache["kv"], i)          # views into the stack
-        att, _ = A.mha_decode(lp["attn"], hn, c, pos, cfg.n_heads,
-                              cfg.n_kv_heads, cfg.hd,
-                              window=cfg.sliding_window,
-                              rope_theta=cfg.rope_theta)
+        # the layer's KV views into the stack
+        att = attn(lp, hn, M.take_layer(cache["kv"], i))
         if fam == "hybrid":
             att = (att + sm) * 0.5
         x = x + att
-        x = x + _ffn(lp, L.rmsnorm(lp["ln2"], x), cfg)
+        x = x + _ffn(lp, L.rmsnorm(lp["ln2"], x), cfg, moe_group)
     x = L.rmsnorm(params["norm_f"], x)
     return L.unembed(params["head"], x), cache
+
+
+def decode_step(params, cfg: ArchConfig, token, cache, pos, layers=None):
+    """token (B, 1) int; pos (B, 1) int current position; returns
+    (logits (B, 1, V), cache) — the cache is updated in place.  ``layers``
+    is ``layer_params(params)`` when the caller already has it."""
+    def attn(lp, hn, c):
+        return A.mha_decode(lp["attn"], hn, c, pos, cfg.n_heads,
+                            cfg.n_kv_heads, cfg.hd,
+                            window=cfg.sliding_window,
+                            rope_theta=cfg.rope_theta)[0]
+    return _decode(params, cfg, token, cache, layers, attn)
+
+
+def decode_step_ragged(params, cfg: ArchConfig, token, cache, pos, cap,
+                       layers=None):
+    """Continuous-batching decode step: ONE forward over every slot of the
+    ``serve.kvcache`` slot cache.
+
+    token (B, 1) int per-slot current tokens; pos (B, 1) int per-slot
+    positions; cap (B,) int per-slot ring capacities (a free slot runs as
+    pos = 0 / cap = 1 padding whose outputs the engine discards).
+    Returns (logits (B, 1, V), cache), the cache updated in place.
+
+    Per slot it computes what ``decode_step`` at B = 1 computes: the
+    ragged attention masks by per-entry positions, every other op is
+    row-wise, and MoE dispatches with ``group=1`` so batch occupancy can
+    never change a token's expert-capacity outcome (at B = 1 the group
+    clamp makes ``group`` irrelevant).  No host sync and no host-to-card
+    copy, so the engine captures it in a CUDA graph; admission and
+    eviction rewrite cache rows, never shapes."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not served by the continuous-"
+            f"batching engine ({'/'.join(FAMILIES)} only)")
+
+    def attn(lp, hn, c):
+        return A.mha_decode_ragged(lp["attn"], hn, c, pos, cap, cfg.n_heads,
+                                   cfg.n_kv_heads, cfg.hd,
+                                   window=cfg.sliding_window,
+                                   rope_theta=cfg.rope_theta)[0]
+    return _decode(params, cfg, token, cache, layers, attn, moe_group=1)
 
 
 def decode_loop(params, cfg: ArchConfig, tok, cache, start_pos, n_new):

@@ -71,12 +71,13 @@ MAPPER_BLOCKS = [(32, 64), (64, 128), (128, 32), (128, 128), (256, 256)]
 @pytest.mark.parametrize("block,values", [
     (b, None) for b in [(16, 16), (8, 16), (4, 4), (16, 32), (16, 8)]
     + MAPPER_BLOCKS] + [(b, "int8") for b in MAPPER_BLOCKS])
-@pytest.mark.parametrize("M", [1, 4, 15, 16, 17, 129])
+@pytest.mark.parametrize("M", [1, 4, 8, 15, 16, 17, 129])
 def test_kernel_matches_plain(cuda, M, block, values, dtype):
     """At the plan's path boundaries (M tiles of 16, 32 and 128 rows, the
     tensor-core path and the FMA path; (16, 8) is the tensor-core tile of
-    one n8 fragment a warp), one launch over all bins; a block that does
-    not tile (256, 384) runs at (512, 768)."""
+    one n8 fragment a warp) and at the engine's step (M = 8 slots), one
+    launch over all bins; a block that does not tile (256, 384) runs at
+    (512, 768)."""
     K_, N_ = ((256, 384) if 256 % block[0] == 0 and 384 % block[1] == 0
               else (512, 768))
     _kernel_vs_plain(cuda, M, K_, N_, block, dtype,
@@ -190,6 +191,77 @@ def test_ssm_generate_on_card_matches_cpu(cuda, arch, per_layer):
         assert launches == (cfg.n_layers * per_layer * 11
                             if dev == "cuda" else 0)
     assert torch.equal(outs["cuda"], outs["cpu"])
+
+
+# -- the continuous-batching engine's captured step --------------------------
+
+def _engine_model(family, dev):
+    """fp32 SMOKE params of ``family`` under the serving spec, compiled on
+    ``dev`` (``keep_dense=False``)."""
+    from repro_torch.launch.serve import SPARSE_SPEC
+    arch = {"dense": "yi-9b", "moe": "mixtral-8x7b",
+            "hybrid": "hymba-1.5b"}[family]
+    cfg = configs.get(arch, smoke=True)
+    p = T.init_lm(cfg, seed=0, dtype=torch.float32, device="cpu")
+    masks = RW.magnitude_block_masks(p, SPARSE_SPEC, None, rate=0.6)
+    exec_p, _ = C.compile_model(apply_masks(p, masks), masks, SPARSE_SPEC,
+                                spec=C.CompileSpec(keep_dense=False),
+                                device=dev)
+    return cfg, exec_p
+
+
+@pytest.mark.parametrize("family", ["dense", "moe", "hybrid"])
+def test_engine_graph_replay_equals_eager_step(cuda, family):
+    """One capture per engine; the first replayed step, after admissions
+    into slots 0-2 of 4, equals the eager ``decode_step_ragged`` on a copy
+    of the same cache, bitwise (logits, next tokens, the finite probe).
+    The capture leaves the kernel-1 count at the warm-up step's launches,
+    and the replay adds them once."""
+    cfg, exec_p = _engine_model(family, cuda)
+    before = K.LAUNCHES["bsr_matmul"]
+    eng = engine.ServingEngine(exec_p, cfg, n_slots=4, seq_cap=32)
+    per_step = K.LAUNCHES["bsr_matmul"] - before
+    assert eng.stats["graph_captures"] == 1 and per_step > 0
+    assert eng._replay_launches == {"bsr_matmul": per_step}
+    rng = np.random.RandomState(0)
+    for n in (8, 12, 5):
+        eng.submit(rng.randint(1, cfg.vocab, size=n).tolist(), 6)
+    eng._admit()
+    copy = {g: {k: t.clone() for k, t in d.items()}
+            for g, d in eng.cache.items()}
+    ops_ = torch.as_tensor(eng._ops, device=cuda)
+    with torch.no_grad():
+        want, _ = T.decode_step_ragged(exec_p, cfg, ops_[0][:, None], copy,
+                                       ops_[1][:, None], ops_[2])
+    before = K.LAUNCHES["bsr_matmul"]
+    nxt, ok = eng._run()
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["bsr_matmul"] - before == per_step
+    assert torch.equal(eng.logits, want)
+    last = want[:, -1].float()
+    assert (nxt == last.argmax(-1).int().cpu().numpy()).all()
+    assert (ok == torch.isfinite(last).all(-1).int().cpu().numpy()).all()
+    for g, d in eng.cache.items():
+        for k, t in d.items():
+            assert torch.equal(t, copy[g][k]), (g, k)
+    assert eng.stats["graph_captures"] == 1
+
+
+@pytest.mark.parametrize("family", ["dense", "moe", "hybrid"])
+def test_engine_tokens_on_card_equal_generate(cuda, family):
+    """fp32, TF32 off: the captured engine's tokens equal one B = 1
+    ``generate`` per request on the card, through slot reuse."""
+    cfg, exec_p = _engine_model(family, cuda)
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(1, cfg.vocab, size=n).tolist()
+               for n in (8, 12, 5, 9)]
+    eng = engine.ServingEngine(exec_p, cfg, n_slots=2, seq_cap=32)
+    rids = [eng.submit(p, 6) for p in prompts]
+    eng.run()
+    assert eng.stats["finished"] == 4 and eng.stats["graph_captures"] == 1
+    for rid, p in zip(rids, prompts):
+        want = engine.generate(exec_p, cfg, np.asarray([p]), 6)[0].tolist()
+        assert eng.requests[rid].tokens == want
 
 
 # -- kernel 1 over an MoE expert stack ---------------------------------------

@@ -38,7 +38,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
               "repro_torch.core.latency_model",
               "repro_torch.core.mapper_rule",
               "repro_torch.core.mapper_search",
-              "repro_torch.configs.kimi_k2_1t_a32b"):
+              "repro_torch.configs.kimi_k2_1t_a32b",
+              "repro_torch.serve.scheduler", "repro_torch.serve.kvcache"):
         assert m in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
