@@ -137,6 +137,30 @@
    open-loop run at one arrival a step.  Kernel 1's JSON entry carries an
    ``engine`` branch (M = 8: a yi-9b layer's time, bound and library
    call, each engine's launches a step and step ms).
+11. The paper's prune-and-train pipeline (``[train]`` lines, after the
+   yi-9b serve phase frees its state): yi-9b at full width (depth
+   ``--layers``), bf16 params, fp32 AdamW state, every layer
+   checkpointed, trained by ``core.pruner.reweighted_prune`` on the
+   port's synthetic batches (TRAIN_B x TRAIN_S tokens; the train CLI's
+   spec: ``map_rules`` snapped to (8, 16) blocks; TRAIN_STEPS reweighted
+   steps, alphas every TRAIN_REWEIGHT_EVERY, one global threshold at
+   TRAIN_RATE, TRAIN_FINETUNE masked steps), then compiled and served
+   through kernel 1 at the trained masks.  Printed: each stage's first
+   and last loss, a warm step's median ms and tokens/s, the busy share
+   of one traced step, the ms of ``update_alphas``, ``global_threshold``
+   and ``masks_for_spec(threshold=)``, density and compression, the
+   packed projections, prefill and decode ms, peak memory.  Gates, each
+   with a planted fault that must break it: every loss finite; no pruned
+   weight nonzero (a step without masks); the share of normalised groups
+   below tau within THRESHOLD_SHARE_TOL of TRAIN_RATE (tau halved); a
+   packed projection with a dead block in every layer (layer 0's blocks
+   all live); kernel-1 launches of the counted ``generate`` (wo served
+   dense); bf16 prefill logits and each layer's attention and FFN packed
+   vs masked-dense (a dropped bin); at 2 fp32 layers the same and the
+   greedy tokens (a dropped bin); the loss and grads of yi-9b and
+   mixtral-8x7b SMOKE on the card vs the CPU (the penalty dropped).
+   Kernel 1 vs plain at (8, 16) on yi-9b's shapes, and timed on the
+   trained layouts; its JSON entry carries a ``trained`` branch.
 
 No phase is caught: any failure exits non-zero.  The last two lines are
 the kernels JSON and ``{"ok": true, "device": {...}}``.  Full detail goes
@@ -3364,6 +3388,461 @@ def engine_fp32_gate(mods, exec32, cfg32, arch, fault=False):
     return out
 
 
+# -- the paper's prune-and-train pipeline on yi-9b ----------------------------
+
+TRAIN_B, TRAIN_S = 8, 128        # the training batch: B sequences of S
+TRAIN_STEPS, TRAIN_FINETUNE = 40, 20
+TRAIN_REWEIGHT_EVERY = 10
+TRAIN_RATE, TRAIN_LAM, TRAIN_LR = 0.6, 1e-3, 3e-3
+# the share of normalised groups below tau: the quantile puts TRAIN_RATE
+# of them there, up to the groups tied at tau
+THRESHOLD_SHARE_TOL = 0.01
+# loss and grads of SMOKE configs, card vs CPU (fp32, TF32 off)
+TRAIN_GRAD_ARCHS = ("yi-9b", "mixtral-8x7b")
+TRAIN_GRAD_TOL = 1e-5            # loss (relative), grads (of max |g|)
+
+
+def masked_out_nonzero(RW, params, masks):
+    """How many weights the masks prune are not exactly 0."""
+    flat = dict(RW._leaves(params))
+    return sum(int(((m == 0) & (flat[p] != 0)).sum())
+               for p, m in RW._leaves(masks) if m.ndim)
+
+
+def timed(record, name, fn):
+    """``fn`` with each call's synchronised wall ms appended to
+    ``record[name]``."""
+    def f(*a, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        sync()
+        record.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+    return f
+
+
+def first_layers(tree, n):
+    """A param or mask tree cut to its first ``n`` layers."""
+    from repro_torch.models.module import tree_map
+    return dict(tree, layers=tree_map(lambda t: t[:n] if t.ndim else t,
+                                      tree["layers"]))
+
+
+def sublayer_gaps(mods, exec_p, dense_p, cfg, tokens):
+    """Per layer, the attention and the FFN with packed and with
+    masked-dense params on the same normed inputs (the masked-dense run's
+    residual stream): the worst (max, mean) relative gaps of the
+    attention outputs and of the FFN outputs.  The trained projections
+    keep few weights and move the logits little, so these hold the
+    packed products where the logits cannot.  An output that is 0 on
+    both paths (every product of a SwiGLU pruned away) gaps by 0."""
+
+    def gap(d, p):
+        if d.abs().max() == 0:
+            return (0.0, 0.0) if p.abs().max() == 0 else (math.inf,) * 2
+        return logit_gap(d, p)
+    from repro_torch.models import attention as A
+    T, L = mods["T"], mods["L"]
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    x = L.embed(dense_p["embed"], tokens)
+    gaps = {"attn": [], "ffn": []}
+    for lp_x, lp_d in zip(T.layer_params(exec_p), T.layer_params(dense_p)):
+        h = L.rmsnorm(lp_d["ln1"], x)
+        outs = [A.mha(lp["attn"], h, positions, cfg.n_heads, cfg.n_kv_heads,
+                      cfg.hd, window=cfg.sliding_window,
+                      rope_theta=cfg.rope_theta)[0] for lp in (lp_d, lp_x)]
+        gaps["attn"].append(gap(*outs))
+        x = x + outs[0]
+        h = L.rmsnorm(lp_d["ln2"], x)
+        outs = [L.ffn(lp["ffn"], h) for lp in (lp_d, lp_x)]
+        gaps["ffn"].append(gap(*outs))
+        x = x + outs[0]
+    return {k: (max(g[0] for g in v), max(g[1] for g in v))
+            for k, v in gaps.items()}
+
+
+def train_grads_gate(mods, arch, fault=False):
+    """Loss (masks and the penalty's alphas both given) and grads of
+    ``arch`` SMOKE in fp32 on the card against the same computation on
+    the CPU: (loss relative gap, worst leaf's grad gap over its max |g|).
+    ``fault`` drops the penalty on the card (no alphas)."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models.module import tree_map
+    from repro_torch.train import trainer
+    RW, T = mods["RW"], mods["T"]
+    cfg = configs.get(arch, smoke=True)
+    spec = [(r"(attn/w[qkvo]|(ffn|moe)/(gate|up|down))/w",
+             RW.SchemeChoice("block", (8, 16))),
+            (r"head/table", RW.SchemeChoice("block", (8, 16)))]
+    rw = RW.ReweightedConfig(spec=tuple(spec), lam=TRAIN_LAM)
+    p = T.init_lm(cfg, seed=0, dtype=torch.float32, device="cpu")
+    args = (p, synthetic_batch(0, 0, 2, 16, cfg.vocab, device="cpu"),
+            RW.masks_for_spec(p, spec, default_rate=0.5),
+            RW.update_alphas(p, rw))
+    f = trainer.value_and_grad(trainer.make_loss_fn(cfg, reweighted=rw))
+    (want, _), want_g = f(*args)
+    card = [tree_map(lambda t: t.to(DEV), a) for a in args]
+    if fault:
+        card[3] = None
+    (got, _), got_g = f(*card)
+    flat_g = dict(RW._leaves(got_g))
+    worst = max(float((flat_g[k].cpu() - w).abs().max())
+                / max(float(w.abs().max()), 1e-30)
+                for k, w in RW._leaves(want_g))
+    return abs(float(got) - float(want)) / abs(float(want)), worst
+
+
+def train_phase(mods, args):
+    """yi-9b at full width (depth ``--layers``), bf16 params, fp32
+    AdamW state, every layer checkpointed: the rule mapper's spec
+    (TRAIN_B x TRAIN_S tokens, dataset_hard False, compression
+    1 / (1 - TRAIN_RATE), V5E) snapped to (8, 16) as the train CLI snaps
+    it; ``reweighted_prune`` (TRAIN_STEPS reweighted steps, alphas every
+    TRAIN_REWEIGHT_EVERY, one global threshold at TRAIN_RATE,
+    TRAIN_FINETUNE masked steps) on the port's synthetic batches; then
+    ``compile_model`` and the counted ``generate`` through kernel 1 at the
+    trained masks.  Gates, each with a planted fault: every loss finite;
+    no pruned weight nonzero (one more step without masks); the share
+    of normalised groups below tau (tau halved); a packed projection in
+    every layer; kernel-1 launches; bf16 prefill logits packed vs
+    masked-dense (a dropped bin); at 2 fp32 layers the logits and greedy
+    tokens (a dropped bin); SMOKE loss and grads card vs CPU (the
+    penalty dropped).  Kernel 1 vs plain at (8, 16) on yi-9b's shapes,
+    and timed on the trained layouts."""
+    from repro_torch.core import pruner as P
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch.train import snapped_spec
+    from repro_torch.train import trainer
+    C, E, T, RW, ops = mods["C"], mods["E"], mods["T"], mods["RW"], \
+        mods["ops"]
+    full = lm_config()
+    cfg = full.replace(n_layers=args.layers)
+    spec = snapped_spec(cfg, TRAIN_B * TRAIN_S, TRAIN_RATE)
+    print(f"[train] yi-9b at full width, {cfg.n_layers} of {full.n_layers} "
+          f"layers, remat {cfg.remat!r}, {cfg.optimizer}; spec "
+          f"(map_rules at {TRAIN_B * TRAIN_S} tokens, dataset_hard=False, "
+          f"V5E, snapped): "
+          + ", ".join(f"{p} {c.scheme} {c.block}" for p, c in spec))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_lm(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
+    n_params = sum(t.numel() for _, t in RW._leaves(params))
+    n_pruned = sum(t.numel() for _, t, _ in RW._iter_prunable(params, spec))
+    opt_init, step = trainer.make_train_step(
+        cfg, lr=TRAIN_LR, reweighted=RW.ReweightedConfig(
+            spec=tuple(spec), lam=TRAIN_LAM))
+    state0 = opt_init(params)
+    sync()
+    init_s = time.perf_counter() - t0
+    print(f"[train] {n_params / 1e9:.3f} B params, {n_pruned / 1e9:.3f} B "
+          f"penalised; init + optimizer state {init_s:.2f} s")
+
+    ms, losses, last = {}, {"reweighted": [], "finetune": []}, {}
+
+    def step_fn(p, state, batch, masks, alphas):
+        stage = "finetune" if masks is not None else "reweighted"
+        out = timed(ms, stage, step)(p, state, batch, masks, alphas)
+        losses[stage].append(float(out[2]["loss"]))
+        last.update(state=out[1], batch=batch)
+        if alphas is not None:
+            last["alphas"] = alphas
+        return out
+
+    share = {}
+    threshold = timed(ms, "global_threshold", RW.global_threshold)
+
+    def threshold_gate(p, sp, rate):
+        tau = threshold(p, sp, rate)
+        rel = RW.normalised_groups(p, sp)
+        share.update(groups=rel.numel(), tau=tau,
+                     below=float((rel < tau).double().mean()),
+                     fault=float((rel < tau / 2).double().mean()))
+        return tau
+    with mock.patch.object(RW, "update_alphas",
+                           timed(ms, "update_alphas", RW.update_alphas)), \
+            mock.patch.object(RW, "global_threshold", threshold_gate), \
+            mock.patch.object(RW, "masks_for_spec",
+                              timed(ms, "masks_for_spec",
+                                    RW.masks_for_spec)):
+        t0 = time.perf_counter()
+        res = P.reweighted_prune(
+            params, state0, spec, step_fn,
+            lambda s: synthetic_batch(0, s, TRAIN_B, TRAIN_S, cfg.vocab,
+                                      device=DEV),
+            lam=TRAIN_LAM, steps=TRAIN_STEPS,
+            reweight_every=TRAIN_REWEIGHT_EVERY, target_rate=TRAIN_RATE,
+            finetune_steps=TRAIN_FINETUNE)
+        sync()
+        prune_s = time.perf_counter() - t0
+    del params, state0
+    out = {"layers": cfg.n_layers, "params": n_params,
+           "penalised_params": n_pruned, "batch": TRAIN_B,
+           "seq": TRAIN_S, "prune_s": prune_s, "losses": losses,
+           "threshold": share}
+    # warm steps: past the first two of each stage
+    for stage in ("reweighted", "finetune"):
+        med = statistics.median(ms[stage][2:])
+        out[f"{stage}_step_ms"] = med
+        out[f"{stage}_tok_per_s"] = TRAIN_B * TRAIN_S / med * 1e3
+    for name in ("update_alphas", "global_threshold", "masks_for_spec"):
+        out[f"{name}_ms"] = ms[name]
+    print(f"[train] reweighted_prune {prune_s:.1f} s: loss "
+          f"{losses['reweighted'][0]:.4f} -> {losses['reweighted'][-1]:.4f} "
+          f"({TRAIN_STEPS} reweighted steps), {losses['finetune'][0]:.4f} "
+          f"-> {losses['finetune'][-1]:.4f} ({TRAIN_FINETUNE} masked "
+          f"steps); warm step {out['reweighted_step_ms']:.1f} ms = "
+          f"{out['reweighted_tok_per_s']:.0f} tok/s (reweighted), "
+          f"{out['finetune_step_ms']:.1f} ms = "
+          f"{out['finetune_tok_per_s']:.0f} tok/s (masked)")
+    print(f"[train] update_alphas {[round(t, 1) for t in ms['update_alphas']]}"
+          f" ms, global_threshold {ms['global_threshold'][0]:.1f} ms (the "
+          f"quantile of {share['groups']} normalised group norms, on the "
+          f"card), masks_for_spec(threshold=) {ms['masks_for_spec'][0]:.1f} "
+          f"ms")
+    rep = res.report["__overall__"]
+    out.update(density=rep["density"], compression=rep["compression"],
+               report={k: v["density"] for k, v in res.report.items()})
+    print(f"[train] pruned: density {rep['density']:.4f}, compression "
+          f"{rep['compression']:.2f}x; per leaf " + ", ".join(
+              f"{k} {v['density']:.3f}" for k, v in res.report.items()
+              if k != "__overall__"))
+
+    # gate 1: every loss finite
+    if not all(math.isfinite(x) for v in losses.values() for x in v):
+        raise AssertionError(f"[train] a loss is not finite: {losses}")
+    # gate 2: no pruned weight survives; a step without its masks revives
+    # them (Adam's momentum and the weight decay move them)
+    alive = masked_out_nonzero(RW, res.params, res.masks)
+    revived, _, _ = step(res.params, last["state"], last["batch"], None,
+                         None)
+    fault2 = masked_out_nonzero(RW, revived, res.masks)
+    del revived
+    print(f"[train] pruned weights nonzero: {alive} (a step without the "
+          f"masks, the planted fault: {fault2})")
+    if alive or not fault2:
+        raise AssertionError("[train] pruned weights gate failed or missed "
+                             "its fault")
+    # gate 3: the threshold's share
+    print(f"[train] tau {share['tau']:.6g}: {share['below']:.4f} of "
+          f"{share['groups']} normalised groups below it (target "
+          f"{TRAIN_RATE}); tau halved (the planted fault) "
+          f"{share['fault']:.4f}")
+    if abs(share["below"] - TRAIN_RATE) > THRESHOLD_SHARE_TOL or \
+            abs(share["fault"] - TRAIN_RATE) <= THRESHOLD_SHARE_TOL:
+        raise AssertionError("[train] threshold share gate failed or "
+                             "missed its fault")
+
+    # the traced train step (reweighted, the phase's bulk): busy share
+    dev_step = device_time(lambda: step(res.params, last["state"],
+                                        last["batch"], None, last["alphas"]))
+    last.clear()
+    torch.cuda.empty_cache()
+    if dev_step is None:
+        print("[train] busy share: not measured (no device activity)")
+    else:
+        out["step_busy_ms"] = dev_step["busy_ms"]
+        out["step_busy_share"] = dev_step["busy_ms"] / out[
+            "reweighted_step_ms"]
+        print(f"[train] traced reweighted step: {dev_step['busy_ms']:.1f} ms "
+              f"busy = {out['step_busy_share']:.3f} of its warm wall time, "
+              f"{dev_step['events']} device events")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[train] peak device memory {out['peak_gb']:.2f} GB")
+
+    # compile and serve the trained masks
+    exec_p, report, compile_s = compile_timed(mods, res.params, res.masks,
+                                              spec)
+    print(f"[train] compile_model {compile_s:.2f}s:")
+    print(C.compiled_summary(report))
+    packed = [r.path for r in report.packed]
+    lays = {p: exec_p["layers"][p.split("/")[1]][p.split("/")[2]]["packed"]
+            for p in packed}
+    # gate 4: every layer has a packed projection with a dead block; the
+    # fault: layer 0 with every block live in every layout
+    def dead_per_layer(nnz):
+        return [sum(int(n[i].sum()) < lay.Kb * lay.Nb
+                    for n, lay in zip(nnz, lays.values()))
+                for i in range(cfg.n_layers)]
+    per_layer = dead_per_layer([lay.nnz for lay in lays.values()])
+    full0 = []
+    for lay in lays.values():
+        n = lay.nnz.clone()
+        n[0] = lay.Kb
+        full0.append(n)
+    fault4 = dead_per_layer(full0)
+    # what sets the padded degrees: each layer's live-block share and its
+    # fullest block column (a bin runs at the max over its columns and
+    # the stack's layers)
+    live = {p.split("/")[2]: [
+        (round(int(lay.nnz[i].sum()) / (lay.Kb * lay.Nb), 3),
+         int(lay.nnz[i].max())) for i in range(cfg.n_layers)]
+        for p, lay in lays.items()}
+    print("[train] per layer (live-block share, fullest column's live "
+          "blocks of Kb): " + "; ".join(f"{k} {v}" for k, v in live.items()))
+    out.update(packed=packed, packed_with_dead_blocks=per_layer,
+               compile_s=compile_s, live_by_layer=live)
+    print(f"[train] packed {len(packed)} projections: {packed}; per layer, "
+          f"those with a dead block: {per_layer} (every block of layer 0 "
+          f"live, the planted fault: {fault4})")
+    if not packed or min(per_layer) < 1 or min(fault4) >= 1:
+        raise AssertionError("[train] a layer has no packed projection, or "
+                             "the gate missed its fault")
+    # gate 5: the counted generate
+    e2e, launches, prompts, tokens = serve_counted(
+        mods, exec_p, cfg, full, compile_s, "the trained masks at (8, 16)",
+        per_layer=len(packed))
+    out["serve"] = e2e
+    # the planted faults act on the attention's output projection (its
+    # input is never all zero: wv is not pruned), else the last packed
+    _, group, fault_proj, _ = ("layers/attn/wo/w" if "layers/attn/wo/w"
+                               in packed else packed[-1]).split("/")
+    # the launch count's fault: that projection served dense
+    dense_one = with_layout(exec_p, group, fault_proj, None)
+    dense_one["layers"][group][fault_proj] = {
+        "w": res.params["layers"][group][fault_proj]["w"]}
+    mods["K"].reset_launches()
+    with torch.no_grad():
+        E.prefill(dense_one, cfg, tokens)
+    fault5 = mods["K"].LAUNCHES["bsr_matmul"]
+    del dense_one
+    print(f"[train] one prefill with {fault_proj} served dense (the planted "
+          f"fault): {fault5} launches against {cfg.n_layers * len(packed)}")
+    if fault5 == cfg.n_layers * len(packed):
+        raise AssertionError("[train] the launch count misses a projection "
+                             "served dense")
+    # gate 6: bf16 prefill logits and each layer's attention and FFN,
+    # packed vs masked-dense
+    broken = dropped_last_bin(exec_p, fault_proj, group)
+    with torch.no_grad():
+        d = E.prefill(res.params, cfg, tokens)[0]
+        s = E.prefill(exec_p, cfg, tokens)[0]
+        fault = logit_gap(d, E.prefill(broken, cfg, tokens)[0])
+        sub = sublayer_gaps(mods, exec_p, res.params, cfg, tokens)
+        sub_fault = sublayer_gaps(mods, broken, res.params, cfg, tokens)
+    del broken
+    gap = logit_gap(d, s)
+    print(f"[train] bf16, packed vs masked-dense (bound {LOGIT_MAX_REL} / "
+          f"{LOGIT_MEAN_REL} of max / mean |output|): prefill logits "
+          f"{gap[0]:.4f} / {gap[1]:.4f}, worst layer's attention "
+          f"{sub['attn'][0]:.4f} / {sub['attn'][1]:.4f}, FFN "
+          f"{sub['ffn'][0]:.4f} / {sub['ffn'][1]:.4f}; planted fault "
+          f"({fault_proj}'s last bin dropped): logits {fault[0]:.4f} / "
+          f"{fault[1]:.4f}, {group} {sub_fault[group][0]:.4f} / "
+          f"{sub_fault[group][1]:.4f}")
+    out.update(logits_gap=gap, fault_gap=fault, sublayer_gaps=sub,
+               sublayer_fault_gaps=sub_fault)
+    if not (torch.isfinite(s).all() and within_bound(gap)
+            and all(within_bound(g) for g in sub.values())):
+        raise AssertionError("[train] bf16 packed outputs disagree with "
+                             "masked-dense")
+    if all(within_bound(g) for g in (fault, *sub_fault.values())):
+        raise AssertionError("[train] the bf16 bounds miss a dropped bin")
+    del d, s
+
+    # kernel 1 on the trained layouts (layer 0), timed
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(7)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=DEV)
+
+    def trained(name, Kd, Nd):
+        g = "attn" if name.startswith("w") else "ffn"
+        return (exec_p["layers"][g][name]["packed"].layer(0),
+                res.params["layers"][g][name]["w"][0])
+    projs = [p for p in PROJECTIONS if any(
+        r.endswith(f"/{p[0]}/w") for r in packed)]
+    rows = kernel1_timings(mods, gen, flush, projs, (4, B * S), trained)
+    print_timings("[train] kernel 1 on the trained layouts at (8, 16), "
+                  "layer 0, bf16 x (L2 flushed, median ms by CUDA-graph "
+                  "replay; torch.matmul on the masked dense weight):", rows,
+                  "torch.matmul", f"yi-9b layer ({len(projs)} projections)",
+                  ((4, "decode"), (B * S, "prefill")))
+    out["rows"] = rows
+    del exec_p
+    torch.cuda.empty_cache()
+
+    # gate 7: 2 fp32 layers of the trained weights, TF32 off
+    cfg2 = cfg.replace(n_layers=2)
+    p32 = cast_tree(first_layers(res.params, 2), torch.float32)
+    m2 = first_layers(res.masks, 2)
+    exec32, _, _ = compile_timed(mods, p32, m2, spec)
+    broken = dropped_last_bin(exec32, fault_proj, group)
+    with torch.no_grad():
+        want = T.forward(p32, cfg2, tokens)
+        gap32 = max(logit_gap(want, T.forward(exec32, cfg2, tokens))[0],
+                    *(g[0] for g in sublayer_gaps(mods, exec32, p32, cfg2,
+                                                  tokens).values()))
+        fault32 = max(logit_gap(want, T.forward(broken, cfg2, tokens))[0],
+                      *(g[0] for g in sublayer_gaps(mods, broken, p32, cfg2,
+                                                    tokens).values()))
+        same = bool(torch.equal(
+            E.generate(p32, cfg2, prompts, N_NEW, device=DEV),
+            E.generate(exec32, cfg2, prompts, N_NEW, device=DEV)))
+    print(f"[train] fp32, 2 trained layers (TF32 off): logits and each "
+          f"layer's attention and FFN, packed vs masked-dense, worst "
+          f"{gap32:.2e} of max |output| (bound {MOE_FP32_LOGIT_REL}), "
+          f"planted fault {fault32:.3f}; greedy tokens identical: {same}")
+    out.update(fp32_gap=gap32, fp32_fault_gap=fault32,
+               fp32_tokens_identical=same)
+    if not (gap32 <= MOE_FP32_LOGIT_REL and same
+            and fault32 > MOE_FP32_LOGIT_REL):
+        raise AssertionError("[train] fp32 gate failed or missed its fault")
+    del broken
+    del p32, m2, exec32, res
+    torch.cuda.empty_cache()
+
+    # gate 8: SMOKE loss and grads, card vs CPU
+    grads = {a: train_grads_gate(mods, a) for a in TRAIN_GRAD_ARCHS}
+    fault8 = train_grads_gate(mods, TRAIN_GRAD_ARCHS[0], fault=True)
+    print(f"[train] SMOKE fp32 loss and grads, card vs CPU (TF32 off): "
+          + ", ".join(f"{a} loss {g[0]:.2e}, grads {g[1]:.2e}"
+                      for a, g in grads.items())
+          + f" (bound {TRAIN_GRAD_TOL}); planted fault (the penalty "
+          f"dropped on the card): loss {fault8[0]:.3f}")
+    out.update(smoke_grad_gaps=grads, smoke_grad_fault=fault8)
+    if any(g[0] > TRAIN_GRAD_TOL or g[1] > TRAIN_GRAD_TOL
+           for g in grads.values()) or fault8[0] <= TRAIN_GRAD_TOL:
+        raise AssertionError("[train] card autograd disagrees with the CPU "
+                             "or the gate missed its fault")
+
+    # kernel 1 vs plain at (8, 16), yi-9b's shapes
+    checks, max_err = kernel1_cases(
+        mods, gen, sorted({(k, n) for _, k, n, _ in PROJECTIONS}),
+        lambda w, mask: [("float", ops.pack(w, mask, (8, 16), reorder=True,
+                                            n_bins=N_BINS),
+                          ops.pack(w, mask, (8, 16)))],
+        (("none", False), ("silu", True)), block=(8, 16))
+    print(f"[train] kernel 1 vs plain at (8, 16): {checks} cases at yi-9b's "
+          f"(K, N), M in {CHECK_M}, bf16 + fp32, reordered == unreordered "
+          f"bitwise; max abs err {max_err:.3e}")
+    del flush
+    torch.cuda.empty_cache()
+    out.update(checks=checks, max_abs_err=max_err)
+    return out, launches
+
+
+def trained_entry(out, launches):
+    """Kernel 1's JSON ``trained`` branch."""
+    decode, prefill = layer_sum(out["rows"], 4), layer_sum(out["rows"],
+                                                           B * S)
+    return {
+        "launches": launches["bsr_matmul"], "max_abs_err": out[
+            "max_abs_err"],
+        "ms": decode["ms"], "plain_ms": decode["plain_ms"],
+        "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
+        "library_ms": decode["library_ms"], "stream_ms": decode[
+            "stream_ms"], "prefill": prefill,
+        "train_step_ms": out["reweighted_step_ms"],
+        "measured_at": f"yi-9b trained by reweighted_prune at full width "
+                       f"({out['layers']} layers), masks at (8, 16) blocks "
+                       f"(density {out['density']:.4f}); ms/bound/plain/"
+                       f"library: layer 0's packed projections at decode "
+                       f"M=4 (prefill: M={B * S}), bf16; launches: the "
+                       f"counted generate"}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=8,
@@ -3427,6 +3906,10 @@ def main(argv=None):
     stamp("yi-9b served")
     e2e, launches, launches8 = serve_phase(mods, args)
     torch.cuda.empty_cache()
+    # the paper's pipeline: train, prune and fine-tune yi-9b, then serve it
+    stamp("yi-9b trained, pruned and served")
+    train_out, train_launches = train_phase(mods, args)
+    torch.cuda.empty_cache()
     stamp("kernels 2-4 (VGG_TINY, MOBILE_TINY)")
     conv_rows, conv_err = conv_kernel_phase(mods, flush)
     conv_rows8, conv_err8, conv_faults8 = int8_conv_kernel_phase(mods,
@@ -3486,17 +3969,20 @@ def main(argv=None):
         # the yi-9b, mixtral, mamba2 and hymba generates and the three
         # engine runs, each counted alone (the CNN path runs kernel 3)
         "launches": (launches["bsr_matmul"] + moe_launches["bsr_matmul"]
+                     + train_launches["bsr_matmul"]
                      + sum(n["bsr_matmul"] for n in ssm_launches.values())
                      + map_launches["bsr_matmul"]
                      + sum(engine_launches.values())),
         "launches_by_path": {
             "yi-9b generate": launches["bsr_matmul"],
             "yi-9b mapped generate": map_launches["bsr_matmul"],
+            "yi-9b trained generate": train_launches["bsr_matmul"],
             "mixtral-8x7b generate": moe_launches["bsr_matmul"],
             **{f"{a} generate": n["bsr_matmul"]
                for a, n in ssm_launches.items()},
             **engine_launches},
-        "max_abs_err": max(max_err, moe_err, ssm_checks[1], map_err),
+        "max_abs_err": max(max_err, moe_err, ssm_checks[1], map_err,
+                           train_out["max_abs_err"]),
         # one decode step's 7 projections of one layer (M = 4), summed
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
@@ -3547,6 +4033,7 @@ def main(argv=None):
                     "torch.bmm on the bf16 masked dense weight")
     entry["mapped"] = mapped_entry(map_rows, map_launches, map_checks,
                                    map_err, map_e2e)
+    entry["trained"] = trained_entry(train_out, train_launches)
     at_m = layer_sum(rows, ENGINE_SLOTS)
     entry["engine"] = {
         "M": ENGINE_SLOTS,
@@ -3598,7 +4085,7 @@ def main(argv=None):
          "serve": e2e, "conv_serve": conv_e2e, "ssm_shapes": ssm_rows,
          "ssm_serve": ssm_e2e, "mapped_serve": map_e2e,
          "mapped_shapes": map_rows, "mapped_vgg": map_vgg,
-         "latency_model": map_model,
+         "latency_model": map_model, "train": train_out,
          "phase_start_s": RUN["phase_s"]},
         indent=1, default=str))
     print(f"card: {card}")

@@ -34,6 +34,9 @@ class ArchConfig:
     sliding_window: int = 0
     rope_theta: float = 10000.0
     kv_chunk: int = 1024        # KV chunk of the online-softmax attention
+    # training
+    optimizer: str = "adamw"    # "adamw" | "adafactor" (>= 70B)
+    remat: str = "full"         # "none" | "full" (checkpoint every layer)
 
     @property
     def hd(self):

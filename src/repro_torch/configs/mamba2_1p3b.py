@@ -13,4 +13,4 @@ CONFIG = ArchConfig(
 )
 
 SMOKE = CONFIG.replace(n_layers=2, d_model=64, vocab=256, ssm_state=16,
-                       ssm_headdim=16)
+                       ssm_headdim=16, remat="none")

@@ -11,4 +11,4 @@ CONFIG = ArchConfig(
 )
 
 SMOKE = CONFIG.replace(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
-                       d_ff=128, vocab=256, head_dim=16)
+                       d_ff=128, vocab=256, head_dim=16, remat="none")

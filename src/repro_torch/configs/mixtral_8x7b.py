@@ -12,4 +12,4 @@ CONFIG = ArchConfig(
 
 SMOKE = CONFIG.replace(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
                        d_ff=128, vocab=256, head_dim=16, n_experts=4,
-                       top_k=2, sliding_window=32)
+                       top_k=2, sliding_window=32, remat="none")

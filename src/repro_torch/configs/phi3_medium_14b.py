@@ -13,4 +13,4 @@ CONFIG = ArchConfig(
 )
 
 SMOKE = CONFIG.replace(n_layers=2, d_model=60, n_heads=5, n_kv_heads=5,
-                       d_ff=128, vocab=256, head_dim=12)
+                       d_ff=128, vocab=256, head_dim=12, remat="none")

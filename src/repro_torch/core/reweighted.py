@@ -3,8 +3,12 @@
 conv kernels (§4.1.2), pattern/connectivity conv masks (§2.1.1), every
 scheme of ``core.regularity`` through ``masks_for_spec`` (at a rate, or at
 one global threshold over the reweighted penalty's groups, §4.2), and
-the per-layer sparsity report.  The reweighted penalty itself
-(``init_alphas``, ``update_alphas``, ``penalty``) comes with training.
+the per-layer sparsity report; and the reweighted group-lasso penalty
+of the paper's Eq. (1) that training adds (``ReweightedConfig``,
+``init_alphas``, ``update_alphas``, ``penalty``):
+
+    R(alpha, W) = sum_g alpha_g * ||group_g(W)||_F^2,
+    alpha_g = 1 / (||group_g(W)||_F^2 + eps), re-estimated every T steps.
 
 A prune spec is an ordered list of (path-regex, SchemeChoice); the first
 match wins and non-matching leaves are never pruned.  Mask trees mirror the
@@ -34,6 +38,14 @@ class SchemeChoice:
     value_dtype: str | None = None   # serving precision pick (None = keep
     #                                  float values; "int8" = quantized
     #                                  packed values, see core.quant)
+
+
+@dataclass(frozen=True)
+class ReweightedConfig:
+    spec: tuple                      # PruneSpec as a tuple (hashable)
+    lam: float = 1e-4
+    eps: float = 1e-4
+    reweight_every: int = 20
 
 
 def match(spec, path: str) -> SchemeChoice | None:
@@ -95,19 +107,53 @@ def group_sqnorms(w, choice: SchemeChoice) -> dict:
     raise ValueError(sch)
 
 
+def init_alphas(params, spec):
+    """{path: {group kind: ones}} for every penalised leaf (fp32)."""
+    return {path: {k: torch.ones_like(v)
+                   for k, v in group_sqnorms(leaf, choice).items()}
+            for path, leaf, choice in _iter_prunable(params, spec)}
+
+
+def update_alphas(params, cfg: ReweightedConfig):
+    """alpha = 1 / (||group||_F^2 + eps), from the current params (no
+    gradient flows through them)."""
+    with torch.no_grad():
+        return {path: {k: 1.0 / (v + cfg.eps)
+                       for k, v in group_sqnorms(leaf, choice).items()}
+                for path, leaf, choice in _iter_prunable(params, cfg.spec)}
+
+
+def penalty(params, alphas, cfg: ReweightedConfig):
+    """Eq. (1)'s regularisation term: sum over penalised leaves and their
+    groups of alpha * ||group||_F^2 (alphas held constant), an fp32
+    scalar; leaves without alphas add nothing."""
+    return sum((torch.sum(alphas[path][k] * sq)
+                for path, leaf, choice in _iter_prunable(params, cfg.spec)
+                if path in alphas
+                for k, sq in group_sqnorms(leaf, choice).items()),
+               torch.zeros(()))
+
+
+def normalised_groups(params, spec):
+    """Every penalised group's sqnorm divided by the mean of its leaf's
+    groups of that kind, in one flat fp32 tensor (empty without any)."""
+    return torch.cat([(sq / (torch.mean(sq) + 1e-30)).reshape(-1)
+                      for _, leaf, choice in _iter_prunable(params, spec)
+                      for sq in group_sqnorms(leaf, choice).values()]
+                     or [torch.zeros(0)])
+
+
 def global_threshold(params, spec, target_rate: float) -> float:
     """One threshold tau over ALL group norms such that ~target_rate of
     groups fall below it.  Each leaf's group sqnorms are divided by their
     mean first (scale invariance: layers at different init scales compete
     on relative group importance); ``masks_for_spec(threshold=tau)``
-    scales tau back by each leaf's mean."""
-    rel = []
-    for _, leaf, choice in _iter_prunable(params, spec):
-        for sq in group_sqnorms(leaf, choice).values():
-            rel.append((sq / (torch.mean(sq) + 1e-30)).reshape(-1).cpu())
-    if not rel:
+    scales tau back by each leaf's mean.  The sort runs on the leaves'
+    device (it is exact, so the value does not depend on where)."""
+    rel = normalised_groups(params, spec)
+    if not rel.numel():
         return 0.0
-    return float(R.quantile(torch.cat(rel), target_rate))
+    return float(R.quantile(rel, target_rate))
 
 
 def block_masks_from(params, spec, block, keep_fn):

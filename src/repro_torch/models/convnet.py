@@ -131,6 +131,14 @@ def synthetic_images(generator, batch, n_classes=10, size=16, hard=False):
     return (img + noise).float(), labels
 
 
+def classify_loss(params, batch, arch=VGG_TINY, masks=None):
+    """Mean cross-entropy of ``convnet_apply``'s logits on (images,
+    labels)."""
+    logp = torch.log_softmax(convnet_apply(params, batch[0], arch, masks),
+                             dim=-1)
+    return -torch.mean(torch.gather(logp, 1, batch[1][:, None].long()))
+
+
 def accuracy(params, batch, arch=VGG_TINY, masks=None):
     """Top-1 accuracy of ``convnet_apply`` on (images, labels)."""
     logits = convnet_apply(params, batch[0], arch, masks)

@@ -1,6 +1,6 @@
 """Shared layer primitives: RMSNorm, rotary embeddings, linear (dense,
-masked, or packed BCS-sparse), embedding tables, SwiGLU FFN, and the
-depthwise causal conv1d of the SSM mixers."""
+masked, or packed BCS-sparse), embedding tables, the token cross-entropy,
+SwiGLU FFN, and the depthwise causal conv1d of the SSM mixers."""
 from __future__ import annotations
 
 import torch
@@ -98,6 +98,21 @@ def unembed(params, x):
     """Logits against the (separate) output head table: (..., d) ->
     (..., vocab)."""
     return torch.matmul(x, params["table"].t())
+
+
+# -- Loss ---------------------------------------------------------------------
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean token cross-entropy in fp32: logsumexp minus the gold logit,
+    averaged over every token, or over the tokens where ``mask`` is
+    nonzero (at least one)."""
+    logits = logits.float()
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = torch.logsumexp(logits, dim=-1) - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)
 
 
 # -- SwiGLU FFN ---------------------------------------------------------------

@@ -60,11 +60,13 @@ def tree_map_with_path(fn, tree, path=()):
     return fn(path_str(path), tree)
 
 
-def tree_map2(fn, a, b):
-    """``fn(x, y)`` over two nested dicts of the same structure."""
-    if isinstance(a, dict):
-        return {k: tree_map2(fn, a[k], b[k]) for k in a}
-    return fn(a, b)
+def tree_map(fn, tree, *rest):
+    """``fn(x, *ys)`` over nested dicts of ``tree``'s structure (the
+    others may hold more keys), keeping the structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def take_layer(tree, i):

@@ -7,10 +7,15 @@ Packed layouts are sliced too, never re-packed, so every layer executes
 the stack's padded slots.  An ``ssm`` layer is a mamba2 mixer on the
 normed residual; a ``hybrid`` (hymba) layer runs attention and the mixer
 in parallel on the same normed input, averages them, then the FFN.
+
+``forward_aux`` is the training forward: the logits and the MoE aux loss
+summed over the layers, each layer checkpointed (recomputed in the
+backward pass) when ``cfg.remat == "full"``.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
@@ -76,24 +81,25 @@ def layer_params(params) -> list:
 
 def _ffn(p, h, cfg: ArchConfig, group=None):
     """The layer's FFN on its normed input: SwiGLU, or the MoE experts in
-    dispatch groups of ``group`` tokens (default ``cfg.moe_group``; their
-    aux loss is a training quantity, dropped when serving)."""
+    dispatch groups of ``group`` tokens (default ``cfg.moe_group``).
+    Returns (out, aux): the MoE load-balance loss, None for SwiGLU."""
     if cfg.family == "moe":
         return moe(p["moe"], h, top_k=cfg.top_k,
-                   group=cfg.moe_group if group is None else group)[0]
-    return L.ffn(p["ffn"], h)
+                   group=cfg.moe_group if group is None else group)
+    return L.ffn(p["ffn"], h), None
 
 
 def _layer_fwd(p, x, positions, cfg: ArchConfig):
-    """One layer.  Returns (x, (k, v), ssm state): the layer's roped KV
-    (None for ``ssm``) and its mixer's decode state (None for dense and
-    moe), both from this one run.  The hybrid state is the mixer's on the
-    layer's normed INPUT, the same input its output came from."""
+    """One layer.  Returns (x, (k, v), ssm state, aux): the layer's roped
+    KV (None for ``ssm``), its mixer's decode state (None for dense and
+    moe), both from this one run, and its MoE aux loss (None outside the
+    moe family).  The hybrid state is the mixer's on the layer's normed
+    INPUT, the same input its output came from."""
     h = L.rmsnorm(p["ln1"], x)
     kv = st = None
     if cfg.family == "ssm":
         sm, st = S.ssm(p["ssm"], h)
-        return x + sm, kv, st
+        return x + sm, kv, st, None
     att, kv = A.mha(p["attn"], h, positions, cfg.n_heads, cfg.n_kv_heads,
                     cfg.hd, window=cfg.sliding_window,
                     rope_theta=cfg.rope_theta, kv_chunk=cfg.kv_chunk)
@@ -101,20 +107,42 @@ def _layer_fwd(p, x, positions, cfg: ArchConfig):
         sm, st = S.ssm(p["ssm"], h)
         att = (att + sm) * 0.5
     x = x + att
-    x = x + _ffn(p, L.rmsnorm(p["ln2"], x), cfg)
-    return x, kv, st
+    f, aux = _ffn(p, L.rmsnorm(p["ln2"], x), cfg)
+    return x + f, kv, st, aux
 
 
-def forward(params, cfg: ArchConfig, tokens, positions=None):
-    """tokens (B, S) -> logits (B, S, vocab)."""
+def forward_aux(params, cfg: ArchConfig, tokens, positions=None):
+    """tokens (B, S) -> (logits (B, S, vocab), aux): the reference's
+    ``forward``, with the MoE load-balance loss summed over the layers
+    (fp32; 0 outside the moe family).  With ``cfg.remat == "full"`` and
+    autograd recording, each layer runs under ``torch.utils.checkpoint``
+    (the reference's ``jax.checkpoint``): only its input is kept, and the
+    backward pass runs it again."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (encdec and vlm "
+            f"come with ROADMAP queue 1 item 6)")
     _, Sq = tokens.shape
     if positions is None:
         positions = torch.arange(Sq, dtype=torch.int32, device=tokens.device)
     x = L.embed(params["embed"], tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
     for lp in layer_params(params):
-        x, _, _ = _layer_fwd(lp, x, positions, cfg)
+        if remat:
+            x, _, _, a = checkpoint(_layer_fwd, lp, x, positions, cfg,
+                                    use_reentrant=False)
+        else:
+            x, _, _, a = _layer_fwd(lp, x, positions, cfg)
+        if a is not None:
+            aux = aux + a
     x = L.rmsnorm(params["norm_f"], x)
-    return L.unembed(params["head"], x)
+    return L.unembed(params["head"], x), aux
+
+
+def forward(params, cfg: ArchConfig, tokens, positions=None):
+    """tokens (B, S) -> logits (B, S, vocab)."""
+    return forward_aux(params, cfg, tokens, positions)[0]
 
 
 def init_cache(params, cfg: ArchConfig, batch, seq, dtype=torch.bfloat16):
@@ -165,7 +193,7 @@ def _decode(params, cfg: ArchConfig, token, cache, layers, attn,
         if fam == "hybrid":
             att = (att + sm) * 0.5
         x = x + att
-        x = x + _ffn(lp, L.rmsnorm(lp["ln2"], x), cfg, moe_group)
+        x = x + _ffn(lp, L.rmsnorm(lp["ln2"], x), cfg, moe_group)[0]
     x = L.rmsnorm(params["norm_f"], x)
     return L.unembed(params["head"], x), cache
 

@@ -48,7 +48,7 @@ def prefill(params, cfg: ArchConfig, tokens):
     x = L.embed(params["embed"], tokens)
     kvs, states = [], []
     for lp in T.layer_params(params):
-        x, kv, st = T._layer_fwd(lp, x, positions, cfg)
+        x, kv, st, _ = T._layer_fwd(lp, x, positions, cfg)
         if kv is not None:
             kvs.append(_window_kv(*kv, Sq, cfg))
         if st is not None:

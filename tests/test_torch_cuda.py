@@ -21,6 +21,9 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve import compile as C  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
+from repro_torch.data.pipeline import synthetic_batch  # noqa: E402
+from repro_torch.models import module as M  # noqa: E402
+from repro_torch.train import trainer  # noqa: E402
 from repro_torch.train.trainer import apply_masks  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -165,6 +168,89 @@ def test_generate_on_card_matches_cpu(cuda):
         launches = K.LAUNCHES["bsr_matmul"]
         assert launches == (cfg.n_layers * 7 * 11 if dev == "cuda" else 0)
     assert torch.equal(outs["cuda"], outs["cpu"])
+
+
+# the penalised leaves of the training tests: (8, 16) blocks on the
+# attention, FFN / expert projections and the head, (16, 8) on the SSM
+# mixers' in/out_proj
+TRAIN_SPEC = [(r"(attn/w[qkvo]|(ffn|moe)/(gate|up|down))/w",
+               RW.SchemeChoice("block", (8, 16))),
+              (r"ssm/(in|out)_proj/w", RW.SchemeChoice("block", (16, 8))),
+              (r"head/table", RW.SchemeChoice("block", (8, 16)))]
+
+
+def _train_case(arch):
+    """fp32 SMOKE params (seed 0), masks at rate 0.5, alphas from the
+    params and one batch (B = 2, S = 16), all on the CPU."""
+    cfg = configs.get(arch, smoke=True)
+    p = T.init_lm(cfg, seed=0, dtype=torch.float32, device="cpu")
+    return (cfg, p, RW.masks_for_spec(p, TRAIN_SPEC, default_rate=0.5),
+            RW.update_alphas(p, RW.ReweightedConfig(spec=tuple(TRAIN_SPEC))),
+            synthetic_batch(0, 0, 2, 16, cfg.vocab, device="cpu"))
+
+
+def _to(tree, dev):
+    return M.tree_map(lambda t: t.to(dev), tree)
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "mixtral-8x7b", "mamba2-1.3b",
+                                  "hymba-1.5b"])
+@pytest.mark.parametrize("with_", ["masks", "alphas"])
+def test_train_loss_and_grads_on_card_match_cpu(cuda, arch, with_,
+                                                monkeypatch):
+    """fp32 SMOKE, TF32 off: the loss (with masks, or with the penalty's
+    alphas) and its grads by autograd on the card equal the CPU's: loss
+    within 1e-5 relative, each leaf's grads within 1e-5 of its max |g|
+    (the SSD decay A_log within 3e-5: its grads cancel, see
+    test_torch_train.py)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, p, masks, alphas, batch = _train_case(arch)
+    f = trainer.value_and_grad(trainer.make_loss_fn(
+        cfg, reweighted=RW.ReweightedConfig(spec=tuple(TRAIN_SPEC),
+                                            lam=1e-3)))
+    args = (masks, None) if with_ == "masks" else (None, alphas)
+    (want, _), want_g = f(p, batch, *args)
+    (got, _), got_g = f(_to(p, cuda), _to(batch, cuda),
+                        *(_to(a, cuda) if a is not None else None
+                          for a in args))
+    assert float(got) == pytest.approx(float(want), rel=1e-5)
+
+    def check(g, w, path=""):
+        if isinstance(w, dict):
+            for k in w:
+                check(g[k], w[k], f"{path}/{k}")
+            return
+        tol = 3e-5 if path.endswith("ssm/A_log") else 1e-5
+        torch.testing.assert_close(g.cpu(), w, rtol=0,
+                                   atol=tol * float(w.abs().max()) + 1e-30,
+                                   msg=path)
+    check(got_g, want_g)
+
+
+def test_train_steps_on_card_match_cpu(cuda, monkeypatch):
+    """Three AdamW steps of yi-9b SMOKE (fp32, TF32 off, lr 3e-3, masks)
+    on the card and on the CPU: each step's loss within 1e-4."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, p, masks, _, _ = _train_case("yi-9b")
+    init, step = trainer.make_train_step(cfg, lr=3e-3)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params, state, losses = _to(p, dev), init(_to(p, dev)), []
+        for s in range(3):
+            batch = _to(synthetic_batch(0, s, 4, 16, cfg.vocab,
+                                        device="cpu"), dev)
+            params, state, m = step(params, state, batch, _to(masks, dev))
+            losses.append(float(m["loss"]))
+        runs[dev] = losses
+    assert runs["cuda"] == pytest.approx(runs["cpu"], abs=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [4, 128])
+def test_kernel_at_the_trained_block_and_yi9b_width(cuda, M, dtype):
+    """(8, 16) blocks (the train CLI's snapped block, kernel 1's FMA path
+    in bf16) at yi-9b's gate / up shape (4096, 11008)."""
+    _kernel_vs_plain(cuda, M, 4096, 11008, (8, 16), dtype)
 
 
 @pytest.mark.parametrize("arch,per_layer", [("mamba2-1.3b", 2),
