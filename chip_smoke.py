@@ -161,6 +161,35 @@
    mixtral-8x7b SMOKE on the card vs the CPU (the penalty dropped).
    Kernel 1 vs plain at (8, 16) on yi-9b's shapes, and timed on the
    trained layouts; its JSON entry carries a ``trained`` branch.
+12. Robustness (``[robustness]`` lines, right after the yi-9b serve
+   phase, on its masked bf16 params compiled again with
+   ``keep_dense=True``, which shares their dense tensors): the ms of
+   ``core.validate.validate_tree`` over the 7 packed stacks; a validated
+   ``ServingEngine`` on the clean tree retires nothing;
+   ``testing.faults.bitflip_packed_leaf(seed=0)`` saturates one bf16
+   value of ffn/down and the validated engine retires that stack to
+   masked-dense: 1 degraded layer, kernel-1 launches a step (eager and
+   replayed) = layers x 6, each slot's first-step logits within
+   LOGIT_MAX_REL / LOGIT_MEAN_REL of the clean engine's, the corrupt
+   tree served with ``validate=False`` breaking that bound (NaN reaches
+   the logits); the counted saturated run of the degraded engine (its
+   launches asserted) and its step ms beside the clean engine's; at 2
+   fp32 layers the degraded engine's tokens == one B = 1 ``generate``
+   over its own degraded tree.  The artifact store in a temporary
+   directory: ``compile_model(artifact_dir=)`` cold (packs, publishes)
+   and warm (loads, checksums, validates, grafts; no pack) timed with
+   the digest's share and the MiB on disk, warm layouts == cold leaf for
+   leaf, greedy ``generate`` of the B x S prompts identical with equal
+   kernel-1 launches, then ``crash_publish(stage="torn")`` and the next
+   compile logs its ``[corrupt]`` fallback and repacks.  Last VGG_TINY
+   punched (B = CONV_B, fp32) with its seed-0 bit-flipped layer (c6)
+   retired: logits within CONV_LOGIT_REL of masked-dense, kernel 3
+   launched once fewer a forward than the clean layouts imply, the
+   unvalidated corrupt tree breaking the bound with non-finite logits
+   (the kernels' fused relu passes NaN on, as torch's does).  Kernel 1's
+   ``launches_by_path`` gains "yi-9b degraded engine" and "yi-9b
+   warm-start generate", the conv kernels' the retired forward; the
+   numbers go under ``"robustness"`` in ``build/chip_smoke.json``.
 
 No phase is caught: any failure exits non-zero.  The last two lines are
 the kernels JSON and ``{"ok": true, "device": {...}}``.  Full detail goes
@@ -169,8 +198,10 @@ to ``build/chip_smoke.json`` (``build/`` is not versioned).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import logging
 import math
 import statistics
 import subprocess
@@ -733,7 +764,9 @@ def serve_counted(mods, exec_p, cfg, full, compile_s, how, per_layer=7):
 
 
 def serve_phase(mods, args):
-    """Full-width yi-9b through the port's entry points."""
+    """Full-width yi-9b through the port's entry points.  Returns (e2e,
+    launches, int8 launches, (masked params, masks, cfg, full cfg) for
+    the robustness phase)."""
     C, E = mods["C"], mods["E"]
     from repro_torch import configs
     full = configs.get("yi-9b")
@@ -790,7 +823,7 @@ def serve_phase(mods, args):
     e2e["int8"], launches8 = lm_int8_phase(mods, pm, masks, cfg, full,
                                            tokens)
     e2e["engine"]["fp32"] = e2e["int8"].pop("engine_fp32")
-    return e2e, launches, launches8
+    return e2e, launches, launches8, (pm, masks, cfg, full)
 
 # -- the CNN path: kernels 2-4 (kernel 3 also on im2col patches) ------------
 
@@ -3015,11 +3048,11 @@ def engine_prompts(cfg):
             for i in range(ENGINE_REQUESTS)]
 
 
-def new_engine(mods, exec_p, cfg):
-    """A ServingEngine of ENGINE_SLOTS slots: its step captured once on
-    the card (eager on the CPU rehearsal)."""
+def new_engine(mods, exec_p, cfg, **kw):
+    """A ServingEngine of ENGINE_SLOTS slots (``kw``: its other options):
+    its step captured once on the card (eager on the CPU rehearsal)."""
     eng = mods["E"].ServingEngine(exec_p, cfg, n_slots=ENGINE_SLOTS,
-                                  seq_cap=ENGINE_SEQ_CAP, device=DEV)
+                                  seq_cap=ENGINE_SEQ_CAP, device=DEV, **kw)
     want = 1 if DEV == "cuda" else 0
     if eng.stats["graph_captures"] != want:
         raise AssertionError(f"expected {want} graph capture per engine, "
@@ -3027,15 +3060,15 @@ def new_engine(mods, exec_p, cfg):
     return eng
 
 
-def engine_serve(mods, exec_p, cfg, prompts, rate=0, poison=()):
+def engine_serve(mods, exec_p, cfg, prompts, rate=0, poison=(), **kw):
     """``prompts`` through a new engine, N_NEW tokens each, arriving at
     ``rate`` a step (0: all at step 0); the slots in ``poison`` get NaN
-    rows after the second step.  Returns (engine, each request's tokens,
+    rows after the second step; ``kw`` goes to the engine.  Returns (engine, each request's tokens,
     wall seconds of the run, ms of each decode-only step: every slot
     that ran was already live, the number of steps that ran the decode
     step)."""
     KV = mods["KV"]
-    eng = new_engine(mods, exec_p, cfg)
+    eng = new_engine(mods, exec_p, cfg, **kw)
     rids = [eng.submit(p, N_NEW, arrival=int(i / rate) if rate else 0)
             for i, p in enumerate(prompts)]
     step_ms, runs = [], 0
@@ -3386,6 +3419,348 @@ def engine_fp32_gate(mods, exec32, cfg32, arch, fault=False):
         raise AssertionError(f"{arch}: the fp32 token gate misses the "
                              f"ring-shift fault")
     return out
+
+
+# -- robustness: validation, degraded mode, the artifact store ----------------
+
+def first_step_logits(mods, params, cfg, prompts, **kw):
+    """A new engine (``kw``: its options) with the first ENGINE_SLOTS
+    prompts admitted and one step run: (engine, the step's logits)."""
+    eng = new_engine(mods, params, cfg, **kw)
+    for p in prompts[:ENGINE_SLOTS]:
+        eng.submit(p, N_NEW)
+    eng._admit()
+    eng._run()
+    sync()
+    return eng, eng.logits.clone()
+
+
+def layouts_equal(ART, a, b):
+    """Two exec trees hold the same layouts at the same nodes, leaf for
+    leaf (``torch.equal``), and the same other keys."""
+    if isinstance(a, dict) != isinstance(b, dict):
+        return False
+    if not isinstance(a, dict):
+        return True
+    if list(a) != list(b):
+        return False
+    for k in a:
+        if k == "packed":
+            la, lb = dict(ART._layout_leaves(a[k])), dict(
+                ART._layout_leaves(b[k]))
+            if list(la) != list(lb) or a[k].shape != b[k].shape:
+                return False
+            for n, t in la.items():
+                u = lb[n]
+                if (t is None) != (u is None) or (
+                        t is not None and not (t.dtype == u.dtype
+                                               and torch.equal(t, u))):
+                    return False
+        elif not layouts_equal(ART, a[k], b[k]):
+            return False
+    return True
+
+
+@contextlib.contextmanager
+def log_messages(name):
+    """The messages logger ``name`` emits at INFO and above meanwhile."""
+    logger, messages = logging.getLogger(name), []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = lambda r: messages.append(r.getMessage())
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    logger.addHandler(handler)
+    try:
+        yield messages
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+def artifact_round_trip(mods, pm, masks, cfg):
+    """``compile_model(artifact_dir=)`` cold (packs and publishes) and warm
+    (loads and grafts, no pack) into a temporary store: times, MiB on
+    disk, the warm layouts == the cold ones, greedy tokens and kernel-1
+    launches equal; then a torn store (``crash_publish``) logs its
+    fallback and repacks."""
+    import tempfile
+    C, E, K, ops, ART, F = (mods["C"], mods["E"], mods["K"], mods["ops"],
+                            mods["ART"], mods["F"])
+    from repro_torch.launch.serve import SPARSE_SPEC
+    spec = C.CompileSpec(keep_dense=False)
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab, size=(B, S))
+    out = {}
+
+    digests = []           # (key, seconds) of each compile's digest
+    real_digest = ART.model_digest
+
+    def timed_digest(*a, **k):
+        t0 = time.perf_counter()
+        key = real_digest(*a, **k)
+        digests.append((key, time.perf_counter() - t0))
+        return key
+
+    def compile_into(d):
+        sync()
+        t0 = time.perf_counter()
+        with mock.patch.object(ops, "pack", wraps=ops.pack) as packs, \
+                mock.patch.object(ART, "model_digest", timed_digest):
+            ex, rep = C.compile_model(pm, masks, SPARSE_SPEC, spec=spec,
+                                      device=DEV, artifact_dir=d)
+        sync()
+        return ex, rep, time.perf_counter() - t0, packs.call_count
+
+    def counted_generate(ex):
+        K.reset_launches()
+        with torch.no_grad():
+            toks = E.generate(ex, cfg, prompts, N_NEW, device=DEV)
+        sync()
+        return toks, K.LAUNCHES["bsr_matmul"]
+
+    with tempfile.TemporaryDirectory() as d:
+        with log_messages("repro_torch.serve.artifacts") as log:
+            cold, cold_rep, cold_s, cold_packs = compile_into(d)
+            mib = sum(f.stat().st_size for f in Path(d).rglob("*")
+                      if f.is_file()) / 2**20
+            warm, warm_rep, warm_s, warm_packs = compile_into(d)
+        same = layouts_equal(ART, cold, warm)
+        toks_c, n_c = counted_generate(cold)
+        toks_w, n_w = counted_generate(warm)
+        del warm
+        warm_ok = any("warm start" in m for m in log)
+        key = digests[0][0]
+        rec = F.crash_publish(d, key, stage="torn")
+        with log_messages("repro_torch.serve.artifacts") as log2:
+            torn, _, torn_s, torn_packs = compile_into(d)
+        fell_back = any("fresh pack [corrupt]" in m for m in log2)
+        republished = (Path(d) / key / ART.MANIFEST_FILE).exists()
+        torn_same = layouts_equal(ART, cold, torn)
+        del torn, cold
+    tok_same = bool(torch.equal(toks_c, toks_w))
+    digest_s = [t for _, t in digests]
+    out.update(digest_s=digest_s, cold_s=cold_s, warm_s=warm_s,
+               torn_s=torn_s, mib_on_disk=mib, cold_packs=cold_packs,
+               warm_packs=warm_packs, torn_packs=torn_packs,
+               warm_layouts_equal=same, warm_start_logged=warm_ok,
+               tokens_equal=tok_same, launches_cold=n_c, launches_warm=n_w,
+               torn=dict(vars(rec)), torn_fell_back=fell_back,
+               torn_republished=republished, torn_layouts_equal=torn_same,
+               report_rows_equal=(cold_rep.to_json()["layers"]
+                                  == warm_rep.to_json()["layers"]))
+    print(f"[robustness] artifact store ({cfg.n_layers} layers): cold "
+          f"compile_model(artifact_dir=) {cold_s:.2f} s ({cold_packs} packs, "
+          f"publish incl.); warm {warm_s:.2f} s ({warm_packs} packs, load + "
+          f"checksum + validate incl.); the model digest in each "
+          f"(cold, warm, torn) {', '.join(f'{t:.2f}' for t in digest_s)} s; "
+          f"{mib:.1f} MiB on disk; warm layouts == cold leaf for leaf: "
+          f"{same}; greedy tokens equal: {tok_same}, kernel-1 launches "
+          f"{n_c} / {n_w}; torn store ({rec.detail}): fallback logged "
+          f"{fell_back}, repacked ({torn_packs} packs) in {torn_s:.2f} s, "
+          f"republished {republished}")
+    if not (same and warm_ok and warm_packs == 0 and cold_packs > 0
+            and len({k for k, _ in digests}) == 1
+            and tok_same and n_c == n_w > 0 and out["report_rows_equal"]
+            and fell_back and torn_packs > 0 and republished and torn_same):
+        raise AssertionError(f"the artifact round trip failed: {out}")
+    return out, n_w
+
+
+def vgg_degraded(mods):
+    """VGG_TINY punched (B = CONV_B, fp32) with one bit-flipped conv layout
+    retired to dense: logits within CONV_LOGIT_REL of masked-dense, the
+    retired layer's kernel launched once fewer a forward than the clean
+    layouts imply; the corrupt tree run unvalidated breaks the bound, its
+    logits non-finite."""
+    RW, CN, C, K, ops, F = (mods["RW"], mods["CN"], mods["C"], mods["K"],
+                            mods["ops"], mods["F"])
+    from repro_torch.train.trainer import apply_masks
+    name, spec = conv_mappings(RW)[0]
+    params = CN.convnet_init(CN.VGG_TINY, seed=0, device=DEV)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    x, _ = CN.synthetic_images(gen, CONV_B, size=CONV_HW)
+    masks = conv_masks(RW, name, params, spec)
+    pm = apply_masks(params, masks)
+    exec_p, _ = C.compile_model(pm, masks, spec,
+                                spec=C.CompileSpec(keep_dense=True),
+                                device=DEV)
+    bad, rec = F.bitflip_packed_leaf(exec_p, seed=0)
+    tree, _, degraded = C.degrade_invalid_layers(bad)
+    clean = expected_conv_launches(ops, CN.VGG_TINY, exec_p, CONV_HW, CONV_B)
+    want = expected_conv_launches(
+        ops, CN.VGG_TINY, dict(exec_p, **{rec.target: pm[rec.target]}),
+        CONV_HW, CONV_B)
+    K.reset_launches()
+    sync()
+    with torch.no_grad():
+        logits = CN.convnet_apply(tree, x, CN.VGG_TINY)
+    sync()
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    with torch.no_grad():
+        dense = CN.convnet_apply(pm, x, CN.VGG_TINY)
+        gap = conv_logit_gap(dense, logits)
+        bad_logits = CN.convnet_apply(bad, x, CN.VGG_TINY)
+        fault = conv_logit_gap(dense, bad_logits)
+        fault_finite = bool(torch.isfinite(bad_logits).all())
+    agree = (dense.argmax(-1) == logits.argmax(-1)).float().mean().item()
+    fewer = {k: clean[k] - want.get(k, 0) for k in clean
+             if clean[k] != want.get(k, 0)}
+    print(f"[robustness] VGG_TINY {name} ({rec.target} bit-flipped: "
+          f"{rec.detail}): {len(degraded)} layer retired; launches "
+          f"{launches} (clean layouts {clean}, the retired layer's kernel "
+          f"once fewer: {fewer}); logits vs masked-dense {gap:.2e} of "
+          f"max|logit| (bound {CONV_LOGIT_REL}), argmax agree {agree:.3f}; "
+          f"planted fault (the corrupt tree unvalidated): {fault}, logits "
+          f"finite {fault_finite}")
+    out = {"target": rec.target, "detail": rec.detail, "launches": launches,
+           "clean_launches": clean, "logit_gap": gap, "argmax_agree": agree,
+           "fault_gap": fault, "fault_logits_finite": fault_finite}
+    if not (len(degraded) == 1 and launches == want
+            and sum(fewer.values()) == 1 and gap <= CONV_LOGIT_REL
+            and agree == 1.0 and torch.isfinite(logits).all()):
+        raise AssertionError(f"VGG_TINY with a retired layer failed: {out}")
+    if fault <= CONV_LOGIT_REL:      # NaN compares False: caught
+        raise AssertionError("the conv bound misses the unvalidated "
+                             "corrupt layout")
+    if fault_finite:                 # the fused relu must pass NaN on
+        raise AssertionError("the unvalidated corrupt layout gave finite "
+                             "logits: a kernel lost its non-finite value")
+    return out, launches
+
+
+def robustness_phase(mods, pm, masks, cfg, full):
+    """Layout validation, degraded mode and the artifact store on the
+    serve phase's masked yi-9b (``pm``, bf16, full width), then VGG_TINY.
+
+    ``validate_tree`` timed over the ``keep_dense=True`` compile; a clean
+    validated engine retires nothing; ``bitflip_packed_leaf(seed=0)``
+    (ffn/down) retires one stack: 1 degraded layer, kernel 1 at layers x
+    6 a step, each slot's first-step bf16 logits within the engine's
+    bound of the clean engine's, and the counted degraded run; the same
+    tree served unvalidated must break that bound.  At 2 fp32 layers the
+    degraded engine's tokens == a B = 1 ``generate`` over its own
+    (degraded) tree.  Then the artifact round trip and VGG_TINY."""
+    C, E, K, V, F = mods["C"], mods["E"], mods["K"], mods["V"], mods["F"]
+    from repro_torch.core.packed import DegradedLayer
+    from repro_torch.launch.serve import SPARSE_SPEC
+    t_phase = time.perf_counter()
+    exec_d, _ = C.compile_model(pm, masks, SPARSE_SPEC,
+                                spec=C.CompileSpec(keep_dense=True),
+                                device=DEV)
+    sync()
+    val_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        n_val = V.validate_tree(exec_d)
+        sync()
+        val_ms.append((time.perf_counter() - t0) * 1e3)
+    prompts = engine_prompts(cfg)
+    per_step = cfg.n_layers * 7
+    eng, clean = first_step_logits(mods, exec_d, cfg, prompts)
+    clean_degraded = eng.stats["degraded_layers"]
+    del eng
+    bad, rec = F.bitflip_packed_leaf(exec_d, seed=0)
+    eng, deg = first_step_logits(mods, bad, cfg, prompts)
+    n_deg = eng.stats["degraded_layers"]
+    retired = sum(isinstance(lp.get("packed"), DegradedLayer)
+                  for g in eng.params["layers"].values()
+                  if isinstance(g, dict) for lp in g.values()
+                  if isinstance(lp, dict))
+    step_launches = eager_step_launches(mods, eng.params, cfg)
+    replay_launches = (eng._replay_launches.get("bsr_matmul")
+                       if DEV == "cuda" else step_launches)
+    del eng
+    _, unvalidated = first_step_logits(mods, bad, cfg, prompts,
+                                       validate=False)
+    gaps = [logit_gap(clean[i], deg[i]) for i in range(ENGINE_SLOTS)]
+    fault_gaps = [logit_gap(clean[i], unvalidated[i])
+                  for i in range(ENGINE_SLOTS)]
+    worst = max(gaps, key=lambda g: g[0])
+    print(f"[robustness] yi-9b ({cfg.n_layers} layers, bf16): "
+          f"validate_tree of {n_val} layouts {val_ms[0]:.2f} ms first, "
+          f"{statistics.median(val_ms[1:]):.2f} ms warm; a clean "
+          f"validated engine retires {clean_degraded}; {rec.target} "
+          f"bit-flipped ({rec.detail}): degraded_layers {n_deg}, kernel-1 "
+          f"launches an eager step {step_launches} / a replayed step "
+          f"{replay_launches} (expected {per_step} - {cfg.n_layers}); "
+          f"first-step logits vs the clean engine's: worst "
+          f"{worst[0]:.4f} / {worst[1]:.4f} (bound {LOGIT_MAX_REL} / "
+          f"{LOGIT_MEAN_REL}); planted fault (served with validate=False): "
+          f"{'caught' if not all(map(within_bound, fault_gaps)) else 'NOT CAUGHT'}"
+          f" ({fault_gaps[0][0]} / {fault_gaps[0][1]} on slot 0)")
+    want_step = per_step - cfg.n_layers
+    if not (clean_degraded == 0 and n_deg == 1 and retired == 1
+            and step_launches == replay_launches == want_step
+            and all(map(within_bound, gaps))):
+        raise AssertionError("the degraded engine's gates failed")
+    if all(map(within_bound, fault_gaps)):
+        raise AssertionError("the slot gate misses the unvalidated corrupt "
+                             "layout")
+    del deg, unvalidated
+
+    # the main path with one retired stack, counted, and its step beside
+    # the clean engine's
+    _, _, _, clean_ms, _ = engine_serve(mods, exec_d, cfg, prompts)
+    K.reset_launches()
+    eng, toks, wall, deg_ms, runs = engine_serve(mods, bad, cfg, prompts)
+    counted = K.LAUNCHES["bsr_matmul"]
+    warm_up = 1 if DEV == "cuda" else 0
+    n_adm = eng.stats["admitted"]
+    want = want_step * (warm_up + runs) + n_adm * want_step
+    step_clean, step_deg = (statistics.median(clean_ms),
+                            statistics.median(deg_ms))
+    print(f"[robustness] yi-9b degraded engine (saturated, "
+          f"{ENGINE_REQUESTS} requests): {eng.stats['finished']} finished, "
+          f"decode-only step {step_deg:.3f} ms against the clean engine's "
+          f"{step_clean:.3f} ms; kernel-1 launches {counted} (expected "
+          f"({warm_up} warm-up + {runs} steps) x {want_step} + {n_adm} "
+          f"prefills x {want_step} = {want})")
+    if (counted != want or eng.stats["finished"] != ENGINE_REQUESTS
+            or any(len(t) != N_NEW for t in toks)):
+        raise AssertionError("the degraded engine run is off")
+    del eng, bad, exec_d
+    torch.cuda.empty_cache()
+
+    # fp32 at 2 layers: the degraded engine == generate over its own tree
+    cfg2 = full.replace(n_layers=2)
+    pm32, masks32, _ = build_masked(mods, cfg2, torch.float32)
+    ex32, _ = C.compile_model(pm32, masks32, SPARSE_SPEC,
+                              spec=C.CompileSpec(keep_dense=True),
+                              device=DEV)
+    bad32, rec32 = F.bitflip_packed_leaf(ex32, seed=0)
+    prompts32 = engine_prompts(cfg2)
+    eng32, toks32, *_ = engine_serve(mods, bad32, cfg2, prompts32)
+    with torch.no_grad():
+        want32 = [E.generate(eng32.params, cfg2, np.asarray([p]), N_NEW,
+                             device=DEV)[0].tolist() for p in prompts32]
+    fp32_same = toks32 == want32
+    fp32_deg = eng32.stats["degraded_layers"]
+    print(f"[robustness] fp32 ({cfg2.n_layers} layers, TF32 off, "
+          f"{rec32.target} retired): degraded engine tokens == one B = 1 "
+          f"generate over the degraded tree for all {len(prompts32)}: "
+          f"{fp32_same} (degraded_layers {fp32_deg})")
+    if not (fp32_same and fp32_deg == 1):
+        raise AssertionError("the fp32 degraded engine disagrees with "
+                             "generate over its tree")
+    del eng32, bad32, ex32, pm32, masks32
+    torch.cuda.empty_cache()
+
+    store, warm_launches = artifact_round_trip(mods, pm, masks, cfg)
+    torch.cuda.empty_cache()
+    vgg, vgg_launches = vgg_degraded(mods)
+    out = {"validate_ms": val_ms, "validated_layouts": n_val,
+           "target": rec.target, "detail": rec.detail,
+           "degraded_layers": n_deg, "step_launches": step_launches,
+           "replay_step_launches": replay_launches,
+           "first_step_gaps": gaps, "fault_first_step_gaps": fault_gaps,
+           "step_ms": step_deg, "clean_step_ms": step_clean,
+           "degraded_engine_launches": counted, "fp32_tokens_equal":
+           fp32_same, "artifacts": store, "vgg": vgg,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"[robustness] phase {out['phase_s']:.1f} s")
+    return out, {"yi-9b degraded engine": counted,
+                 "yi-9b warm-start generate": warm_launches,
+                 "vgg": vgg_launches}
 
 
 # -- the paper's prune-and-train pipeline on yi-9b ----------------------------
@@ -3868,12 +4243,16 @@ def main(argv=None):
         from repro_torch.serve import compile as C
         from repro_torch.serve import engine as E
         from repro_torch.serve import kvcache as KV
+        from repro_torch.core import validate as V
+        from repro_torch.serve import artifacts as ART
+        from repro_torch.testing import faults as F
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 2
     mods = dict(RW=RW, ops=ops, ref=ref, K=K, T=T, C=C, E=E, CN=CN,
-                BCS=BCS, MOE=MOE, L=L, SSM=SSM, MR=MR, KV=KV)
+                BCS=BCS, MOE=MOE, L=L, SSM=SSM, MR=MR, KV=KV, V=V, ART=ART,
+                F=F)
     # the oracles (masked-dense matmul and F.conv2d) run in full fp32: a
     # float32 conv goes through cuDNN in TF32 unless told otherwise
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3904,7 +4283,11 @@ def main(argv=None):
     rows8, err8, faults8, vbytes = int8_kernel_phase(mods, flush)
     torch.cuda.empty_cache()
     stamp("yi-9b served")
-    e2e, launches, launches8 = serve_phase(mods, args)
+    e2e, launches, launches8, served = serve_phase(mods, args)
+    torch.cuda.empty_cache()
+    stamp("robustness")
+    robust, robust_launches = robustness_phase(mods, *served)
+    del served
     torch.cuda.empty_cache()
     # the paper's pipeline: train, prune and fine-tune yi-9b, then serve it
     stamp("yi-9b trained, pruned and served")
@@ -3972,7 +4355,9 @@ def main(argv=None):
                      + train_launches["bsr_matmul"]
                      + sum(n["bsr_matmul"] for n in ssm_launches.values())
                      + map_launches["bsr_matmul"]
-                     + sum(engine_launches.values())),
+                     + sum(engine_launches.values())
+                     + robust_launches["yi-9b degraded engine"]
+                     + robust_launches["yi-9b warm-start generate"]),
         "launches_by_path": {
             "yi-9b generate": launches["bsr_matmul"],
             "yi-9b mapped generate": map_launches["bsr_matmul"],
@@ -3980,7 +4365,11 @@ def main(argv=None):
             "mixtral-8x7b generate": moe_launches["bsr_matmul"],
             **{f"{a} generate": n["bsr_matmul"]
                for a, n in ssm_launches.items()},
-            **engine_launches},
+            **engine_launches,
+            "yi-9b degraded engine": robust_launches[
+                "yi-9b degraded engine"],
+            "yi-9b warm-start generate": robust_launches[
+                "yi-9b warm-start generate"]},
         "max_abs_err": max(max_err, moe_err, ssm_checks[1], map_err,
                            train_out["max_abs_err"]),
         # one decode step's 7 projections of one layer (M = 4), summed
@@ -4071,6 +4460,13 @@ def main(argv=None):
                            "each mapping"}
     next(e for e in entries if e["name"] == "tap_gather_conv_implicit")[
         "int8"]["planted_faults"] = conv_faults8
+    for e in entries[1:]:
+        n = robust_launches["vgg"].get(e["name"], 0)
+        if n:
+            e["launches"] += n
+            e["launches_by_path"] = {
+                "VGG_TINY forwards (served, mapped)": e["launches"] - n,
+                "VGG_TINY punched forward, one layer retired": n}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -4086,6 +4482,7 @@ def main(argv=None):
          "ssm_serve": ssm_e2e, "mapped_serve": map_e2e,
          "mapped_shapes": map_rows, "mapped_vgg": map_vgg,
          "latency_model": map_model, "train": train_out,
+         "robustness": robust,
          "phase_start_s": RUN["phase_s"]},
         indent=1, default=str))
     print(f"card: {card}")

@@ -27,6 +27,9 @@ column).  The kernels dequantize ``q * s`` on the card before their
 fp32-accumulated products; ``to_dense`` of a quantized layout returns the
 DEQUANTIZED weight, the oracle of the int8 paths.  Tensor-parallel shards
 are not ported yet.
+
+``DegradedLayer`` is the marker ``serve.compile.degrade_invalid_layers``
+leaves in place of a layout that failed ``core.validate``.
 """
 from __future__ import annotations
 
@@ -47,9 +50,14 @@ def _dequant(values, scale):
     return values.float() * s
 
 
+def dtype_name(t) -> str:
+    """A tensor's dtype as numpy and JAX name it ("bfloat16", "int8")."""
+    return str(t.dtype).removeprefix("torch.")
+
+
 def _value_dtype(values) -> str:
     """The stored values' dtype name ("int8" on a quantized layout)."""
-    return str(values[0].dtype).removeprefix("torch.")
+    return dtype_name(values[0])
 
 
 def _bin_slices(t, sizes):
@@ -480,3 +488,24 @@ class TapLayout:
             dense.index_put_((rows, g), vals[live], accumulate=True)
             start += G_b
         return dense.reshape(K, P)
+
+
+@dataclass(frozen=True)
+class DegradedLayer:
+    """Marker left by ``serve.compile.degrade_invalid_layers`` where a
+    packed layout failed ``core.validate``: the layer runs masked-dense on
+    its retained ``w`` (the pruning zeros are baked in) instead of the
+    sparse kernel, so no kernel ever launches on the corrupt layout.
+
+    ``path`` is the layer that degraded, ``code`` the ``LayoutError``
+    failure class, ``detail`` the reason.  No tensors; hashable.  A
+    stacked layout covers every layer of its stack, so one marker retires
+    the whole stack: ``layer(i)`` returns the marker itself."""
+
+    path: str
+    code: str
+    detail: str
+
+    def layer(self, i: int) -> "DegradedLayer":
+        """Every stack slice of a retired stack is retired."""
+        return self

@@ -214,7 +214,9 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
 
 __device__ __forceinline__ float epilogue(float y, int act) {
   if (act == 1) return y / (1.f + expf(-y));
-  if (act == 2) return fmaxf(y, 0.f);
+  // relu as a compare, so a NaN passes through as torch.relu passes it
+  // (fmaxf would turn it into 0)
+  if (act == 2) return y < 0.f ? 0.f : y;
   return y;
 }
 
@@ -970,7 +972,7 @@ bsr_conv_kernel(const T* __restrict__ x, const V* __restrict__ vals,
         if (act == 1) {
           y = y / (1.f + expf(-y));
         } else if (act == 2) {
-          y = fmaxf(y, 0.f);
+          y = y < 0.f ? 0.f : y;   // NaN passes, as in epilogue()
         }
         acc[i][c] = y;
       }

@@ -258,7 +258,7 @@ tap_conv_kernel(const T* __restrict__ x, const int2* __restrict__ slots,
       if (act == 1) {
         y = y / (1.f + expf(-y));
       } else if (act == 2) {
-        y = fmaxf(y, 0.f);
+        y = y < 0.f ? 0.f : y;   // NaN passes, as torch.relu passes it
       }
       os[pos[i] * g.out_ld + oo] = y;
     }

@@ -15,6 +15,14 @@ stream through ``serve.engine.ServingEngine``, with a log line every
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --sparse \\
       --layers 8 --batch-size 8 --arrival-rate 1 --requests 16
 
+``--artifacts DIR`` (with ``--sparse``) turns on INFO logging and gives
+``compile_model`` the artifact store: the first run packs and publishes,
+a later run on the same weights, masks and spec loads the packed layouts
+from DIR (checksummed and validated) instead of packing:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --sparse \\
+      --layers 8 --artifacts /path/to/store
+
 ``--layers`` cuts depth only, never width.  ``--smoke`` takes the reduced
 test config instead of the published one; ``--device cpu`` runs the plain
 PyTorch versions of the kernels (for small configs).
@@ -22,6 +30,7 @@ PyTorch versions of the kernels (for small configs).
 from __future__ import annotations
 
 import argparse
+import logging
 import time
 
 import numpy as np
@@ -62,6 +71,10 @@ def main(argv=None):
                     help="block-prune, compile to BCS, serve on the sparse "
                          "kernel")
     ap.add_argument("--prune-rate", type=float, default=0.6)
+    ap.add_argument("--artifacts", default=None, metavar="DIR",
+                    help="artifact store: load the packed layouts from DIR "
+                         "when the model digest matches (checksummed and "
+                         "validated), else pack and publish them there")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch-size", type=int, default=0, metavar="SLOTS",
                     help="continuous-batching engine slot count; > 0 "
@@ -79,6 +92,9 @@ def main(argv=None):
                     help="engine path: steps between log lines")
     args = ap.parse_args(argv)
 
+    if args.artifacts:
+        # show the store's warm-start / fallback reasons
+        logging.basicConfig(level=logging.INFO)
     cfg = configs.get(args.arch, smoke=args.smoke)
     if args.layers:
         cfg = cfg.replace(n_layers=args.layers)
@@ -93,9 +109,12 @@ def main(argv=None):
         t0 = time.perf_counter()
         params, report = compile_model(params, masks, SPARSE_SPEC,
                                        spec=CompileSpec(keep_dense=False),
-                                       device=args.device)
+                                       device=args.device,
+                                       artifact_dir=args.artifacts)
         _sync(args.device)
-        print(f"compile_model in {time.perf_counter() - t0:.2f}s:")
+        print(f"compile_model in {time.perf_counter() - t0:.2f}s"
+              + (f" (artifact store: {args.artifacts})"
+                 if args.artifacts else "") + ":")
         print(compiled_summary(report))
         del masks
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.packed import TapLayout
+from repro_torch.core.packed import DegradedLayer, TapLayout
 from repro_torch.kernels import ops
 from repro_torch.kernels.bsr_matmul import pad_image
 from repro_torch.models import module as M
@@ -84,11 +84,15 @@ def _dense_conv(x, w, stride, groups=1):
 def convnet_apply(params, x, arch=VGG_TINY, masks=None, implicit=None):
     """x (B, H, W, Cin) -> logits (B, n_classes).  ``implicit`` routes
     packed conv layers through the implicit kernels (None = per-layer
-    auto by patch size, True / False force one mode)."""
+    auto by patch size, True / False force one mode).  A layer whose
+    layout was retired (``DegradedLayer``) runs the dense conv on its
+    retained ``w``."""
     m = masks or {}
     for (name, out, kh, kw, stride, dw) in arch:
         p = params[name]
         packed = p.get("packed")
+        if isinstance(packed, DegradedLayer):
+            packed = None                # retired: masked-dense on w
         if packed is not None and not dw:
             conv = (ops.sparse_conv2d_pattern if isinstance(packed, TapLayout)
                     else ops.sparse_conv2d)

@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.packed import DegradedLayer
 from repro_torch.kernels import ops
 from repro_torch.models import module as M
 
@@ -69,8 +70,12 @@ def linear(params, x, mask=None, act="none"):
     projection over all its degree bins (int8 values dequantized in the
     same launch), bias + activation fused into its epilogue; any ``mask``
     is ignored there (it was baked in at pack time).  Otherwise a dense
-    matmul runs, with an optional pruning ``mask``."""
+    matmul runs, with an optional pruning ``mask``.  A ``DegradedLayer``
+    marker (a layout that failed validation) runs the dense matmul on the
+    retained ``w``, whose pruning zeros are baked in."""
     packed = params.get("packed")
+    if isinstance(packed, DegradedLayer):
+        packed = None                # retired: masked-dense on w
     if packed is not None:
         return ops.sparse_linear(x, packed=packed, bias=params.get("b"),
                                  act=act)

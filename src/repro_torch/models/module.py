@@ -71,7 +71,8 @@ def tree_map(fn, tree, *rest):
 
 def take_layer(tree, i):
     """Slice stack index ``i`` out of every leaf (tensors and packed
-    layouts) — one layer of a stacked layer tree."""
+    layouts; a ``DegradedLayer`` marker retires its whole stack and is
+    its own slice) — one layer of a stacked layer tree."""
     if isinstance(tree, dict):
         return {k: take_layer(v, i) for k, v in tree.items()}
     if hasattr(tree, "layer"):

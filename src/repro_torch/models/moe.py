@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.packed import DegradedLayer
 from repro_torch.kernels import ops
 from repro_torch.models import module as M
 
@@ -73,8 +74,11 @@ def _expert_linear(p, x, mask=None, act="none"):
     (G, E, C, dout).  A packed expert stack (``p["packed"]``) runs the BCS
     kernel once over all experts, ``act`` fused into its epilogue;
     otherwise the dense masked einsum, ``act`` after it (under bf16 the
-    fused path rounds once instead of twice, as in ``layers.ffn``)."""
+    fused path rounds once instead of twice, as in ``layers.ffn``).  A
+    ``DegradedLayer`` marker runs the dense einsum."""
     packed = p.get("packed")
+    if isinstance(packed, DegradedLayer):
+        packed = None                # retired: masked-dense on w
     if packed is not None:
         G, E, C, din = x.shape
         # (E, G*C, din), contiguous: the kernel needs 16-byte row pitches

@@ -15,12 +15,21 @@ so one layout serves the whole stack.
 ``spec.value_dtype="int8"`` turns on the quantized value path
 (``core.quant``): packed values are stored int8 with fp32 scale leaves and
 the kernels dequantize on the card; a per-layer ``SchemeChoice.value_dtype``
-overrides the spec.  Tensor-parallel shards and the artifact store come
-with later slices.
+overrides the spec.  Tensor-parallel shards come with a later slice
+(ROADMAP queue 1 item 9).
+
+``compile_model(artifact_dir=)`` looks the model up in the crash-safe
+artifact store (``serve.artifacts``) first and publishes a fresh pack
+there.  ``degrade_invalid_layers`` validates every packed layout of an
+exec tree (``core.validate``) and retires a corrupt one to masked-dense
+(``core.packed.DegradedLayer``); ``ServingEngine`` runs it at
+construction.  The report, its rows and the spec have the reference's
+JSON forms (the artifact manifest stores them).
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 
 import torch
@@ -28,7 +37,8 @@ import torch
 from repro_torch.core import bcs as BCS
 from repro_torch.core import quant as QUANT
 from repro_torch.core import reweighted as RW
-from repro_torch.core.packed import PackedLayout
+from repro_torch.core import validate as V
+from repro_torch.core.packed import DegradedLayer, PackedLayout
 from repro_torch.kernels import ops
 from repro_torch.models import module as M
 
@@ -68,6 +78,10 @@ class CompileSpec:
         layouts always quantize per filter ("out"): a group = 1 slot holds
         one value, so a per-slot scale would cost 4 bytes per value.
     exclude : path substrings never packed (embeddings/head, §5.2.4).
+
+    The reference's ``tp`` (tensor-parallel degree) is not a field: the
+    port packs unsharded, so its JSON form writes ``tp: 1`` and refuses
+    more (ROADMAP queue 1 item 9).
     """
     keep_dense: bool = True
     reorder: bool = True
@@ -97,6 +111,37 @@ class CompileSpec:
         if self.n_bins is not None:
             object.__setattr__(self, "n_bins", int(self.n_bins))
 
+    def digest_fields(self) -> tuple:
+        """The layout-determining fields in the reference's order (its
+        ``tp`` held at 1): what the artifact ``model_digest`` hashes.
+        ``keep_dense`` and ``implicit`` only change serving dispatch."""
+        return (self.block_override, float(self.min_saving),
+                bool(self.reorder), self.n_bins, tuple(self.exclude),
+                self.value_dtype, str(self.scale_granularity), 1)
+
+    def to_json(self) -> dict:
+        """The reference's JSON form (its field order, ``tp`` = 1)."""
+        return dict(dataclasses.asdict(self), tp=1)
+
+    @classmethod
+    def from_json(cls, d: dict) -> "CompileSpec":
+        """Rebuild from ``to_json`` output (either package's); a ``tp``
+        above 1 is refused."""
+        d = dict(d)
+        tp = int(d.pop("tp", 1))
+        if tp > 1:
+            raise ValueError(f"tp={tp}: tensor-parallel compiles are not "
+                             "ported (ROADMAP queue 1 item 9)")
+        if d.get("block_override") is not None:
+            d["block_override"] = tuple(d["block_override"])
+        if d.get("exclude") is not None:
+            d["exclude"] = tuple(d["exclude"])
+        return cls(**d)
+
+
+# LayerReport fields the JSON row keeps even when falsy
+_ALWAYS_KEYS = ("path", "packed")
+
 
 @dataclasses.dataclass(frozen=True)
 class LayerReport:
@@ -104,7 +149,8 @@ class LayerReport:
     load-balance lever (pre-reorder padded degree ``L`` -> post-reorder
     ``L_reordered`` of ``Kb`` column blocks) and the served
     ``value_dtype`` (None = float) for packed rows, the ``reason`` for
-    skipped ones."""
+    skipped ones; a row whose layout ``degrade_invalid_layers`` retired
+    carries ``degraded=True`` and the failure as its ``reason``."""
     path: str
     packed: bool
     kind: str | None = None
@@ -121,6 +167,23 @@ class LayerReport:
     layers: int | None = None
     value_dtype: str | None = None
     patch_b_per_pos: int | None = None
+    degraded: bool | None = None
+
+    def to_json(self) -> dict:
+        """Plain-JSON row: only the present (non-None) fields."""
+        return {k: v for k, v in dataclasses.asdict(self).items()
+                if v is not None or k in _ALWAYS_KEYS}
+
+    @classmethod
+    def from_json(cls, d: dict) -> "LayerReport":
+        """Rebuild from either package's ``to_json`` row; fields the port
+        does not carry (the reference's ``shards``) are dropped."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        d = {k: v for k, v in d.items() if k in names}
+        for k in ("block", "shape"):
+            if d.get(k) is not None:
+                d[k] = tuple(d[k])
+        return cls(**d)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,6 +198,23 @@ class CompileReport:
     @property
     def packed(self) -> tuple:
         return tuple(r for r in self.rows if r.packed)
+
+    def to_json(self) -> dict:
+        """Manifest form: {"spec": ..., "layers": [row, ...]}."""
+        return {"spec": self.spec.to_json() if self.spec else None,
+                "layers": [r.to_json() for r in self.rows]}
+
+    @classmethod
+    def from_json(cls, d) -> "CompileReport":
+        """Rebuild from ``to_json`` output (or a bare list of rows)."""
+        if isinstance(d, dict):
+            spec = (CompileSpec.from_json(d["spec"])
+                    if d.get("spec") else None)
+            rows = d.get("layers", ())
+        else:
+            spec, rows = None, d
+        return cls(rows=tuple(LayerReport.from_json(r) for r in rows),
+                   spec=spec)
 
 
 def _pack_stacked(w, mask, block, *, reorder=True, n_bins=4,
@@ -219,7 +299,8 @@ def _tap_stats(tap, w):
     }
 
 
-def compile_model(params, masks=None, mapping=(), spec=None, device="cuda"):
+def compile_model(params, masks=None, mapping=(), spec=None, device="cuda",
+                  artifact_dir=None):
     """Pack every block-pruned linear or conv layer of ``params`` for
     sparse execution on ``device``.  Returns (exec_params, CompileReport).
 
@@ -231,9 +312,23 @@ def compile_model(params, masks=None, mapping=(), spec=None, device="cuda"):
               packable scheme are packed (FC block schemes, block_punched
               convs, pattern convs).
     spec    : ``CompileSpec``.
+    artifact_dir : the artifact store (``serve.artifacts``).  The model
+              digest (weights, masks, mapping, the spec's digest fields)
+              is looked up first: a match that passes its checksum and
+              layout validation is grafted onto ``params`` with no
+              packing.  Any failure logs its ``code`` and falls back to
+              this fresh pack, which is then published for the next start.
     """
     spec = spec if spec is not None else CompileSpec()
     dev = M.resolve_device(device)
+    artifact_key = None
+    if artifact_dir is not None:
+        from repro_torch.serve import artifacts as ART
+        artifact_key = ART.model_digest(params, masks, mapping, spec=spec)
+        warm = ART.load_grafted(artifact_dir, artifact_key, params,
+                                keep_dense=spec.keep_dense, device=dev)
+        if warm is not None:
+            return warm
     # per-producer bin defaults: 4 for block layouts, 8 for tap layouts
     gemm_bins = 4 if spec.n_bins is None else spec.n_bins
     tap_bins = 8 if spec.n_bins is None else spec.n_bins
@@ -314,7 +409,17 @@ def compile_model(params, masks=None, mapping=(), spec=None, device="cuda"):
         return out
 
     exec_params = walk(params, masks, "")
-    return exec_params, CompileReport(rows=tuple(rows), spec=spec)
+    report = CompileReport(rows=tuple(rows), spec=spec)
+    if artifact_key is not None:
+        # publish for the next start; an unwritable store never fails the
+        # compile itself
+        try:
+            ART.save_artifact(artifact_dir, artifact_key, exec_params,
+                              report)
+        except OSError as e:
+            ART.log.warning("could not publish artifact to %s: %s",
+                            artifact_dir, e)
+    return exec_params, report
 
 
 def compiled_summary(report) -> str:
@@ -335,7 +440,66 @@ def compiled_summary(report) -> str:
                 line += f" values={r.value_dtype}"
             if r.patch_b_per_pos is not None:
                 line += f" implicit_avoids={r.patch_b_per_pos}B/pos"
+            if r.degraded:
+                line += " [DEGRADED -> masked-dense]"
             lines.append(line)
         else:
             lines.append(f"  skip {r.path:<28s} ({r.reason})")
     return "\n".join(lines)
+
+
+def degrade_invalid_layers(exec_params, report=None):
+    """Validate every packed layout of an exec-param tree and retire each
+    failure to masked-dense: a ``DegradedLayer`` marker replaces the
+    layout, and that layer (its whole stack) runs the dense matmul on its
+    retained ``w``; every other layer keeps its kernel.  Each degradation
+    logs a warning and, given a ``CompileReport``, its row comes back with
+    ``degraded=True`` and the failure as its reason.
+
+    A corrupt layout whose node has no ``w`` (packed with
+    ``keep_dense=False``) cannot degrade: its ``LayoutError`` is
+    re-raised, since a repack is the only safe answer.
+
+    Returns ``(exec_params, report, degraded)``: the tree (its dict
+    skeleton copied, leaves shared), the report, and ``[(layer path,
+    LayoutError), ...]``."""
+    log = logging.getLogger("repro_torch.serve.compile")
+    degraded = []
+
+    def walk(node, path):
+        if not isinstance(node, dict):
+            return node
+        out = {}
+        for k, v in node.items():
+            sub = f"{path}/{k}" if path else k
+            if k != "packed":
+                out[k] = walk(v, sub)
+                continue
+            if v is None or isinstance(v, (dict, DegradedLayer)):
+                out[k] = v
+                continue
+            try:
+                out[k] = V.validate_layout(v, path=sub)
+            except V.LayoutError as e:
+                if "w" not in node:
+                    raise     # no dense fallback weight: repack or fail
+                out[k] = DegradedLayer(path=path or "packed", code=e.code,
+                                       detail=e.detail)
+                degraded.append((path, e))
+                log.warning(
+                    "layer %s: packed layout failed validation, degrading "
+                    "to masked-dense execution: %s", path, e)
+        return out
+
+    tree = walk(exec_params, "")
+    if isinstance(report, CompileReport) and degraded:
+        bad = {(f"{p}/w" if p else "w"): e for p, e in degraded}
+        rows = tuple(
+            dataclasses.replace(
+                r, degraded=True,
+                reason=f"[{bad[r.path].code}] degraded to masked-dense: "
+                       f"{bad[r.path].detail}")
+            if r.path in bad else r
+            for r in report)
+        report = dataclasses.replace(report, rows=rows)
+    return tree, report, degraded

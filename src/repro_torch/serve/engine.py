@@ -15,6 +15,7 @@ from repro_torch.kernels import bsr_matmul as K
 from repro_torch.models import layers as L
 from repro_torch.models.module import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.serve import compile as SC
 from repro_torch.serve import kvcache as KV
 from repro_torch.serve.scheduler import (REASON_DEADLINE_EXPIRED,
                                          REASON_OVER_BUDGET,
@@ -120,28 +121,28 @@ class ServingEngine:
     and reads the next tokens and the probe back in one copy.  On the CPU
     the step runs eagerly.  ``stats["graph_captures"]`` counts captures.
 
-    Faults: every step sweeps queue TTLs, due retries and running
-    deadlines BEFORE admission, and a slot whose logits came back
-    non-finite is quarantined (evicted without emitting its token); the
-    other slots are untouched (slots share weights, never activations).
-
-    ``validate=True`` (the reference's default: retire invalid packed
-    layouts to masked-dense first) is not ported yet and raises.
+    Faults: ``validate=True`` (the default, as the reference's) runs
+    ``serve.compile.degrade_invalid_layers`` at construction, before the
+    step is captured: a packed layout failing ``core.validate`` is retired
+    to masked-dense (its stack's dense matmul on the retained ``w`` is
+    what the graph records), counted in ``stats["degraded_layers"]``, and
+    its ``report`` row (when given) marked; a corrupt layout without ``w``
+    raises.  No kernel is ever launched on a layout that failed.  Every
+    step sweeps queue TTLs, due retries and running deadlines BEFORE
+    admission, and a slot whose logits came back non-finite is
+    quarantined (evicted without emitting its token); the other slots are
+    untouched (slots share weights, never activations).
     """
 
     FAMILIES = T.FAMILIES
 
     def __init__(self, params, cfg: ArchConfig, *, n_slots=8, seq_cap=256,
-                 max_queue=None, validate=False, device="cuda"):
+                 max_queue=None, validate=True, report=None,
+                 device="cuda"):
         if cfg.family not in self.FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not served (supported: "
                 f"{self.FAMILIES})")
-        if validate:
-            raise NotImplementedError(
-                "ServingEngine(validate=True) needs serve.compile."
-                "degrade_invalid_layers, which is not ported yet (ROADMAP "
-                "queue 1 item 7, robustness); pass validate=False")
         dev = resolve_device(device)
         if params["embed"]["table"].device.type != dev.type:
             raise ValueError(f"the params live on "
@@ -150,6 +151,11 @@ class ServingEngine:
         if cfg.sliding_window:
             # a slot never needs more ring than the attention window
             seq_cap = min(seq_cap, cfg.sliding_window)
+        self.report = report
+        degraded = []
+        if validate:
+            params, self.report, degraded = SC.degrade_invalid_layers(
+                params, report=report)
         self.params, self.cfg = params, cfg
         self.n_slots, self.seq_cap = n_slots, seq_cap
         self.cache = KV.init_slots(params, cfg, n_slots, seq_cap,
@@ -168,7 +174,7 @@ class ServingEngine:
         self.stats = {"steps": 0, "occupancy_sum": 0.0, "tokens": 0,
                       "admitted": 0, "finished": 0, "evicted": 0,
                       "rejected": 0, "quarantined": 0, "expired": 0,
-                      "degraded_layers": 0, "graph_captures": 0}
+                      "degraded_layers": len(degraded), "graph_captures": 0}
         self._graph = None
         self.logits = self._out = None
         if self.device.type == "cuda":

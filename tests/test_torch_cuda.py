@@ -651,6 +651,44 @@ def test_conv_bins_of_one_slot_and_fewer_columns_than_a_block(cuda):
     torch.testing.assert_close(ys[0], want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["bsr_matmul", "bsr_conv2d_implicit",
+                                    "bsr_conv2d_materialized",
+                                    "tap_gather_conv_implicit",
+                                    "tap_gather_conv"])
+def test_fused_relu_passes_non_finite_values(cuda, kernel, dtype):
+    """A NaN reaching the fused relu stays NaN, +inf stays +inf and -inf
+    becomes 0, as in the plain version (torch.clamp_min): the engine's
+    finite probe relies on a non-finite value staying non-finite.  The
+    bias carries them, so every row of those columns is hit."""
+    b = torch.randn(64, device=cuda)
+    b[:3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
+    b = b.to(dtype)
+    K.reset_launches()
+    if kernel == "bsr_matmul":
+        lay, _ = _layout(cuda, 128, 64, (16, 16), dtype, reorder=True)
+        x = torch.randn(17, 128, device=cuda).to(dtype)
+        y = K.bsr_matmul_packed(x, lay, bias=b, act="relu")
+        want = ref.bsr_matmul_packed_ref(x.float(), lay, b.float(), "relu")
+    else:
+        scheme = "punched" if kernel.startswith("bsr") else "pattern"
+        lay, _ = _conv_layout(cuda, scheme, 64, 32, 3, dtype, True,
+                              4 if scheme == "punched" else 8)
+        conv = (ops.sparse_conv2d if scheme == "punched"
+                else ops.sparse_conv2d_pattern)
+        x = torch.randn(2, 9, 7, 32, device=cuda).to(dtype)
+        y = conv(x, lay, kh=3, kw=3, bias=b, act="relu",
+                 implicit=kernel.endswith("implicit"))
+        want = _conv_plain(x, lay, 3, 1, b, "relu")
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[kernel] == 1
+    y = y.float().reshape(want.shape)
+    assert torch.isnan(y[..., 0]).all() and torch.isnan(want[..., 0]).all()
+    assert (y[..., 1] == float("inf")).all() and (y[..., 2] == 0).all()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y, want, rtol=tol, atol=tol, equal_nan=True)
+
+
 def test_conv_wrappers_reject_what_the_kernels_do_not_take(cuda):
     lay, _ = _conv_layout(cuda, "punched", 32, 16, 3, torch.float32, True,
                           4)

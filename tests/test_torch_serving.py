@@ -565,9 +565,18 @@ def test_step_operands_keep_their_shapes_and_tensors(monkeypatch):
 
 
 def test_validate_raises_and_other_families_refused():
+    """``validate=True`` is the default: a clean tree serves, and a corrupt
+    layout with no dense ``w`` to fall back on raises at construction
+    (``_compiled`` packs with ``keep_dense=False``)."""
+    from repro_torch.core import validate as V
+    from repro_torch.testing import faults as F
     _, pcfg, _, pparams = _model("dense")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        engine.ServingEngine(pparams, pcfg, validate=True, device="cpu")
+    _, pexec = _compiled()
+    assert engine.ServingEngine(pexec, pcfg, device="cpu").stats[
+        "degraded_layers"] == 0
+    bad, _ = F.bitflip_packed_leaf(pexec, seed=0)
+    with pytest.raises(V.LayoutNumericsError):
+        engine.ServingEngine(bad, pcfg, validate=True, device="cpu")
     with pytest.raises(NotImplementedError, match="not served"):
         engine.ServingEngine(pparams, pcfg.replace(family="encdec"),
                              device="cpu")
