@@ -190,6 +190,39 @@
    ``launches_by_path`` gains "yi-9b degraded engine" and "yi-9b
    warm-start generate", the conv kernels' the retired forward; the
    numbers go under ``"robustness"`` in ``build/chip_smoke.json``.
+13. Tensor-parallel layouts on one card (``[tensor_parallel]`` lines,
+   right after robustness, on the serve phase's masked yi-9b): kernel 1
+   through the shard wrapper ``bsr_matmul_sharded`` at yi-9b's 7
+   projection shapes, S = 2, 4, 8, M = 4 and 128, bf16 x with float and
+   int8 values (fp32 at S = 4, M = 4), bias + silu, against its sharded
+   plain version at the kernel bounds and against the unsharded kernel
+   on the same weights (bitwise where the two take a column's slots in
+   the same chunks); kernel 2 through ``tap_gather_conv_sharded`` at
+   VGG_TINY c5 (pattern), S = 2 and 4, float and int8; a planted fault
+   (shard 0's column table shifted) breaking each bound.  A yi-9b layer
+   timed at S = TP against unsharded (decode and prefill, L2 flushed),
+   each projection's executed blocks, L_effective and shard_balance;
+   kernel 2 at c5 timed beside ``F.conv2d``.  yi-9b served at
+   ``CompileSpec(tp=4)``: every row 4 shards, the counted ``generate``
+   (952 sharded kernel-1 launches, none unsharded) giving the unsharded
+   tree's tokens, prefill logits within 5 % / 2 % of masked-dense (a
+   shifted shard of ffn/down breaking it), a validated ``ServingEngine``
+   (one capture, replay == eager bitwise, 56 launches a step, the
+   counted saturated run and its step ms).  VGG_TINY at tp = 2, both
+   mappings: the punched forward through im2col + kernel 1, the pattern
+   forward through kernel 2, launches from the layouts, logits within
+   CONV_LOGIT_REL of the unsharded forward.  A replica restart in a
+   temporary directory (yi-9b at full width, TP_CKPT_LAYERS layers):
+   ``checkpoint.save`` / ``restore`` timed with the MiB on disk, then
+   ``replica_restore(spec=CompileSpec(tp=4), artifact_dir=)`` cold and
+   warm (no pack), warm == cold leaf for leaf, equal greedy tokens.  The
+   train CLI at yi-9b SMOKE on the card: 6 steps against 4 (saving every
+   2) + ``--resume``, the resumed losses within TP_RESUME_REL of the
+   uninterrupted ones (a resume that runs the saved step again, as the
+   reference's does, breaking it).  The two shard wrappers join the
+   kernels line (``launches_by_path``: "yi-9b tp=4 generate", "yi-9b
+   tp=4 engine", the VGG forwards); the numbers go under
+   ``"tensor_parallel"`` in ``build/chip_smoke.json``.
 
 No phase is caught: any failure exits non-zero.  The last two lines are
 the kernels JSON and ``{"ok": true, "device": {...}}``.  Full detail goes
@@ -200,6 +233,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import logging
 import math
@@ -478,9 +512,11 @@ def kernel1_timings(mods, gen, flush, projs, Ms, make, E=None):
                                         device=DEV)
             stream_ms = time_ms(lambda: stream_buf[:nbytes // 2].sum(), 30,
                                 flush)
+            plain = (ref.bsr_matmul_sharded_ref if lay.n_shards
+                     else ref.bsr_matmul_packed_ref)
             if E is None:
                 fns = (lambda: K.bsr_matmul_packed(x, lay, None, act),
-                       lambda: ref.bsr_matmul_packed_ref(x, lay, None, act),
+                       lambda: plain(x, lay, None, act),
                        lambda: torch.matmul(x, dense))
             else:
                 fns = (lambda: ops.sparse_expert_linear(x, lay, act=act),
@@ -491,7 +527,8 @@ def kernel1_timings(mods, gen, flush, projs, Ms, make, E=None):
                 flush, proj=name, M=M, K=Kd, N=Nd, act=act,
                 dtype="bfloat16", values=lay.value_dtype,
                 density=lay.density, executed_frac=1 - lay.flops_saved,
-                bins=lay.n_bins, **({} if E is None else {"E": E})))
+                bins=lay.n_bins, shards=lay.n_shards,
+                **({} if E is None else {"E": E})))
         del lay, dense
     del stream_buf
     return rows
@@ -736,7 +773,7 @@ def serve_counted(mods, exec_p, cfg, full, compile_s, how, per_layer=7):
            "first_generate_s": gen_s, "generate_s": gen_warm_s,
            "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
            "tok_per_s": B * N_NEW / gen_warm_s, "launches": launches,
-           "sample": out[0].tolist()}
+           "sample": out[0].tolist(), "tokens": out.tolist()}
     print(f"prefill {prefill_ms:.2f} ms (B {B} x {S}); decode "
           f"{decode_ms:.3f} ms/token step; generate {gen_warm_s:.3f}s = "
           f"{e2e['tok_per_s']:.1f} tok/s (warm; first call {gen_s:.3f}s)")
@@ -1126,13 +1163,20 @@ def floor_phase(mods, flush):
 def expected_conv_launches(ops, arch, exec_p, hw, B):
     """Launches of one ``convnet_apply`` per kernel, from the layouts: a
     packed layer launches the implicit or the materialized kernel as
-    ``ops._pick_implicit`` picks at its input, once over all bins."""
+    ``ops._pick_implicit`` picks at its input, once over all bins; a
+    sharded layer its shard wrapper (kernel 1 over the patches, kernel 2
+    over the band)."""
     want = {}
     for name, kh, kw, stride, shape in layer_inputs(arch, hw, B):
         lay = exec_p[name].get("packed")
         if lay is None:
             continue
         k_imp, k_mat = conv_kernel_keys(lay)
+        if lay.n_shards:
+            key = ("tap_gather_conv_sharded" if k_mat == "tap_gather_conv"
+                   else "bsr_matmul_sharded")
+            want[key] = want.get(key, 0) + 1
+            continue
         x = torch.empty(shape, dtype=torch.float32, device="meta")
         bk = None if k_imp == "tap_gather_conv_implicit" else lay.block[0]
         key = (k_imp if ops._pick_implicit(None, x, kh, kw, stride, "SAME",
@@ -3144,19 +3188,19 @@ def slot_gaps(logits, refs):
     return gaps, agree
 
 
-def eager_step_launches(mods, params, cfg):
-    """Kernel-1 launches of one eager ``decode_step_ragged`` over an
-    all-free slot cache."""
+def eager_step_launches(mods, params, cfg, key="bsr_matmul"):
+    """Kernel-1 launches (``LAUNCHES[key]``) of one eager
+    ``decode_step_ragged`` over an all-free slot cache."""
     T, K, KV = mods["T"], mods["K"], mods["KV"]
     cache = KV.init_slots(params, cfg, ENGINE_SLOTS, ENGINE_SEQ_CAP,
                           dtype=params["embed"]["table"].dtype)
     zero = torch.zeros((ENGINE_SLOTS, 1), dtype=torch.int32, device=DEV)
     one = torch.ones((ENGINE_SLOTS,), dtype=torch.int32, device=DEV)
-    before = K.LAUNCHES["bsr_matmul"]
+    before = K.LAUNCHES[key]
     with torch.no_grad():
         T.decode_step_ragged(params, cfg, zero, cache, zero, one)
     sync()
-    return K.LAUNCHES["bsr_matmul"] - before
+    return K.LAUNCHES[key] - before
 
 
 def neighbour_write(real):
@@ -3763,6 +3807,628 @@ def robustness_phase(mods, pm, masks, cfg, full):
                  "vgg": vgg_launches}
 
 
+# -- tensor-parallel layouts on one card: the shard wrappers ------------------
+
+TP = 4                   # yi-9b's degree: divides every projection's Nb
+TP_SHARDS = (2, 4, 8)    # kernel 1's shard counts checked against plain
+TP_CHECK_M = (4, 128)    # decode and prefill rows
+TP_CONV = 2              # VGG_TINY's degree (kernel 2 also at 4)
+TP_CKPT_LAYERS = 2       # the replica restart's depth (full width)
+# the train CLI's resume at SMOKE: steps run through, the interrupted
+# run's steps, the checkpoint interval; losses of the same step agree to
+# this (relative) after the resume
+TP_TRAIN = (6, 4, 2)
+TP_RESUME_REL = 1e-5
+
+
+def shard_fault(lay):
+    """A planted fault: shard 0's column table shifted by one column (its
+    ``perm`` rolled, ``inv_perm`` kept its inverse), so shard 0 writes each
+    column's outputs into its neighbour's place.  Works on a stacked
+    layout too (every layer's shard 0)."""
+    perm = lay.perm.clone()
+    perm[..., 0, :] = torch.roll(perm[..., 0, :], 1, dims=-1)
+    flat = perm.reshape(tuple(perm.shape[:-2]) + (-1,)).long()
+    inv = torch.empty_like(lay.inv_perm)
+    inv.scatter_(-1, flat, torch.arange(flat.shape[-1], dtype=inv.dtype,
+                                        device=inv.device).expand_as(flat))
+    return dataclasses.replace(lay, perm=perm, inv_perm=inv)
+
+
+def tp_kernel1_checks(mods, gen):
+    """Kernel 1 through ``bsr_matmul_sharded`` at yi-9b's 7 projection
+    shapes, S in TP_SHARDS, M in TP_CHECK_M, bf16 x with float and int8
+    (a scale per block) values (fp32 x at S = TP, M = 4), bias + silu:
+    against the sharded plain version at the kernel bounds, and against
+    the unsharded kernel on the same weights (bitwise where both launches
+    take a column's slots in the same chunks, else within the bound).
+    Returns (cases, max abs err, bitwise cases, a planted fault's
+    out-of-bound elements)."""
+    RW, ops, ref, K = mods["RW"], mods["ops"], mods["ref"], mods["K"]
+    cases, max_err, bitwise, fault = 0, 0.0, 0, None
+    for name, Kd, Nd, _ in PROJECTIONS:
+        for dtype in (torch.bfloat16, torch.float32):
+            w, mask = weight_and_mask(RW, Kd, Nd, gen, dtype)
+            b = (torch.randn(Nd, generator=gen, device=DEV) * 0.1).to(dtype)
+            for gran in ((None, "block") if dtype == torch.bfloat16
+                         else (None,)):
+                kw = dict(value_dtype=gran and "int8",
+                          scale_granularity=gran or "block")
+                un = ops.pack(w, mask, BLOCK, reorder=True, n_bins=N_BINS,
+                              **kw)
+                for S in (TP_SHARDS if dtype == torch.bfloat16 else (TP,)):
+                    sh = ops.pack(w, mask, BLOCK, n_bins=N_BINS, n_shards=S,
+                                  **kw)
+                    for M in (TP_CHECK_M if dtype == torch.bfloat16
+                              else (4,)):
+                        x = torch.randn(M, Kd, generator=gen,
+                                        device=DEV).to(dtype)
+                        want = ref.bsr_matmul_sharded_ref(
+                            x.float(), sh, b.float(), "silu")
+                        y = K.bsr_matmul_packed(x, sh, b, "silu")
+                        y_un = K.bsr_matmul_packed(x, un, b, "silu")
+                        sync()
+                        what = (f"{name} S={S} M={M} {dtype} values="
+                                f"{sh.value_dtype}")
+                        max_err = max(max_err, check_close(
+                            y, want, dtype, f"sharded kernel 1 vs plain at "
+                                            f"{what}"))
+                        same = bool(torch.equal(y, y_un))
+                        if not same:
+                            check_close(y, y_un.float(), dtype,
+                                        f"sharded vs unsharded kernel 1 at "
+                                        f"{what}")
+                        bitwise += same
+                        cases += 1
+                        if fault is None and S == TP:
+                            bad = K.bsr_matmul_packed(x, shard_fault(sh), b,
+                                                      "silu")
+                            fault = out_of_tol(bad, want, dtype)[0]
+            del w, mask
+    return cases, max_err, bitwise, fault
+
+
+def tp_kernel2_phase(mods, flush):
+    """Kernel 2 through ``tap_gather_conv_sharded`` at VGG_TINY c5 under
+    the pattern mapping (B = CONV_B, its 8 x 8 x 128 input as the alive
+    band), S in (2, 4), float and int8 ("out" scales), bias + relu: vs
+    the sharded plain version and bitwise vs the unsharded launch, a
+    planted shard fault breaking the bound; then S = TP_CONV timed beside
+    the unsharded kernel, the plain version, ``F.conv2d`` and the
+    bound."""
+    RW, CN, ops, ref, K = (mods["RW"], mods["CN"], mods["ops"], mods["ref"],
+                           mods["K"])
+    import torch.nn.functional as F
+    params = CN.convnet_init(CN.VGG_TINY, seed=0, device=DEV)
+    name, spec = conv_mappings(RW)[1]
+    mask = conv_masks(RW, name, params, spec)["c5"]["w"]
+    wm = params["c5"]["w"] * mask
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(5)
+    x = torch.randn(CONV_B, 8, 8, wm.shape[1], generator=gen, device=DEV)
+    b = torch.randn(wm.shape[0], generator=gen, device=DEV) * 0.1
+    band_full = x.reshape(-1, wm.shape[1])
+    cases, max_err, bitwise, fault = 0, 0.0, 0, None
+    for gran in (None, "out"):
+        kw = dict(value_dtype=gran and "int8",
+                  scale_granularity=gran or "block")
+        un = ops.pack_taps(wm, mask, **kw)
+        for S in (2, 4):
+            sh = ops.pack_taps(wm, mask, n_shards=S, **kw)
+            band = band_full.index_select(1, sh.alive.long()).contiguous()
+            want = ref.tap_gather_sharded_ref(band, sh, b, "relu")
+            y = K.tap_gather_conv_packed(band, sh, b, "relu")
+            y_un = K.tap_gather_conv_packed(band, un, b, "relu")
+            sync()
+            what = f"c5 S={S} values={sh.value_dtype}"
+            max_err = max(max_err, check_close(
+                y, want, torch.float32, f"sharded kernel 2 vs plain at "
+                                        f"{what}"))
+            same = bool(torch.equal(y, y_un))
+            if not same:
+                check_close(y, y_un, torch.float32, f"sharded vs unsharded "
+                                                    f"kernel 2 at {what}")
+            bitwise += same
+            cases += 1
+            if fault is None:
+                bad = K.tap_gather_conv_packed(band, shard_fault(sh), b,
+                                               "relu")
+                fault = out_of_tol(bad, want, torch.float32)[0]
+    sh = ops.pack_taps(wm, mask, n_shards=TP_CONV)
+    un = ops.pack_taps(wm, mask)
+    band = band_full.index_select(1, sh.alive.long()).contiguous()
+    xn = x.permute(0, 3, 1, 2).contiguous()
+    w_bytes = layout_bytes(sh)
+    M, P = band.shape[0], wm.shape[0]
+    t_bytes = (band.numel() * 4 + w_bytes + M * P * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * M * sh.nnz_taps * sh.group / FP32_PEAK_FLOPS * 1e3
+    row = {"layer": "vgg/c5/pattern", "M": M, "R": band.shape[1], "P": P,
+           "shards": TP_CONV,
+           "ms": time_ms(lambda: K.tap_gather_conv_packed(band, sh, b,
+                                                          "relu"), 20, flush),
+           "unsharded_ms": time_ms(lambda: K.tap_gather_conv_packed(
+               band, un, b, "relu"), 20, flush),
+           "plain_ms": time_ms(lambda: ref.tap_gather_sharded_ref(
+               band, sh, b, "relu"), 3, flush),
+           "library_ms": time_ms(lambda: torch.relu(F.conv2d(
+               xn, wm.float(), b)), 20, flush),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "executed_taps": sh.executed_taps,
+           "executed_taps_unsharded": un.executed_taps,
+           "shard_balance": sh.shard_balance}
+    print(f"[tensor_parallel] kernel 2 (tap_gather_conv_sharded) vs plain: "
+          f"{cases} cases at VGG_TINY c5 (pattern), S in (2, 4), float and "
+          f"int8, bias + relu; max abs err {max_err:.3e}; == the unsharded "
+          f"launch bitwise in {bitwise} of {cases}; planted fault (shard "
+          f"0's column table shifted): {fault} elements out of bound")
+    print(f"[tensor_parallel] kernel 2 at c5, S = {TP_CONV} (L2 flushed, "
+          f"median): {row['ms']:.4f} ms, unsharded {row['unsharded_ms']:.4f}"
+          f", plain {row['plain_ms']:.3f}, F.conv2d {row['library_ms']:.4f},"
+          f" bound {row['bound_ms']:.4f} ({row['bound_by']}); executed "
+          f"taps {sh.executed_taps} (unsharded {un.executed_taps}), "
+          f"shard_balance {sh.shard_balance:.3f}")
+    if not fault:
+        raise AssertionError("the kernel-2 bound misses a shifted shard")
+    return {"checks": cases, "max_abs_err": max_err, "bitwise": bitwise,
+            "fault_out_of_bound": fault, "timing": row}
+
+
+def tp_timings(mods, gen, flush):
+    """A yi-9b layer's 7 projections, S = TP against unsharded on the same
+    weights (bf16, L2 flushed): rows of ``kernel1_timings``, and each
+    projection's executed blocks, L_effective and shard_balance."""
+    RW, ops = mods["RW"], mods["ops"]
+    weights, geo = {}, []
+
+    def make(sharded):
+        def build(name, Kd, Nd):
+            if name not in weights:
+                weights[name] = weight_and_mask(RW, Kd, Nd, gen,
+                                                torch.bfloat16)
+            w, mask = weights[name]
+            lay = ops.pack(w, mask, BLOCK, reorder=True, n_bins=N_BINS,
+                           n_shards=TP if sharded else 0)
+            if sharded:
+                geo.append({"proj": name, "executed_blocks":
+                            lay.executed_blocks, "L_effective":
+                            lay.L_effective, "shard_balance":
+                            lay.shard_balance})
+            else:
+                geo_row = next(g for g in geo if g["proj"] == name)
+                geo_row.update(executed_blocks_unsharded=lay.executed_blocks,
+                               L_effective_unsharded=lay.L_effective)
+            return lay, w * mask.to(w.dtype)
+        return build
+    rows = kernel1_timings(mods, gen, flush, PROJECTIONS, TP_CHECK_M,
+                           make(True))
+    rows_un = kernel1_timings(mods, gen, flush, PROJECTIONS, TP_CHECK_M,
+                              make(False))
+    weights.clear()
+    print_timings(f"[tensor_parallel] kernel 1 over S = {TP} shards (bf16, "
+                  f"L2 flushed, median ms):", rows, "torch.matmul",
+                  "yi-9b layer (7 projections)",
+                  ((4, "decode"), (128, "prefill")))
+    for M in TP_CHECK_M:
+        a, u = layer_sum(rows, M), layer_sum(rows_un, M)
+        print(f"  M = {M}: sharded {a['ms']:.4f} ms against unsharded "
+              f"{u['ms']:.4f} on the same weights ({a['ms'] / u['ms']:.3f}x)")
+    for g in geo:
+        print(f"  {g['proj']:5s} executed blocks {g['executed_blocks']} "
+              f"(unsharded {g['executed_blocks_unsharded']}), L_effective "
+              f"{g['L_effective']:.2f} ({g['L_effective_unsharded']:.2f}), "
+              f"shard_balance {g['shard_balance']:.4f}")
+    return rows, rows_un, geo
+
+
+def tp_serve(mods, pm, masks, cfg, serve_tokens, unsharded_step_ms):
+    """yi-9b at full width (``cfg``'s depth, bf16) compiled with
+    ``CompileSpec(tp=TP)``: every report row sharded; the counted greedy
+    ``generate`` (B x S prompts): its tokens == the unsharded tree's, one
+    sharded kernel-1 launch a projection and forward; prefill logits
+    within the bf16 bound of masked-dense, a shifted shard breaking it;
+    then a validated ``ServingEngine``: one capture, the replayed step ==
+    eager bitwise, TP's launches a step, the counted saturated run and
+    its step ms beside ``unsharded_step_ms``, the serve phase's."""
+    C, E, K = mods["C"], mods["E"], mods["K"]
+    from repro_torch.launch.serve import SPARSE_SPEC
+    exec_p, report, compile_s = compile_timed(mods, pm, masks, SPARSE_SPEC,
+                                              tp=TP)
+    print(f"[tensor_parallel] yi-9b ({cfg.n_layers} layers, "
+          f"{pm['embed']['table'].dtype}) compile_model(tp={TP}) "
+          f"{compile_s:.2f} s:")
+    print(C.compiled_summary(report))
+    shards = [r.shards for r in report.packed]
+    if len(shards) != 7 or set(shards) != {TP}:
+        raise AssertionError(f"expected 7 projections of {TP} shards, got "
+                             f"{shards}")
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab, size=(B, S))
+    tokens = torch.as_tensor(prompts, device=DEV)
+    K.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = E.generate(exec_p, cfg, prompts, N_NEW, device=DEV)
+    sync()
+    gen_s = time.perf_counter() - t0
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    want = cfg.n_layers * 7 * (1 + N_NEW)
+    same = out.tolist() == serve_tokens
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        E.generate(exec_p, cfg, prompts, N_NEW, device=DEV)
+        sync()
+        gen_warm_s = time.perf_counter() - t0
+        dense, _ = E.prefill(pm, cfg, tokens)
+        logits, _ = E.prefill(exec_p, cfg, tokens)
+        gap = logit_gap(dense, logits)
+        down = exec_p["layers"]["ffn"]["down"]["packed"]
+        fault = logit_gap(dense, E.prefill(with_layout(
+            exec_p, "ffn", "down", shard_fault(down)), cfg, tokens)[0])
+    print(f"[tensor_parallel] generate {tuple(out.shape)}: launches "
+          f"{launches} (expected bsr_matmul_sharded {want}: one a "
+          f"projection and forward); tokens == the unsharded tree's: {same};"
+          f" first {gen_s:.3f} s, warm {gen_warm_s:.3f} s; prefill logits "
+          f"vs masked-dense {gap[0]:.4f} / {gap[1]:.4f} (bound "
+          f"{LOGIT_MAX_REL} / {LOGIT_MEAN_REL}); planted fault (down's "
+          f"shard 0 shifted, every layer) {fault[0]:.4f} / {fault[1]:.4f}")
+    if launches != {"bsr_matmul_sharded": want}:
+        raise AssertionError("the tp generate did not go through the shard "
+                             "wrapper once a projection and forward")
+    if not (same and within_bound(gap) and torch.isfinite(logits).all()):
+        raise AssertionError("the tp=4 tree disagrees with the unsharded "
+                             "one or with masked-dense")
+    if within_bound(fault):
+        raise AssertionError("the logit bound misses a shifted shard")
+    del dense, logits
+
+    prompts_e = engine_prompts(cfg)
+    eng, replay_same = step_gate(mods, exec_p, cfg, prompts_e)
+    eager = eager_step_launches(mods, exec_p, cfg, "bsr_matmul_sharded")
+    per_step = (eng._replay_launches.get("bsr_matmul_sharded")
+                if DEV == "cuda" else eager)
+    del eng
+    K.reset_launches()
+    eng, toks, wall, step_ms, runs = engine_serve(mods, exec_p, cfg,
+                                                  prompts_e)
+    counted = dict(K.LAUNCHES)
+    n_adm = eng.stats["admitted"]
+    warm_up = 1 if DEV == "cuda" else 0
+    want_e = cfg.n_layers * 7 * (warm_up + runs + n_adm)
+    med = statistics.median(step_ms)
+    print(f"[tensor_parallel] ServingEngine (validate=True, "
+          f"{ENGINE_SLOTS} slots): {eng.stats['graph_captures']} capture, "
+          f"replayed step == eager bitwise: {replay_same}; sharded kernel-1 "
+          f"launches a step {per_step} replayed / {eager} eager; saturated "
+          f"run of {ENGINE_REQUESTS} requests: {eng.stats['finished']} "
+          f"finished, decode-only step {med:.3f} ms (the unsharded "
+          f"engine's {unsharded_step_ms:.3f} in this run), launches {counted['bsr_matmul_sharded']} (expected "
+          f"({warm_up} warm-up + {runs} steps + {n_adm} prefills) x "
+          f"{cfg.n_layers * 7} = {want_e}), {wall:.2f} s")
+    if not (replay_same and per_step == eager == cfg.n_layers * 7
+            and counted["bsr_matmul_sharded"] == want_e
+            and counted["bsr_matmul"] == 0
+            and eng.stats["finished"] == ENGINE_REQUESTS
+            and eng.stats["degraded_layers"] == 0):
+        raise AssertionError("the tp engine's gates failed")
+    return ({"compile_s": compile_s, "launches": launches,
+             "tokens_equal": same, "first_generate_s": gen_s,
+             "generate_s": gen_warm_s, "logits_gap": gap,
+             "fault_gap": fault, "engine_replay_bitwise": replay_same,
+             "engine_launches_per_step": per_step, "engine_step_ms": med,
+             "engine_step_ms_all": step_ms,
+             "engine_launches": counted["bsr_matmul_sharded"],
+             "report": C.compiled_summary(report)},
+            {"yi-9b tp=4 generate": launches["bsr_matmul_sharded"],
+             "yi-9b tp=4 engine": counted["bsr_matmul_sharded"]})
+
+
+def tp_vgg(mods):
+    """VGG_TINY (B = CONV_B, fp32) compiled with ``CompileSpec(tp=TP_CONV)``
+    under both mappings: the punched forward runs im2col + kernel 1, the
+    pattern forward kernel 2, each sharded layer once a forward (launches
+    from the layouts); logits within CONV_LOGIT_REL of the unsharded
+    forward's."""
+    RW, CN, C, K, ops = (mods["RW"], mods["CN"], mods["C"], mods["K"],
+                         mods["ops"])
+    from repro_torch.train.trainer import apply_masks
+    params = CN.convnet_init(CN.VGG_TINY, seed=0, device=DEV)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    x, _ = CN.synthetic_images(gen, CONV_B, size=CONV_HW)
+    out, all_launches = {}, {}
+    for name, spec in conv_mappings(RW):
+        masks = conv_masks(RW, name, params, spec)
+        pm = apply_masks(params, masks)
+        plain_p, _ = C.compile_model(pm, masks, spec,
+                                     spec=C.CompileSpec(keep_dense=False),
+                                     device=DEV)
+        tp_p, report = C.compile_model(
+            pm, masks, spec, spec=C.CompileSpec(keep_dense=False,
+                                                tp=TP_CONV), device=DEV)
+        want = expected_conv_launches(ops, CN.VGG_TINY, tp_p, CONV_HW,
+                                      CONV_B)
+        K.reset_launches()
+        sync()
+        with torch.no_grad():
+            logits = CN.convnet_apply(tp_p, x, CN.VGG_TINY)
+        sync()
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        with torch.no_grad():
+            ref_logits = CN.convnet_apply(plain_p, x, CN.VGG_TINY)
+            gap = conv_logit_gap(ref_logits, logits)
+            for _ in range(2):
+                CN.convnet_apply(tp_p, x, CN.VGG_TINY)
+            fw_ms = time_ms(lambda: CN.convnet_apply(tp_p, x, CN.VGG_TINY),
+                            10, None)
+            un_ms = time_ms(lambda: CN.convnet_apply(plain_p, x,
+                                                     CN.VGG_TINY), 10, None)
+        shards = {r.path: r.shards for r in report.packed}
+        print(f"[tensor_parallel] VGG_TINY {name}, tp={TP_CONV}: shards "
+              f"{shards}; one forward: launches {launches} (from the "
+              f"layouts: {want}); logits vs the unsharded forward "
+              f"{gap:.2e} of max|logit| (bound {CONV_LOGIT_REL}); forward "
+              f"(CUDA-graph replay) {fw_ms:.3f} ms, unsharded {un_ms:.3f}")
+        if launches != want or not any(shards.values()):
+            raise AssertionError(f"[{name}] the tp forward did not go "
+                                 f"through the shard wrappers")
+        if not (gap <= CONV_LOGIT_REL and torch.isfinite(logits).all()):
+            raise AssertionError(f"[{name}] tp logits disagree with the "
+                                 f"unsharded forward")
+        for k, v in launches.items():
+            all_launches[k] = all_launches.get(k, 0) + v
+        out[name] = {"launches": launches, "shards": shards,
+                     "logit_gap": gap, "forward_ms": fw_ms,
+                     "unsharded_forward_ms": un_ms}
+        del plain_p, tp_p
+    return out, all_launches
+
+
+def tp_replica_restart(mods, full):
+    """A replica's restart at yi-9b's full width, TP_CKPT_LAYERS layers,
+    bf16, in a temporary directory: ``checkpoint.save`` and ``restore``
+    timed (fp32 on disk, restored leaf for leaf), then
+    ``replica_restore(spec=CompileSpec(tp=TP), artifact_dir=)`` cold and
+    warm (no pack), the warm layouts == the cold ones leaf for leaf, the
+    greedy tokens equal; seconds and MiB."""
+    import tempfile
+    from repro_torch.core import bcs as BCS
+    from repro_torch.distributed import checkpoint as CKPT
+    from repro_torch.distributed import elastic as EL
+    from repro_torch.launch.serve import SPARSE_SPEC
+    C, E, ART = mods["C"], mods["E"], mods["ART"]
+    cfg = full.replace(n_layers=TP_CKPT_LAYERS)
+    pm, _, _ = build_masked(mods, cfg, torch.bfloat16)
+    n_params = sum(t.numel() for t in _tensor_leaves(pm))
+    spec = C.CompileSpec(keep_dense=False, tp=TP)
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab, size=(B, S))
+    with tempfile.TemporaryDirectory() as d:
+        ckpt, store = Path(d) / "ckpt", Path(d) / "art"
+        sync()
+        t0 = time.perf_counter()
+        CKPT.save(ckpt, 100, pm)
+        save_s = time.perf_counter() - t0
+        ckpt_mib = sum(f.stat().st_size for f in ckpt.rglob("*")
+                       if f.is_file()) / 2**20
+        t0 = time.perf_counter()
+        restored, step = CKPT.restore(ckpt, pm)
+        sync()
+        restore_s = time.perf_counter() - t0
+        exact = all(torch.equal(a, b) for a, b in
+                    zip(_tensor_leaves(restored), _tensor_leaves(pm)))
+        del restored
+
+        def start():
+            sync()
+            t0 = time.perf_counter()
+            with mock.patch.object(BCS, "pack_csc_reordered",
+                                   wraps=BCS.pack_csc_reordered) as packs:
+                ex, rep, s = EL.replica_restore(
+                    ckpt, pm, mapping=SPARSE_SPEC, artifact_dir=store,
+                    spec=spec, device=DEV)
+            sync()
+            return ex, rep, s, time.perf_counter() - t0, packs.call_count
+        cold, cold_rep, s1, cold_s, cold_packs = start()
+        store_mib = sum(f.stat().st_size for f in store.rglob("*")
+                        if f.is_file()) / 2**20
+        warm, warm_rep, s2, warm_s, warm_packs = start()
+        same = layouts_equal(ART, cold, warm)
+        with torch.no_grad():
+            toks_c = E.generate(cold, cfg, prompts, N_NEW, device=DEV)
+            toks_w = E.generate(warm, cfg, prompts, N_NEW, device=DEV)
+        tok_same = bool(torch.equal(toks_c, toks_w))
+        shards = {r.shards for r in warm_rep.packed}
+        del cold, warm
+    out = {"layers": cfg.n_layers, "params": n_params, "save_s": save_s,
+           "restore_s": restore_s, "checkpoint_mib": ckpt_mib,
+           "restored_exact": exact, "cold_s": cold_s, "warm_s": warm_s,
+           "cold_packs": cold_packs, "warm_packs": warm_packs,
+           "store_mib": store_mib, "warm_layouts_equal": same,
+           "tokens_equal": tok_same, "shards": sorted(shards)}
+    print(f"[tensor_parallel] replica restart (yi-9b {cfg.n_layers} layers "
+          f"at full width, {n_params / 1e9:.3f} B params, bf16): "
+          f"checkpoint.save {save_s:.2f} s, {ckpt_mib:.1f} MiB on disk "
+          f"(fp32); restore {restore_s:.2f} s, leaf for leaf {exact}; "
+          f"replica_restore(tp={TP}) cold {cold_s:.2f} s ({cold_packs} "
+          f"packs, store {store_mib:.1f} MiB), warm {warm_s:.2f} s "
+          f"({warm_packs} packs); warm layouts == cold {same}; greedy "
+          f"tokens equal {tok_same}; shards {sorted(shards)}")
+    if not (exact and s1 == s2 == step == 100 and cold_packs > 0
+            and warm_packs == 0 and same and tok_same and shards == {TP}):
+        raise AssertionError(f"the replica restart failed: {out}")
+    return out
+
+
+def _tensor_leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tensor_leaves(tree[k])
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def tp_train_resume(fault=False):
+    """The train CLI at yi-9b SMOKE on the card, in a temporary directory:
+    TP_TRAIN[0] steps through; TP_TRAIN[1] steps saving every TP_TRAIN[2],
+    then ``--resume`` to TP_TRAIN[0].  Returns ({step: loss} of the
+    uninterrupted run, of the resumed run, the worst relative gap over
+    the steps both ran after the resume, bitwise equal).  ``fault``
+    resumes as the reference does (the saved step run again)."""
+    import tempfile
+    from repro_torch.distributed import checkpoint as CKPT
+    from repro_torch.launch import train as TR
+    total, first, every = TP_TRAIN
+    runs, start = {}, [0]
+    real_make, real_restore = TR.make_train_step, CKPT.restore
+
+    def recording(*a, **k):
+        init, step = real_make(*a, **k)
+
+        def run(params, opt, *rest):
+            idx = start[0] + len(runs[key])
+            out = step(params, opt, *rest)
+            runs[key][idx] = float(out[2]["loss"])
+            return out
+        return init, run
+
+    def restore(*a, **k):
+        tree, saved = real_restore(*a, **k)
+        if tree is not None:
+            start[0] = saved + (0 if fault else 1)
+            if fault:
+                saved -= 1
+        return tree, saved
+    base = ["--arch", "yi-9b", "--smoke", "--device", DEV,
+            "--ckpt-every", str(every)]
+    with tempfile.TemporaryDirectory() as d, \
+            mock.patch.object(TR, "make_train_step", recording), \
+            mock.patch.object(TR.CKPT, "restore", restore), \
+            contextlib.redirect_stdout(io.StringIO()):
+        for key, argv in (("full", ["--steps", str(total), "--ckpt-dir",
+                                    f"{d}/a"]),
+                          ("first", ["--steps", str(first), "--ckpt-dir",
+                                     f"{d}/b"]),
+                          ("resumed", ["--steps", str(total), "--ckpt-dir",
+                                       f"{d}/b", "--resume"])):
+            runs[key], start[0] = {}, 0
+            TR.main(base + argv)
+    after = sorted(runs["resumed"])
+    gaps = [abs(runs["resumed"][i] - runs["full"][i])
+            / abs(runs["full"][i]) for i in after]
+    bitwise = all(runs["resumed"][i] == runs["full"][i] for i in after)
+    return runs, max(gaps), bitwise
+
+
+def tensor_parallel_phase(mods, pm, masks, cfg, full, serve_tokens,
+                          unsharded_step_ms):
+    """The shard wrappers on one card (``[tensor_parallel]`` lines):
+    kernel 1 and 2 over sharded layouts vs their plain versions, a planted
+    shard fault breaking each bound; a yi-9b layer timed at S = TP against
+    unsharded; yi-9b served at ``CompileSpec(tp=TP)`` (tokens == the
+    unsharded tree's ``serve_tokens``, 952 launches, the engine's step
+    beside ``unsharded_step_ms``);
+    VGG_TINY at tp = TP_CONV; a replica restart from a checkpoint and the
+    store; the train CLI's resume.  Returns (numbers, launches by path
+    for each shard wrapper)."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(22)
+    cases, max_err, bitwise, fault = tp_kernel1_checks(mods, gen)
+    print(f"[tensor_parallel] kernel 1 (bsr_matmul_sharded) vs plain: "
+          f"{cases} cases at yi-9b's 7 projections, S in {TP_SHARDS}, M in "
+          f"{TP_CHECK_M}, bf16 float / int8 (fp32 at S = {TP}, M = 4), bias "
+          f"+ silu; max abs err {max_err:.3e}; == the unsharded kernel "
+          f"bitwise in {bitwise} of {cases}; planted fault (shard 0's "
+          f"column table shifted): {fault} elements out of bound")
+    if not fault:
+        raise AssertionError("the kernel-1 bound misses a shifted shard")
+    torch.cuda.empty_cache()
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=DEV)
+    k2 = tp_kernel2_phase(mods, flush)
+    rows, rows_un, geo = tp_timings(mods, gen, flush)
+    del flush
+    torch.cuda.empty_cache()
+    serve, yi_launches = tp_serve(mods, pm, masks, cfg, serve_tokens,
+                                  unsharded_step_ms)
+    torch.cuda.empty_cache()
+    vgg, vgg_launches = tp_vgg(mods)
+    torch.cuda.empty_cache()
+    restart = tp_replica_restart(mods, full)
+    torch.cuda.empty_cache()
+    runs, gap, bitwise_losses = tp_train_resume()
+    _, fault_gap, _ = tp_train_resume(fault=True)
+    print(f"[tensor_parallel] train CLI (yi-9b SMOKE, card): {TP_TRAIN[0]} "
+          f"steps against {TP_TRAIN[1]} + --resume: losses after the resume "
+          f"{[round(runs['resumed'][i], 6) for i in sorted(runs['resumed'])]}"
+          f" vs {[round(runs['full'][i], 6) for i in sorted(runs['resumed'])]}"
+          f", worst relative gap {gap:.2e} (bound {TP_RESUME_REL}), bitwise "
+          f"{bitwise_losses}; planted fault (the saved step run again, as "
+          f"the reference resumes) {fault_gap:.2e}")
+    if not (gap <= TP_RESUME_REL and sorted(runs["resumed"])
+            == list(range(TP_TRAIN[1] - 1, TP_TRAIN[0]))):
+        raise AssertionError("the resumed losses disagree with the "
+                             "uninterrupted run's")
+    if fault_gap <= TP_RESUME_REL:
+        raise AssertionError("the resume gate misses a re-run step")
+    out = {"kernel1": {"checks": cases, "max_abs_err": max_err,
+                       "bitwise": bitwise, "fault_out_of_bound": fault},
+           "kernel2": k2, "timings": rows, "timings_unsharded": rows_un,
+           "geometry": geo, "serve": serve, "vgg": vgg,
+           "replica_restart": restart,
+           "train_resume": {"losses": runs, "worst_gap": gap,
+                            "bitwise": bitwise_losses,
+                            "fault_gap": fault_gap},
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"[tensor_parallel] phase {out['phase_s']:.1f} s")
+    launches = {"bsr_matmul_sharded": {
+        **yi_launches, "VGG_TINY punched tp=2 forward":
+            vgg_launches.get("bsr_matmul_sharded", 0)},
+        "tap_gather_conv_sharded": {
+            "VGG_TINY pattern tp=2 forward":
+                vgg_launches.get("tap_gather_conv_sharded", 0)}}
+    return out, launches
+
+
+def tp_entries(out, launches):
+    """The kernels JSON entries of the two shard wrappers."""
+    rows = out["timings"]
+    d, p = layer_sum(rows, 4), layer_sum(rows, 128)
+    du, pu = (layer_sum(out["timings_unsharded"], 4),
+              layer_sum(out["timings_unsharded"], 128))
+    k1 = {"name": "bsr_matmul_sharded", "route": "cuda",
+          "source": "src/repro_torch/kernels/csrc/bsr_matmul.cu",
+          "replaces": "src/repro/kernels/bsr_matmul.py:268",
+          "launches": sum(launches["bsr_matmul_sharded"].values()),
+          "launches_by_path": launches["bsr_matmul_sharded"],
+          "max_abs_err": out["kernel1"]["max_abs_err"],
+          "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+          "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+          "prefill": p, "unsharded": {"decode": du, "prefill": pu},
+          "also_replaces": "src/repro/kernels/bsr_matmul.py:238 "
+                           "(_sharded_launch)",
+          "measured_at": f"sum over one yi-9b layer's 7 projections at S="
+                         f"{TP} shards, decode M=4 (prefill: M=128), bf16, "
+                         f"(16,16) blocks, rate 0.6, 4 bins a shard; "
+                         f"unsharded: the same weights in 4 bins"}
+    r = out["kernel2"]["timing"]
+    k2 = {"name": "tap_gather_conv_sharded", "route": "cuda",
+          "source": "src/repro_torch/kernels/csrc/tap_gather.cu",
+          "replaces": "src/repro/kernels/bsr_matmul.py:412",
+          "launches": sum(launches["tap_gather_conv_sharded"].values()),
+          "launches_by_path": launches["tap_gather_conv_sharded"],
+          "max_abs_err": out["kernel2"]["max_abs_err"], "ms": r["ms"],
+          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+          "unsharded_ms": r["unsharded_ms"],
+          "also_replaces": "src/repro/kernels/bsr_matmul.py:238 "
+                           "(_sharded_launch)",
+          "measured_at": f"VGG_TINY c5 (pattern, connectivity 0.5) at S="
+                         f"{TP_CONV}, B={CONV_B}: its 8x8x128 input as the "
+                         f"alive band, fp32, bias + relu; library = "
+                         f"F.conv2d on the masked dense weight"}
+    return [k1, k2]
+
+
 # -- the paper's prune-and-train pipeline on yi-9b ----------------------------
 
 TRAIN_B, TRAIN_S = 8, 128        # the training batch: B sequences of S
@@ -4287,6 +4953,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     stamp("robustness")
     robust, robust_launches = robustness_phase(mods, *served)
+    torch.cuda.empty_cache()
+    stamp("tensor_parallel")
+    tp_out, tp_launches = tensor_parallel_phase(
+        mods, *served, serve_tokens=e2e["tokens"],
+        unsharded_step_ms=e2e["engine"]["saturated"]["step_ms"])
     del served
     torch.cuda.empty_cache()
     # the paper's pipeline: train, prune and fine-tune yi-9b, then serve it
@@ -4467,6 +5138,7 @@ def main(argv=None):
             e["launches_by_path"] = {
                 "VGG_TINY forwards (served, mapped)": e["launches"] - n,
                 "VGG_TINY punched forward, one layer retired": n}
+    entries += tp_entries(tp_out, tp_launches)
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -4482,7 +5154,7 @@ def main(argv=None):
          "ssm_serve": ssm_e2e, "mapped_serve": map_e2e,
          "mapped_shapes": map_rows, "mapped_vgg": map_vgg,
          "latency_model": map_model, "train": train_out,
-         "robustness": robust,
+         "robustness": robust, "tensor_parallel": tp_out,
          "phase_start_s": RUN["phase_s"]},
         indent=1, default=str))
     print(f"card: {card}")

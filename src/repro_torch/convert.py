@@ -8,7 +8,8 @@ None, optionally ``conv_taps``) under a ``"packed"`` key; a dict carrying
 ``t_idx`` is a tap layout (``values``/``t_idx``/``k_full`` lists per bin,
 ``nnz``, ``alive``, ``perm``/``inv_perm``, ``group``, ``shape``); either
 may carry ``scales`` (a list per bin, or None), the fp32 scales of int8
-values (``core.quant``), so a quantized layout crosses whole.  bf16
+values (``core.quant``), so a quantized layout crosses whole, and
+``n_shards`` (absent = 0), so a tensor-parallel one does too.  bf16
 arrays arrive as ``ml_dtypes`` bfloat16, which ``torch.from_numpy``
 rejects: they cross bit for bit as an int16 view, recognised by
 ``dtype.name``.
@@ -47,7 +48,8 @@ def layout_from_numpy(d, device):
             nnz=tensor_from_numpy(d["nnz"], device),
             alive=tensor_from_numpy(d["alive"], device), perm=opt("perm"),
             inv_perm=opt("inv_perm"), group=int(d["group"]),
-            shape=tuple(d["shape"]), scales=scales)
+            shape=tuple(d["shape"]), scales=scales,
+            n_shards=int(d.get("n_shards", 0)))
     taps = d.get("conv_taps")
     return PackedLayout(
         values=bins("values"), k_idx=bins("k_idx"),
@@ -55,7 +57,8 @@ def layout_from_numpy(d, device):
         inv_perm=opt("inv_perm"), block=tuple(d["block"]),
         shape=tuple(d["shape"]),
         conv_taps=None if taps is None else tuple(
-            tuple(int(v) for v in t) for t in taps), scales=scales)
+            tuple(int(v) for v in t) for t in taps), scales=scales,
+        n_shards=int(d.get("n_shards", 0)))
 
 
 def params_from_numpy(tree, device):

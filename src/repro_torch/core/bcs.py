@@ -4,6 +4,10 @@ reordering for load balance; the im2col lowering of conv weights
 (``conv_lower``, ``conv_tap_table``) and the tap lowering of
 pattern/connectivity-pruned convs into a ``TapLayout`` (``pattern_lower``).
 
+``shard_columns`` spreads block columns (or filter groups) over
+tensor-parallel shards by degree; ``n_shards`` > 0 makes either producer
+emit the sharded layout.
+
 The unit the executor skips is a whole (bk, bn) weight block.  Packing runs
 as tensor ops on the weight's own device, so full-width layers pack on the
 card in milliseconds; only the per-column degree list crosses to the host
@@ -64,7 +68,72 @@ def bin_bounds(nb: int, n_bins: int) -> tuple:
                  if b > a)
 
 
-def pack_csc_reordered(w, mask, block, n_bins=4):
+def shard_columns(cnt, n_shards):
+    """Degree-balanced assignment of block columns to tensor-parallel
+    shards: greedy LPT with an exact capacity.  Columns are visited in
+    descending-degree order (stable) and each goes to the least-loaded
+    shard that still has room, so every shard owns exactly Nb / n_shards
+    columns while its total degree (the work it executes) is equalized.
+
+    ``cnt`` is the (Nb,) degree list (numpy or a tensor).  Returns an
+    (n_shards, Nb // n_shards) int32 numpy array of ORIGINAL column ids,
+    each shard's row in descending-degree order.  Raises ValueError unless
+    n_shards >= 1 divides Nb."""
+    cnt = np.asarray(cnt.cpu() if isinstance(cnt, torch.Tensor) else cnt)
+    Nb = cnt.shape[0]
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    if Nb % n_shards:
+        raise ValueError(
+            f"n_shards={n_shards} does not divide Nb={Nb} block columns")
+    cap = Nb // n_shards
+    order = np.argsort(-cnt, kind="stable")
+    load = np.zeros(n_shards, np.int64)
+    fill = np.zeros(n_shards, np.int64)
+    out = np.empty((n_shards, cap), np.int32)
+    for j in order:
+        open_ = fill < cap
+        s = int(np.flatnonzero(open_)[np.argmin(load[open_])])
+        out[s, fill[s]] = j
+        fill[s] += 1
+        load[s] += cnt[j]
+    return out
+
+
+def shard_balance(nnz, bin_sizes) -> float:
+    """max / mean executed blocks per shard were each shard padded to its
+    OWN bin maxima — the straggler factor ``shard_columns`` minimizes.
+    ``nnz`` is the layout-order degree array (..., S, Nb_s), ``bin_sizes``
+    the per-bin column counts of a shard.  1.0 = perfect."""
+    n = np.asarray(nnz.cpu() if isinstance(nnz, torch.Tensor) else nnz)
+    if n.ndim < 2:
+        return 1.0
+    flat = n.reshape(-1, n.shape[-2], n.shape[-1])   # (slices, S, Nb_s)
+    per_shard = np.zeros(flat.shape[:2], np.float64)
+    start = 0
+    for sz in bin_sizes:
+        seg = flat[..., start:start + sz]
+        per_shard += sz * np.maximum(seg.max(axis=-1), 1)
+        start += sz
+    mean = per_shard.mean(axis=-1)
+    ratio = per_shard.max(axis=-1) / np.maximum(mean, 1e-9)
+    return float(ratio.max())
+
+
+def _shard_order(cnt, n_shards):
+    """(assign (S, n/S) int32 numpy, layout order (n,) int64 tensor,
+    inverse (n,) int64 tensor) of ``shard_columns`` over ``cnt``: the
+    layout order is shard-major, and the inverse maps an original column
+    to its shard-major position."""
+    assign = shard_columns(cnt, n_shards)
+    order = torch.from_numpy(assign.reshape(-1).astype(np.int64)).to(
+        cnt.device)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    return assign, order, inv
+
+
+def pack_csc_reordered(w, mask, block, n_bins=4, n_shards=0):
     """Degree-sorted, binned CSC packing — the paper's Fig 4 row reordering
     for load balance, applied to the kernel's work rows (block columns).
 
@@ -75,9 +144,35 @@ def pack_csc_reordered(w, mask, block, n_bins=4):
     the result — is bit-identical to the unreordered layout.
 
     Returns a ``PackedLayout`` with per-bin values/k_idx, ``perm`` (layout
-    position -> original column) and ``inv_perm``."""
+    position -> original column) and ``inv_perm``.
+
+    ``n_shards`` > 0 gives the tensor-parallel layout: ``shard_columns``
+    spreads the columns over the shards, each shard is binned on its own,
+    and every bin is padded to the CROSS-shard max degree, so the per-bin
+    leaves stack with a leading shard axis: ``values[b]`` (S, nb_b, L_b,
+    bk, bn), ``nnz`` and ``perm`` (S, Nb_s) (``perm`` of original column
+    ids), ``inv_perm`` flat (Nb,) (original column -> shard-major
+    position)."""
     vals, kidx, cnt, _ = pack_csc(w, mask, block)
     Nb = cnt.shape[0]
+    if n_shards:
+        assign, order, inv = _shard_order(cnt, n_shards)
+        S, Nbs = assign.shape
+        vs = vals[order].reshape((S, Nbs) + vals.shape[1:])
+        ks = kidx[order].reshape(S, Nbs, -1)
+        cnt_sh = cnt[order].reshape(S, Nbs)
+        deg = cnt_sh.cpu().numpy()
+        bin_values, bin_kidx = [], []
+        for s, e in bin_bounds(Nbs, n_bins):
+            Lb = max(1, int(deg[:, s:e].max()))         # cross-shard max
+            bin_values.append(vs[:, s:e, :Lb].contiguous())
+            bin_kidx.append(ks[:, s:e, :Lb].contiguous())
+        return PackedLayout(values=tuple(bin_values), k_idx=tuple(bin_kidx),
+                            nnz=cnt_sh.contiguous(),
+                            perm=torch.from_numpy(assign).to(w.device),
+                            inv_perm=inv.to(torch.int32),
+                            block=tuple(block), shape=tuple(w.shape),
+                            n_shards=S)
     order = torch.argsort(-cnt.long(), stable=True)
     inv = torch.empty_like(order)
     inv[order] = torch.arange(Nb, device=order.device)
@@ -144,11 +239,16 @@ def pattern_lower(w, mask, *, group=1, n_bins=4, reorder=True, n_shards=0):
     descending degree (stable) and split into ``n_bins`` bins, each padded
     to its own max.  Rows dead for every group leave the ``alive`` band.
     Runs as tensor ops on the weight's device; the degree list crosses to
-    the host (it sets the padded shapes)."""
-    if n_shards:
-        raise NotImplementedError("pattern_lower(n_shards > 0): "
-                                  "tensor-parallel layouts are not ported "
-                                  "yet")
+    the host (it sets the padded shapes).
+
+    ``n_shards`` > 0 (implies ``reorder``): the filter groups are spread
+    over the shards by ``shard_columns`` and binned per shard, each bin
+    padded to the cross-shard max; per-bin leaves gain a leading shard
+    axis, ``nnz`` and ``perm`` become (S, G_s), ``inv_perm`` stays flat
+    (G,) and ``alive`` global (every shard gathers the same band)."""
+    if n_shards and not reorder:
+        raise ValueError("n_shards > 0 requires reorder=True (the "
+                         "degree-balanced shard assignment IS a reorder)")
     if w.ndim != 4:
         raise ValueError(f"pattern_lower needs a (P, Q, Kh, Kw) conv "
                          f"weight, got {tuple(w.shape)}")
@@ -167,14 +267,14 @@ def pattern_lower(w, mask, *, group=1, n_bins=4, reorder=True, n_shards=0):
         alive = torch.zeros(1, dtype=torch.int64, device=dev)
     ga = galive[alive]                                  # (R, G)
     cnt = ga.sum(dim=0, dtype=torch.int64)              # taps per group
-    if reorder:
-        order = torch.argsort(-cnt, stable=True)
-        bounds = bin_bounds(G, n_bins)
+    assign = None
+    if n_shards:
+        assign, order, inv = _shard_order(cnt, n_shards)
     else:
-        order = torch.arange(G, device=dev)
-        bounds = ((0, G),)
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(G, device=dev)
+        order = (torch.argsort(-cnt, stable=True) if reorder
+                 else torch.arange(G, device=dev))
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(G, device=dev)
     cnt_sorted = cnt[order]
     deg = cnt_sorted.tolist()
     Lmax = max(1, max(deg))
@@ -188,16 +288,30 @@ def pattern_lower(w, mask, *, group=1, n_bins=4, reorder=True, n_shards=0):
     vals = wg[torch.arange(G, device=dev)[:, None], tidx]  # (G, Lmax, g)
     vals = vals.masked_fill(~live[:, :, None], 0)
     kfull = alive[tidx]
+    if n_shards:
+        S, Gs = assign.shape
+        vals, tidx, kfull = (t.reshape((S, Gs) + t.shape[1:])
+                             for t in (vals, tidx, kfull))
+        deg_sh = np.asarray(deg).reshape(S, Gs)
+        bounds = bin_bounds(Gs, n_bins)
+        degrees = [max(1, int(deg_sh[:, a:b].max())) for a, b in bounds]
+    else:
+        bounds = bin_bounds(G, n_bins) if reorder else ((0, G),)
+        degrees = [max(1, max(deg[a:b]) if b > a else 1) for a, b in bounds]
     bin_values, bin_tidx, bin_kfull = [], [], []
-    for s, e in bounds:
-        Lb = max(1, max(deg[s:e]) if e > s else 1)
-        bin_values.append(vals[s:e, :Lb].contiguous())
-        bin_tidx.append(tidx[s:e, :Lb].to(torch.int32).contiguous())
-        bin_kfull.append(kfull[s:e, :Lb].to(torch.int32).contiguous())
+    for (a, b), Lb in zip(bounds, degrees):
+        bin_values.append(vals[..., a:b, :Lb, :].contiguous())
+        bin_tidx.append(tidx[..., a:b, :Lb].to(torch.int32).contiguous())
+        bin_kfull.append(kfull[..., a:b, :Lb].to(torch.int32).contiguous())
+    if n_shards:
+        nnz = cnt_sorted.reshape(S, Gs)
+        perm = torch.from_numpy(assign).to(dev)
+    else:
+        nnz, perm = cnt_sorted, order if reorder else None
     return TapLayout(values=tuple(bin_values), t_idx=tuple(bin_tidx),
                      k_full=tuple(bin_kfull),
-                     nnz=cnt_sorted.to(torch.int32),
+                     nnz=nnz.to(torch.int32).contiguous(),
                      alive=alive.to(torch.int32),
-                     perm=order.to(torch.int32) if reorder else None,
+                     perm=None if perm is None else perm.to(torch.int32),
                      inv_perm=inv.to(torch.int32) if reorder else None,
-                     group=group, shape=(K, P))
+                     group=group, shape=(K, P), n_shards=n_shards)

@@ -25,8 +25,16 @@ of fp32 (``core.quant``); the scale's rank against the values' encodes
 the granularity (one per stored block or tap slot, or one per output
 column).  The kernels dequantize ``q * s`` on the card before their
 fp32-accumulated products; ``to_dense`` of a quantized layout returns the
-DEQUANTIZED weight, the oracle of the int8 paths.  Tensor-parallel shards
-are not ported yet.
+DEQUANTIZED weight, the oracle of the int8 paths.
+
+Either layout may be tensor-parallel (``n_shards`` = S > 0): its block
+columns (filter groups) are spread over S shards by degree
+(``core.bcs.shard_columns``), each shard binned on its own and every bin
+padded to the cross-shard max, so each per-bin leaf carries a shard axis
+in front of its bin axes.  ``merge_shards`` gathers per-shard outputs back
+to original column order; ``folded`` is the same layout with the shard
+axis folded into each bin's columns, which is how the kernels run it on
+one card.
 
 ``DegradedLayer`` is the marker ``serve.compile.degrade_invalid_layers``
 leaves in place of a layout that failed ``core.validate``.
@@ -71,6 +79,33 @@ def _bin_slices(t, sizes):
     return tuple(out)
 
 
+def _fold(layout, bin_leaves):
+    """``layout`` with its shard axis folded into each bin's columns (see
+    ``PackedLayout.folded``): each per-bin leaf named in ``bin_leaves``
+    (S, n_b, ...) -> (S * n_b, ...), ``nnz`` and ``perm`` reordered bin by
+    bin, ``inv_perm`` their inverse."""
+    if not layout.n_shards:
+        return layout
+    if layout.nnz.ndim != 2:
+        raise ValueError(f"folding shards needs an unstacked sharded layout "
+                         f"(nnz {tuple(layout.nnz.shape)}); slice its layer "
+                         f"first (layout.layer(i))")
+
+    def fold(t):
+        return t.reshape((-1,) + tuple(t.shape[2:]))
+    sizes = layout.bin_sizes
+    nnz = torch.cat([t.reshape(-1) for t in _bin_slices(layout.nnz, sizes)])
+    perm = torch.cat([t.reshape(-1)
+                      for t in _bin_slices(layout.perm, sizes)])
+    inv = torch.empty_like(perm)
+    inv[perm.long()] = torch.arange(perm.numel(), dtype=perm.dtype,
+                                    device=perm.device)
+    leaves = {name: None if getattr(layout, name) is None else tuple(
+        fold(t) for t in getattr(layout, name)) for name in bin_leaves}
+    return replace(layout, nnz=nnz, perm=perm, inv_perm=inv, n_shards=0,
+                   **leaves)
+
+
 @dataclass(frozen=True, eq=False)
 class PackedLayout:
     """Uniform-padded BCS/CSC layout, optionally degree-sorted and binned.
@@ -93,6 +128,13 @@ class PackedLayout:
     weight a tuple of (dy, dx, c0) per K-block (``core.bcs.
     conv_tap_table``).  Padding slots (column degree below the bin max) carry
     ``k_idx`` 0 and all-zero values, so they multiply to nothing.
+
+    ``n_shards`` = S > 0: tensor parallel over block columns.  The shard
+    axis is the last stack dim of every per-bin leaf (``values[b]`` (...,
+    S, nb_b, L_b, bk, bn)), ``nnz`` is (..., S, Nb_s) with Nb_s = Nb / S,
+    ``perm`` (..., S, Nb_s) holds ORIGINAL column ids (its last two axes
+    flattened are a permutation of range(Nb)) and ``inv_perm`` stays flat
+    (..., Nb), original column -> shard-major layout position.
     """
 
     values: tuple
@@ -104,6 +146,7 @@ class PackedLayout:
     shape: tuple = (0, 0)
     conv_taps: tuple | None = None
     scales: tuple | None = None
+    n_shards: int = 0
 
     # -- static geometry ------------------------------------------------------
 
@@ -123,8 +166,13 @@ class PackedLayout:
         return len(self.values)
 
     @property
+    def Nb_shard(self) -> int:
+        """Block columns per shard (Nb when unsharded)."""
+        return self.Nb // max(1, self.n_shards)
+
+    @property
     def bin_sizes(self) -> tuple:
-        """Block columns per bin."""
+        """Block columns per bin (per shard on a sharded layout)."""
         return tuple(v.shape[-4] for v in self.values)
 
     @property
@@ -140,8 +188,10 @@ class PackedLayout:
     @property
     def executed_blocks(self) -> int:
         """Blocks the kernel multiplies per dense-weight slice: sum over
-        bins of nb_b * L_b, padding included."""
-        return sum(s * d for s, d in zip(self.bin_sizes, self.bin_degrees))
+        bins of nb_b * L_b, padding included, times the shard count on a
+        sharded layout (each shard pads to the cross-shard bin max)."""
+        return (sum(s * d for s, d in zip(self.bin_sizes, self.bin_degrees))
+                * max(1, self.n_shards))
 
     @property
     def L_effective(self) -> float:
@@ -175,7 +225,21 @@ class PackedLayout:
             return (None,) * self.n_bins
         return self.scales
 
+    def shard_index_leaves(self) -> tuple:
+        """The per-bin index leaves a launch reads beside ``values``
+        (``k_idx``; ``t_idx`` on a ``TapLayout``)."""
+        return self.k_idx
+
     # -- data-dependent stats (host sync; report/test time only) -------------
+
+    @property
+    def shard_balance(self) -> float:
+        """max / mean executed blocks per shard were each shard padded to
+        its own bin maxima (``core.bcs.shard_balance``); 1.0 unsharded."""
+        if not self.n_shards:
+            return 1.0
+        from repro_torch.core import bcs
+        return bcs.shard_balance(self.nnz, self.bin_sizes)
 
     @property
     def nnzb(self) -> int:
@@ -198,7 +262,8 @@ class PackedLayout:
     def layer(self, i: int) -> "PackedLayout":
         """The layout of stack slice ``i`` (the leading leaf dim) — what a
         loop over a stacked layer axis runs, with the stack's padded bin
-        degrees, so every layer executes the same slots it was packed to."""
+        degrees, so every layer executes the same slots it was packed to.
+        A sharded stack keeps its shard axis (the innermost stack dim)."""
         def take(t):
             return None if t is None else t[i]
         return replace(self, values=tuple(v[i] for v in self.values),
@@ -212,9 +277,9 @@ class PackedLayout:
     def bin_cols(self) -> tuple:
         """Per-bin (..., nb_b) int32 ORIGINAL block column of each layout
         column, contiguous, with the layout's leading stack dims (an
-        expert stack's (E, nb_b)) — where the kernel writes each column
-        tile, which makes the un-permute gather unnecessary.  Computed
-        once per layout object."""
+        expert stack's (E, nb_b), a sharded layout's (S, nb_b)) — where
+        the kernel writes each column tile, which makes the un-permute
+        gather unnecessary.  Computed once per layout object."""
         cols = (self.perm if self.perm is not None else
                 torch.arange(self.Nb, dtype=torch.int32,
                              device=self.nnz.device).expand(self.nnz.shape))
@@ -233,7 +298,10 @@ class PackedLayout:
 
     def unpermute_cols(self, y):
         """Gather a (..., M, N) output from layout column order back to the
-        original column order (identity when the layout is unreordered)."""
+        original column order (identity when the layout is unreordered).
+        A sharded layout's outputs merge through ``merge_shards``."""
+        if self.n_shards:
+            raise ValueError("a sharded layout merges via merge_shards")
         if self.inv_perm is None:
             return y
         bn = self.block[1]
@@ -241,31 +309,57 @@ class PackedLayout:
         yb = torch.index_select(yb, -2, self.inv_perm.long())
         return yb.reshape(y.shape)
 
+    def merge_shards(self, y):
+        """Per-shard outputs (S, ..., M, N / S) — shard axis leading, each
+        shard's columns in its layout order — to (..., M, N) in original
+        column order: one gather through the flat ``inv_perm`` is both the
+        cross-shard concat and the un-reorder."""
+        if not self.n_shards:
+            raise ValueError("merge_shards needs a sharded layout")
+        y = torch.movedim(y, 0, -2)                 # (..., M, S, N/S)
+        yb = y.reshape(y.shape[:-2] + (self.Nb, self.block[1]))
+        yb = torch.index_select(yb, -2, self.inv_perm.long())
+        return yb.reshape(y.shape[:-2] + (self.shape[1],))
+
     def permute_bias(self, bias):
-        """Gather a (N,) bias into layout column order."""
+        """Gather a (N,) bias into layout column order: (N,) unsharded,
+        (S, N / S) sharded."""
         if bias is None or self.perm is None:
             return bias
-        bn = self.block[1]
-        pb = torch.index_select(bias.reshape(self.Nb, bn), 0,
-                                self.perm.long())
-        return pb.reshape(-1)
+        pb = bias.reshape(self.Nb, self.block[1])[self.perm.long()]
+        return pb.reshape(pb.shape[:-2] + (-1,))
 
     def bin_bias(self, bias):
-        """Per-bin (nb_b * bn,) bias slices in layout order (or Nones)."""
+        """Per-bin (nb_b * bn,) bias slices in layout order (or Nones);
+        (S, nb_b * bn) on a sharded layout."""
         if bias is None:
             return (None,) * self.n_bins
         bn = self.block[1]
         pb = self.permute_bias(bias)
+        pb = pb.reshape(pb.shape[:-1] + (-1, bn))
         out, start = [], 0
         for s in self.bin_sizes:
-            out.append(pb[start * bn:(start + s) * bn])
+            sl = pb[..., start:start + s, :]
+            out.append(sl.reshape(sl.shape[:-2] + (-1,)))
             start += s
         return tuple(out)
+
+    @cached_property
+    def folded(self) -> "PackedLayout":
+        """A sharded layout as the kernels run it on one card: the shard
+        axis folded into each bin's columns (bin b holds every shard's
+        bin-b columns, shard by shard, padded to their common degree), an
+        unsharded layout of the same bins; ``nnz`` and ``perm`` follow the
+        folded order.  The leaves are views of this layout's.  Itself when
+        unsharded; computed once per layout object."""
+        return _fold(self, ("values", "k_idx", "scales"))
 
     def to_dense(self):
         """Reconstruct the dense (K, N) weight of a single-slice layout —
         the round-trip oracle; the DEQUANTIZED fp32 weight (values *
         scales) of a quantized layout."""
+        if self.n_shards:
+            return self.folded.to_dense()
         assert self.values[0].ndim == 4, "to_dense needs an unstacked layout"
         K, N = self.shape
         bk, bn = self.block
@@ -319,6 +413,12 @@ class TapLayout:
     Static: ``group`` (filters per tap list) and ``shape`` (K, P).  Within
     a group the live slots are in ascending band-row order
     (``np.nonzero`` order) and the padding slots come last.
+
+    ``n_shards`` = S > 0: the filter groups are tensor parallel like a
+    ``PackedLayout``'s block columns: per-bin leaves gain a leading shard
+    axis ((S, G_b, L_b, group) values, "out" scales (S, G_b, 1, group)),
+    ``nnz`` and ``perm`` become (S, G_s), ``inv_perm`` stays flat (G,) and
+    ``alive`` global (every shard gathers the same band).
     """
 
     values: tuple
@@ -332,11 +432,6 @@ class TapLayout:
     k_full: tuple | None = None
     scales: tuple | None = None
     n_shards: int = 0
-
-    def __post_init__(self):
-        if self.n_shards:
-            raise NotImplementedError(
-                "TapLayout: tensor-parallel shards are not ported yet")
 
     # -- static geometry ------------------------------------------------------
 
@@ -356,8 +451,13 @@ class TapLayout:
         return len(self.values)
 
     @property
+    def n_groups_shard(self) -> int:
+        """Filter groups per shard (n_groups when unsharded)."""
+        return self.n_groups // max(1, self.n_shards)
+
+    @property
     def bin_sizes(self) -> tuple:
-        """Filter groups per bin."""
+        """Filter groups per bin (per shard on a sharded layout)."""
         return tuple(v.shape[-3] for v in self.values)
 
     @property
@@ -373,8 +473,10 @@ class TapLayout:
     @property
     def executed_taps(self) -> int:
         """Tap slots the kernel gathers and multiplies (padding included):
-        sum over bins of G_b * L_b."""
-        return sum(s * d for s, d in zip(self.bin_sizes, self.bin_degrees))
+        sum over bins of G_b * L_b, times the shard count on a sharded
+        layout."""
+        return (sum(s * d for s, d in zip(self.bin_sizes, self.bin_degrees))
+                * max(1, self.n_shards))
 
     @property
     def L_effective(self) -> float:
@@ -399,13 +501,18 @@ class TapLayout:
         (float values), read from the scales' rank."""
         if self.scales is None:
             return None
-        return "block" if self.scales[0].ndim == 2 else "out"
+        return ("block" if self.scales[0].ndim == self.values[0].ndim - 1
+                else "out")
 
     def bin_scales(self) -> tuple:
         """Per-bin scale tensors, or Nones on a float layout."""
         if self.scales is None:
             return (None,) * self.n_bins
         return self.scales
+
+    def shard_index_leaves(self) -> tuple:
+        """The per-bin index leaves a launch reads beside ``values``."""
+        return self.t_idx
 
     # -- data-dependent stats (host sync; report/test time only) -------------
 
@@ -424,13 +531,23 @@ class TapLayout:
         """Executed-tap overhead of bin padding vs exact tap lists."""
         return self.executed_taps / max(self.nnz_taps, 1)
 
+    @property
+    def shard_balance(self) -> float:
+        """max / mean executed taps per shard were each shard padded to its
+        own bin maxima; 1.0 unsharded (``PackedLayout.shard_balance``)."""
+        if not self.n_shards:
+            return 1.0
+        from repro_torch.core import bcs
+        return bcs.shard_balance(self.nnz, self.bin_sizes)
+
     # -- helpers -------------------------------------------------------------
 
     @cached_property
     def bin_cols(self) -> tuple:
         """Per-bin (G_b,) int32 ORIGINAL filter group of each layout group
-        — where the tap kernels write each group's outputs, so no
-        un-permute gather is needed.  Computed once per layout object."""
+        ((S, G_b) sharded) — where the tap kernels write each group's
+        outputs, so no un-permute gather is needed.  Computed once per
+        layout object."""
         groups = (self.perm if self.perm is not None else
                   torch.arange(self.n_groups, dtype=torch.int32,
                                device=self.nnz.device))
@@ -438,27 +555,49 @@ class TapLayout:
 
     def unpermute_cols(self, y):
         """Gather a (..., M, P) output from layout group order back to the
-        original filter order (identity when unreordered)."""
+        original filter order (identity when unreordered).  A sharded
+        layout's outputs merge through ``merge_shards``."""
+        if self.n_shards:
+            raise ValueError("a sharded layout merges via merge_shards")
         if self.inv_perm is None:
             return y
         yb = y.reshape(y.shape[:-1] + (self.n_groups, self.group))
         yb = torch.index_select(yb, -2, self.inv_perm.long())
         return yb.reshape(y.shape)
 
+    def merge_shards(self, y):
+        """Per-shard outputs (S, ..., M, P / S) — shard axis leading — to
+        (..., M, P) in original filter order, one gather through the flat
+        ``inv_perm`` (``PackedLayout.merge_shards``)."""
+        if not self.n_shards:
+            raise ValueError("merge_shards needs a sharded layout")
+        y = torch.movedim(y, 0, -2)                 # (..., M, S, P/S)
+        yb = y.reshape(y.shape[:-2] + (self.n_groups, self.group))
+        yb = torch.index_select(yb, -2, self.inv_perm.long())
+        return yb.reshape(y.shape[:-2] + (self.shape[1],))
+
     def permute_bias(self, bias):
-        """Gather a (P,) bias into layout group order."""
+        """Gather a (P,) bias into layout group order: (P,) unsharded,
+        (S, P / S) sharded."""
         if bias is None or self.perm is None:
             return bias
-        pb = torch.index_select(bias.reshape(self.n_groups, self.group), 0,
-                                self.perm.long())
-        return pb.reshape(-1)
+        pb = bias.reshape(self.n_groups, self.group)[self.perm.long()]
+        return pb.reshape(pb.shape[:-2] + (-1,))
 
     def bin_bias(self, bias):
-        """Per-bin (G_b * group,) bias slices in layout order (or Nones)."""
+        """Per-bin (G_b * group,) bias slices in layout order (or Nones);
+        (S, G_b * group) on a sharded layout."""
         if bias is None:
             return (None,) * self.n_bins
         return _bin_slices(self.permute_bias(bias),
                            [n * self.group for n in self.bin_sizes])
+
+    @cached_property
+    def folded(self) -> "TapLayout":
+        """The shard axis folded into each bin's groups, as the kernels run
+        a sharded layout on one card (``PackedLayout.folded``); itself
+        when unsharded."""
+        return _fold(self, ("values", "t_idx", "k_full", "scales"))
 
     def bin_k_full(self) -> tuple:
         """Per-bin (G_b, L_b) FULL-band row ids (tap*C + channel): the
@@ -471,6 +610,8 @@ class TapLayout:
         """Reconstruct the dense lowered (K, P) weight — the round-trip
         oracle: equals ``core.bcs.conv_lower(w * mask)`` (the DEQUANTIZED
         fp32 weight of a quantized layout)."""
+        if self.n_shards:
+            return self.folded.to_dense()
         K, P = self.shape
         dev = self.values[0].device
         dense = torch.zeros((K, self.n_groups, self.group),

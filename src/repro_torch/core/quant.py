@@ -15,8 +15,8 @@ to even), so the card and the host give the same bits.
 Granularity: ``"block"`` — one scale per stored unit, a (bk, bn) block
 (``PackedLayout`` scales (..., nb_b, L_b)) or a tap slot (``TapLayout``
 scales (G_b, L_b)); ``"out"`` — one per output column, a block column
-((..., nb_b)) or a filter ((G_b, 1, group)).  The scale's rank against the
-values' tells the two apart.
+((..., nb_b)) or a filter ((..., G_b, 1, group)).  The scale's rank
+against the values' tells the two apart.
 """
 from __future__ import annotations
 
@@ -63,8 +63,9 @@ def quantize_layout(layout, *, value_dtype="int8",
         # "out" also the column's slots
         dims = (-2, -1) if scale_granularity == "block" else (-3, -2, -1)
     elif isinstance(layout, TapLayout):
-        # values (G_b, L_b, group): "block" reduces a slot's filters,
-        # "out" a filter's slots, kept as a broadcastable (G_b, 1, group)
+        # values (..., G_b, L_b, group): "block" reduces a slot's filters,
+        # "out" a filter's slots, kept as a broadcastable (..., G_b, 1,
+        # group) (a sharded layout's (S, G_b, 1, group))
         dims = (-1,) if scale_granularity == "block" else (-2,)
     else:
         raise TypeError(f"not a packable layout: {type(layout).__name__}")
@@ -74,7 +75,7 @@ def quantize_layout(layout, *, value_dtype="int8",
     for v in layout.values:
         q, s = _scale_and_cast(v, dims)
         if isinstance(layout, TapLayout) and scale_granularity == "out":
-            s = s[:, None, :]
+            s = s.unsqueeze(-2)
         values.append(q)
         scales.append(s.contiguous())
     return dataclasses.replace(layout, values=tuple(values),

@@ -12,14 +12,16 @@ Taxonomy (one subclass per failure class, ``code`` is the stable tag,
 the reference's):
 
   ``LayoutStructureError``    bin tuples inconsistent, leaf shape/dtype or
-                              stack-dim mismatches, missing leaves, a
-                              sharded layout (not ported: ROADMAP queue 1
-                              item 9)
+                              stack-dim mismatches (a shard axis missing),
+                              missing leaves
   ``LayoutGeometryError``     block does not divide shape, bin sizes do
-                              not tile the column axis, bad group size
+                              not tile the column axis, bad group size,
+                              a shard count that does not divide it
   ``LayoutIndexError``        ``k_idx``/``t_idx``/``alive`` out of range
   ``LayoutCountError``        ``nnz`` exceeds its bin's padded degree
   ``LayoutPermutationError``  ``perm``/``inv_perm`` not mutually inverse
+                              (across shards too), or absent on a
+                              sharded layout
   ``LayoutAuxError``          ``conv_taps``/``k_full`` inconsistent with
                               the geometry
   ``LayoutQuantError``        int values without ``scales`` (or scales on
@@ -255,19 +257,49 @@ def _check_values_finite(layout, path):
                 field="values", bin=b, path=path)
 
 
-def _refuse_shards(layout, path):
-    """Tensor-parallel layouts (``n_shards`` > 0, as a reference artifact
-    may carry) are not ported: ROADMAP queue 1 item 9."""
-    S = getattr(layout, "n_shards", 0)
-    if S:
+def _check_sharded(layout, n_cols, n_cols_name, path):
+    """Cross-shard invariants of a layout with ``n_shards`` = S > 0: S
+    tiles the column axis; ``nnz`` and ``perm`` end in the (S, cols / S)
+    shard axes; ``perm`` and ``inv_perm`` are present (``merge_shards``
+    gathers through them; the caller checks that ``perm`` flattened is a
+    permutation, so no shard claims another's column).  Returns the
+    columns per shard."""
+    S = layout.n_shards
+    if S < 1 or n_cols % S:
+        raise LayoutGeometryError(
+            f"n_shards={S} does not divide {n_cols_name}={n_cols}",
+            field="n_shards", path=path)
+    per = n_cols // S
+    a = layout.nnz
+    if a.ndim < 2 or tuple(a.shape[-2:]) != (S, per):
         raise LayoutStructureError(
-            f"n_shards={S}: tensor-parallel shards are not ported (ROADMAP "
-            "queue 1 item 9)", field="n_shards", path=path)
+            f"nnz shape {tuple(a.shape)} does not end in the shard axes "
+            f"(S={S}, {n_cols_name}/S={per})", field="nnz", path=path)
+    if layout.perm is None or layout.inv_perm is None:
+        raise LayoutPermutationError(
+            "sharded layout requires perm/inv_perm (merge_shards gathers "
+            "through them)", field="perm", path=path)
+    p = layout.perm
+    if p.ndim < 2 or tuple(p.shape[-2:]) != (S, per):
+        raise LayoutStructureError(
+            f"perm shape {tuple(p.shape)} does not end in the shard axes "
+            f"(S={S}, {n_cols_name}/S={per})", field="perm", path=path)
+    return per
+
+
+def _check_shard_perm(layout, n, path):
+    """perm/inv_perm of a layout; a sharded ``perm`` (..., S, n / S) is
+    checked with its shard axes flattened against the flat ``inv_perm``."""
+    perm = layout.perm
+    if layout.n_shards:
+        perm = perm.reshape(tuple(perm.shape[:-2]) + (n,))
+    _check_perm_pair(perm, layout.inv_perm, n, path)
 
 
 def _validate_packed(layout: PackedLayout, path):
     bk, bn = layout.block
     K, N = layout.shape
+    S = layout.n_shards
     if bk <= 0 or bn <= 0 or K <= 0 or N <= 0:
         raise LayoutGeometryError(
             f"non-positive geometry block={layout.block} "
@@ -277,7 +309,7 @@ def _validate_packed(layout: PackedLayout, path):
             f"block {layout.block} does not divide shape {layout.shape}",
             field="block", path=path)
     Kb, Nb = K // bk, N // bn
-    _refuse_shards(layout, path)
+    cols = _check_sharded(layout, Nb, "Nb", path) if S else Nb
     if not layout.values or len(layout.values) != len(layout.k_idx):
         raise LayoutStructureError(
             f"{len(layout.values)} value bin(s) vs "
@@ -289,6 +321,11 @@ def _validate_packed(layout: PackedLayout, path):
             raise LayoutStructureError(
                 f"values shape {vs} does not end in block {(bk, bn)}",
                 field="values", bin=b, path=path)
+        if S and (len(vs) < 5 or vs[-5] != S):
+            raise LayoutStructureError(
+                f"values shape {vs} lacks the shard axis S={S} before the "
+                f"per-bin (nb_b, L_b, bk, bn) dims", field="values", bin=b,
+                path=path)
         if vs[:-4] != lead:
             raise LayoutStructureError(
                 f"stack dims {vs[:-4]} != bin-0 stack dims {lead}",
@@ -306,13 +343,13 @@ def _validate_packed(layout: PackedLayout, path):
             raise LayoutIndexError(
                 f"k_idx range [{int(ka.min())}, {int(ka.max())}] outside "
                 f"[0, Kb={Kb})", field="k_idx", bin=b, path=path)
-    if sum(layout.bin_sizes) != Nb:
+    if sum(layout.bin_sizes) != cols:
         raise LayoutGeometryError(
             f"bin sizes {layout.bin_sizes} sum to {sum(layout.bin_sizes)}, "
-            f"not Nb={Nb}", field="values", path=path)
+            f"not {'Nb/S' if S else 'Nb'}={cols}", field="values", path=path)
     _check_nnz(layout.nnz, _bounds_of(layout.bin_sizes),
-               layout.bin_degrees, Nb, Kb, path)
-    _check_perm_pair(layout.perm, layout.inv_perm, Nb, path)
+               layout.bin_degrees, cols, Kb, path)
+    _check_shard_perm(layout, Nb, path)
     if layout.conv_taps is not None:
         _check_conv_taps(layout.conv_taps, Kb, bk, path)
     # quantization: "block" granularity = one scale per stored block
@@ -369,7 +406,8 @@ def _validate_tap(layout: TapLayout, path):
             f"group {group} does not divide P={P}", field="group",
             path=path)
     G = P // group
-    _refuse_shards(layout, path)
+    S = layout.n_shards
+    cols = _check_sharded(layout, G, "G", path) if S else G
     if not layout.values or len(layout.values) != len(layout.t_idx):
         raise LayoutStructureError(
             f"{len(layout.values)} value bin(s) vs "
@@ -398,10 +436,15 @@ def _validate_tap(layout: TapLayout, path):
     R = alive.size
     for b, (v, t) in enumerate(zip(layout.values, layout.t_idx)):
         vs, ts = tuple(v.shape), tuple(t.shape)
-        if len(vs) != 3 or vs[-1] != group:
+        if len(vs) != (4 if S else 3) or vs[-1] != group:
             raise LayoutStructureError(
-                f"values shape {vs} is not (G_b, L_b, group) with "
-                f"group={group}", field="values", bin=b, path=path)
+                f"values shape {vs} is not "
+                f"{'(S, G_b, L_b, group)' if S else '(G_b, L_b, group)'} "
+                f"with group={group}", field="values", bin=b, path=path)
+        if S and vs[0] != S:
+            raise LayoutStructureError(
+                f"values shape {vs} leading shard axis != S={S}",
+                field="values", bin=b, path=path)
         if ts != vs[:-1]:
             raise LayoutStructureError(
                 f"t_idx shape {ts} != values slot shape {vs[:-1]}",
@@ -426,19 +469,20 @@ def _validate_tap(layout: TapLayout, path):
                     "k_full != alive[t_idx] (precomputed full-band rows "
                     "disagree with the alive gather)", field="k_full",
                     bin=b, path=path)
-    if sum(layout.bin_sizes) != G:
+    if sum(layout.bin_sizes) != cols:
         raise LayoutGeometryError(
             f"bin sizes {layout.bin_sizes} sum to {sum(layout.bin_sizes)}, "
-            f"not G={G}", field="values", path=path)
+            f"not {'G/S' if S else 'G'}={cols}", field="values", path=path)
     _check_nnz(layout.nnz, _bounds_of(layout.bin_sizes),
-               layout.bin_degrees, G, R, path)
-    _check_perm_pair(layout.perm, layout.inv_perm, G, path)
-    # quantization: "block" granularity = one scale per tap slot (G_b,
-    # L_b); "out" = one per filter in the broadcastable (G_b, 1, group)
+               layout.bin_degrees, cols, R, path)
+    _check_shard_perm(layout, G, path)
+    # quantization: "block" granularity = one scale per tap slot (..., G_b,
+    # L_b); "out" = one per filter in the broadcastable (..., G_b, 1,
+    # group), the shard axis leading on a sharded layout
     _check_scales(
         layout,
         lambda b: (tuple(layout.values[b].shape[:-1]),
-                   (layout.values[b].shape[0], 1, group)),
+                   tuple(layout.values[b].shape[:-2]) + (1, group)),
         path)
     _check_values_finite(layout, path)
 

@@ -8,7 +8,12 @@ host joining mid-run reproduces exactly the shard it inherits.
 The task is a noisy learned-bigram language: token_{t+1} = perm[token_t]
 with probability 1 - noise, else uniform.  Models drive the loss well
 below the uniform entropy quickly, which gives pruning a real accuracy
-signal.  The draws are torch's (per device), not the reference's PRNG.
+signal.  The draws are torch's, not the reference's PRNG, and always come
+from torch's CPU generator (MT19937): the batch is drawn on the host and
+then moved to the requested device, so the same (seed, step, shard) gives
+the same tensors on the CPU and on the card (the CUDA generator is a
+different algorithm, Philox) and a resumed run on either sees the batches
+of the run it resumes.
 """
 from __future__ import annotations
 
@@ -18,40 +23,42 @@ import torch
 from repro_torch.models import module as M
 
 
-def _generator(device, *key):
-    """A ``torch.Generator`` on ``device`` seeded from ``key`` (numpy's
+def _generator(*key):
+    """A CPU ``torch.Generator`` seeded from ``key`` (numpy's
     ``SeedSequence`` mixes the integers)."""
-    g = torch.Generator(device=device)
+    g = torch.Generator(device="cpu")
     g.manual_seed(int(np.random.SeedSequence(list(key)).generate_state(
         1, np.uint64)[0] >> np.uint64(1)))
     return g
 
 
 def bigram_perm(vocab, seed=7, device="cuda"):
-    """The task's successor permutation of ``range(vocab)``."""
+    """The task's successor permutation of ``range(vocab)``, drawn on the
+    host and moved to ``device``."""
     dev = M.resolve_device(device)
-    return torch.randperm(vocab, generator=_generator(dev, seed), device=dev)
+    return torch.randperm(vocab, generator=_generator(seed)).to(dev)
 
 
 def synthetic_batch(seed, step, batch, seq, vocab, noise=0.3, shard=0,
                     frontend_tokens=0, d_model=0, device="cuda"):
     """{'tokens': (B, S) int64, 'labels': (B, S)}: B chains of S + 1
-    tokens, the labels the tokens shifted by one."""
+    tokens, the labels the tokens shifted by one; drawn on the host, then
+    moved to ``device``."""
     if frontend_tokens:
         raise NotImplementedError(
             "frontend embeddings (encdec / vlm) come with ROADMAP queue 1 "
             "item 6")
     dev = M.resolve_device(device)
-    g = _generator(dev, seed, step, shard)
-    perm = bigram_perm(vocab, device=dev)
-    tok = torch.randint(0, vocab, (batch,), generator=g, device=dev)
-    rnd = torch.randint(0, vocab, (seq, batch), generator=g, device=dev)
-    use_rnd = torch.rand((seq, batch), generator=g, device=dev) < noise
+    g = _generator(seed, step, shard)
+    perm = bigram_perm(vocab, device="cpu")
+    tok = torch.randint(0, vocab, (batch,), generator=g)
+    rnd = torch.randint(0, vocab, (seq, batch), generator=g)
+    use_rnd = torch.rand((seq, batch), generator=g) < noise
     toks = [tok]
     for t in range(seq):
         tok = torch.where(use_rnd[t], rnd[t], perm[tok])
         toks.append(tok)
-    toks = torch.stack(toks, dim=1)                      # (B, S + 1)
+    toks = torch.stack(toks, dim=1).to(dev)              # (B, S + 1)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 

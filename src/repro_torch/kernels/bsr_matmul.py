@@ -39,6 +39,16 @@ kernel 4 run over the alive band.  ``conv_plan`` chooses the tile;
 ``_bsr_tables`` / ``_tap_tables`` flatten the bins into the per-column
 tables the kernels walk.
 
+Tensor-parallel layouts (``n_shards`` > 0) run through the shard
+wrappers ``bsr_matmul_sharded`` and ``tap_gather_conv_sharded`` (the
+reference's ``_sharded_launch`` :238, ``bsr_matmul_sharded`` :268 and
+``tap_gather_conv_sharded`` :412, which vmap a launch over the shard axis
+and merge the shards with one gather).  Kernels 1 and 2 already write each
+column at its original position, so on one card a sharded layout needs no
+merge: its shard axis is folded into each bin's columns
+(``layout.folded``), and one launch of the same kernel covers every shard
+and bin with x (or the alive band) read by all of them.
+
 Int8 layouts (``core.quant``: int8 values, fp32 scales per block or
 tap slot, or per output column) run through the same four kernels under
 a bf16 or fp32 x: each kernel reads the int8 values (kernel 1 straight
@@ -64,7 +74,8 @@ from repro_torch.core import bcs as BCS
 from repro_torch.kernels import _build, ref
 
 LAUNCHES = {"bsr_matmul": 0, "tap_gather_conv": 0, "bsr_conv2d_implicit": 0,
-            "bsr_conv2d_materialized": 0, "tap_gather_conv_implicit": 0}
+            "bsr_conv2d_materialized": 0, "tap_gather_conv_implicit": 0,
+            "bsr_matmul_sharded": 0, "tap_gather_conv_sharded": 0}
 
 _ACTS = {"none": 0, "silu": 1, "relu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -724,7 +735,12 @@ def _bsr_bins(layout, plan, device):
 
 def _expert_dims(layout):
     """() for an unstacked layout, (E,) for an expert stack; a layout with
-    more stack dims (a layer axis) must be sliced first."""
+    more stack dims (a layer axis) must be sliced first.  A sharded
+    layout's (S,) is its shard axis, never an expert axis."""
+    if layout.n_shards:
+        raise ValueError("bsr_matmul: a sharded layout runs through "
+                         "bsr_matmul_sharded (its shard axis is not an "
+                         "expert axis)")
     lead = tuple(layout.nnz.shape[:-1])
     if len(lead) > 1:
         raise ValueError(f"bsr_matmul: the layout carries stack dims "
@@ -767,7 +783,12 @@ def bsr_matmul_packed(x, layout, bias=None, act="none"):
     An expert stack (every leaf with a leading expert axis E, as
     ``serve.compile`` packs MoE experts) takes x (E, M, K) -> (E, M, N),
     bias None or (E, N): all experts in the same one launch, x's expert
-    stride 16-byte aligned too."""
+    stride 16-byte aligned too.
+
+    A tensor-parallel layout (``layout.n_shards`` > 0) goes to
+    ``bsr_matmul_sharded``."""
+    if layout.n_shards:
+        return bsr_matmul_sharded(x, layout, bias, act)
     lead = _expert_dims(layout)
     if x.dim() != 2 + len(lead) or tuple(x.shape[:-2]) != lead:
         raise ValueError(f"bsr_matmul: x {tuple(x.shape)} does not match a "
@@ -781,8 +802,15 @@ def bsr_matmul_packed(x, layout, bias=None, act="none"):
         return ref.bsr_matmul_packed_ref(x, layout, bias, act)
     if x.device.type != "cuda":
         raise ValueError(f"bsr_matmul: unsupported device {x.device}")
+    return _bsr_launch(x, layout, bias, act, "bsr_matmul")
+
+
+def _bsr_launch(x, layout, bias, act, key):
+    """One launch of kernel 1 on the card over every bin (and expert) of
+    an unsharded ``layout``, counted under ``LAUNCHES[key]``."""
     if act not in _ACTS:
         raise ValueError(f"bsr_matmul: unknown activation {act!r}")
+    lead = _expert_dims(layout)
     E = lead[0] if lead else 1
     M, K = x.shape[-2:]
     N = layout.shape[1]
@@ -821,8 +849,43 @@ def bsr_matmul_packed(x, layout, bias=None, act="none"):
     _raise_on(err, "bsr_matmul", f"E={E}, M={M}, K={K}, N={N}, block="
                                  f"{layout.block}, dtype={x.dtype}, values="
                                  f"{layout.value_dtype}, plan={plan.args()}")
-    LAUNCHES["bsr_matmul"] += 1
+    LAUNCHES[key] += 1
     return out
+
+
+def _sharded_launch(x, layout, bias, act, launch, plain, name):
+    """The shard launcher of both wrappers: ``plain`` (per shard, per bin,
+    then ``merge_shards``) for CPU tensors; on the card ``launch`` of the
+    layout with its shard axis folded into its bins (``layout.folded``):
+    x replicated to every shard, each column written at its original
+    position, so no merge is needed.  Counted under ``LAUNCHES[name]``.
+    A stacked layout must be sliced first; an expert stack is never
+    column-sharded."""
+    if layout.nnz.ndim != 2:
+        raise ValueError(f"{name}: the layout carries stack dims "
+                         f"{tuple(layout.nnz.shape[:-2])} beside its shard "
+                         f"axis; slice its layer first (layout.layer(i))")
+    if x.dim() != 2:
+        raise ValueError(f"{name}: x {tuple(x.shape)} is not (M, K)")
+    if x.device.type == "cpu":
+        return plain(x, layout, bias, act)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return launch(x, layout.folded, bias, act, name)
+
+
+def bsr_matmul_sharded(x, layout, bias=None, act="none"):
+    """x (M, K) @ a tensor-parallel PackedLayout (K, N) -> (M, N), original
+    column order (the reference's ``bsr_matmul_sharded`` :268): kernel 1
+    over every (shard, bin) in one launch, each shard's degree-balanced
+    columns against the replicated x.  Every column keeps its slot list,
+    so the result equals the unsharded layout's wherever the two launches
+    take the same chunks (padding slots add zeros)."""
+    if x.shape[-1] != layout.shape[0]:
+        raise ValueError(f"bsr_matmul_sharded: x has K={x.shape[-1]}, the "
+                         f"layout K={layout.shape[0]}")
+    return _sharded_launch(x, layout, bias, act, _bsr_launch,
+                           ref.bsr_matmul_sharded_ref, "bsr_matmul_sharded")
 
 
 @functools.lru_cache(maxsize=64)
@@ -845,6 +908,17 @@ def _conv_taps(layout, kh, kw, C):
                              f"channels")
         return layout.conv_taps_t
     return _cached(layout, ("taps", kh, kw, C), build)
+
+
+def _refuse_shards(name, layout):
+    """Kernels 3 and 4 take no tensor-parallel layout: a sharded conv runs
+    materialized (``ops.sparse_conv2d`` / ``sparse_conv2d_pattern``), as
+    the reference's does."""
+    if layout.n_shards:
+        raise ValueError(f"{name}: a sharded layout (n_shards="
+                         f"{layout.n_shards}) runs materialized, through "
+                         f"kernel 1 or 2 (the implicit kernels take no "
+                         f"shards)")
 
 
 def _check_conv_input(name, x, layout, bias, act):
@@ -943,6 +1017,7 @@ def bsr_conv2d_implicit(x, layout, *, kh, kw, stride=1, padding="SAME",
     the layout's ``conv_taps[kb]``.  Bit-identical to
     ``bsr_conv2d_patches`` over ``ops.im2col`` patches."""
     B, H, W, C = x.shape
+    _refuse_shards("bsr_conv2d_implicit", layout)
     if layout.shape[0] != kh * kw * C:
         raise ValueError(f"bsr_conv2d_implicit: layout K={layout.shape[0]} "
                          f"!= kh*kw*Cin={kh * kw * C}")
@@ -973,6 +1048,7 @@ def bsr_conv2d_patches(x, layout, bias=None, act="none"):
     so every output is the same FMA chain as in ``bsr_conv2d_implicit``
     and the two modes agree bitwise.  One launch over all bins."""
     M, K = x.shape
+    _refuse_shards("bsr_conv2d_patches", layout)
     if K != layout.shape[0]:
         raise ValueError(f"bsr_conv2d_patches: x has K={K}, the layout "
                          f"K={layout.shape[0]}")
@@ -1018,22 +1094,45 @@ def tap_gather_conv_packed(x, layout, bias=None, act="none"):
     group contracting only its own surviving taps in slot order, written
     at its original columns.  Bit-identical across bin counts and to the
     implicit mode.  A band with unit column stride but a wider row pitch
-    is copied contiguous first."""
+    is copied contiguous first.  A tensor-parallel layout goes to
+    ``tap_gather_conv_sharded``."""
     if x.shape[-1] != layout.n_alive:
         raise ValueError(f"tap_gather_conv: x has {x.shape[-1]} band "
                          f"columns, the layout {layout.n_alive} alive rows")
+    if layout.n_shards:
+        return tap_gather_conv_sharded(x, layout, bias, act)
     if x.device.type == "cpu":
         return ref.tap_gather_packed_ref(x, layout, bias, act)
     if x.device.type != "cuda":
         raise ValueError(f"tap_gather_conv: unsupported device {x.device}")
+    return _tap_band(x, layout, bias, act, "tap_gather_conv")
+
+
+def _tap_band(x, layout, bias, act, name):
+    """One launch of kernel 2 (kernel 4 over the band) on the card."""
     if x.stride(1) != 1:
-        raise ValueError("tap_gather_conv: x needs unit column stride")
+        raise ValueError(f"{name}: x needs unit column stride")
     x = x.contiguous()
-    _check_conv_input("tap_gather_conv", x, layout, bias, act)
+    _check_conv_input(name, x, layout, bias, act)
     M, R = x.shape
     P = layout.shape[1]
     plan = conv_plan("tap", (1, 1, M, R), 1, 1, 1, "VALID", P, P)
-    return _tap_conv(x, layout, plan, True, bias, act, "tap_gather_conv")
+    return _tap_conv(x, layout, plan, True, bias, act, name)
+
+
+def tap_gather_conv_sharded(x, layout, bias=None, act="none"):
+    """x (M, R) alive band @ a tensor-parallel TapLayout -> (M, P),
+    original filter order (the reference's ``tap_gather_conv_sharded``
+    :412): the band is global (``layout.alive`` is every shard's), each
+    shard contracts its own filter groups; kernel 2 over every (shard,
+    bin) in one launch."""
+    if x.shape[-1] != layout.n_alive:
+        raise ValueError(f"tap_gather_conv_sharded: x has {x.shape[-1]} "
+                         f"band columns, the layout {layout.n_alive} alive "
+                         f"rows")
+    return _sharded_launch(x, layout, bias, act, _tap_band,
+                           ref.tap_gather_sharded_ref,
+                           "tap_gather_conv_sharded")
 
 
 def tap_gather_conv_implicit(x, layout, *, kh, kw, stride=1, padding="SAME",
@@ -1044,6 +1143,7 @@ def tap_gather_conv_implicit(x, layout, *, kh, kw, stride=1, padding="SAME",
     slots against it, a slot's input word taken from its ``k_full`` row
     (tap = k // C, (dy, dx) = divmod(tap, kw), channel = k % C)."""
     B, H, W, C = x.shape
+    _refuse_shards("tap_gather_conv_implicit", layout)
     if layout.shape[0] != kh * kw * C:
         raise ValueError(f"tap_gather_conv_implicit: layout "
                          f"K={layout.shape[0]} != kh*kw*Cin={kh * kw * C}")

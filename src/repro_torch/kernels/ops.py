@@ -12,8 +12,10 @@ launch of the same kernel.
 (over im2col patches, or implicit: staged from the image in the kernel)
 and ``sparse_conv2d_pattern`` a pattern/connectivity conv through the
 tap-gather kernels.  ``pack`` / ``pack_taps`` build the layouts, float
-or int8 with fp32 scales (``core.quant``); every path above runs either,
-the kernels dequantizing on the card.
+or int8 with fp32 scales (``core.quant``), unsharded or tensor parallel
+(``n_shards``); every path above runs either, the kernels dequantizing on
+the card.  A sharded conv layout runs materialized (im2col, then kernel 1
+or 2), as the reference's does; an expert stack is never column-sharded.
 """
 from __future__ import annotations
 
@@ -48,7 +50,8 @@ from repro_torch.kernels.bsr_matmul import (bsr_conv2d_implicit,
 
 
 def pack(w, mask, block=(128, 128), *, reorder=False, n_bins=4, conv=None,
-         value_dtype=None, scale_granularity="block") -> PackedLayout:
+         value_dtype=None, scale_granularity="block",
+         n_shards=0) -> PackedLayout:
     """Pack a pruned (K, N) weight into the kernel layout on its device.
     With ``reorder`` the block columns are degree-sorted and split into
     ``n_bins`` bins (``core.bcs.pack_csc_reordered``); without it the layout
@@ -56,9 +59,13 @@ def pack(w, mask, block=(128, 128), *, reorder=False, n_bins=4, conv=None,
     im2col-lowered conv weight and attaches its ``conv_taps`` table.
     ``value_dtype="int8"`` quantizes the packed values at
     ``scale_granularity`` ("block" or "out"), as the reference's
-    ``ops.pack`` does: the float pack first, then ``core.quant``."""
-    if reorder:
-        out = BCS.pack_csc_reordered(w, mask, block, n_bins=n_bins)
+    ``ops.pack`` does: the float pack first, then ``core.quant``.
+    ``n_shards`` > 0 packs the tensor-parallel layout (degree-balanced
+    column shards, ``core.bcs.shard_columns``), which implies the
+    degree-sorted producer whatever ``reorder`` says."""
+    if reorder or n_shards:
+        out = BCS.pack_csc_reordered(w, mask, block, n_bins=n_bins,
+                                     n_shards=n_shards)
     else:
         values, k_idx, nnz, _ = BCS.pack_csc(w, mask, block)
         out = PackedLayout(values=(values,), k_idx=(k_idx,), nnz=nnz,
@@ -74,15 +81,18 @@ def pack(w, mask, block=(128, 128), *, reorder=False, n_bins=4, conv=None,
 
 
 def pack_taps(w, mask, *, group=1, reorder=True, n_bins=8,
-              value_dtype=None, scale_granularity="block") -> TapLayout:
+              value_dtype=None, scale_granularity="block",
+              n_shards=0) -> TapLayout:
     """Pack a pattern/connectivity-pruned (P, Q, Kh, Kw) conv weight into
     the tap-gather layout (``core.bcs.pattern_lower``), degree-sorted into
     ``n_bins`` bins when ``reorder`` is set.  ``value_dtype="int8"``
     quantizes the tap values (``core.quant``); "out" (a scale per filter)
     suits group = 1 layouts, where a per-slot scale costs 4 bytes per
-    stored value."""
+    stored value.  ``n_shards`` > 0 packs the tensor-parallel layout
+    (degree-balanced filter-group shards; implies ``reorder``)."""
     out = BCS.pattern_lower(w, mask, group=group, n_bins=n_bins,
-                            reorder=reorder)
+                            reorder=reorder or bool(n_shards),
+                            n_shards=n_shards)
     if value_dtype is not None:
         out = QUANT.quantize_layout(out, value_dtype=value_dtype,
                                     scale_granularity=scale_granularity)
@@ -112,7 +122,14 @@ def sparse_expert_linear(x, packed: PackedLayout, bias=None, act="none"):
     packs MoE expert weights; bias None or (E, N).  One kernel launch
     covers every expert and every degree bin (the expert is a grid axis
     of the kernel, not a loop here); the plain version for CPU tensors
-    runs expert by expert."""
+    runs expert by expert.  An expert stack is never column-sharded
+    (``serve.compile`` exempts ``moe/`` paths from ``CompileSpec.tp``), so
+    a sharded layout here raises."""
+    if packed.n_shards:
+        raise ValueError("sparse_expert_linear: MoE expert layouts shard "
+                         "along the expert axis, not block columns; "
+                         "serve.compile exempts moe/ paths from "
+                         "CompileSpec.tp")
     if x.dim() != 3:
         raise ValueError(f"sparse_expert_linear: x {tuple(x.shape)} is not "
                          f"(E, M, K)")
@@ -137,14 +154,21 @@ def patch_bytes(x, kh, kw, stride=1, padding="SAME"):
     return B * Ho * Wo * kh * kw * C * x.element_size()
 
 
-def _pick_implicit(implicit, x, kh, kw, stride, padding, bk=None):
+def _pick_implicit(implicit, x, kh, kw, stride, padding, bk=None,
+                   n_shards=0):
     """Resolve the ``implicit=`` tri-state.  None picks the implicit mode
     for every conv whose patch tensor is a real blow-up (kh*kw > 1); the
     BCS path also needs its packing block inside one tap (bk | Cin),
     which an explicit ``implicit=True`` requires instead of falling
-    back.  (x, stride and padding: the signature of the reference's, whose
-    patch-size floor the card's timings removed.)"""
+    back.  A sharded layout runs materialized; ``implicit=True`` on one
+    raises.  (x, stride and padding: the signature of the reference's,
+    whose patch-size floor the card's timings removed.)"""
     C = x.shape[-1]
+    if n_shards:
+        if implicit:
+            raise ValueError("implicit conv does not take sharded layouts "
+                             "(they run materialized)")
+        return False
     if implicit is None:
         if bk is not None and C % bk:
             return False
@@ -161,20 +185,22 @@ def sparse_conv2d(x, packed: PackedLayout, *, kh, kw, stride=1,
     Cout) through the BCS conv kernel, bias + activation fused.
     ``implicit`` picks its input (None = auto, ``_pick_implicit``): the
     image itself, or the im2col patch matrix read as a 1 x M image of K
-    channels; bit-identical outputs either way."""
+    channels; bit-identical outputs either way.  A sharded layout runs
+    the patch matrix through kernel 1 (``bsr_matmul_sharded``)."""
     B, H, W, C = x.shape
     if packed.shape[0] != kh * kw * C:
         raise ValueError(f"layout K={packed.shape[0]} != kh*kw*Cin="
                          f"{kh * kw * C}")
     if _pick_implicit(implicit, x, kh, kw, stride, padding,
-                      bk=packed.block[0]):
+                      bk=packed.block[0], n_shards=packed.n_shards):
         return bsr_conv2d_implicit(x.contiguous(), packed, kh=kh, kw=kw,
                                    stride=stride, padding=padding,
                                    bias=bias, act=act)
     patches = im2col(x, kh, kw, stride, padding)
     _, Ho, Wo, K = patches.shape
-    y = bsr_conv2d_patches(patches.reshape(B * Ho * Wo, K).contiguous(),
-                           packed, bias=bias, act=act)
+    run = bsr_matmul_packed if packed.n_shards else bsr_conv2d_patches
+    y = run(patches.reshape(B * Ho * Wo, K).contiguous(), packed,
+            bias=bias, act=act)
     return y.reshape(B, Ho, Wo, y.shape[-1])
 
 
@@ -185,12 +211,14 @@ def sparse_conv2d_pattern(x, tap: TapLayout, *, kh, kw, stride=1,
     Materialized: im2col, the patch matrix gathered down to ``tap.alive``
     (rows pruned in every filter are dropped), then kernel 2.  Implicit
     (``implicit=True`` or auto by patch size): kernel 4 straight off the
-    padded image.  Bit-identical outputs either way."""
+    padded image.  Bit-identical outputs either way.  A sharded layout
+    runs materialized (kernel 2, ``tap_gather_conv_sharded``)."""
     B, H, W, C = x.shape
     if tap.shape[0] != kh * kw * C:
         raise ValueError(f"layout K={tap.shape[0]} != kh*kw*Cin="
                          f"{kh * kw * C}")
-    if _pick_implicit(implicit, x, kh, kw, stride, padding):
+    if _pick_implicit(implicit, x, kh, kw, stride, padding,
+                      n_shards=tap.n_shards):
         return tap_gather_conv_implicit(x.contiguous(), tap, kh=kh, kw=kw,
                                         stride=stride, padding=padding,
                                         bias=bias, act=act)

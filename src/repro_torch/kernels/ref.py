@@ -12,7 +12,11 @@ the materialized versions, so implicit and materialized agree bitwise.
 
 On a quantized layout every version first dequantizes each slot's values,
 ``q.float() * s`` (the reference kernels' order), then multiplies in fp32:
-the int8 kernels are held to the dequantized weight."""
+the int8 kernels are held to the dequantized weight.
+
+A tensor-parallel layout runs as the reference's shard launcher does: per
+shard, per bin, then ``layout.merge_shards``; every column's sum is the
+one it has unsharded, so sharded and unsharded outputs agree bitwise."""
 from __future__ import annotations
 
 import torch
@@ -103,6 +107,28 @@ def _bsr_packed(x_blocks, M, layout, bias, act):
     return _epilogue(acc, bias, act)
 
 
+def _shard_bins(layout, sums):
+    """(S, M, N / S) fp32: each shard's bins summed by ``sums(values,
+    index, scales)`` of its own leaves, concatenated in its layout
+    order."""
+    return torch.stack([
+        torch.cat([sums(v[s], i[s], None if sc is None else sc[s])
+                   for v, i, sc in zip(layout.values,
+                                       layout.shard_index_leaves(),
+                                       layout.bin_scales())], dim=1)
+        for s in range(layout.n_shards)])
+
+
+def bsr_matmul_sharded_ref(x, layout, bias=None, act="none"):
+    """x (M, K) @ a tensor-parallel PackedLayout -> (M, N) in original
+    column order: per shard and bin, then ``merge_shards``, then one
+    epilogue."""
+    xb, M = _x_blocks(x, layout.block[0]), x.shape[0]
+    y = layout.merge_shards(_shard_bins(
+        layout, lambda v, k, sc: _bsr_sums(xb, v, k, M, sc)))
+    return _epilogue(y, bias, act).to(x.dtype)
+
+
 def bsr_matmul_experts_ref(x, layout, bias=None, act="none"):
     """x (E, M, K) @ an expert stack (``PackedLayout`` leaves with a
     leading E axis) -> (E, M, N): expert e's product with its own layout
@@ -190,6 +216,17 @@ def tap_gather_packed_ref(x, layout, bias=None, act="none"):
     xf = x.float()
     return _tap_packed(lambda t: xf[:, t.long()], x.shape[0], layout,
                        layout.t_idx, bias, act).to(x.dtype)
+
+
+def tap_gather_sharded_ref(x, layout, bias=None, act="none"):
+    """x (M, R) alive band @ a tensor-parallel TapLayout -> (M, P) in
+    original filter order: per shard and bin over the global band, then
+    ``merge_shards``, then one epilogue."""
+    xf, M = x.float(), x.shape[0]
+    y = layout.merge_shards(_shard_bins(
+        layout, lambda v, t, sc: _tap_sums(lambda i: xf[:, i.long()], v, t,
+                                           M, sc)))
+    return _epilogue(y, bias, act).to(x.dtype)
 
 
 def tap_gather_implicit_ref(xp, layout, kw, geom, bias=None, act="none"):

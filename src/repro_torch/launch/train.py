@@ -1,5 +1,6 @@
 """Training driver: seeded init -> (optional pruning schedule) -> train
-loop with straggler monitoring and deterministic data shards, on the card.
+loop with checkpoints and resume, straggler monitoring and deterministic
+data shards, on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --smoke \\
       --steps 50 --prune --target-rate 0.6
@@ -9,8 +10,17 @@ With ``--prune`` the rule mapper picks each layer's scheme (training-free,
 snapped to at most (8, 16); the reweighted penalty (lam = 1e-3) trains
 until 60 % of the steps, where one global threshold sets the masks that
 the remaining steps train under.  ``--device cpu`` runs the plain PyTorch
-versions (for small configs).  Checkpoints, resume and model parallelism
-come with ROADMAP queue 1 item 9.
+versions (for small configs).
+
+Every ``--ckpt-every`` steps the state after that step, ``{"params",
+"opt"}``, is saved to ``--ckpt-dir`` (``distributed.checkpoint``, the
+reference's format); ``--resume`` restores the newest complete step and
+goes on with the step after it, so a resumed run trains on the batches and
+takes the losses of an uninterrupted one.  (The reference's resume runs
+the saved step once more.)  As in the reference, the masks and alphas are
+not checkpointed: a run resumed after the prune step trains unmasked.
+Model parallelism (``--model-parallel``) stays with the multi-device rest
+of ROADMAP queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ from repro_torch import configs
 from repro_torch.core import reweighted as RW
 from repro_torch.core.mapper_rule import lm_layers, map_rules
 from repro_torch.data.pipeline import synthetic_batch
+from repro_torch.distributed import checkpoint as CKPT
 from repro_torch.distributed.elastic import StragglerMonitor
 from repro_torch.models import module as M
 from repro_torch.models import transformer as T
@@ -50,6 +61,9 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--prune", action="store_true")
     ap.add_argument("--target-rate", type=float, default=0.6)
+    ap.add_argument("--ckpt-dir", default="build/ckpt")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -69,9 +83,19 @@ def main(argv=None):
                                            reweighted=reweighted)
     opt_state = opt_init(params)
 
+    start, metrics = 0, None
+    if args.resume:
+        restored, saved = CKPT.restore(args.ckpt_dir,
+                                       {"params": params, "opt": opt_state},
+                                       device=dev)
+        if restored is not None:
+            params, opt_state = restored["params"], restored["opt"]
+            start = saved + 1
+            print(f"resumed from step {saved}")
+
     mon = StragglerMonitor()
     prune_at = int(args.steps * 0.6) if args.prune else None
-    for step in range(args.steps):
+    for step in range(start, args.steps):
         if reweighted and step and step % reweighted.reweight_every == 0 \
                 and (prune_at is None or step < prune_at):
             alphas = RW.update_alphas(params, reweighted)
@@ -96,7 +120,11 @@ def main(argv=None):
         if step % 10 == 0:
             print(f"step {step}: loss {float(metrics['loss']):.4f} "
                   f"({dt*1e3:.0f} ms)")
-    print(f"final loss {float(metrics['loss']):.4f}")
+        if step and step % args.ckpt_every == 0:
+            CKPT.save(args.ckpt_dir, step,
+                      {"params": params, "opt": opt_state})
+    if metrics is not None:
+        print(f"final loss {float(metrics['loss']):.4f}")
     # the weights the masks pruned are zero in what is returned
     return apply_masks(params, masks), masks
 

@@ -31,8 +31,8 @@ key, byte size and sha256 of the arrays, each leaf against the manifest,
 then ``core.validate`` on every layout (on the requested device).  Every
 failure raises a structured ``ArtifactError`` or ``LayoutError``;
 ``load_grafted`` logs its code and returns None, so the caller packs
-afresh.  A layout with ``n_shards`` > 0 (tensor parallel, ROADMAP queue 1
-item 9) is refused the same way (``ArtifactUnsupported``).
+afresh.  Tensor-parallel layouts (``n_shards`` > 0, ``CompileSpec.tp``)
+are stored with their shard axes, as the reference stores them.
 """
 from __future__ import annotations
 
@@ -48,6 +48,7 @@ import torch
 
 from repro_torch.core.packed import PackedLayout, TapLayout, dtype_name
 from repro_torch.core.validate import LayoutError, validate_layout
+from repro_torch.distributed.checkpoint import file_checksum
 from repro_torch.models.module import resolve_device
 from repro_torch.serve.compile import CompileReport, CompileSpec
 
@@ -100,22 +101,6 @@ class ArtifactCorrupt(ArtifactError):
     shapes or dtypes disagreeing with the manifest."""
 
     code = "corrupt"
-
-
-class ArtifactUnsupported(ArtifactError):
-    """A tensor-parallel (``n_shards`` > 0) layout, which the port does not
-    run (ROADMAP queue 1 item 9)."""
-
-    code = "unsupported"
-
-
-def file_checksum(path) -> str:
-    """Streaming sha256 of one file, read 1 MiB at a time."""
-    h = hashlib.sha256()
-    with open(path, "rb") as f:
-        while block := f.read(1 << 20):
-            h.update(block)
-    return h.hexdigest()
 
 
 # -- the model digest -----------------------------------------------------------
@@ -206,10 +191,10 @@ def _layout_spec(layout):
                 "block": list(layout.block), "shape": list(layout.shape),
                 "conv_taps": ([list(t) for t in layout.conv_taps]
                               if layout.conv_taps is not None else None),
-                "n_shards": 0, "leaves": leaves}
+                "n_shards": layout.n_shards, "leaves": leaves}
     return {"layout": "tap", "n_bins": layout.n_bins,
             "group": layout.group, "shape": list(layout.shape),
-            "n_shards": 0, "leaves": leaves}
+            "n_shards": layout.n_shards, "leaves": leaves}
 
 
 def _layout_from_spec(lpath, spec, data, dev):
@@ -217,10 +202,6 @@ def _layout_from_spec(lpath, spec, data, dev):
     bundle; ``ArtifactCorrupt`` on a missing or divergent leaf."""
     leaves = spec["leaves"]
     n_shards = int(spec.get("n_shards", 0))
-    if n_shards:
-        raise ArtifactUnsupported(
-            f"layer {lpath!r}: n_shards={n_shards}, tensor-parallel layouts "
-            "are not ported (ROADMAP queue 1 item 9)")
 
     def _get(name, required=True):
         rec = leaves.get(name)
@@ -260,7 +241,7 @@ def _layout_from_spec(lpath, spec, data, dev):
             block=tuple(spec["block"]), shape=tuple(spec["shape"]),
             conv_taps=(tuple(tuple(t) for t in spec["conv_taps"])
                        if spec.get("conv_taps") is not None else None),
-            scales=scales)
+            scales=scales, n_shards=n_shards)
     if spec["layout"] == "tap":
         return TapLayout(
             values=tuple(_get(f"values.{b}") for b in range(n_bins)),
@@ -271,7 +252,7 @@ def _layout_from_spec(lpath, spec, data, dev):
             perm=_get("perm", required=False),
             inv_perm=_get("inv_perm", required=False),
             group=int(spec["group"]), shape=tuple(spec["shape"]),
-            scales=scales)
+            scales=scales, n_shards=n_shards)
     raise ArtifactCorrupt(
         f"layer {lpath!r}: unknown layout kind {spec['layout']!r}")
 
@@ -418,11 +399,7 @@ def load_artifact(artifact_dir, key, device="cuda"):
             layout = _layout_from_spec(lpath, spec, data, dev)
             validate_layout(layout, path=lpath)     # LayoutError propagates
             layers[lpath] = layout
-    try:
-        report = CompileReport.from_json(report)
-    except ValueError as e:            # a spec this package refuses (tp)
-        raise ArtifactUnsupported(str(e), path=man_path) from e
-    return layers, report
+    return layers, CompileReport.from_json(report)
 
 
 def _copy_to(tree, dev):

@@ -15,8 +15,11 @@ so one layout serves the whole stack.
 ``spec.value_dtype="int8"`` turns on the quantized value path
 (``core.quant``): packed values are stored int8 with fp32 scale leaves and
 the kernels dequantize on the card; a per-layer ``SchemeChoice.value_dtype``
-overrides the spec.  Tensor-parallel shards come with a later slice
-(ROADMAP queue 1 item 9).
+overrides the spec.  ``spec.tp`` > 1 packs tensor-parallel layouts: each
+layer's block columns (a pattern conv's filters) are spread over ``tp``
+shards by degree (``core.bcs.shard_columns``); MoE expert stacks and
+layers that ``tp`` does not divide stay unsharded, and the report's
+``shards`` says which layers shard.
 
 ``compile_model(artifact_dir=)`` looks the model up in the crash-safe
 artifact store (``serve.artifacts``) first and publishes a fresh pack
@@ -78,10 +81,12 @@ class CompileSpec:
         layouts always quantize per filter ("out"): a group = 1 slot holds
         one value, so a per-slot scale would cost 4 bytes per value.
     exclude : path substrings never packed (embeddings/head, §5.2.4).
-
-    The reference's ``tp`` (tensor-parallel degree) is not a field: the
-    port packs unsharded, so its JSON form writes ``tp: 1`` and refuses
-    more (ROADMAP queue 1 item 9).
+    tp : tensor-parallel degree.  tp > 1 column-shards every packed
+        layout (degree-balanced, ``core.bcs.shard_columns``).  Paths with
+        a ``moe`` component are exempt (an expert stack shards along its
+        expert axis), and a layer whose block columns (a pattern conv's
+        filters) tp does not divide stays unsharded; the report's
+        ``shards`` records each layer's.
     """
     keep_dense: bool = True
     reorder: bool = True
@@ -92,6 +97,7 @@ class CompileSpec:
     value_dtype: str | None = None
     scale_granularity: str = "block"
     exclude: tuple = ("router", "embed", "head")
+    tp: int = 1
 
     def __post_init__(self):
         if self.value_dtype not in VALUE_DTYPES:
@@ -110,28 +116,27 @@ class CompileSpec:
         object.__setattr__(self, "exclude", tuple(self.exclude))
         if self.n_bins is not None:
             object.__setattr__(self, "n_bins", int(self.n_bins))
+        if int(self.tp) < 1:
+            raise ValueError(f"tp must be >= 1, got {self.tp}")
+        object.__setattr__(self, "tp", int(self.tp))
 
     def digest_fields(self) -> tuple:
-        """The layout-determining fields in the reference's order (its
-        ``tp`` held at 1): what the artifact ``model_digest`` hashes.
-        ``keep_dense`` and ``implicit`` only change serving dispatch."""
+        """The layout-determining fields in the reference's order: what
+        the artifact ``model_digest`` hashes.  ``keep_dense`` and
+        ``implicit`` only change serving dispatch."""
         return (self.block_override, float(self.min_saving),
                 bool(self.reorder), self.n_bins, tuple(self.exclude),
-                self.value_dtype, str(self.scale_granularity), 1)
+                self.value_dtype, str(self.scale_granularity),
+                int(self.tp))
 
     def to_json(self) -> dict:
-        """The reference's JSON form (its field order, ``tp`` = 1)."""
-        return dict(dataclasses.asdict(self), tp=1)
+        """The reference's JSON form (its field order)."""
+        return dataclasses.asdict(self)
 
     @classmethod
     def from_json(cls, d: dict) -> "CompileSpec":
-        """Rebuild from ``to_json`` output (either package's); a ``tp``
-        above 1 is refused."""
+        """Rebuild from ``to_json`` output (either package's)."""
         d = dict(d)
-        tp = int(d.pop("tp", 1))
-        if tp > 1:
-            raise ValueError(f"tp={tp}: tensor-parallel compiles are not "
-                             "ported (ROADMAP queue 1 item 9)")
         if d.get("block_override") is not None:
             d["block_override"] = tuple(d["block_override"])
         if d.get("exclude") is not None:
@@ -147,10 +152,11 @@ _ALWAYS_KEYS = ("path", "packed")
 class LayerReport:
     """One layer's line of the compile log: the layout geometry, the
     load-balance lever (pre-reorder padded degree ``L`` -> post-reorder
-    ``L_reordered`` of ``Kb`` column blocks) and the served
-    ``value_dtype`` (None = float) for packed rows, the ``reason`` for
-    skipped ones; a row whose layout ``degrade_invalid_layers`` retired
-    carries ``degraded=True`` and the failure as its ``reason``."""
+    ``L_reordered`` of ``Kb`` column blocks), the served ``value_dtype``
+    (None = float) and the layout's tensor-parallel ``shards`` (None =
+    unsharded) for packed rows, the ``reason`` for skipped ones; a row
+    whose layout ``degrade_invalid_layers`` retired carries
+    ``degraded=True`` and the failure as its ``reason``."""
     path: str
     packed: bool
     kind: str | None = None
@@ -167,6 +173,7 @@ class LayerReport:
     layers: int | None = None
     value_dtype: str | None = None
     patch_b_per_pos: int | None = None
+    shards: int | None = None
     degraded: bool | None = None
 
     def to_json(self) -> dict:
@@ -176,8 +183,8 @@ class LayerReport:
 
     @classmethod
     def from_json(cls, d: dict) -> "LayerReport":
-        """Rebuild from either package's ``to_json`` row; fields the port
-        does not carry (the reference's ``shards``) are dropped."""
+        """Rebuild from either package's ``to_json`` row (unknown fields
+        dropped)."""
         names = {f.name for f in dataclasses.fields(cls)}
         d = {k: v for k, v in d.items() if k in names}
         for k in ("block", "shape"):
@@ -218,42 +225,49 @@ class CompileReport:
 
 
 def _pack_stacked(w, mask, block, *, reorder=True, n_bins=4,
-                  value_dtype=None, scale_granularity="block"):
+                  value_dtype=None, scale_granularity="block", n_shards=0):
     """Pack (..., K, N) weights slice by slice, pad every slice's per-bin
     column degree to the stack max, and restack -> a ``PackedLayout``
     whose leaves carry the leading stack dims; ``value_dtype="int8"``
     quantizes the STACKED layout (``core.quant``), as the reference does.
-    Returns (layout, stats)."""
+    ``n_shards`` > 0 shards every slice's block columns (the shard axis
+    the innermost stack dim of every per-bin leaf).  Returns (layout,
+    stats)."""
     mask = mask.expand(w.shape) if mask.ndim else mask
     lead = tuple(w.shape[:-2])
     K, N = w.shape[-2:]
     bk, bn = block
+    S = int(n_shards)
+    shard = (S,) if S else ()
     wf = w.reshape(-1, K, N)
     mf = mask.reshape(-1, K, N)
-    layouts = [ops.pack(wf[i], mf[i], block, reorder=reorder, n_bins=n_bins)
+    layouts = [ops.pack(wf[i], mf[i], block, reorder=reorder, n_bins=n_bins,
+                        n_shards=S)
                for i in range(wf.shape[0])]
     values, k_idx = [], []
+    F = torch.nn.functional
     for b in range(layouts[0].n_bins):          # identical across slices
         Lb = max(lay.bin_degrees[b] for lay in layouts)
-
-        def pad(t):
-            return torch.nn.functional.pad(
-                t, (0,) * (2 * (t.ndim - 2)) + (0, Lb - t.shape[1]))
-        v = torch.stack([pad(lay.values[b]) for lay in layouts])
-        k = torch.stack([pad(lay.k_idx[b]) for lay in layouts])
-        values.append(v.reshape(lead + (-1, Lb, bk, bn)))
-        k_idx.append(k.reshape(lead + (-1, Lb)))
+        # the degree axis: values (..., nb, L, bk, bn), k_idx (..., nb, L)
+        v = torch.stack([F.pad(lay.values[b], (0, 0, 0, 0, 0,
+                                               Lb - lay.bin_degrees[b]))
+                         for lay in layouts])
+        k = torch.stack([F.pad(lay.k_idx[b], (0, Lb - lay.bin_degrees[b]))
+                         for lay in layouts])
+        values.append(v.reshape(lead + shard + (-1, Lb, bk, bn)))
+        k_idx.append(k.reshape(lead + shard + (-1, Lb)))
 
     def restack(get):
         a = torch.stack([get(lay) for lay in layouts])
         return a.reshape(lead + tuple(a.shape[1:]))
 
     nnz = restack(lambda lay: lay.nnz)
+    has_perm = reorder or S
     stacked = PackedLayout(
         values=tuple(values), k_idx=tuple(k_idx), nnz=nnz,
-        perm=restack(lambda lay: lay.perm) if reorder else None,
-        inv_perm=restack(lambda lay: lay.inv_perm) if reorder else None,
-        block=tuple(block), shape=(K, N))
+        perm=restack(lambda lay: lay.perm) if has_perm else None,
+        inv_perm=restack(lambda lay: lay.inv_perm) if has_perm else None,
+        block=tuple(block), shape=(K, N), n_shards=S)
     if value_dtype is not None:
         stacked = QUANT.quantize_layout(
             stacked, value_dtype=value_dtype,
@@ -371,20 +385,29 @@ def compile_model(params, masks=None, mapping=(), spec=None, device="cuda",
         vdt = choice.value_dtype or spec.value_dtype
         if vdt not in VALUE_DTYPES:
             return skip(f"unsupported value_dtype {vdt!r}")
+        # tensor-parallel column shards: MoE expert stacks are exempt (they
+        # shard along the expert axis), and a layer whose column count tp
+        # does not divide stays unsharded (the row's ``shards`` says so)
+        shards = 0 if "moe" in wpath.split("/") or spec.tp < 2 else spec.tp
         if kind == "pattern_conv":
+            if shards and w.shape[0] % shards:
+                shards = 0
             packed = ops.pack_taps(w, mask, reorder=spec.reorder,
                                    n_bins=tap_bins, value_dtype=vdt,
-                                   scale_granularity="out")
+                                   scale_granularity="out", n_shards=shards)
             stats = _tap_stats(packed, w)
         elif kind == "conv":
             gemm_block, why = BCS.conv_gemm_block(block, tuple(w.shape))
             if gemm_block is None:
                 return skip(why)
             P, Q, Kh, Kw = w.shape
+            if shards and (P // gemm_block[1]) % shards:
+                shards = 0
             packed, stats = _pack_stacked(
                 BCS.conv_lower(w), BCS.conv_lower(mask.expand(w.shape)),
                 gemm_block, reorder=spec.reorder, n_bins=gemm_bins,
-                value_dtype=vdt, scale_granularity=spec.scale_granularity)
+                value_dtype=vdt, scale_granularity=spec.scale_granularity,
+                n_shards=shards)
             # the static tap table the implicit kernel gathers through
             packed = dataclasses.replace(
                 packed,
@@ -394,9 +417,12 @@ def compile_model(params, masks=None, mapping=(), spec=None, device="cuda",
             K, N = w.shape[-2:]
             if K % block[0] or N % block[1]:
                 return skip(f"block {block} does not divide ({K}, {N})")
+            if shards and (N // block[1]) % shards:
+                shards = 0
             packed, stats = _pack_stacked(
                 w, mask, block, reorder=spec.reorder, n_bins=gemm_bins,
-                value_dtype=vdt, scale_granularity=spec.scale_granularity)
+                value_dtype=vdt, scale_granularity=spec.scale_granularity,
+                n_shards=shards)
         if stats["flops_saved"] <= spec.min_saving:
             return skip(f"no effective saving (L={stats['L']} of "
                         f"Kb={stats['Kb']} column blocks survive)")
@@ -405,7 +431,7 @@ def compile_model(params, masks=None, mapping=(), spec=None, device="cuda",
             del out["w"]
         rows.append(LayerReport(path=wpath, packed=True, kind=kind,
                                 scheme=choice.scheme, value_dtype=vdt,
-                                **stats))
+                                shards=shards or None, **stats))
         return out
 
     exec_params = walk(params, masks, "")
@@ -425,8 +451,8 @@ def compile_model(params, masks=None, mapping=(), spec=None, device="cuda",
 def compiled_summary(report) -> str:
     """One line per layer: the load-balance lever (pre-reorder L ->
     post-reorder effective L and the gain) or the skip reason; quantized
-    rows add ``values=int8``, conv rows the patch bytes per output position
-    the implicit mode avoids."""
+    rows add ``values=int8``, sharded rows ``tp=<shards>``, conv rows the
+    patch bytes per output position the implicit mode avoids."""
     lines = []
     for r in report:
         if r.packed:
@@ -438,6 +464,8 @@ def compiled_summary(report) -> str:
                 f"flops_saved={r.flops_saved:.2f}")
             if r.value_dtype:
                 line += f" values={r.value_dtype}"
+            if r.shards:
+                line += f" tp={r.shards}"
             if r.patch_b_per_pos is not None:
                 line += f" implicit_avoids={r.patch_b_per_pos}B/pos"
             if r.degraded:

@@ -161,8 +161,11 @@ def test_spec_and_report_json_are_the_references():
     assert list(spec.to_json()) == list(rspec.to_json())
     assert C.CompileSpec.from_json(rspec.to_json()) == spec
     assert ref_C.CompileSpec.from_json(spec.to_json()) == rspec
-    with pytest.raises(ValueError, match="item 9"):
-        C.CompileSpec.from_json(dict(rspec.to_json(), tp=2))
+    tp2, rtp2 = (dataclasses.replace(spec, tp=2),
+                 dataclasses.replace(rspec, tp=2))
+    assert tp2.to_json() == rtp2.to_json()
+    assert C.CompileSpec.from_json(rtp2.to_json()) == tp2
+    assert tp2.digest_fields() == rtp2.digest_fields()
 
 
 @pytest.mark.parametrize("value_dtype", [None, "int8"])
@@ -378,18 +381,20 @@ def test_bf16_roundtrip_exact(tmp_path):
 
 
 def test_sharded_layout_in_a_store_falls_back(stores, caplog):
-    """A reference store holding an ``n_shards`` > 0 layout is refused
-    (tensor parallel is ROADMAP item 9) and the port packs afresh."""
+    """A store whose manifest claims ``n_shards`` = 2 for a layout whose
+    leaves carry no shard axis is refused as a structure error (the nnz
+    leaf lacks its shard axes) and the port packs afresh; stores of real
+    tensor-parallel layouts load (``tests/test_torch_sharding.py``)."""
     _, pdir, ppm, pmasks, key, cold = stores
     mpath = pdir / key / ART.MANIFEST_FILE
     man = json.loads(mpath.read_text())
     man["layers"]["blk/ffn/gate"]["n_shards"] = 2
     mpath.write_text(json.dumps(man))
-    with pytest.raises(ART.ArtifactUnsupported, match="item 9"):
+    with pytest.raises(V.LayoutStructureError, match="shard axes"):
         ART.load_artifact(pdir, key, device="cpu")
     with caplog.at_level(logging.WARNING, "repro_torch.serve.artifacts"):
         repacked, _ = warm_compile(pdir, ppm, pmasks)
-    assert "[unsupported]" in caplog.text
+    assert "[structure]" in caplog.text
     assert_trees_identical(cold, repacked)
 
 

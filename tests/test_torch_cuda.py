@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card
 (kernel 1 also over an MoE expert stack; every kernel also on int8
-layouts, dequantized on the card).
+layouts, dequantized on the card; kernels 1 and 2 also through the shard
+wrappers over tensor-parallel layouts), and the data draws, equal on the
+CPU and the card.
 
 Every test here is marked ``cuda`` and skips without a card (the kernel
 has no CPU mode).  This file imports neither jax nor the JAX package, so
@@ -848,3 +850,81 @@ def test_int8_wrappers_reject_unscaled_or_misshapen_layouts(cuda):
         K.tap_gather_conv_implicit(torch.randn(2, 8, 8, 16, device=cuda),
                                    dataclasses.replace(tap, scales=None),
                                    kh=3, kw=3)
+
+
+# -- tensor-parallel layouts: the shard wrappers ------------------------------
+
+@pytest.mark.parametrize("gran", [None, "block", "out"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("M", [1, 4, 17, 129])
+def test_sharded_kernel1_matches_plain(cuda, M, S, dtype, gran):
+    """Kernel 1 over a sharded layout (every shard and bin in one launch,
+    counted as ``bsr_matmul_sharded``) against the sharded plain version,
+    and against the unsharded kernel: bitwise where the two launches take
+    the same chunks of a column (a column of at most 64 slots here)."""
+    rng = np.random.RandomState(S)
+    Kd, Nd, block = 256, 512, (16, 16)
+    live = rng.rand(Kd // 16, Nd // 16) < 0.4
+    mask = torch.from_numpy(np.repeat(np.repeat(live, 16, 0), 16, 1)).to(
+        cuda)
+    w = torch.from_numpy(rng.randn(Kd, Nd).astype(np.float32)).to(cuda, dtype)
+    kw = dict(value_dtype=gran and "int8", scale_granularity=gran or "block")
+    sh = ops.pack(w, mask, block, n_shards=S, **kw)
+    un = ops.pack(w, mask, block, reorder=True, **kw)
+    x = torch.randn(M, Kd, device=cuda).to(dtype)
+    b = torch.randn(Nd, device=cuda).to(dtype)
+    K.reset_launches()
+    y = K.bsr_matmul_packed(x, sh, bias=b, act="silu")
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["bsr_matmul_sharded"] == 1
+    assert K.LAUNCHES["bsr_matmul"] == 0
+    want = ref.bsr_matmul_sharded_ref(x.float(), sh, b.float(), "silu")
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(y.float(), want, rtol=tol, atol=tol)
+    assert torch.equal(y, K.bsr_matmul_packed(x, un, bias=b, act="silu"))
+
+
+@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("gran", [None, "out"])
+def test_sharded_kernel2_matches_plain(cuda, S, gran):
+    """Kernel 2 over a sharded TapLayout (the global alive band, every
+    shard's filter groups in one launch) against the sharded plain
+    version, and bitwise against the unsharded launch."""
+    rng = np.random.RandomState(S)
+    w = torch.from_numpy(rng.randn(64, 32, 3, 3).astype(np.float32)).to(cuda)
+    mask = torch.from_numpy(rng.rand(64, 32, 3, 3) < 0.4).to(cuda)
+    kw = dict(value_dtype=gran and "int8", scale_granularity=gran or "block")
+    sh = ops.pack_taps(w, mask, n_shards=S, **kw)
+    un = ops.pack_taps(w, mask, **kw)
+    x = torch.randn(300, sh.n_alive, device=cuda)
+    b = torch.randn(64, device=cuda)
+    K.reset_launches()
+    y = K.tap_gather_conv_packed(x, sh, bias=b, act="relu")
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["tap_gather_conv_sharded"] == 1
+    want = ref.tap_gather_sharded_ref(x, sh, b, "relu")
+    torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(y, K.tap_gather_conv_packed(x, un, bias=b,
+                                                   act="relu"))
+
+
+def test_sharded_layouts_refuse_the_implicit_kernels(cuda):
+    rng = np.random.RandomState(0)
+    w = torch.from_numpy(rng.randn(16, 8, 3, 3).astype(np.float32)).to(cuda)
+    mask = torch.ones_like(w, dtype=torch.bool)
+    x = torch.randn(1, 6, 6, 8, device=cuda)
+    with pytest.raises(ValueError, match="shards"):
+        K.tap_gather_conv_implicit(x, ops.pack_taps(w, mask, n_shards=2),
+                                   kh=3, kw=3)
+
+
+def test_data_draws_are_the_same_on_cpu_and_card(cuda):
+    """(seed, step, shard) gives the same batch and task on either
+    device: the draws come from the host's generator."""
+    for step, shard in ((0, 0), (5, 1)):
+        a = synthetic_batch(0, step, 4, 16, 97, shard=shard, device="cpu")
+        b = synthetic_batch(0, step, 4, 16, 97, shard=shard, device=cuda)
+        for k in a:
+            assert b[k].device.type == "cuda"
+            assert torch.equal(a[k], b[k].cpu())

@@ -44,7 +44,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
               "repro_torch.core.pruner", "repro_torch.distributed.elastic",
               "repro_torch.launch.train", "repro_torch.train.trainer",
               "repro_torch.core.validate", "repro_torch.serve.artifacts",
-              "repro_torch.testing.faults"):
+              "repro_torch.testing.faults",
+              "repro_torch.distributed.checkpoint"):
         assert m in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"

@@ -236,10 +236,12 @@ def test_tap_layout_crosses_and_refuses_what_is_not_ported():
     crossed = layout_from_numpy(ref_to_numpy(ref_lay), "cpu")
     assert isinstance(crossed, TapLayout)
     assert_tap_layout_equal(crossed, ref_lay)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        dataclasses.replace(crossed, n_shards=2)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        BCS.pattern_lower(_t(wm), _t(mask), n_shards=2)
+    # tensor-parallel tap layouts are ported (tests/test_torch_sharding.py);
+    # what both packages refuse is a shard split without the reorder
+    with pytest.raises(ValueError, match="reorder"):
+        BCS.pattern_lower(_t(wm), _t(mask), n_shards=2, reorder=False)
+    with pytest.raises(ValueError, match="reorder"):
+        ref_BCS.pattern_lower(wm, mask, n_shards=2, reorder=False)
 
 
 # -- the tap executors ----------------------------------------------------------

@@ -45,7 +45,7 @@ def ref_to_numpy(tree):
                 "nnz": np.asarray(tree.nnz), "perm": opt(tree.perm),
                 "inv_perm": opt(tree.inv_perm), "block": tree.block,
                 "shape": tree.shape, "conv_taps": tree.conv_taps,
-                "scales": opt_bins(tree.scales)}
+                "scales": opt_bins(tree.scales), "n_shards": tree.n_shards}
     if isinstance(tree, RefTapLayout):
         return {"values": [np.asarray(v) for v in tree.values],
                 "t_idx": [np.asarray(t) for t in tree.t_idx],
@@ -54,7 +54,7 @@ def ref_to_numpy(tree):
                 "nnz": np.asarray(tree.nnz), "alive": np.asarray(tree.alive),
                 "perm": opt(tree.perm), "inv_perm": opt(tree.inv_perm),
                 "group": tree.group, "shape": tree.shape,
-                "scales": opt_bins(tree.scales)}
+                "scales": opt_bins(tree.scales), "n_shards": tree.n_shards}
     return np.asarray(tree)
 
 
@@ -116,7 +116,7 @@ def assert_layout_equal(port, ref):
     bit-equal (and the same ``conv_taps``)."""
     assert port.block == tuple(ref.block) and port.shape == tuple(ref.shape)
     assert port.conv_taps == ref.conv_taps
-    assert port.n_bins == ref.n_bins
+    assert port.n_bins == ref.n_bins and port.n_shards == ref.n_shards
     assert (port.perm is None) == (ref.perm is None)
     pairs = [(port.nnz, ref.nnz)]
     pairs += list(zip(port.k_idx, ref.k_idx))
@@ -137,7 +137,7 @@ def assert_tap_layout_equal(port, ref):
     """TapLayout leaf for leaf: integer leaves equal, values and scales
     bit-equal."""
     assert port.group == ref.group and port.shape == tuple(ref.shape)
-    assert port.n_bins == ref.n_bins
+    assert port.n_bins == ref.n_bins and port.n_shards == ref.n_shards
     assert (port.perm is None) == (ref.perm is None)
     pairs = [(port.nnz, ref.nnz), (port.alive, ref.alive)]
     pairs += list(zip(port.t_idx, ref.t_idx))

@@ -256,13 +256,17 @@ def test_corruption_raises_the_references_error(name):
 
 
 def test_sharded_layout_is_refused_naming_item_9():
-    """The port has no tensor-parallel layouts: an ``n_shards`` > 0 that
-    reaches the validator is a structure error naming ROADMAP item 9."""
+    """An unsharded layout that claims ``n_shards`` = 2 (tensor-parallel
+    layouts are ported, ``tests/test_torch_sharding.py``) is a structure
+    error: its nnz leaf lacks the shard axes, as the reference says."""
     lay = port_of(packed_case())
+    ref = packed_case()
     object.__setattr__(lay, "n_shards", 2)
-    with pytest.raises(V.LayoutStructureError, match="item 9") as ei:
+    with pytest.raises(V.LayoutStructureError, match="shard axes") as ei:
         V.validate_layout(lay)
-    assert ei.value.field == "n_shards"
+    with pytest.raises(ref_V.LayoutStructureError) as ri:
+        ref_V.validate_layout(dataclasses.replace(ref, n_shards=2))
+    assert ei.value.field == ri.value.field == "nnz"
 
 
 def test_finite_check_reads_each_value_bin_once(monkeypatch):
