@@ -401,9 +401,10 @@ def weight_and_mask(RW, K, N, gen, dtype, block=BLOCK):
     return w, mask
 
 
-def kernel1_cases(mods, gen, shapes, layouts, acts, block=BLOCK):
+def kernel1_cases(mods, gen, shapes, layouts, acts, block=BLOCK,
+                  Ms=CHECK_M):
     """Kernel 1 vs its plain version at every (K, N) of ``shapes`` and M of
-    CHECK_M, fp32 and bf16, weights masked in ``block`` blocks:
+    ``Ms``, fp32 and bf16, weights masked in ``block`` blocks:
     ``layouts(w, mask)`` gives the (label, reordered, unreordered) layouts
     of a weight, ``acts`` the (activation, with bias) cases; reordered ==
     unreordered bitwise.  Returns (cases, max abs error)."""
@@ -413,7 +414,7 @@ def kernel1_cases(mods, gen, shapes, layouts, acts, block=BLOCK):
         for (Kd, Nd) in shapes:
             w, mask = weight_and_mask(RW, Kd, Nd, gen, dtype, block)
             for label, reord, unre in layouts(w, mask):
-                for M in CHECK_M:
+                for M in Ms:
                     x = torch.randn(M, Kd, generator=gen, device=DEV).to(
                         dtype)
                     b = (torch.randn(Nd, generator=gen, device=DEV)
@@ -720,10 +721,12 @@ def build_served(mods, cfg, dtype):
     return pm, exec_p, report, init_s, compile_s, masks
 
 
-def serve_counted(mods, exec_p, cfg, full, compile_s, how, per_layer=7):
-    """The main path: greedy ``generate`` of B prompts of S tokens, the
-    kernel counts set to 0 just before and read just after, kernel 1 held
-    to layers x ``per_layer`` packed projections x (1 + N_NEW) forwards;
+def serve_counted(mods, exec_p, cfg, full, compile_s, how, per_layer=7,
+                  frontend=None, want=None):
+    """The main path: greedy ``generate`` of B prompts of S tokens (and
+    the encdec / vlm ``frontend``), the kernel counts set to 0 just before
+    and read just after, kernel 1 held to ``want`` launches (default
+    layers x ``per_layer`` packed projections x (1 + N_NEW) forwards);
     then warm prefill and generate wall times and one traced prefill and
     ``generate`` (the card's busy share).  Returns (e2e, launches, prompts,
     tokens)."""
@@ -734,15 +737,17 @@ def serve_counted(mods, exec_p, cfg, full, compile_s, how, per_layer=7):
     sync()
     t0 = time.perf_counter()
     with torch.no_grad():
-        out = E.generate(exec_p, cfg, prompts, N_NEW, device=DEV)
+        out = E.generate(exec_p, cfg, prompts, N_NEW, device=DEV,
+                         frontend=frontend)
     sync()
     gen_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
-    want = cfg.n_layers * per_layer * (1 + N_NEW)
+    if want is None:
+        want = cfg.n_layers * per_layer * (1 + N_NEW)
+        how = (f"layers {cfg.n_layers} x {per_layer} projections x "
+               f"(1 + {N_NEW}) forwards = {want}, {how}")
     print(f"generate {tuple(out.shape)}: bsr_matmul launches "
-          f"{launches['bsr_matmul']} (expected layers {cfg.n_layers} x "
-          f"{per_layer} projections x (1 + {N_NEW}) forwards = {want}, "
-          f"{how})")
+          f"{launches['bsr_matmul']} (expected {how})")
     if launches["bsr_matmul"] != want:
         raise AssertionError("the main path did not go through the kernel "
                              "the expected number of times")
@@ -750,23 +755,27 @@ def serve_counted(mods, exec_p, cfg, full, compile_s, how, per_layer=7):
             (out >= 0) & (out < cfg.vocab)).all():
         raise AssertionError(f"bad generate output {out}")
 
+    def prefill():
+        return E.prefill(exec_p, cfg, tokens, frontend)
+
+    def generate():
+        return E.generate(exec_p, cfg, prompts, N_NEW, device=DEV,
+                          frontend=frontend)
     with torch.no_grad():
         for _ in range(2):
-            E.prefill(exec_p, cfg, tokens)
+            prefill()
         sync()
         t0 = time.perf_counter()
-        E.prefill(exec_p, cfg, tokens)
+        prefill()
         sync()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
-        E.generate(exec_p, cfg, prompts, N_NEW, device=DEV)
+        generate()
         sync()
         gen_warm_s = time.perf_counter() - t0
-        dev_prefill = device_time(lambda: E.prefill(exec_p, cfg, tokens))
+        dev_prefill = device_time(prefill)
         # warmed by a prefill: a second generate doubles a long trace
-        dev_gen = device_time(lambda: E.generate(exec_p, cfg, prompts, N_NEW,
-                                                 device=DEV),
-                              warm=lambda: E.prefill(exec_p, cfg, tokens))
+        dev_gen = device_time(generate, warm=prefill)
     decode_ms = (gen_warm_s * 1e3 - prefill_ms) / N_NEW
     e2e = {"layers": cfg.n_layers, "of_layers": full.n_layers, "batch": B,
            "prompt": S, "new_tokens": N_NEW, "compile_s": compile_s,
@@ -4507,8 +4516,9 @@ def sublayer_gaps(mods, exec_p, dense_p, cfg, tokens):
 def train_grads_gate(mods, arch, fault=False):
     """Loss (masks and the penalty's alphas both given) and grads of
     ``arch`` SMOKE in fp32 on the card against the same computation on
-    the CPU: (loss relative gap, worst leaf's grad gap over its max |g|).
-    ``fault`` drops the penalty on the card (no alphas)."""
+    the CPU: (loss relative gap, worst leaf's grad gap over its max |g|);
+    encdec and vlm take the data pipeline's frontend, vlm's cross gates
+    set to 1.0.  ``fault`` drops the penalty on the card (no alphas)."""
     from repro_torch import configs
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.models.module import tree_map
@@ -4520,7 +4530,13 @@ def train_grads_gate(mods, arch, fault=False):
             (r"head/table", RW.SchemeChoice("block", (8, 16)))]
     rw = RW.ReweightedConfig(spec=tuple(spec), lam=TRAIN_LAM)
     p = T.init_lm(cfg, seed=0, dtype=torch.float32, device="cpu")
-    args = (p, synthetic_batch(0, 0, 2, 16, cfg.vocab, device="cpu"),
+    if cfg.family == "vlm":
+        p["groups"]["cross"]["gate"].fill_(1.0)
+    frontend = (cfg.n_frontend_tokens if cfg.family in ("encdec", "vlm")
+                else 0)
+    args = (p, synthetic_batch(0, 0, 2, 16, cfg.vocab, device="cpu",
+                               frontend_tokens=frontend,
+                               d_model=cfg.d_model),
             RW.masks_for_spec(p, spec, default_rate=0.5),
             RW.update_alphas(p, rw))
     f = trainer.value_and_grad(trainer.make_loss_fn(cfg, reweighted=rw))
@@ -4884,6 +4900,414 @@ def trained_entry(out, launches):
                        f"counted generate"}
 
 
+# -- the encoder-decoder and vision-LM families -------------------------------
+
+XFAM_ARCHS = ("seamless-m4t-large-v2", "llama-3.2-vision-90b")
+VLM_GROUPS = 2           # llama-vision's depth cut: 2 of 20 groups
+# the fp32 gates' depth: seamless 2 + 2 layers, llama-vision 1 group
+XFAM_FP32 = {"seamless-m4t-large-v2": dict(n_layers=2, n_enc_layers=2),
+             "llama-3.2-vision-90b": dict(n_layers=5)}
+# kernel 1's M cases at the new shapes: decode, the M-tile edges, prefill
+# (B x S); the frontend's B x 1024 rows where a projection reads them
+XFAM_CHECK_M = (1, 4, 17, 128, 129)
+
+
+def xfam_config(arch):
+    """seamless-m4t-large-v2 at its published widths and depth;
+    llama-3.2-vision-90b at its published widths, depth cut to VLM_GROUPS
+    groups of ``cross_attn_interval`` layers (the rehearsal on the CPU
+    swaps in narrower configs)."""
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    if cfg.family == "vlm":
+        cfg = cfg.replace(n_layers=VLM_GROUPS * cfg.cross_attn_interval)
+    return cfg
+
+
+def frontend_rows(cfg):
+    """Rows of the frontend (B x n_frontend_tokens): the M of the
+    encoder's projections and of every cross wk / wv."""
+    return B * cfg.n_frontend_tokens
+
+
+def xfam_projections(cfg):
+    """{what: (M values, [(name, K, N, act)])} of the layers timed:
+    seamless's encoder layer at the frontend rows, its decoder layer's 9
+    token-row projections (self, cross wq / wo, FFN) at decode and
+    prefill, llama-vision's self layer at decode and prefill, and each
+    family's cross wk / wv at the frontend rows."""
+    d, f = cfg.d_model, cfg.d_ff
+    q, kv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    attn = [("wq", d, q, "none"), ("wk", d, kv, "none"),
+            ("wv", d, kv, "none"), ("wo", q, d, "none")]
+    ffn = [("gate", d, f, "silu"), ("up", d, f, "none"),
+           ("down", f, d, "none")]
+    xkv = [("xattn/wk", d, kv, "none"), ("xattn/wv", d, kv, "none")]
+    rows = frontend_rows(cfg)
+    if cfg.family == "encdec":
+        return {"encoder layer": ((rows,), attn + ffn),
+                "decoder layer": ((4, B * S), attn + [
+                    ("xattn/wq", d, q, "none"), ("xattn/wo", q, d, "none")]
+                    + ffn),
+                "cross wk/wv": ((rows,), xkv)}
+    return {"self layer": ((4, B * S), attn + ffn),
+            "cross wk/wv": ((rows,), xkv)}
+
+
+def xfam_launches(cfg):
+    """Kernel-1 launches of one prefill and of one decode step with every
+    projection packed: encdec's encoder 7 a layer and decoder 11 (self 4,
+    cross 4, FFN 3), its decode step 9 a decoder layer (the cross keys
+    and values are cached); vlm's self layers 7, cross layers 7 at
+    prefill and 5 a step (wq, wo, FFN)."""
+    if cfg.family == "encdec":
+        return 7 * cfg.n_enc_layers + 11 * cfg.n_layers, 9 * cfg.n_layers
+    G = cfg.n_layers // cfg.cross_attn_interval
+    selfs = G * (cfg.cross_attn_interval - 1)
+    return 7 * selfs + 7 * G, 7 * selfs + 5 * G
+
+
+def xfam_kernel_phase(mods, flush):
+    """Kernel 1 at the encdec and vlm shapes: vs its plain version at
+    XFAM_CHECK_M and, where a projection reads the frontend, at its B x
+    1024 rows (M = 4096: 32 M tiles), bf16 and fp32, reordered ==
+    unreordered bitwise; then the layers of ``xfam_projections`` timed.
+    Returns (rows by arch and what, (cases, max abs err))."""
+    RW, ops = mods["RW"], mods["ops"]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(13)
+
+    def layouts(w, mask):
+        return [("float", ops.pack(w, mask, BLOCK, reorder=True,
+                                   n_bins=N_BINS), ops.pack(w, mask, BLOCK))]
+    acts = (("none", False), ("silu", True))
+    checks, max_err = 0, 0.0
+    for arch in XFAM_ARCHS:
+        cfg = xfam_config(arch)
+        groups = xfam_projections(cfg)
+        shapes = sorted({(k, n) for _, projs in groups.values()
+                         for _, k, n, _ in projs})
+        wide = sorted({(k, n) for Ms, projs in groups.values()
+                       for _, k, n, _ in projs
+                       if frontend_rows(cfg) in Ms})
+        for sel, Ms in ((shapes, XFAM_CHECK_M),
+                        (wide, (frontend_rows(cfg),))):
+            n, err = kernel1_cases(mods, gen, sel, layouts, acts, Ms=Ms)
+            checks, max_err = checks + n, max(max_err, err)
+            print(f"[encdec/vlm] kernel 1 vs plain, {arch}: (K, N) in "
+                  f"{sel}, M in {Ms}, bf16 + fp32, bias with none/silu, "
+                  f"reordered == unreordered bitwise: {n} cases, max abs "
+                  f"err {err:.3e}")
+
+    def make(name, Kd, Nd):
+        w, mask = weight_and_mask(RW, Kd, Nd, gen, torch.bfloat16)
+        return (ops.pack(w, mask, BLOCK, reorder=True, n_bins=N_BINS),
+                w * mask.to(w.dtype))
+    rows = {}
+    for arch in XFAM_ARCHS:
+        for what, (Ms, projs) in xfam_projections(xfam_config(arch)).items():
+            r = kernel1_timings(mods, gen, flush, projs, Ms, make)
+            rows[f"{arch} {what}"] = r
+            print_timings(
+                f"[encdec/vlm] {arch} {what} (bf16, L2 flushed, median ms "
+                f"by CUDA-graph replay; stream = one torch sum over the "
+                f"bound's bytes):", r, "torch.matmul",
+                f"{arch} {what} ({len(projs)} projections)",
+                tuple((M, f"M = {M}") for M in Ms))
+    return rows, (checks, max_err)
+
+
+def xfam_build(mods, cfg, dtype):
+    """Seeded init at ``cfg`` on the card, vlm's cross gates set to 1.0
+    (the reference's zero gates would shut the cross-attention out of the
+    logits), the serving CLI's block masks at PRUNE_RATE, then
+    ``compile_model(keep_dense=False)``: (masked-dense params, compiled
+    params, report, init + masks s, compile s)."""
+    T, RW = mods["T"], mods["RW"]
+    from repro_torch.launch.serve import SPARSE_SPEC
+    from repro_torch.train.trainer import apply_masks
+    t0 = time.perf_counter()
+    params = T.init_lm(cfg, seed=0, dtype=dtype, device=DEV)
+    if cfg.family == "vlm":
+        params["groups"]["cross"]["gate"].fill_(1.0)
+    masks = RW.magnitude_block_masks(params, SPARSE_SPEC, None,
+                                     rate=PRUNE_RATE)
+    pm = apply_masks(params, masks)
+    del params
+    sync()
+    init_s = time.perf_counter() - t0
+    exec_p, report, compile_s = compile_timed(mods, pm, masks, SPARSE_SPEC)
+    del masks
+    return pm, exec_p, report, init_s, compile_s
+
+
+def zeroed_bin(params, path):
+    """``params`` with the largest degree bin (the most stored blocks) of
+    the packed projection at ``path`` (e.g. "enc/ffn/down") zeroed in
+    every layer of its stack; the other leaves shared."""
+    head, *rest = path.split("/")
+    node = params[head]
+    if rest:
+        return dict(params, **{head: zeroed_bin(node, "/".join(rest))})
+    lay = node["packed"]
+    values = list(lay.values)
+    b = max(range(len(values)), key=lambda i: values[i].numel())
+    values[b] = torch.zeros_like(values[b])
+    return dict(params, **{head: dict(node, packed=dataclasses.replace(
+        lay, values=tuple(values)))})
+
+
+def xfam_faults(cfg):
+    """The planted faults: one zeroed bin of a cross-attention wo, and for
+    encdec one of the encoder's ffn/down."""
+    if cfg.family == "encdec":
+        return ("dec/xattn/wo", "enc/ffn/down")
+    return ("groups/cross/xattn/wo",)
+
+
+def cross_gaps(mods, exec_p, dense_p, cfg, tokens, frontend):
+    """Per cross-attention layer (encdec's decoder layers, vlm's cross
+    layers), its output with packed and with masked-dense params on the
+    same input, the masked-dense run's residual stream and memory: the
+    (max, mean) relative gaps.  Random weights leave the cross-attention
+    a small share of the logits, so these hold its packed products where
+    the logits cannot."""
+    T, L = mods["T"], mods["L"]
+    from repro_torch.models import attention as A
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    x = L.embed(dense_p["embed"], tokens)
+
+    def xattn(lp, h, memory):
+        return A.mha(lp["xattn"], h, positions, cfg.n_heads,
+                     cfg.n_kv_heads, cfg.hd, memory=memory)[0]
+    gaps = []
+    if cfg.family == "encdec":
+        memory = T.encode(dense_p, cfg, frontend, x.dtype)
+        for lp_x, lp_d in zip(T.layer_params(exec_p, "dec"),
+                              T.layer_params(dense_p, "dec")):
+            att, _ = A.mha(lp_d["attn"], L.rmsnorm(lp_d["ln1"], x),
+                           positions, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                           rope_theta=cfg.rope_theta)
+            h = L.rmsnorm(lp_d["lnx"], x + att)
+            gaps.append(logit_gap(xattn(lp_d, h, memory),
+                                  xattn(lp_x, h, memory)))
+            x = T._layer_fwd(lp_d, x, positions, cfg, "xdec", memory)[0]
+        return gaps
+    memory = frontend.to(x.dtype)
+    for g_x, g_d in zip(T.layer_params(exec_p, "groups"),
+                        T.layer_params(dense_p, "groups")):
+        for lp in T.layer_params(g_d, "selfs"):
+            x = T._layer_fwd(lp, x, positions, cfg, "dense")[0]
+        h = L.rmsnorm(g_d["cross"]["ln1"], x)
+        gaps.append(logit_gap(xattn(g_d["cross"], h, memory),
+                              xattn(g_x["cross"], h, memory)))
+        x = T._layer_fwd(g_d["cross"], x, positions, cfg, "cross",
+                         memory)[0]
+    return gaps
+
+
+def xfam_serve_phase(mods, arch):
+    """``arch`` through the port's entry points: bf16, seed 0, rate 0.6,
+    4 bins, B = 4 x 32 prompts and the data pipeline's (4, 1024, d_model)
+    frontend, 16 new tokens.  Kernel 1's launches over the ``generate``
+    asserted from the layouts; warm times and busy shares; bf16 prefill
+    logits vs masked-dense and each planted fault; then fp32 at
+    XFAM_FP32's depth (TF32 off): logits and greedy tokens packed vs
+    masked-dense, each planted fault breaking the logit bound."""
+    T, C, E = mods["T"], mods["C"], mods["E"]
+    from repro_torch import configs
+    from repro_torch.data.pipeline import synthetic_batch
+    cfg = xfam_config(arch)
+    full = configs.get(arch)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    print(f"[encdec/vlm] {arch} at full width (d_model {cfg.d_model}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, frontend {cfg.n_frontend_tokens}"
+          f" tokens); "
+          + (f"{cfg.n_enc_layers} + {cfg.n_layers} layers, no cut"
+             if cfg.family == "encdec" else
+             f"depth cut to {cfg.n_layers} of {full.n_layers} layers "
+             f"({VLM_GROUPS} groups of {cfg.cross_attn_interval - 1} self + "
+             f"1 cross); every cross gate set to 1.0 on the packed and the "
+             f"masked-dense tree")
+          + f"; card {smi_line() if DEV == 'cuda' else DEV}")
+    frontend = synthetic_batch(0, 0, B, S, cfg.vocab,
+                               frontend_tokens=cfg.n_frontend_tokens,
+                               d_model=cfg.d_model, device=DEV)["frontend"]
+    pm, exec_p, report, init_s, compile_s = xfam_build(mods, cfg,
+                                                        torch.bfloat16)
+    print(f"init + masks {init_s:.2f}s; compile_model {compile_s:.2f}s:")
+    print(C.compiled_summary(report))
+    # every projection packs: encdec's encoder 7 + decoder 11 stacks,
+    # vlm's self 7 + cross 7
+    n_stacks = 18 if cfg.family == "encdec" else 14
+    if len(report.packed) != n_stacks or any(
+            lay.n_bins != min(N_BINS, lay.Nb)
+            for lay in packed_layouts(exec_p)):
+        raise AssertionError(f"expected {n_stacks} packed stacks of "
+                             f"{N_BINS} bins, got {len(report.packed)}")
+    pre, step = xfam_launches(cfg)
+    want = pre + N_NEW * step
+    e2e, launches, prompts, tokens = serve_counted(
+        mods, exec_p, cfg, full, compile_s,
+        f"{pre} a prefill + {N_NEW} x {step} a decode step = {want}, one "
+        f"launch a packed projection over the {N_BINS} bins", want=want,
+        frontend=frontend)
+    if DEV == "cuda":
+        e2e["serve_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # bf16 gates: the prefill logits, and each cross-attention layer's
+    # output on the masked-dense run's input; a planted fault must break
+    # one of them
+    with torch.no_grad():
+        d_logits = E.prefill(pm, cfg, tokens, frontend)[0]
+        s_logits = E.prefill(exec_p, cfg, tokens, frontend)[0]
+        gap = logit_gap(d_logits, s_logits)
+        xgaps = cross_gaps(mods, exec_p, pm, cfg, tokens, frontend)
+        faults = {}
+        for path in xfam_faults(cfg):
+            bad = zeroed_bin(exec_p, path)
+            faults[path] = (logit_gap(d_logits, E.prefill(
+                bad, cfg, tokens, frontend)[0]), max(
+                cross_gaps(mods, bad, pm, cfg, tokens, frontend),
+                key=lambda g: g[0]))
+            del bad
+    sync()
+    agree = (d_logits.argmax(-1) == s_logits.argmax(-1)).float().mean()
+    worst = max(xgaps, key=lambda g: g[0])
+    print(f"[encdec/vlm] {arch} prefill logits packed vs masked-dense "
+          f"(bf16): max|diff| {gap[0]:.4f} of max|logit|, mean |diff| "
+          f"{gap[1]:.4f} of mean |logit| (bound {LOGIT_MAX_REL} / "
+          f"{LOGIT_MEAN_REL}); argmax agree {agree:.2f}; each cross-"
+          f"attention layer on one input: worst {worst[0]:.4f} / "
+          f"{worst[1]:.4f}")
+
+    def caught(g):
+        return not (within_bound(g[0]) and within_bound(g[1]))
+    for path, (g, xg) in faults.items():
+        print(f"  planted fault, {path}: largest bin zeroed, every layer: "
+              f"logits {g[0]:.4f} / {g[1]:.4f}, worst cross-attention "
+              f"layer {xg[0]:.4f} / {xg[1]:.4f}"
+              f"{'' if caught((g, xg)) else '  (NOT CAUGHT)'}")
+    e2e.update(logits_gap=gap, cross_layer_gaps=xgaps,
+               planted_faults=faults, compile_s=compile_s, init_s=init_s)
+    if not (torch.isfinite(s_logits).all() and within_bound(gap)
+            and all(map(within_bound, xgaps))):
+        raise AssertionError(f"{arch}: packed bf16 disagrees with "
+                             f"masked-dense beyond the bound")
+    missed = [path for path, g in faults.items() if not caught(g)]
+    if missed:
+        raise AssertionError(f"{arch}: the bf16 bounds do not catch "
+                             f"{missed}")
+    del exec_p, pm, d_logits, s_logits
+    if DEV == "cuda":
+        e2e["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[encdec/vlm] {arch} peak device memory "
+              f"{e2e['peak_mem_gb']:.2f} GB (torch.cuda."
+              f"max_memory_allocated)")
+        torch.cuda.empty_cache()
+
+    cfg32 = cfg.replace(**XFAM_FP32[arch])
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    pm, exec_p, _, _, _ = xfam_build(mods, cfg32, torch.float32)
+    with torch.no_grad():
+        d32 = T.forward(pm, cfg32, tokens, frontend=frontend)
+        gap32 = logit_gap(d32, T.forward(exec_p, cfg32, tokens,
+                                         frontend=frontend))[0]
+        faults32 = {path: logit_gap(d32, T.forward(
+            zeroed_bin(exec_p, path), cfg32, tokens,
+            frontend=frontend))[0] for path in xfam_faults(cfg)}
+        tok_d = E.generate(pm, cfg32, prompts, N_NEW, device=DEV,
+                           frontend=frontend)
+        tok_s = E.generate(exec_p, cfg32, prompts, N_NEW, device=DEV,
+                           frontend=frontend)
+    same = bool(torch.equal(tok_d, tok_s))
+    depth = (f"{cfg32.n_enc_layers} + {cfg32.n_layers} layers"
+             if cfg.family == "encdec" else
+             f"{cfg32.n_layers // cfg.cross_attn_interval} group")
+    print(f"[encdec/vlm] {arch} fp32 ({depth}, TF32 off): logits packed vs "
+          f"masked-dense {gap32:.2e} of max|logit| (bound "
+          f"{MOE_FP32_LOGIT_REL}); planted faults "
+          + ", ".join(f"{p} {g:.3f}" for p, g in faults32.items())
+          + f"; greedy tokens identical: {same}")
+    e2e.update(fp32_logit_gap=gap32, fp32_faults=faults32,
+               fp32_tokens_identical=same)
+    if DEV == "cuda":
+        e2e["fp32_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if not (gap32 <= MOE_FP32_LOGIT_REL and same):
+        raise AssertionError(f"{arch}: an fp32 gate failed")
+    if any(g <= MOE_FP32_LOGIT_REL for g in faults32.values()):
+        raise AssertionError(f"{arch}: the fp32 bound does not catch a "
+                             f"planted fault")
+    del exec_p, pm
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return e2e, launches
+
+
+def packed_layouts(tree):
+    """Every packed layout of a param tree."""
+    if not isinstance(tree, dict):
+        return []
+    if "packed" in tree:
+        return [tree["packed"]]
+    return [lay for v in tree.values() for lay in packed_layouts(v)]
+
+
+def xfam_phase(mods, flush):
+    """The encdec and vlm families: kernel 1 at their shapes, each model
+    served, and their SMOKE loss and grads on the card against the CPU
+    (``forward_aux`` through ``make_loss_fn``, the penalty's fault on
+    seamless).  Returns (out, launches by arch)."""
+    rows, checks = xfam_kernel_phase(mods, flush)
+    out = {"rows": rows, "checks": checks, "serve": {}}
+    launches = {}
+    for arch in XFAM_ARCHS:
+        stamp(f"{arch} served")
+        out["serve"][arch], launches[arch] = xfam_serve_phase(mods, arch)
+    grads = {a: train_grads_gate(mods, a) for a in XFAM_ARCHS}
+    fault = train_grads_gate(mods, XFAM_ARCHS[0], fault=True)
+    print(f"[encdec/vlm] SMOKE fp32 forward_aux loss and grads, card vs "
+          f"CPU (TF32 off): "
+          + ", ".join(f"{a} loss {g[0]:.2e}, grads {g[1]:.2e}"
+                      for a, g in grads.items())
+          + f" (bound {TRAIN_GRAD_TOL}); planted fault (the penalty "
+          f"dropped on the card): loss {fault[0]:.3f}")
+    out.update(smoke_grad_gaps=grads, smoke_grad_fault=fault)
+    if any(g[0] > TRAIN_GRAD_TOL or g[1] > TRAIN_GRAD_TOL
+           for g in grads.values()) or fault[0] <= TRAIN_GRAD_TOL:
+        raise AssertionError("[encdec/vlm] card autograd disagrees with the "
+                             "CPU or the gate missed its fault")
+    return out, launches
+
+
+def xfam_entry(out, launches):
+    """Kernel 1's ``encdec_vlm`` branch: each generate's launches, the
+    checks, and every timed layer's rows and sums."""
+    n, err = out["checks"]
+    entry = {"launches_by_path": {f"{a} generate": launches[a]["bsr_matmul"]
+                                  for a in XFAM_ARCHS},
+             "cases": n, "max_abs_err": err,
+             "measured_at": f"sum over a layer's projections (bf16 x, "
+                            f"{BLOCK} blocks, rate 0.6, {N_BINS} bins) at "
+                            f"each M; library = torch.matmul on the masked "
+                            f"dense weight"}
+    for what, rows in out["rows"].items():
+        entry[what] = {
+            f"M={M}": layer_sum(rows, M) for M in sorted({r["M"]
+                                                           for r in rows})}
+        entry[what]["shapes"] = [
+            {"layer": r["proj"], "M": r["M"], "K": r["K"], "N": r["N"],
+             "ms": r["ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "plain_ms": r["plain_ms"],
+             "library_ms": r["library_ms"], "stream_ms": r["stream_ms"]}
+            for r in rows]
+    return entry
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=8,
@@ -5008,6 +5432,12 @@ def main(argv=None):
     for arch in SSM_ARCHS:
         stamp(f"{arch} served")
         ssm_e2e[arch], ssm_launches[arch] = ssm_serve_phase(mods, arch)
+    # the encdec and vlm families, after the SSM state is gone
+    torch.cuda.empty_cache()
+    stamp("kernel 1 at seamless-m4t and llama-vision shapes")
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=DEV)
+    xfam_out, xfam_counts = xfam_phase(mods, flush)
+    del flush
     stamp("done")
 
     decode, prefill = layer_sum(rows, 4), layer_sum(rows, 128)
@@ -5028,7 +5458,8 @@ def main(argv=None):
                      + map_launches["bsr_matmul"]
                      + sum(engine_launches.values())
                      + robust_launches["yi-9b degraded engine"]
-                     + robust_launches["yi-9b warm-start generate"]),
+                     + robust_launches["yi-9b warm-start generate"]
+                     + sum(n["bsr_matmul"] for n in xfam_counts.values())),
         "launches_by_path": {
             "yi-9b generate": launches["bsr_matmul"],
             "yi-9b mapped generate": map_launches["bsr_matmul"],
@@ -5040,9 +5471,11 @@ def main(argv=None):
             "yi-9b degraded engine": robust_launches[
                 "yi-9b degraded engine"],
             "yi-9b warm-start generate": robust_launches[
-                "yi-9b warm-start generate"]},
+                "yi-9b warm-start generate"],
+            **{f"{a} generate": n["bsr_matmul"]
+               for a, n in xfam_counts.items()}},
         "max_abs_err": max(max_err, moe_err, ssm_checks[1], map_err,
-                           train_out["max_abs_err"]),
+                           train_out["max_abs_err"], xfam_out["checks"][1]),
         # one decode step's 7 projections of one layer (M = 4), summed
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
@@ -5094,6 +5527,7 @@ def main(argv=None):
     entry["mapped"] = mapped_entry(map_rows, map_launches, map_checks,
                                    map_err, map_e2e)
     entry["trained"] = trained_entry(train_out, train_launches)
+    entry["encdec_vlm"] = xfam_entry(xfam_out, xfam_counts)
     at_m = layer_sum(rows, ENGINE_SLOTS)
     entry["engine"] = {
         "M": ENGINE_SLOTS,
@@ -5155,6 +5589,7 @@ def main(argv=None):
          "mapped_shapes": map_rows, "mapped_vgg": map_vgg,
          "latency_model": map_model, "train": train_out,
          "robustness": robust, "tensor_parallel": tp_out,
+         "encdec_vlm": xfam_out,
          "phase_start_s": RUN["phase_s"]},
         indent=1, default=str))
     print(f"card: {card}")

@@ -15,7 +15,7 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                 # dense | moe | ssm | hybrid (those ported)
+    family: str                 # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -33,6 +33,9 @@ class ArchConfig:
     ssm_expand: int = 2
     sliding_window: int = 0
     rope_theta: float = 10000.0
+    cross_attn_interval: int = 0   # vlm: one cross-attn layer per this many
+    n_enc_layers: int = 0          # encdec encoder depth
+    n_frontend_tokens: int = 1024  # audio/vlm stub embedding count
     kv_chunk: int = 1024        # KV chunk of the online-softmax attention
     # training
     optimizer: str = "adamw"    # "adamw" | "adafactor" (>= 70B)
@@ -50,6 +53,7 @@ class ArchConfig:
 
 # canonical external ids -> module names
 ALIASES = {
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
     "yi-9b": "yi_9b",
     "granite-8b": "granite_8b",
     "minitron-8b": "minitron_8b",
@@ -58,6 +62,7 @@ ALIASES = {
     "mixtral-8x7b": "mixtral_8x7b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "hymba-1.5b": "hymba_1p5b",
+    "llama-3.2-vision-90b": "llama_3p2_vision_90b",
 }
 
 

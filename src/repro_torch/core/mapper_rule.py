@@ -18,8 +18,13 @@ Workflow per layer:
 The picks are in the mapper's own coordinates: an FC layer's block is a
 (K, N) block of its GEMM, a conv's of its lowered GEMM (K = Cin*kh*kw,
 N = Cout), as the latency model prices them; the mask functions of
-``core.reweighted`` read them as they read any rule's block.  ``lm_layers``
-covers the ported families (dense, moe, ssm, hybrid)."""
+``core.reweighted`` read them as they read any rule's block.
+
+``lm_layers`` copies the reference's rules in the reference's order,
+including its cross-attention rule, which never matches: the
+self-attention patterns come first and ``match`` searches, so
+``attn/wq/w`` also takes ``xattn/wq/w`` (and the encoder's leaves take the
+decoder's rules)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
@@ -32,9 +37,6 @@ from repro_torch.core.latency_model import (TPUTarget, V5E, im2col_x_frac,
                                             conv_as_gemm)
 from repro_torch.core.regularity import legal_blocks
 from repro_torch.core.reweighted import SchemeChoice
-
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
 
 @dataclass(frozen=True)
 class LayerDesc:
@@ -52,13 +54,10 @@ class LayerDesc:
 
 def lm_layers(cfg: ArchConfig, tokens: int) -> list[LayerDesc]:
     """Enumerate the prunable GEMMs of an LM-family arch."""
-    if cfg.family not in FAMILIES:
-        raise ValueError(f"lm_layers: family {cfg.family!r} is not ported "
-                         f"(ported: {FAMILIES})")
     out = []
     D, F, hd = cfg.d_model, cfg.d_ff, cfg.hd
     L = cfg.n_layers
-    if cfg.family in ("dense", "moe", "hybrid"):
+    if cfg.family in ("dense", "moe", "hybrid", "encdec", "vlm"):
         H, KV = cfg.n_heads, cfg.n_kv_heads
         out += [
             LayerDesc(r"attn/wq/w", "fc", tokens, D, H * hd, L),
@@ -72,7 +71,7 @@ def lm_layers(cfg: ArchConfig, tokens: int) -> list[LayerDesc]:
             LayerDesc(r"moe/down/w", "fc", tpe, F, D, L),
             LayerDesc(r"moe/router", "frozen", tokens, D, cfg.n_experts, L),
         ]
-    elif cfg.family in ("dense", "hybrid"):
+    elif cfg.family in ("dense", "hybrid", "encdec", "vlm"):
         out += [
             LayerDesc(r"ffn/(gate|up)/w", "fc", tokens, D, F, 2 * L),
             LayerDesc(r"ffn/down/w", "fc", tokens, F, D, L),
@@ -85,6 +84,10 @@ def lm_layers(cfg: ArchConfig, tokens: int) -> list[LayerDesc]:
             LayerDesc(r"ssm/out_proj/w", "fc", tokens, d_inner, D, L),
             LayerDesc(r"ssm/conv", "dw", tokens, 4, d_inner, L),
         ]
+    if cfg.family in ("encdec", "vlm"):
+        # shadowed by the attn/* rules above (see the module docstring)
+        out += [LayerDesc(r"xattn/wq/w|xattn/wo/w", "fc", tokens, D, H * hd,
+                          2 * L)]
     out += [
         LayerDesc(r"head/table", "fc", tokens, D, cfg.vocab, 1),
         LayerDesc(r"embed/table", "frozen", tokens, cfg.vocab, D, 1),

@@ -42,12 +42,10 @@ def bigram_perm(vocab, seed=7, device="cuda"):
 def synthetic_batch(seed, step, batch, seq, vocab, noise=0.3, shard=0,
                     frontend_tokens=0, d_model=0, device="cuda"):
     """{'tokens': (B, S) int64, 'labels': (B, S)}: B chains of S + 1
-    tokens, the labels the tokens shifted by one; drawn on the host, then
-    moved to ``device``."""
-    if frontend_tokens:
-        raise NotImplementedError(
-            "frontend embeddings (encdec / vlm) come with ROADMAP queue 1 "
-            "item 6")
+    tokens, the labels the tokens shifted by one; with ``frontend_tokens``
+    also 'frontend' (B, frontend_tokens, d_model) bf16 standard normals,
+    encdec's and vlm's embedding stand-in, drawn after the tokens.  Drawn
+    on the host, then moved to ``device``."""
     dev = M.resolve_device(device)
     g = _generator(seed, step, shard)
     perm = bigram_perm(vocab, device="cpu")
@@ -59,7 +57,12 @@ def synthetic_batch(seed, step, batch, seq, vocab, noise=0.3, shard=0,
         tok = torch.where(use_rnd[t], rnd[t], perm[tok])
         toks.append(tok)
     toks = torch.stack(toks, dim=1).to(dev)              # (B, S + 1)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if frontend_tokens:
+        out["frontend"] = torch.randn(
+            (batch, frontend_tokens, d_model), generator=g).to(
+                torch.bfloat16).to(dev)
+    return out
 
 
 def host_shard(global_batch, n_hosts, host_id):

@@ -23,7 +23,11 @@ from DIR (checksummed and validated) instead of packing:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --sparse \\
       --layers 8 --artifacts /path/to/store
 
-``--layers`` cuts depth only, never width.  ``--smoke`` takes the reduced
+encdec and vlm models (seamless-m4t-large-v2, llama-3.2-vision-90b) are
+served by ``generate`` with the data pipeline's seeded frontend
+embeddings; the engine serves the decoder-only families.  ``--layers``
+cuts depth only, never width (vlm: whole groups of
+``cross_attn_interval`` layers).  ``--smoke`` takes the reduced
 test config instead of the published one; ``--device cpu`` runs the plain
 PyTorch versions of the kernels (for small configs).
 """
@@ -38,6 +42,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core import reweighted as RW
+from repro_torch.data.pipeline import synthetic_batch
 from repro_torch.models import transformer as T
 from repro_torch.serve.compile import (CompileSpec, compile_model,
                                        compiled_summary)
@@ -101,6 +106,14 @@ def main(argv=None):
     params = T.init_lm(cfg, seed=0, device=args.device)
     prompts = np.random.RandomState(0).randint(
         0, cfg.vocab, size=(args.batch, args.prompt_len))
+    frontend = None
+    if cfg.family in ("encdec", "vlm"):
+        # encdec's audio frames and vlm's image patches: the data
+        # pipeline's seeded stand-in embeddings
+        frontend = synthetic_batch(
+            0, 0, args.batch, args.prompt_len, cfg.vocab,
+            frontend_tokens=cfg.n_frontend_tokens, d_model=cfg.d_model,
+            device=args.device)["frontend"]
     if args.sparse:
         masks = RW.magnitude_block_masks(params, SPARSE_SPEC, None,
                                          rate=args.prune_rate)
@@ -123,7 +136,8 @@ def main(argv=None):
         _run_engine(params, cfg, args, mode)
         return
     t0 = time.perf_counter()
-    out = generate(params, cfg, prompts, args.new_tokens, device=args.device)
+    out = generate(params, cfg, prompts, args.new_tokens, device=args.device,
+                   frontend=frontend)
     _sync(args.device)
     dt = time.perf_counter() - t0
     print(f"{args.arch} [{mode}, {cfg.n_layers} layers]: generated "

@@ -106,8 +106,11 @@ def main(argv=None):
             rep = RW.sparsity_report(params, masks)["__overall__"]
             print(f"step {step}: pruned -> density {rep['density']:.3f} "
                   f"(compression {rep['compression']:.2f}x)")
-        batch = synthetic_batch(0, step, args.batch, args.seq, cfg.vocab,
-                                device=dev)
+        batch = synthetic_batch(
+            0, step, args.batch, args.seq, cfg.vocab,
+            frontend_tokens=cfg.n_frontend_tokens
+            if cfg.family in ("encdec", "vlm") else 0, d_model=cfg.d_model,
+            device=dev)
         t0 = time.perf_counter()
         params, opt_state, metrics = train_step(params, opt_state, batch,
                                                 masks, alphas)

@@ -1,6 +1,7 @@
-"""GQA attention: KV-chunked online softmax for prefill, the direct cached
-step for decode (one shared position for the batch, or ragged: one per
-slot of the continuous-batching engine).  All four projections
+"""GQA attention: KV-chunked online softmax for prefill (self-attention,
+or cross-attention over an encoder's memory or image patches), the direct
+cached step for decode (one shared position for the batch, or ragged: one
+per slot of the continuous-batching engine).  All four projections
 (wq/wk/wv/wo) go through ``layers.linear``, so layers compiled by
 ``serve.compile`` run on the BCS kernel transparently.  The attention math
 itself is plain PyTorch, as the reference leaves it to XLA.
@@ -127,21 +128,46 @@ def attend_cached(q, k_cache, v_cache, q_pos, k_pos, window=0):
 
 
 def mha(params, x, positions, n_heads, n_kv, head_dim, *, causal=True,
-        window=0, rope_theta=10000.0, masks=None, kv_chunk=1024):
-    """Full-sequence self-attention (prefill).  Returns (out, (k, v)) with
-    k, v the roped (B, S, KV, hd) keys and values the cache keeps."""
+        window=0, rope_theta=10000.0, masks=None, memory=None,
+        kv_chunk=1024):
+    """Full-sequence attention (prefill).  Returns (out, (k, v)) with k, v
+    the (B, Sk, KV, hd) keys and values the cache keeps.
+
+    Self-attention ropes q and k at ``positions``.  Given ``memory``
+    (B, T, D), it is cross-attention: k and v are projected from the
+    memory, neither q nor k is roped, the keys sit at positions 0..T-1
+    and nothing is masked."""
     m = masks or {}
     B, S, _ = x.shape
     q = _proj(params, "wq", x, m).reshape(B, S, n_heads, head_dim)
-    k = _proj(params, "wk", x, m).reshape(B, S, n_kv, head_dim)
-    v = _proj(params, "wv", x, m).reshape(B, S, n_kv, head_dim)
-    q = L.apply_rotary(q, positions, rope_theta)
-    k = L.apply_rotary(k, positions, rope_theta)
+    src = x if memory is None else memory
+    Sk = src.shape[1]
+    k = _proj(params, "wk", src, m).reshape(B, Sk, n_kv, head_dim)
+    v = _proj(params, "wv", src, m).reshape(B, Sk, n_kv, head_dim)
+    if memory is None:
+        q = L.apply_rotary(q, positions, rope_theta)
+        k = L.apply_rotary(k, positions, rope_theta)
+        k_pos = positions
+    else:
+        k_pos = torch.arange(Sk, dtype=torch.int32, device=x.device)
+        causal = False
     out = attend(q, _expand_kv(k, n_heads), _expand_kv(v, n_heads),
-                 positions, positions, causal=causal, window=window,
+                 positions, k_pos, causal=causal, window=window,
                  kv_chunk=kv_chunk)
     out = out.reshape(B, S, n_heads * head_dim)
     return _proj(params, "wo", out, m), (k, v)
+
+
+def cross_decode(params, x, xk, xv, n_heads, n_kv, head_dim):
+    """One-token cross-attention over a prefill's compact cross cache
+    ``xk``/``xv`` (B, T, KV, hd): only wq and wo run; the query sits after
+    every key (position 2**30), so nothing is masked."""
+    B = x.shape[0]
+    q = L.linear(params["wq"], x).reshape(B, 1, n_heads, head_dim)
+    q_pos = torch.full((1,), 1 << 30, dtype=torch.int32, device=x.device)
+    k_pos = torch.arange(xk.shape[1], dtype=torch.int32, device=x.device)
+    o = attend_cached(_grouped(q, n_kv), xk, xv, q_pos, k_pos)
+    return L.linear(params["wo"], o.reshape(B, 1, n_heads * head_dim))
 
 
 def mha_decode(params, x, cache, pos, n_heads, n_kv, head_dim, *,

@@ -1,9 +1,10 @@
 """Serving: ``prefill`` (a forward pass that also emits the per-layer KV
-caches and SSM states), ``generate`` (prefill, then the greedy decode
-loop), ``generate_python`` (its per-token oracle), and the
-continuous-batching ``ServingEngine``, which decodes every live request
-through ONE batched step a token, so each packed kernel launch reads the
-weights once for the whole batch.  Works with dense, masked, and
+caches, SSM states and cross caches), ``generate`` (prefill, then the
+greedy or sampling decode loop), ``generate_python`` (its greedy
+per-token oracle), and the continuous-batching ``ServingEngine`` (the
+decoder-only families), which decodes every live request through ONE
+batched step a token, so each packed kernel launch reads the weights once
+for the whole batch.  Works with dense, masked, and
 ``compile_model``-packed params alike."""
 from __future__ import annotations
 
@@ -32,12 +33,18 @@ def _window_kv(k, v, S_len, cfg):
     return k[:, S_len - cap:], v[:, S_len - cap:], pos
 
 
-def prefill(params, cfg: ArchConfig, tokens):
+def prefill(params, cfg: ArchConfig, tokens, frontend=None):
     """tokens (B, S) -> (last-token logits (B, 1, V), cache).  The KV
     cache (dense, moe, hybrid) is exactly as long as the prompt, cut to
     the attention window (a ring stacked on the layer dim like
     ``models.transformer.init_cache``); the ssm and hybrid families add
     each layer's mixer state, stacked the same way.
+
+    encdec runs its encoder once over ``frontend`` (B, T, D); its cache is
+    the decoder's self "kv" (unwindowed, positions 0..S-1) and each
+    layer's cross keys and values of the memory, "xk"/"xv" (n_layers, B,
+    T, KV, hd).  vlm's is "kv_self" over its G * (k - 1) self layers in
+    order and "xk"/"xv" (G, B, T, KV, hd) of the image patches.
 
     The hybrid state is the one the layer's own mixer run computed on the
     layer's normed input.  The reference (``repro.serve.engine.prefill``)
@@ -47,18 +54,43 @@ def prefill(params, cfg: ArchConfig, tokens):
     _, Sq = tokens.shape
     positions = torch.arange(Sq, dtype=torch.int32, device=tokens.device)
     x = L.embed(params["embed"], tokens)
-    kvs, states = [], []
-    for lp in T.layer_params(params):
-        x, kv, st, _ = T._layer_fwd(lp, x, positions, cfg)
-        if kv is not None:
-            kvs.append(_window_kv(*kv, Sq, cfg))
-        if st is not None:
-            states.append(st)
+    fam = cfg.family
+    kvs, xkvs, states = [], [], []
+    if fam in T.DECODER_FAMILIES:
+        for lp in T.layer_params(params):
+            x, kv, st, _ = T._layer_fwd(lp, x, positions, cfg)
+            if kv is not None:
+                kvs.append(_window_kv(*kv, Sq, cfg))
+            if st is not None:
+                states.append(st)
+    elif fam == "encdec":
+        memory = T.encode(params, cfg, frontend, x.dtype)
+        for lp in T.layer_params(params, "dec"):
+            x, (k, v, xk, xv), _, _ = T._layer_fwd(lp, x, positions, cfg,
+                                                   "xdec", memory)
+            kvs.append((k, v, positions))
+            xkvs.append((xk, xv))
+    elif fam == "vlm":
+        memory = frontend.to(x.dtype)
+        for g in T.layer_params(params, "groups"):
+            for lp in T.layer_params(g, "selfs"):
+                x, (k, v), _, _ = T._layer_fwd(lp, x, positions, cfg,
+                                               "dense")
+                kvs.append((k, v, positions))
+            x, xkv, _, _ = T._layer_fwd(g["cross"], x, positions, cfg,
+                                        "cross", memory)
+            xkvs.append(xkv)
+    else:
+        raise ValueError(fam)
     cache = {}
     if kvs:
         k, v, pos = zip(*kvs)
-        cache["kv"] = {"k": torch.stack(k), "v": torch.stack(v),
-                       "pos": torch.stack(pos)}
+        cache["kv_self" if fam == "vlm" else "kv"] = {
+            "k": torch.stack(k), "v": torch.stack(v),
+            "pos": torch.stack(pos)}
+    if xkvs:
+        xk, xv = zip(*xkvs)
+        cache["xk"], cache["xv"] = torch.stack(xk), torch.stack(xv)
     if states:
         cache["ssm"] = {name: torch.stack([st[name] for st in states])
                         for name in states[0]}
@@ -66,29 +98,46 @@ def prefill(params, cfg: ArchConfig, tokens):
     return L.unembed(params["head"], x), cache
 
 
-def generate(params, cfg: ArchConfig, tokens, n_new, device="cuda"):
-    """Greedy generation: prefill, then ``n_new`` decode steps.  Returns
-    (B, n_new) int32 tokens; the first is the prefill's argmax.  Decoding
-    past the prompt overwrites the ring slot of the oldest position, as
-    the reference does."""
+def _inputs(tokens, frontend, device):
     dev = resolve_device(device)
     tokens = torch.as_tensor(tokens, device=dev)
+    if frontend is not None:
+        frontend = torch.as_tensor(frontend, device=dev)
+    return dev, tokens, frontend
+
+
+def generate(params, cfg: ArchConfig, tokens, n_new, device="cuda",
+             frontend=None, temperature=0.0, generator=None):
+    """Prefill, then ``n_new`` decode steps.  Returns (B, n_new) int32
+    tokens; the first is the prefill's argmax at any temperature.  At
+    temperature 0 every later token is the argmax (greedy); above it,
+    step i draws from softmax(logits / temperature) by ``generator`` (a
+    ``torch.Generator`` on the device; None seeds one with 0, as the
+    reference's default key is ``PRNGKey(0)``: the draws are torch's, not
+    JAX's).  ``frontend`` (B, T, D) is encdec's and vlm's embedding
+    stand-in.  Decoding past the prompt overwrites the ring slot of the
+    oldest position, as the reference does."""
+    dev, tokens, frontend = _inputs(tokens, frontend, device)
     B, Sq = tokens.shape
-    logits, cache = prefill(params, cfg, tokens)
+    if temperature > 0 and generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+    logits, cache = prefill(params, cfg, tokens, frontend)
     tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
     start = torch.full((B, 1), Sq, dtype=torch.int32, device=dev)
-    toks, _ = T.decode_loop(params, cfg, tok, cache, start, n_new)
+    toks, _ = T.decode_loop(params, cfg, tok, cache, start, n_new,
+                            temperature, generator)
     return toks
 
 
-def generate_python(params, cfg: ArchConfig, tokens, n_new, device="cuda"):
+def generate_python(params, cfg: ArchConfig, tokens, n_new, device="cuda",
+                    frontend=None):
     """Greedy generation one token at a time, each step's token read back
     to the host: the per-token oracle of ``generate`` and the engine."""
-    dev = resolve_device(device)
-    tokens = torch.as_tensor(tokens, device=dev)
+    dev, tokens, frontend = _inputs(tokens, frontend, device)
     B, Sq = tokens.shape
-    logits, cache = prefill(params, cfg, tokens)
-    layers = T.layer_params(params)
+    logits, cache = prefill(params, cfg, tokens, frontend)
+    layers = T.decode_layers(params, cfg)
     out = []
     for i in range(n_new):
         tok = np.argmax(logits[:, -1, :].float().cpu().numpy(), axis=-1)
@@ -134,7 +183,7 @@ class ServingEngine:
     untouched (slots share weights, never activations).
     """
 
-    FAMILIES = T.FAMILIES
+    FAMILIES = T.DECODER_FAMILIES
 
     def __init__(self, params, cfg: ArchConfig, *, n_slots=8, seq_cap=256,
                  max_queue=None, validate=True, report=None,

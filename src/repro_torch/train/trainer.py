@@ -38,7 +38,8 @@ def make_loss_fn(cfg: ArchConfig, aux_weight=0.01, reweighted=None):
 
     def loss_fn(params, batch, masks=None, alphas=None):
         logits, aux = T.forward_aux(apply_masks(params, masks), cfg,
-                                    batch["tokens"])
+                                    batch["tokens"],
+                                    frontend=batch.get("frontend"))
         ce = L.cross_entropy(logits, batch["labels"])
         total = ce + aux_weight * aux
         if reweighted is not None and alphas is not None:

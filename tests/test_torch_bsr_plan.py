@@ -314,6 +314,82 @@ def test_emulated_kernel_matches_plain_and_is_bitwise_reorder_stable(
     torch.testing.assert_close(ys[0].float(), want, rtol=tol, atol=tol)
 
 
+# -- the encdec and vlm shapes ------------------------------------------------
+
+# (K, N) of seamless-m4t-large-v2's and llama-3.2-vision-90b's projections
+# at full width; M = 4096 is the encoder's and the cross wk / wv's rows
+# (B = 4 x 1024 frontend tokens), 32 M tiles, where earlier paths never
+# passed 8; K = 28672 (llama-vision's down, Kb = 1792) is the longest
+# column yet
+ENCDEC_VLM = [(1024, 1024), (1024, 8192), (8192, 1024), (8192, 8192),
+              (8192, 28672), (28672, 8192)]
+
+
+@pytest.mark.parametrize("Kd,N", ENCDEC_VLM)
+@pytest.mark.parametrize("M", [4, 128, 4096])
+def test_plan_at_the_encdec_and_vlm_shapes(M, Kd, N):
+    """Tensor cores; the tile count, the chunk and the shared memory of
+    each launch, and the workspace and counters its bin table asks for
+    (the table's columns cut to 4, their slot lists kept: the sizes are
+    per column, and the kernel takes ``tiles`` and ``ws_floats`` from the
+    table)."""
+    p = K.bsr_plan(M, Kd, N, BF16, 16, 16)
+    assert p.mma and p.subcols == 1 and p.NW == 16
+    assert (p.MT, p.mtiles) == ((16, 1) if M == 4 else (128, M // 128))
+    assert p.WK == (4 if M == 4 else 1) and p.S == p.WK * p.SW
+    tiles = (N // 16) * p.mtiles
+    if M == 4096:
+        # 32 M tiles: every column fills the card on its own, so the
+        # chunk stays at BSR_CHUNK slots
+        assert p.mtiles == 32 and p.S == K.BSR_CHUNK == 64
+        assert tiles >= 2048 and tiles * p.chunks(Kd // 16) >= \
+            K.BSR_TARGET_BLOCKS
+    assert p.smem <= K.BSR_SMEM_TARGET
+    lay = _layout(Kd, 64, (16, 16), BF16, True)
+    q = K.bsr_plan(M, Kd, 64, BF16, 16, 16)
+    assert (q.MT, q.mtiles, q.WK) == (p.MT, p.mtiles, p.WK)
+    bins = K._bsr_bins(lay, q, CPU)
+    want_ws = want_items = 0
+    for kidx in lay.k_idx:
+        nb, L = kidx.shape
+        nch = q.chunks(L)
+        want_items += nb * q.mtiles * nch
+        if nch > 1:
+            want_ws += nb * q.mtiles * nch * q.MT * q.NW
+    assert bins.tiles == 4 * q.mtiles
+    assert (bins.items, bins.ws_floats) == (want_items, want_ws)
+    # the dense column holds every one of the K // 16 slots
+    assert max(lay.bin_degrees) == Kd // 16
+    # at the full N, were every column dense, the workspace stays under
+    # 2**31 floats (8 GiB) and the tile counters inside int32
+    assert tiles * q.chunks(Kd // 16) * q.MT * q.NW < 2 ** 31
+
+
+@pytest.mark.parametrize("M,Kd,N", [(4096, 256, 32), (4, 28672, 32),
+                                    (129, 28672, 32)])
+def test_emulated_kernel_at_32_m_tiles_and_the_longest_column(M, Kd, N):
+    """The emulated launch at M = 4096 (32 M tiles, chunked columns
+    through the workspace and the counters) and at K = 28672 (a column of
+    1792 slots in 28 chunks): equal to the plain version, bitwise across
+    the reorder."""
+    lays = [_layout(Kd, N, (16, 16), BF16, True),
+            _layout(Kd, N, (16, 16), BF16, False)]
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(M, Kd).astype(np.float32)).to(BF16)
+    b = torch.from_numpy(rng.randn(N).astype(np.float32)).to(BF16)
+    p = K.bsr_plan(M, Kd, N, BF16, 16, 16)
+    assert max(p.chunks(L) for L in lays[0].bin_degrees) > 1
+    if M == 4096:
+        assert p.mtiles == 32
+    else:
+        assert max(p.chunks(L) for L in lays[0].bin_degrees) == 1792 // p.S
+    ys = [emulate_bsr(x, lay, b, "silu", seed=i)
+          for i, lay in enumerate(lays)]
+    assert torch.equal(ys[0], ys[1])
+    want = ref.bsr_matmul_packed_ref(x.float(), lays[0], b.float(), "silu")
+    torch.testing.assert_close(ys[0].float(), want, rtol=1e-2, atol=1e-2)
+
+
 # -- kernel 1's expert axis (MoE) ---------------------------------------------
 
 def _expert_stack(E, K_, N_, block, dtype, reorder, n_bins=4, seed=0,

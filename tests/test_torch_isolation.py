@@ -45,7 +45,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
               "repro_torch.launch.train", "repro_torch.train.trainer",
               "repro_torch.core.validate", "repro_torch.serve.artifacts",
               "repro_torch.testing.faults",
-              "repro_torch.distributed.checkpoint"):
+              "repro_torch.distributed.checkpoint",
+              "repro_torch.core.fusion", "repro_torch.core.autotune",
+              "repro_torch.configs.seamless_m4t_large_v2",
+              "repro_torch.configs.llama_3p2_vision_90b"):
         assert m in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"

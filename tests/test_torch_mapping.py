@@ -199,9 +199,15 @@ def test_map_rules_served_picks_at_full_width_and_mamba2_in_proj():
 
 
 def test_lm_layers_refuses_a_family_not_ported():
-    cfg = configs.get("yi-9b", smoke=True).replace(family="encdec")
-    with pytest.raises(ValueError, match="not ported"):
-        MR.lm_layers(cfg, 4)
+    """A family neither package defines: the reference's ``lm_layers``
+    refuses nothing and lists the head and the embedding only, and so does
+    the port (every family the reference defines is ported)."""
+    cfg = configs.get("yi-9b", smoke=True).replace(family="foo")
+    rows = MR.lm_layers(cfg, 4)
+    want = ref_MR.lm_layers(ref_configs.get("yi-9b", smoke=True).replace(
+        family="foo"), 4)
+    assert [vars(r) for r in rows] == [vars(r) for r in want]
+    assert [r.path for r in rows] == [r"head/table", r"embed/table"]
 
 
 def _conv_specs(arch, hw):

@@ -184,9 +184,17 @@ def test_remat_full_equals_none_bitwise(arch):
 
 
 def test_training_forward_refuses_unported_families():
-    cfg = configs.get("yi-9b", smoke=True).replace(family="encdec")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        T.forward_aux({}, cfg, torch.zeros((1, 4), dtype=torch.long))
+    """A family neither package defines: ``forward`` raises ValueError in
+    both, as the reference's does (every family it defines is ported)."""
+    tokens = np.zeros((1, 4), np.int32)
+    rcfg, pcfg, rp = _lm("yi-9b")
+    with pytest.raises(ValueError, match="foo"):
+        ref_T.forward(rp, rcfg.replace(family="foo"), jnp.asarray(tokens))
+    with pytest.raises(ValueError, match="foo"):
+        T.forward_aux(to_port(rp), pcfg.replace(family="foo"),
+                      torch.from_numpy(tokens))
+    assert set(T.FAMILIES) == {"dense", "moe", "ssm", "hybrid", "encdec",
+                               "vlm"}
 
 
 # -- the reweighted penalty --------------------------------------------------
@@ -632,9 +640,18 @@ def test_synthetic_batch_is_a_noisy_bigram_chain():
     p = 1 - noise + noise / V
     assert abs(follows - p) <= 3 * (p * (1 - p) / (B * S)) ** 0.5
     assert data.host_shard(64, 4, 3) == ref_data.host_shard(64, 4, 3)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        data.synthetic_batch(0, 0, 2, 4, V, frontend_tokens=8, d_model=16,
+    # encdec's / vlm's frontend: bf16 standard normals drawn after the
+    # tokens, so the tokens are those of the batch without it
+    f = data.synthetic_batch(0, 5, B, S, V, frontend_tokens=8, d_model=16,
                              device="cpu")
+    assert torch.equal(f["tokens"], a["tokens"])
+    assert f["frontend"].shape == (B, 8, 16)
+    assert f["frontend"].dtype == torch.bfloat16
+    assert torch.equal(f["frontend"], data.synthetic_batch(
+        0, 5, B, S, V, frontend_tokens=8, d_model=16,
+        device="cpu")["frontend"])
+    assert abs(f["frontend"].float().std().item() - 1) < 0.15
+    assert "frontend" not in a
 
 
 def test_straggler_monitor_matches_reference():
