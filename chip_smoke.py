@@ -4438,6 +4438,267 @@ def tp_entries(out, launches):
     return [k1, k2]
 
 
+# -- the mesh path: a one-rank NCCL DeviceMesh ---------------------------------
+
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 3   # full width, TRAIN_B x TRAIN_S
+MESH_LOSS_TOL = 1e-5     # meshed train losses vs un-meshed (absolute)
+MESH_ITERS = 5           # timed calls (after one warm call)
+
+
+def wall_ms(fn, iters=MESH_ITERS):
+    """Median synchronised wall ms of ``fn`` over ``iters`` calls, after
+    one warm call (eager: DTensor's dispatch runs on the host)."""
+    with torch.no_grad():
+        fn()
+        sync()
+        out = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def mesh_serve(mods, pm, masks, cfg, serve_tokens, mesh, SH):
+    """yi-9b compiled at ``CompileSpec(tp=TP)``, placed on the mesh by
+    ``shard_packed_tree``, served with ``make_dist``'s ``Dist``: the
+    counted ``generate`` (its tokens == ``serve_tokens``, TP's 952
+    sharded launches), bf16 prefill logits against the un-meshed tree's
+    (bitwise expected) and masked-dense, warm prefill and decode-step
+    ms meshed vs un-meshed; then ``ServingEngine(dist=)``, its step
+    captured once: tokens == the un-meshed engine's, launches a step,
+    step ms beside the un-meshed engine's."""
+    E, K, T = mods["E"], mods["K"], mods["T"]
+    from repro_torch.launch.serve import SPARSE_SPEC
+    exec_p, _, compile_s = compile_timed(mods, pm, masks, SPARSE_SPEC, tp=TP)
+    placed = SH.shard_packed_tree(exec_p, mesh)
+    d = SH.make_dist(mesh, cfg, B)
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab, size=(B, S))
+    tokens = torch.as_tensor(prompts, device=DEV)
+    K.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = E.generate(placed, cfg, prompts, N_NEW, device=DEV, dist=d)
+    sync()
+    gen_s = time.perf_counter() - t0
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    want = cfg.n_layers * 7 * (1 + N_NEW)
+    same = out.tolist() == serve_tokens
+    with torch.no_grad():
+        plain, cache_p = E.prefill(exec_p, cfg, tokens)
+        meshed, cache_m = E.prefill(placed, cfg, tokens, dist=d)
+        dense, _ = E.prefill(pm, cfg, tokens)
+    bitwise = torch.equal(plain, meshed)
+    gap, dgap = logit_gap(plain, meshed), logit_gap(dense, meshed)
+    tok = plain[:, -1].argmax(-1)[:, None].to(torch.int32)
+    pos = torch.full((B, 1), S, dtype=torch.int32, device=DEV)
+    lay_p, lay_m = T.decode_layers(exec_p, cfg), T.decode_layers(placed, cfg)
+    ms = {"prefill": wall_ms(lambda: E.prefill(exec_p, cfg, tokens)),
+          "prefill_mesh": wall_ms(lambda: E.prefill(placed, cfg, tokens,
+                                                    dist=d)),
+          "decode_step": wall_ms(lambda: T.decode_step(
+              exec_p, cfg, tok, cache_p, pos, lay_p)),
+          "decode_step_mesh": wall_ms(lambda: T.decode_step(
+              placed, cfg, tok, cache_m, pos, lay_m, d))}
+    print(f"[mesh] yi-9b ({cfg.n_layers} layers, bf16) at tp={TP}, placed "
+          f"by shard_packed_tree on the one-rank mesh: generate "
+          f"{tuple(out.shape)} in {gen_s:.3f} s, launches {launches} "
+          f"(expected bsr_matmul_sharded {want}); tokens == the un-meshed "
+          f"tree's: {same}; prefill logits vs un-meshed: bitwise {bitwise}, "
+          f"{gap[0]:.2e} / {gap[1]:.2e}; vs masked-dense {dgap[0]:.4f} / "
+          f"{dgap[1]:.4f} (bound {LOGIT_MAX_REL} / {LOGIT_MEAN_REL})")
+    print(f"[mesh] warm prefill {ms['prefill_mesh']:.3f} ms meshed vs "
+          f"{ms['prefill']:.3f} un-meshed; decode step "
+          f"{ms['decode_step_mesh']:.3f} ms vs {ms['decode_step']:.3f} "
+          f"(eager; x{ms['decode_step_mesh'] / ms['decode_step']:.2f})")
+    if launches != {"bsr_matmul_sharded": want}:
+        raise AssertionError("the meshed generate did not launch kernel 1 "
+                             "once a projection and forward")
+    if not (same and within_bound(gap) and within_bound(dgap)
+            and torch.isfinite(meshed).all()):
+        raise AssertionError("the meshed tree disagrees with the un-meshed "
+                             "one or with masked-dense")
+    del plain, meshed, dense, cache_p, cache_m
+
+    prompts_e = engine_prompts(cfg)
+    K.reset_launches()
+    eng, toks_m, wall, step_m, runs = engine_serve(mods, placed, cfg,
+                                                   prompts_e, dist=d)
+    counted = dict(K.LAUNCHES)
+    per_step = eng._replay_launches.get("bsr_matmul_sharded")
+    n_adm, captures = eng.stats["admitted"], eng.stats["graph_captures"]
+    del eng
+    _, toks_p, _, step_p, _ = engine_serve(mods, exec_p, cfg, prompts_e)
+    warm_up = 1 if DEV == "cuda" else 0      # the capture's warm-up step
+    want_e = cfg.n_layers * 7 * (warm_up + runs + n_adm)
+    eng_ms = (statistics.median(step_m), statistics.median(step_p))
+    print(f"[mesh] ServingEngine(dist=): {captures} capture, sharded "
+          f"kernel-1 launches a replayed step {per_step}; {len(prompts_e)} "
+          f"requests, tokens == the un-meshed engine's: {toks_m == toks_p}; "
+          f"launches {counted.get('bsr_matmul_sharded')} (expected "
+          f"({warm_up} warm-up + {runs} steps + {n_adm} prefills) x "
+          f"{cfg.n_layers * 7} = {want_e}); decode-only step "
+          f"{eng_ms[0]:.3f} ms meshed vs {eng_ms[1]:.3f} un-meshed, "
+          f"{wall:.2f} s")
+    if not (toks_m == toks_p and captures == 1
+            and per_step == cfg.n_layers * 7
+            and counted.get("bsr_matmul_sharded") == want_e):
+        raise AssertionError("the meshed engine's gates failed")
+    del exec_p, placed
+    return ({"compile_s": compile_s, "launches": launches,
+             "tokens_equal": same, "generate_s": gen_s,
+             "prefill_bitwise": bitwise, "logits_gap": gap,
+             "dense_gap": dgap, "ms": ms,
+             "engine": {"tokens_equal": toks_m == toks_p,
+                        "captures": captures,
+                        "launches_per_step": per_step,
+                        "launches": counted.get("bsr_matmul_sharded"),
+                        "step_ms": eng_ms[0], "unmeshed_step_ms": eng_ms[1],
+                        "step_ms_all": step_m}},
+            {"yi-9b mesh generate": launches["bsr_matmul_sharded"],
+             "yi-9b mesh engine": counted["bsr_matmul_sharded"]})
+
+
+def mesh_train(mods, mesh, SH):
+    """yi-9b at full width, MESH_TRAIN_LAYERS layers, bf16 params, fp32
+    AdamW state: MESH_TRAIN_STEPS steps of TRAIN_B x TRAIN_S from the same
+    init, un-meshed and then with the params placed by
+    ``param_shardings`` in ``cfg.train_shard_mode`` and ``make_dist``'s
+    ``Dist``: the losses within MESH_LOSS_TOL, warm step ms of each."""
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.train import trainer
+    T = mods["T"]
+    cfg = lm_config().replace(n_layers=MESH_TRAIN_LAYERS)
+    mode = cfg.train_shard_mode
+    losses, ms = {}, {}
+    for name in ("plain", "mesh"):
+        params = T.init_lm(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
+        d = None
+        if name == "mesh":
+            d = SH.make_dist(mesh, cfg, TRAIN_B, mode=mode)
+            params = SH.distribute(params, SH.param_shardings(
+                params, cfg, mesh, mode))
+        init, step = trainer.make_train_step(cfg, lr=TRAIN_LR, dist=d)
+        state = init(params)
+        losses[name], ms[name] = [], []
+        for s in range(MESH_TRAIN_STEPS):
+            batch = synthetic_batch(0, s, TRAIN_B, TRAIN_S, cfg.vocab,
+                                    device=DEV)
+            sync()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            sync()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            losses[name].append(float(m["loss"]))
+        del params, state
+        torch.cuda.empty_cache()
+    gap = max(abs(a - b) for a, b in zip(losses["plain"], losses["mesh"]))
+    print(f"[mesh] train yi-9b ({MESH_TRAIN_LAYERS} layers, full width, "
+          f"{mode!r}, B = {TRAIN_B} x {TRAIN_S}): losses meshed "
+          f"{losses['mesh']} vs {losses['plain']}, worst gap {gap:.2e} "
+          f"(bound {MESH_LOSS_TOL}); step ms meshed {ms['mesh']} vs "
+          f"{ms['plain']}")
+    if not (gap <= MESH_LOSS_TOL and all(map(math.isfinite,
+                                             losses["mesh"]))):
+        raise AssertionError("the meshed train steps disagree with the "
+                             "un-meshed ones")
+    return {"mode": mode, "losses": losses, "gap": gap, "step_ms": ms}
+
+
+def mesh_vgg(mods, mesh, SH):
+    """VGG_TINY under the pattern mapping at tp = TP_CONV, placed by
+    ``shard_packed_tree``: one forward (fp32, B = CONV_B) through kernel 2
+    per rank, launches from the layouts, logits bitwise the un-meshed
+    tp = TP_CONV forward's."""
+    RW, CN, C, K, ops = (mods["RW"], mods["CN"], mods["C"], mods["K"],
+                         mods["ops"])
+    from repro_torch.train.trainer import apply_masks
+    params = CN.convnet_init(CN.VGG_TINY, seed=0, device=DEV)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    x, _ = CN.synthetic_images(gen, CONV_B, size=CONV_HW)
+    name, spec = conv_mappings(RW)[1]
+    masks = conv_masks(RW, name, params, spec)
+    tp_p, _ = C.compile_model(apply_masks(params, masks), masks, spec,
+                              spec=C.CompileSpec(keep_dense=False,
+                                                 tp=TP_CONV), device=DEV)
+    placed = SH.shard_packed_tree(tp_p, mesh)
+    want = expected_conv_launches(ops, CN.VGG_TINY, tp_p, CONV_HW, CONV_B)
+    K.reset_launches()
+    sync()
+    with torch.no_grad():
+        got = CN.convnet_apply(placed, x, CN.VGG_TINY)
+    sync()
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    with torch.no_grad():
+        plain = CN.convnet_apply(tp_p, x, CN.VGG_TINY)
+    bitwise = torch.equal(got, plain)
+    print(f"[mesh] VGG_TINY {name} at tp={TP_CONV}, placed: one forward's "
+          f"launches {launches} (from the layouts: {want}); logits == the "
+          f"un-meshed tp={TP_CONV} forward's bitwise: {bitwise}")
+    if not (launches == want and bitwise
+            and launches.get("tap_gather_conv_sharded")):
+        raise AssertionError("the meshed VGG_TINY forward failed its gates")
+    return {"launches": launches, "bitwise": bitwise}
+
+
+def mesh_compression(mesh, SH):
+    """``compressed_allreduce`` of a yi-9b ffn/down-sized fp32 gradient
+    (DFF x D) over the model axis's one-rank NCCL group: the error within
+    one quantization step (the scale), and its ms."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(5)
+    g = torch.randn(DFF, D, generator=gen, device=DEV)
+    out = SH.compressed_allreduce(g, gen, mesh, "model")
+    sync()
+    scale = float(g.abs().max()) / 127.0
+    err = float((out - g).abs().max())
+    ms = wall_ms(lambda: SH.compressed_allreduce(g, gen, mesh, "model"))
+    print(f"[mesh] compressed_allreduce of a ({DFF}, {D}) fp32 gradient: max "
+          f"error {err:.3e} vs the scale {scale:.3e}; {ms:.3f} ms")
+    if not err <= scale * (1 + 1e-6):
+        raise AssertionError("the int8 all-reduce is off by more than a "
+                             "quantization step")
+    return {"max_abs_err": err, "scale": scale, "ms": ms}
+
+
+def mesh_phase(mods, pm, masks, cfg, serve_tokens):
+    """The mesh path on one card (``[mesh]`` lines): a one-rank NCCL group
+    and ``make_local_mesh()``, the reference's (1, 1) mesh; yi-9b served
+    and its engine run through it (``mesh_serve``), trained
+    (``mesh_train``), VGG_TINY's pattern forward (``mesh_vgg``) and the
+    int8 gradient all-reduce (``mesh_compression``).  The group ends with
+    the phase.  Returns (numbers, launches by path for each shard
+    wrapper)."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as MESH
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    mesh = MESH.make_local_mesh()
+    print(f"[mesh] make_local_mesh(): {mesh.mesh_dim_names} "
+          f"{tuple(mesh.shape)} on {mesh.device_type}, backend "
+          f"{torch.distributed.get_backend()}, {time.perf_counter() - t0:.2f}"
+          f" s")
+    try:
+        serve, launches = mesh_serve(mods, pm, masks, cfg, serve_tokens,
+                                     mesh, SH)
+        torch.cuda.empty_cache()
+        train = mesh_train(mods, mesh, SH)
+        vgg = mesh_vgg(mods, mesh, SH)
+        comp = mesh_compression(mesh, SH)
+    finally:
+        MESH.close_local_mesh()
+    out = {"serve": serve, "train": train, "vgg": vgg, "compression": comp,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"[mesh] phase {out['phase_s']:.1f} s")
+    return out, {"bsr_matmul_sharded": launches,
+                 "tap_gather_conv_sharded": {
+                     "VGG_TINY pattern tp=2 mesh forward":
+                         vgg["launches"]["tap_gather_conv_sharded"]}}
+
+
 # -- the paper's prune-and-train pipeline on yi-9b ----------------------------
 
 TRAIN_B, TRAIN_S = 8, 128        # the training batch: B sequences of S
@@ -5382,6 +5643,12 @@ def main(argv=None):
     tp_out, tp_launches = tensor_parallel_phase(
         mods, *served, serve_tokens=e2e["tokens"],
         unsharded_step_ms=e2e["engine"]["saturated"]["step_ms"])
+    torch.cuda.empty_cache()
+    stamp("mesh")
+    mesh_out, mesh_launches = mesh_phase(mods, *served[:3],
+                                         serve_tokens=e2e["tokens"])
+    for k, v in mesh_launches.items():
+        tp_launches[k].update(v)
     del served
     torch.cuda.empty_cache()
     # the paper's pipeline: train, prune and fine-tune yi-9b, then serve it
@@ -5589,6 +5856,7 @@ def main(argv=None):
          "mapped_shapes": map_rows, "mapped_vgg": map_vgg,
          "latency_model": map_model, "train": train_out,
          "robustness": robust, "tensor_parallel": tp_out,
+         "mesh": mesh_out,
          "encdec_vlm": xfam_out,
          "phase_start_s": RUN["phase_s"]},
         indent=1, default=str))

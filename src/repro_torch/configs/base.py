@@ -37,6 +37,10 @@ class ArchConfig:
     n_enc_layers: int = 0          # encdec encoder depth
     n_frontend_tokens: int = 1024  # audio/vlm stub embedding count
     kv_chunk: int = 1024        # KV chunk of the online-softmax attention
+    # distribution (``distributed.sharding``)
+    attn_shard: str = "heads"   # "heads" | "seq" (when n_heads % tp != 0)
+    train_shard_mode: str = "fsdp"  # "fsdp" (ZeRO-3 weights, tokens over
+    #   every axis) | "tp" (Megatron); serving always runs "tp"
     # training
     optimizer: str = "adamw"    # "adamw" | "adafactor" (>= 70B)
     remat: str = "full"         # "none" | "full" (checkpoint every layer)

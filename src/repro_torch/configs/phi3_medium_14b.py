@@ -9,7 +9,8 @@ CONFIG = ArchConfig(
     name="phi3-medium-14b", family="dense",
     n_layers=40, d_model=5120, n_heads=40, n_kv_heads=10,
     d_ff=17920, vocab=100352, head_dim=128,
-    rope_theta=10000.0,
+    rope_theta=10000.0, attn_shard="seq",
+    train_shard_mode="tp",
 )
 
 SMOKE = CONFIG.replace(n_layers=2, d_model=60, n_heads=5, n_kv_heads=5,

@@ -5,7 +5,7 @@ CONFIG = ArchConfig(
     name="yi-9b", family="dense",
     n_layers=48, d_model=4096, n_heads=32, n_kv_heads=4,
     d_ff=11008, vocab=64000, head_dim=128,
-    rope_theta=10000.0,
+    rope_theta=10000.0, attn_shard="heads",
 )
 
 SMOKE = CONFIG.replace(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,

@@ -2,7 +2,7 @@
 (``repro.distributed.checkpoint``), so a checkpoint written by either
 package restores in the other:
 
-    <ckpt_dir>/step_%08d/shard_0.npz        every leaf of the tree, keyed
+    <ckpt_dir>/step_%08d/shard_<rank>.npz   every leaf of the tree, keyed
                                             by its '/'-joined path (dict
                                             keys sorted); bf16 widened to
                                             fp32, recast on restore
@@ -20,10 +20,15 @@ and dtype kind against the restore target; every failure raises a
 
 Trees are nested dicts of tensors (a param tree, ``{"params", "opt"}``
 with the AdamW state); ``None`` leaves are skipped, as a jax flatten skips
-them.  One process writes the whole tree (host 0 of the reference's
-format; its other hosts' shards belong to the multi-device rest of ROADMAP
-queue 1 item 9).  On one card there is nothing to re-shard: ``restore``
-puts each leaf on ``device`` (default: where the target's leaf lives).
+them.  On a mesh every rank gathers the placed leaves whole (a
+collective, so every rank calls ``save``) and writes them all to its own
+``shard_<rank>.npz`` in the one staging directory; rank 0 writes the
+manifest last (``n_hosts`` the world size, a checksum per shard) and
+publishes.  So a checkpoint written at any tensor-parallel degree holds
+whole arrays and restores at any other, and in the reference.
+``restore`` reads shard 0, puts each leaf on ``device`` (default: where
+the target's leaf lives) and, given ``shardings``, places it on the mesh
+by its spec.
 """
 from __future__ import annotations
 
@@ -88,28 +93,58 @@ def _step_dir(ckpt_dir, step):
     return pathlib.Path(ckpt_dir) / f"step_{step:08d}"
 
 
-def save(ckpt_dir, step: int, tree):
-    """Write ``tree`` as step ``step``: the shard file, then the manifest,
-    then the atomic publish.  A step already published is kept.  Returns
+def _ranks():
+    """(rank, world size) of the default process group, (0, 1) without
+    one."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _barrier(n_hosts):
+    if n_hosts > 1:
+        import torch.distributed as dist
+        dist.barrier()
+
+
+def save(ckpt_dir, step: int, tree, host_id: int | None = None,
+         n_hosts: int | None = None):
+    """Write ``tree`` as step ``step``: each host's shard file (every
+    placed leaf gathered whole first), then host 0's manifest, then the
+    atomic publish.  ``host_id`` / ``n_hosts`` default to the process
+    group's rank and size.  A step already published is kept.  Returns
     the step's directory."""
+    rank, world = _ranks()
+    host_id = rank if host_id is None else host_id
+    n_hosts = world if n_hosts is None else n_hosts
     ckpt_dir = pathlib.Path(ckpt_dir)
     final = _step_dir(ckpt_dir, step)
     tmp = ckpt_dir / f".tmp_step_{step:08d}_0"
     tmp.mkdir(parents=True, exist_ok=True)
-    arrays = {p: _to_numpy(v) for p, v in _leaves(tree)}
-    shard_path = tmp / SHARD_FILE
-    np.savez(shard_path, **arrays)
-    manifest = {"step": step, "n_hosts": 1, "keys": sorted(arrays),
-                "meta": {},
-                "checksums": {SHARD_FILE: {
-                    "sha256": file_checksum(shard_path),
-                    "bytes": shard_path.stat().st_size}}}
-    (tmp / MANIFEST_FILE).write_text(json.dumps(manifest))
-    if final.exists():
-        shutil.rmtree(tmp, ignore_errors=True)
-        return final
-    os.replace(tmp, final)
+    arrays = {p: _to_numpy(_whole(v)) for p, v in _leaves(tree)}
+    np.savez(tmp / f"shard_{host_id}.npz", **arrays)
+    _barrier(n_hosts)                  # every shard is in before publish
+    if host_id == 0:
+        shards = sorted(f.name for f in tmp.glob("shard_*.npz"))
+        manifest = {"step": step, "n_hosts": n_hosts, "keys": sorted(arrays),
+                    "meta": {},
+                    "checksums": {name: {
+                        "sha256": file_checksum(tmp / name),
+                        "bytes": (tmp / name).stat().st_size}
+                        for name in shards}}
+        (tmp / MANIFEST_FILE).write_text(json.dumps(manifest))
+        if final.exists():
+            shutil.rmtree(tmp, ignore_errors=True)
+        else:
+            os.replace(tmp, final)
+    _barrier(n_hosts)                  # published before anyone goes on
     return final
+
+
+def _whole(v):
+    """A placed (``DTensor``) leaf gathered whole; anything else as is."""
+    return v.full_tensor() if hasattr(v, "full_tensor") else v
 
 
 def available_steps(ckpt_dir) -> list:
@@ -198,11 +233,14 @@ def _rebuild(tree, get, path=()):
     return get(M.path_str(path), tree)
 
 
-def restore(ckpt_dir, tree_like, step: int | None = None, device=None):
+def restore(ckpt_dir, tree_like, step: int | None = None, device=None,
+            shardings=None):
     """Restore step ``step`` (default the newest complete one) into the
     structure of ``tree_like``: each leaf cast to its target's dtype and
-    put on ``device`` (default the target leaf's device).  Returns (tree,
-    step), or (None, None) when there is no complete step.
+    put on ``device`` (default the target leaf's device), then, given
+    ``shardings`` (a tree of ``sharding.NamedSharding`` of the same
+    structure, the elastic-restart path), placed on its mesh by its spec.
+    Returns (tree, step), or (None, None) when there is no complete step.
 
     Raises ``CheckpointError`` when the shard fails its manifest checks,
     when a param of ``tree_like`` is missing from the checkpoint or the
@@ -240,4 +278,8 @@ def restore(ckpt_dir, tree_like, step: int | None = None, device=None):
             if isinstance(like, torch.Tensor):
                 return t.to(device=dev or like.device, dtype=like.dtype)
             return t if dev is None else t.to(dev)
-        return _rebuild(tree_like, get), step
+        out = _rebuild(tree_like, get)
+    if shardings is not None:
+        from repro_torch.distributed.sharding import distribute
+        out = distribute(out, shardings)
+    return out, step

@@ -1,11 +1,11 @@
 """Elastic restarts and straggler mitigation (the reference's
-``repro.distributed.elastic``; ``rebuild_mesh``, which places a mesh over
-several devices, stays with the multi-device rest of ROADMAP queue 1
-item 9).
+``repro.distributed.elastic``).
 
 * ``choose_mesh_shape``: given the live device count after failures, the
   largest power-of-two (data, model) split that keeps the requested
   model-parallel degree (a pure function of the counts).
+* ``rebuild_mesh``: that shape over the ranks of the process group, as a
+  ``DeviceMesh`` (``launch.mesh.make_mesh``).
 * ``replica_restore``: a replica's cold start — the newest complete
   checkpoint (``distributed.checkpoint``), then the packed layouts through
   the artifact store (``compile_model(artifact_dir=)``), so a replica
@@ -84,6 +84,20 @@ def replica_restore(ckpt_dir, tree_like, *, mapping=(), masks=None,
                                         artifact_dir=artifact_dir)
     exec_params, report, _ = degrade_invalid_layers(exec_params, report)
     return exec_params, report, restored
+
+
+def rebuild_mesh(model_parallel=16, want_pods=1, device=None):
+    """The mesh ``choose_mesh_shape`` picks for the process group's world
+    size (one rank a device); the card unless ``device`` says the CPU."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    if not dist.is_initialized():
+        raise RuntimeError("rebuild_mesh needs a started process group "
+                           "(one rank per device)")
+    shape, axes = choose_mesh_shape(dist.get_world_size(), model_parallel,
+                                    want_pods)
+    return make_mesh(shape, axes, device)
 
 
 class StragglerMonitor:

@@ -71,6 +71,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import bcs as BCS
+from repro_torch.core.packed import TapLayout
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import _build, ref
 
 LAUNCHES = {"bsr_matmul": 0, "tap_gather_conv": 0, "bsr_conv2d_implicit": 0,
@@ -789,6 +791,10 @@ def bsr_matmul_packed(x, layout, bias=None, act="none"):
     ``bsr_matmul_sharded``."""
     if layout.n_shards:
         return bsr_matmul_sharded(x, layout, bias, act)
+    if placed_layout(layout):
+        # replicated, or an expert stack split over the model axis: x is
+        # this rank's (its local experts'), and so is the result
+        layout = local_layout(layout)[0]
     lead = _expert_dims(layout)
     if x.dim() != 2 + len(lead) or tuple(x.shape[:-2]) != lead:
         raise ValueError(f"bsr_matmul: x {tuple(x.shape)} does not match a "
@@ -853,14 +859,86 @@ def _bsr_launch(x, layout, bias, act, key):
     return out
 
 
-def _sharded_launch(x, layout, bias, act, launch, plain, name):
+def placed_layout(layout) -> bool:
+    """True when the layout's leaves are placed on a mesh (``DTensor``s,
+    ``distributed.sharding.place_layout`` / ``shard_packed_tree``)."""
+    return SH.is_placed(layout.nnz)
+
+
+def local_layout(layout):
+    """A placed layout as this rank holds it: ``(local layout, mesh,
+    model mesh dim)``.  The local layout's leaves are the rank's own
+    pieces (a column-sharded layout keeps S / tp of its S shards, an
+    expert stack its E / tp experts; replicated leaves, ``inv_perm`` and
+    ``alive`` among them, whole); the mesh dim is the one that splits the
+    shard (or expert) axis, None when every leaf is replicated.  Built
+    once per layout object."""
+    def build():
+        mesh = layout.nnz.device_mesh
+        mdim = next((i for i, pl in enumerate(layout.values[0].placements)
+                     if pl.is_shard()), None)
+
+        def loc(t):
+            if t is None:
+                return None
+            if isinstance(t, tuple):
+                return tuple(loc(v) for v in t)
+            return t.to_local() if SH.is_placed(t) else t
+        kw = {f: loc(getattr(layout, f))
+              for f in SH.layout_leaf_fields(layout)}
+        n = layout.n_shards
+        if n and mdim is not None:
+            if n % mesh.size(mdim):
+                raise ValueError(f"a layout of {n} shards does not split "
+                                 f"over {mesh.size(mdim)} ranks")
+            n //= mesh.size(mdim)
+        return dataclasses.replace(layout, n_shards=n, **kw), mesh, mdim
+    return _cached(layout, ("local",), build)
+
+
+def _placed_launch(x, layout, bias, act, launch, parts, name):
+    """A column-sharded layout placed on a mesh, x (M, K) whole on every
+    rank: ONE launch of the kernel per rank over its local shards
+    (folded), then ONE all-gather over the model axis of each rank's
+    (S / tp, M, N / S) columns, merged to original order through the
+    replicated ``inv_perm``.  On the CPU the rank's part is ``parts`` (the
+    plain version per shard and bin).  At one rank on the model axis the
+    folded launch already wrote every column at its place: no collective,
+    no merge, the unsharded code path of one card."""
+    loc, mesh, mdim = local_layout(layout)
+    bias = SH.full(bias)
+    tp = 1 if mdim is None else mesh.size(mdim)
+    if x.device.type == "cpu":
+        y = parts(x, loc, bias, act)                   # (S_loc, M, N / S)
+    elif x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    else:
+        out = launch(x, loc.folded, bias, act, name)   # (M, N)
+        if tp == 1:
+            return out
+        width = loc.group if isinstance(loc, TapLayout) else loc.block[1]
+        cols = loc.perm.reshape(-1).long()
+        y = out.reshape(out.shape[0], -1, width).index_select(1, cols)
+        y = y.reshape(out.shape[0], loc.n_shards, -1).movedim(1, 0)
+    if tp > 1:
+        # a functional collective (torch 2.11 and 2.13 both have this
+        # one), so CommDebugMode counts it
+        from torch.distributed import _functional_collectives as funcol
+        y = funcol.wait_tensor(funcol.all_gather_tensor(
+            y.contiguous(), 0, (mesh, mdim)))
+    return loc.merge_shards(y)
+
+
+def _sharded_launch(x, layout, bias, act, launch, plain, name, parts=None):
     """The shard launcher of both wrappers: ``plain`` (per shard, per bin,
     then ``merge_shards``) for CPU tensors; on the card ``launch`` of the
     layout with its shard axis folded into its bins (``layout.folded``):
     x replicated to every shard, each column written at its original
     position, so no merge is needed.  Counted under ``LAUNCHES[name]``.
-    A stacked layout must be sliced first; an expert stack is never
-    column-sharded."""
+    A layout placed on a mesh runs ``_placed_launch``.  A stacked layout
+    must be sliced first; an expert stack is never column-sharded."""
+    if placed_layout(layout):
+        return _placed_launch(x, layout, bias, act, launch, parts, name)
     if layout.nnz.ndim != 2:
         raise ValueError(f"{name}: the layout carries stack dims "
                          f"{tuple(layout.nnz.shape[:-2])} beside its shard "
@@ -885,7 +963,8 @@ def bsr_matmul_sharded(x, layout, bias=None, act="none"):
         raise ValueError(f"bsr_matmul_sharded: x has K={x.shape[-1]}, the "
                          f"layout K={layout.shape[0]}")
     return _sharded_launch(x, layout, bias, act, _bsr_launch,
-                           ref.bsr_matmul_sharded_ref, "bsr_matmul_sharded")
+                           ref.bsr_matmul_sharded_ref, "bsr_matmul_sharded",
+                           ref.bsr_matmul_shard_parts)
 
 
 @functools.lru_cache(maxsize=64)
@@ -1132,7 +1211,8 @@ def tap_gather_conv_sharded(x, layout, bias=None, act="none"):
                          f"rows")
     return _sharded_launch(x, layout, bias, act, _tap_band,
                            ref.tap_gather_sharded_ref,
-                           "tap_gather_conv_sharded")
+                           "tap_gather_conv_sharded",
+                           ref.tap_gather_shard_parts)
 
 
 def tap_gather_conv_implicit(x, layout, *, kh, kw, stride=1, padding="SAME",

@@ -16,21 +16,31 @@ or int8 with fp32 scales (``core.quant``), unsharded or tensor parallel
 (``n_shards``); every path above runs either, the kernels dequantizing on
 the card.  A sharded conv layout runs materialized (im2col, then kernel 1
 or 2), as the reference's does; an expert stack is never column-sharded.
+
+On a mesh (``distributed.sharding``) x may be a placed ``DTensor`` and the
+layout placed too: ``sparse_linear`` gathers x's features to every rank of
+the layout's model axis (its batch rows stay where they are), runs the
+rank's local launch (one per rank, plus one model-axis gather for a
+column-sharded layout, ``bsr_matmul_sharded``) and places the result
+like x; ``sparse_expert_linear`` runs each rank's local experts.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core import bcs as BCS
 from repro_torch.core import quant as QUANT
 from repro_torch.core.packed import PackedLayout, TapLayout
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ref
 from repro_torch.kernels.bsr_matmul import (bsr_conv2d_implicit,
                                             bsr_conv2d_patches,
                                             bsr_matmul_packed, conv_geometry,
-                                            pad_image,
+                                            local_layout, pad_image,
+                                            placed_layout,
                                             tap_gather_conv_implicit,
                                             tap_gather_conv_packed)
 
@@ -99,10 +109,30 @@ def pack_taps(w, mask, *, group=1, reorder=True, n_bins=8,
     return out
 
 
+def _on_mesh(fn, x, packed, placement):
+    """``fn(local x)`` for a placed x: x redistributed to
+    ``placement(mesh dim, x's placement there, the layout's model mesh
+    dim)`` on each mesh dim, the rank's local tensor run, its result
+    placed the same way."""
+    mesh = x.device_mesh
+    mdim = local_layout(packed)[2] if placed_layout(packed) else None
+    want = tuple(placement(i, pl, mdim) for i, pl in enumerate(x.placements))
+    xl = x.redistribute(mesh, want).to_local()
+    return DTensor.from_local(fn(xl), mesh, want, run_check=False)
+
+
 def sparse_linear(x, packed: PackedLayout | None = None, w=None, mask=None,
                   bias=None, act="none"):
     """x (..., K) -> (..., N) through whichever path applies.  With
-    ``packed`` the BCS kernel always runs (one launch over all bins)."""
+    ``packed`` the BCS kernel always runs (one launch over all bins).  A
+    placed x keeps its batch rows (dim 0) sharded over any mesh dim but
+    the layout's model axis and is gathered over the rest."""
+    if packed is not None and SH.is_placed(x):
+        bias = SH.full(bias)
+        return _on_mesh(
+            lambda xl: sparse_linear(xl, packed, bias=bias, act=act), x,
+            packed, lambda i, pl, mdim: pl if i != mdim and pl.is_shard(0)
+            else Replicate())
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if packed is not None:
@@ -133,6 +163,14 @@ def sparse_expert_linear(x, packed: PackedLayout, bias=None, act="none"):
     if x.dim() != 3:
         raise ValueError(f"sparse_expert_linear: x {tuple(x.shape)} is not "
                          f"(E, M, K)")
+    if SH.is_placed(x):
+        # a stack placed by ``expert_layout_specs``: each rank its local
+        # experts (x split on E over the same mesh dim), no collective
+        bias = SH.full(bias)
+        return _on_mesh(
+            lambda xl: bsr_matmul_packed(xl, packed, bias=bias, act=act), x,
+            packed, lambda i, pl, mdim: Shard(0) if i == mdim
+            else Replicate())
     return bsr_matmul_packed(x, packed, bias=bias, act=act)
 
 
@@ -227,8 +265,11 @@ def sparse_conv2d_pattern(x, tap: TapLayout, *, kh, kw, stride=1,
     band = patches.reshape(B * Ho * Wo, K)
     if tap.n_alive < K:
         # alive is ascending, so a full-size alive index is arange(K):
-        # gather only when rows are dead everywhere
-        band = band.index_select(1, tap.alive.long())
+        # gather only when rows are dead everywhere (a placed layout's
+        # alive is replicated: every rank holds it whole)
+        alive = local_layout(tap)[0].alive if placed_layout(tap) \
+            else tap.alive
+        band = band.index_select(1, alive.long())
     y = tap_gather_conv_packed(band, tap, bias=bias, act=act)
     return y.reshape(B, Ho, Wo, y.shape[-1])
 

@@ -119,14 +119,30 @@ def _shard_bins(layout, sums):
         for s in range(layout.n_shards)])
 
 
+def _shard_epilogue(y, layout, bias, act, dtype):
+    """The epilogue of per-shard sums (S, M, N / S) in layout order, the
+    bias gathered into each shard's order: elementwise, so the same bits
+    as one epilogue after ``merge_shards``."""
+    b = layout.permute_bias(bias)
+    return _epilogue(y, None if b is None else b[:, None, :], act).to(dtype)
+
+
+def bsr_matmul_shard_parts(x, layout, bias=None, act="none"):
+    """x (M, K) @ each shard of a tensor-parallel PackedLayout -> (S, M,
+    N / S), each shard's columns in its layout order, epilogue applied:
+    what one rank of a mesh computes over its local shards before the
+    model-axis gather."""
+    xb, M = _x_blocks(x, layout.block[0]), x.shape[0]
+    return _shard_epilogue(_shard_bins(
+        layout, lambda v, k, sc: _bsr_sums(xb, v, k, M, sc)), layout, bias,
+        act, x.dtype)
+
+
 def bsr_matmul_sharded_ref(x, layout, bias=None, act="none"):
     """x (M, K) @ a tensor-parallel PackedLayout -> (M, N) in original
-    column order: per shard and bin, then ``merge_shards``, then one
-    epilogue."""
-    xb, M = _x_blocks(x, layout.block[0]), x.shape[0]
-    y = layout.merge_shards(_shard_bins(
-        layout, lambda v, k, sc: _bsr_sums(xb, v, k, M, sc)))
-    return _epilogue(y, bias, act).to(x.dtype)
+    column order: per shard and bin, the epilogue, then
+    ``merge_shards``."""
+    return layout.merge_shards(bsr_matmul_shard_parts(x, layout, bias, act))
 
 
 def bsr_matmul_experts_ref(x, layout, bias=None, act="none"):
@@ -218,15 +234,22 @@ def tap_gather_packed_ref(x, layout, bias=None, act="none"):
                        layout.t_idx, bias, act).to(x.dtype)
 
 
+def tap_gather_shard_parts(x, layout, bias=None, act="none"):
+    """x (M, R) alive band @ each shard of a tensor-parallel TapLayout ->
+    (S, M, P / S), each shard's filters in its layout order, epilogue
+    applied (``bsr_matmul_shard_parts``'s sibling)."""
+    xf, M = x.float(), x.shape[0]
+    return _shard_epilogue(_shard_bins(
+        layout, lambda v, t, sc: _tap_sums(lambda i: xf[:, i.long()], v, t,
+                                           M, sc)), layout, bias, act,
+        x.dtype)
+
+
 def tap_gather_sharded_ref(x, layout, bias=None, act="none"):
     """x (M, R) alive band @ a tensor-parallel TapLayout -> (M, P) in
-    original filter order: per shard and bin over the global band, then
-    ``merge_shards``, then one epilogue."""
-    xf, M = x.float(), x.shape[0]
-    y = layout.merge_shards(_shard_bins(
-        layout, lambda v, t, sc: _tap_sums(lambda i: xf[:, i.long()], v, t,
-                                           M, sc)))
-    return _epilogue(y, bias, act).to(x.dtype)
+    original filter order: per shard and bin over the global band, the
+    epilogue, then ``merge_shards``."""
+    return layout.merge_shards(tap_gather_shard_parts(x, layout, bias, act))
 
 
 def tap_gather_implicit_ref(xp, layout, kw, geom, bias=None, act="none"):

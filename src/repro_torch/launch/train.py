@@ -19,8 +19,16 @@ goes on with the step after it, so a resumed run trains on the batches and
 takes the losses of an uninterrupted one.  (The reference's resume runs
 the saved step once more.)  As in the reference, the masks and alphas are
 not checkpointed: a run resumed after the prune step trains unmasked.
-Model parallelism (``--model-parallel``) stays with the multi-device rest
-of ROADMAP queue 1 item 9.
+
+The run is always on a mesh, as the reference's: ``--model-parallel`` 1
+is ``launch.mesh.make_local_mesh()`` (a one-rank group the CLI starts and
+ends when none is running), more is ``elastic.rebuild_mesh`` over the
+ranks of a group the caller started (one process per device, e.g. under
+``torchrun``).  The params are placed by ``sharding.param_shardings``,
+the step runs with ``make_dist``'s ``Dist``, checkpoints hold whole
+arrays (every rank writes its shard) and a resume places them again.
+The pruning schedule's threshold, masks and alphas are computed on the
+gathered params.
 """
 from __future__ import annotations
 
@@ -34,7 +42,9 @@ from repro_torch.core import reweighted as RW
 from repro_torch.core.mapper_rule import lm_layers, map_rules
 from repro_torch.data.pipeline import synthetic_batch
 from repro_torch.distributed import checkpoint as CKPT
-from repro_torch.distributed.elastic import StragglerMonitor
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.elastic import StragglerMonitor, rebuild_mesh
+from repro_torch.launch import mesh as MESH
 from repro_torch.models import module as M
 from repro_torch.models import transformer as T
 from repro_torch.train.trainer import apply_masks, make_train_step
@@ -63,13 +73,27 @@ def main(argv=None):
     ap.add_argument("--target-rate", type=float, default=0.6)
     ap.add_argument("--ckpt-dir", default="build/ckpt")
     ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    cfg = configs.get(args.arch, smoke=args.smoke)
     dev = M.resolve_device(args.device)
+    mesh = (MESH.make_local_mesh(device=dev) if args.model_parallel == 1
+            else rebuild_mesh(model_parallel=args.model_parallel,
+                              device=dev))
+    try:
+        return _train(args, dev, mesh)
+    finally:
+        MESH.close_local_mesh()
+
+
+def _train(args, dev, mesh):
+    cfg = configs.get(args.arch, smoke=args.smoke)
+    dist = SH.make_dist(mesh, cfg, args.batch)
     params = T.init_lm(cfg, seed=0, device=dev)
+    p_shard = SH.param_shardings(params, cfg, mesh)
+    params = SH.distribute(params, p_shard)
 
     reweighted = None
     masks, alphas = None, None
@@ -77,17 +101,22 @@ def main(argv=None):
     if args.prune:
         spec = snapped_spec(cfg, args.batch * args.seq, args.target_rate)
         reweighted = RW.ReweightedConfig(spec=tuple(spec), lam=1e-3)
-        alphas = RW.init_alphas(params, spec)
+        alphas = RW.init_alphas(SH.full_tree(params), spec)
 
     opt_init, train_step = make_train_step(cfg, lr=args.lr,
-                                           reweighted=reweighted)
+                                           reweighted=reweighted, dist=dist)
     opt_state = opt_init(params)
 
     start, metrics = 0, None
     if args.resume:
+        o_specs = SH.opt_state_specs(opt_state, SH.param_specs(
+            params, cfg, mesh), cfg.optimizer)
+        shardings = {"params": p_shard,
+                     "opt": M.tree_map(lambda s: SH.NamedSharding(mesh, s),
+                                       o_specs)}
         restored, saved = CKPT.restore(args.ckpt_dir,
                                        {"params": params, "opt": opt_state},
-                                       device=dev)
+                                       device=dev, shardings=shardings)
         if restored is not None:
             params, opt_state = restored["params"], restored["opt"]
             start = saved + 1
@@ -98,12 +127,13 @@ def main(argv=None):
     for step in range(start, args.steps):
         if reweighted and step and step % reweighted.reweight_every == 0 \
                 and (prune_at is None or step < prune_at):
-            alphas = RW.update_alphas(params, reweighted)
+            alphas = RW.update_alphas(SH.full_tree(params), reweighted)
         if prune_at is not None and step == prune_at:
-            tau = RW.global_threshold(params, spec, args.target_rate)
-            masks = RW.masks_for_spec(params, spec, threshold=tau)
+            whole = SH.full_tree(params)
+            tau = RW.global_threshold(whole, spec, args.target_rate)
+            masks = RW.masks_for_spec(whole, spec, threshold=tau)
             alphas = None
-            rep = RW.sparsity_report(params, masks)["__overall__"]
+            rep = RW.sparsity_report(whole, masks)["__overall__"]
             print(f"step {step}: pruned -> density {rep['density']:.3f} "
                   f"(compression {rep['compression']:.2f}x)")
         batch = synthetic_batch(
@@ -129,7 +159,7 @@ def main(argv=None):
     if metrics is not None:
         print(f"final loss {float(metrics['loss']):.4f}")
     # the weights the masks pruned are zero in what is returned
-    return apply_masks(params, masks), masks
+    return apply_masks(SH.full_tree(params), masks), masks
 
 
 if __name__ == "__main__":

@@ -7,7 +7,15 @@ per slot of the continuous-batching engine).  All four projections
 itself is plain PyTorch, as the reference leaves it to XLA.
 
 The decode steps neither synchronise with the host nor move host data to
-the card, so the engine can capture them in a CUDA graph."""
+the card, so the engine can capture them in a CUDA graph.
+
+Given a ``dist`` (``distributed.sharding.Dist``), q, k and v take the
+reference's head or sequence placements (``shard_attn_q`` /
+``shard_attn_kv``) and a decode step's cache its sequence placement
+(``shard_cache``); each rank then attends with its own heads (or its own
+query block against every key) through ``Dist.local_map``.  The caches
+stay whole on every rank: a step's new k and v are gathered before the
+in-place write (PERF.md §6 lists what each gather costs)."""
 from __future__ import annotations
 
 import torch
@@ -19,6 +27,23 @@ NEG_INF = -1e30
 
 def _proj(params, name, x, masks):
     return L.linear(params[name], x, masks.get(name))
+
+
+def _heads(t, B, S, n, hd):
+    """(B, S, n * hd) -> (B, S, n, hd).  A placed t whose feature dim is
+    split in a way the head split cannot carry (over several mesh dims,
+    or not along whole heads) is gathered on that dim first."""
+    pls = getattr(t, "placements", None)
+    if pls is not None:
+        cut = [i for i, pl in enumerate(pls) if pl.is_shard(t.dim() - 1)]
+        ways = 1
+        for i in cut:
+            ways *= t.device_mesh.size(i)
+        if len(cut) > 1 or (cut and n % ways):
+            from torch.distributed.tensor import Replicate
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if i in cut else pl for i, pl in enumerate(pls)])
+    return t.reshape(B, S, n, hd)
 
 
 def attn_init(d_model, n_heads, n_kv, head_dim, generator, n=None,
@@ -127,9 +152,36 @@ def attend_cached(q, k_cache, v_cache, q_pos, k_pos, window=0):
     return out.to(q.dtype)
 
 
+def _whole(t, dist):
+    """A step's new k or v whole on this rank, for the in-place write
+    into the cache every rank holds whole (a gather over the mesh)."""
+    return t if dist is None else dist.gather(t)
+
+
+def _cache_views(cache, dist):
+    """The layer's k / v caches as the step attends over them: placed on
+    the sequence axis (``shard_cache``) under a mesh."""
+    if dist is None:
+        return cache["k"], cache["v"]
+    return dist.shard_cache(cache["k"]), dist.shard_cache(cache["v"])
+
+
+def _attend_step(q, kc, vc, q_pos, k_pos, window, dist):
+    """``attend_cached`` of a decode step; under a mesh each rank attends
+    with its own KV heads (``Dist.local_map``: the S-placed caches are
+    redistributed to a head split), per-slot positions split with the
+    batch."""
+    if dist is None:
+        return attend_cached(q, kc, vc, q_pos, k_pos, window=window)
+    pos_dim = "b" if k_pos.dim() == 2 else None
+    return dist.local_map(
+        lambda *a: (attend_cached(*a, window=window),),
+        (2, 2, 2, pos_dim, pos_dim), (2,))(q, kc, vc, q_pos, k_pos)[0]
+
+
 def mha(params, x, positions, n_heads, n_kv, head_dim, *, causal=True,
         window=0, rope_theta=10000.0, masks=None, memory=None,
-        kv_chunk=1024):
+        kv_chunk=1024, dist=None, shard="heads"):
     """Full-sequence attention (prefill).  Returns (out, (k, v)) with k, v
     the (B, Sk, KV, hd) keys and values the cache keeps.
 
@@ -139,11 +191,11 @@ def mha(params, x, positions, n_heads, n_kv, head_dim, *, causal=True,
     and nothing is masked."""
     m = masks or {}
     B, S, _ = x.shape
-    q = _proj(params, "wq", x, m).reshape(B, S, n_heads, head_dim)
+    q = _heads(_proj(params, "wq", x, m), B, S, n_heads, head_dim)
     src = x if memory is None else memory
     Sk = src.shape[1]
-    k = _proj(params, "wk", src, m).reshape(B, Sk, n_kv, head_dim)
-    v = _proj(params, "wv", src, m).reshape(B, Sk, n_kv, head_dim)
+    k = _heads(_proj(params, "wk", src, m), B, Sk, n_kv, head_dim)
+    v = _heads(_proj(params, "wv", src, m), B, Sk, n_kv, head_dim)
     if memory is None:
         q = L.apply_rotary(q, positions, rope_theta)
         k = L.apply_rotary(k, positions, rope_theta)
@@ -151,9 +203,27 @@ def mha(params, x, positions, n_heads, n_kv, head_dim, *, causal=True,
     else:
         k_pos = torch.arange(Sk, dtype=torch.int32, device=x.device)
         causal = False
-    out = attend(q, _expand_kv(k, n_heads), _expand_kv(v, n_heads),
-                 positions, k_pos, causal=causal, window=window,
-                 kv_chunk=kv_chunk)
+    if dist is not None:
+        # k, v placed in their compact KV form before the head expansion
+        k = dist.shard_attn_kv(k, shard, n_kv)
+        v = dist.shard_attn_kv(v, shard, n_kv)
+    kf, vf = _expand_kv(k, n_heads), _expand_kv(v, n_heads)
+    def run(q, kf, vf, q_pos, k_pos):
+        return attend(q, kf, vf, q_pos, k_pos, causal=causal, window=window,
+                      kv_chunk=kv_chunk),
+    if dist is None:
+        out, = run(q, kf, vf, positions, k_pos)
+    else:
+        q = dist.shard_attn_q(q, shard)
+        heads = dist.mode != "fsdp" and shard == "heads"
+        if heads:
+            kf = dist.shard_attn_q(kf, shard)
+            vf = dist.shard_attn_q(vf, shard)
+        # each rank attends with its own heads, or its own query block
+        # against every key (``Dist.local_map``)
+        dims = ((2, 2, 2, None, None), (2,)) if heads else \
+            ((1, "b", "b", 0, None), (1,))
+        out, = dist.local_map(run, *dims)(q, kf, vf, positions, k_pos)
     out = out.reshape(B, S, n_heads * head_dim)
     return _proj(params, "wo", out, m), (k, v)
 
@@ -171,7 +241,7 @@ def cross_decode(params, x, xk, xv, n_heads, n_kv, head_dim):
 
 
 def mha_decode(params, x, cache, pos, n_heads, n_kv, head_dim, *,
-               window=0, rope_theta=10000.0, masks=None):
+               window=0, rope_theta=10000.0, masks=None, dist=None):
     """One-token decode.  cache = dict(k=(B,S,KV,hd), v=..., pos=(S,)).
     The new token overwrites ring slot ``pos % S`` (the oldest position
     once the ring is full) and then attends over the cache.  The cache
@@ -179,26 +249,29 @@ def mha_decode(params, x, cache, pos, n_heads, n_kv, head_dim, *,
     returned dict holds the same tensors."""
     m = masks or {}
     B = x.shape[0]
-    q = _proj(params, "wq", x, m).reshape(B, 1, n_heads, head_dim)
-    k = _proj(params, "wk", x, m).reshape(B, 1, n_kv, head_dim)
-    v = _proj(params, "wv", x, m).reshape(B, 1, n_kv, head_dim)
+    q = _heads(_proj(params, "wq", x, m), B, 1, n_heads, head_dim)
+    k = _heads(_proj(params, "wk", x, m), B, 1, n_kv, head_dim)
+    v = _heads(_proj(params, "wv", x, m), B, 1, n_kv, head_dim)
     q = L.apply_rotary(q, pos, rope_theta)
     k = L.apply_rotary(k, pos, rope_theta)
 
     S = cache["k"].shape[1]
-    slot = torch.remainder(pos[0, :1], S).long()             # (1,)
+    k, v, wpos = _whole(k, dist), _whole(v, dist), _whole(pos, dist)
+    slot = torch.remainder(wpos[0, :1], S).long()            # (1,)
     cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
     cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
-    cache["pos"].index_copy_(0, slot, pos[0, :1].to(cache["pos"].dtype))
+    cache["pos"].index_copy_(0, slot, wpos[0, :1].to(cache["pos"].dtype))
 
-    out = attend_cached(_grouped(q, n_kv), cache["k"], cache["v"],
-                        pos[0, 0:1], cache["pos"], window=window)
+    kc, vc = _cache_views(cache, dist)
+    out = _attend_step(_grouped(q, n_kv), kc, vc, pos[0, 0:1], cache["pos"],
+                       window, dist)
     out = out.reshape(B, 1, n_heads * head_dim)
     return _proj(params, "wo", out, m), cache
 
 
 def mha_decode_ragged(params, x, cache, pos, cap, n_heads, n_kv, head_dim,
-                      *, window=0, rope_theta=10000.0, masks=None):
+                      *, window=0, rope_theta=10000.0, masks=None,
+                      dist=None):
     """One-token decode across RAGGED slot histories (continuous batching).
 
     Each slot ``b`` carries its own position ``pos[b]`` ((B, 1) int) and
@@ -211,19 +284,22 @@ def mha_decode_ragged(params, x, cache, pos, cap, n_heads, n_kv, head_dim,
     ``INVALID_POS``.  Returns (out, cache)."""
     m = masks or {}
     B = x.shape[0]
-    q = _proj(params, "wq", x, m).reshape(B, 1, n_heads, head_dim)
-    k = _proj(params, "wk", x, m).reshape(B, 1, n_kv, head_dim)
-    v = _proj(params, "wv", x, m).reshape(B, 1, n_kv, head_dim)
+    q = _heads(_proj(params, "wq", x, m), B, 1, n_heads, head_dim)
+    k = _heads(_proj(params, "wk", x, m), B, 1, n_kv, head_dim)
+    v = _heads(_proj(params, "wv", x, m), B, 1, n_kv, head_dim)
     q = L.apply_rotary(q, pos, rope_theta)
     k = L.apply_rotary(k, pos, rope_theta)
 
     rows = torch.arange(B, device=x.device)
-    slots = torch.remainder(pos[:, 0], torch.clamp_min(cap, 1)).long()
+    k, v = _whole(k, dist), _whole(v, dist)
+    wpos, wcap = _whole(pos, dist), _whole(cap, dist)
+    slots = torch.remainder(wpos[:, 0], torch.clamp_min(wcap, 1)).long()
     cache["k"].index_put_((rows, slots), k[:, 0].to(cache["k"].dtype))
     cache["v"].index_put_((rows, slots), v[:, 0].to(cache["v"].dtype))
-    cache["pos"].index_put_((rows, slots), pos[:, 0].to(cache["pos"].dtype))
+    cache["pos"].index_put_((rows, slots), wpos[:, 0].to(cache["pos"].dtype))
 
-    out = attend_cached(_grouped(q, n_kv), cache["k"], cache["v"], pos,
-                        cache["pos"], window=window)
+    kc, vc = _cache_views(cache, dist)
+    out = _attend_step(_grouped(q, n_kv), kc, vc, pos, cache["pos"], window,
+                       dist)
     out = out.reshape(B, 1, n_heads * head_dim)
     return _proj(params, "wo", out, m), cache

@@ -7,6 +7,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.packed import DegradedLayer
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
 from repro_torch.models import module as M
 
@@ -33,14 +34,24 @@ def rotary_freqs(head_dim, theta=10000.0, device="cpu"):
     return 1.0 / (theta ** exps)
 
 
+def replicated_like(t, x):
+    """``t`` as a replicated ``DTensor`` on ``x``'s mesh when ``x`` is
+    placed (a plain operand the backward pass reads must be placed too:
+    autograd replays the op outside the forward's implicit replication);
+    ``t`` itself otherwise."""
+    if not SH.is_placed(x) or SH.is_placed(t):
+        return t
+    return SH.place(t, x.device_mesh, ())
+
+
 def apply_rotary(x, positions, theta=10000.0):
     """x: (..., seq, heads, head_dim); positions: (..., seq).  Half-split
     (not interleaved) rotation in fp32."""
     hd = x.shape[-1]
     freqs = rotary_freqs(hd, theta, x.device)                 # (hd/2,)
     angles = positions[..., :, None].float() * freqs          # (..., seq, hd/2)
-    cos = torch.cos(angles)[..., :, None, :]
-    sin = torch.sin(angles)[..., :, None, :]
+    cos = replicated_like(torch.cos(angles)[..., :, None, :], x)
+    sin = replicated_like(torch.sin(angles)[..., :, None, :], x)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -60,6 +71,20 @@ def _apply_act(y, act):
     if act == "relu":
         return torch.clamp_min(y, 0)
     return y
+
+
+def unseq(x):
+    """A placed (B, S, D) x with its sequence dim gathered (the all-gather
+    of Megatron's sequence parallelism before a projection): DTensor's
+    matmul folds (B, S) into one dim, which a sequence split cannot
+    survive.  Anything else as it is."""
+    if x.dim() != 3 or not SH.is_placed(x):
+        return x
+    if not any(pl.is_shard(1) for pl in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [
+        Replicate() if pl.is_shard(1) else pl for pl in x.placements])
 
 
 def linear(params, x, mask=None, act="none"):
@@ -82,7 +107,7 @@ def linear(params, x, mask=None, act="none"):
     w = params["w"]
     if mask is not None:
         w = w * mask.to(w.dtype)
-    y = torch.matmul(x, w)
+    y = torch.matmul(unseq(x), w)
     if "b" in params:
         y = y + params["b"]
     return _apply_act(y, act)
@@ -96,13 +121,15 @@ def embedding_init(vocab, dim, generator, dtype=torch.bfloat16,
 
 
 def embed(params, tokens):
-    return params["table"][tokens]
+    """The table's rows (``F.embedding``: a placed table keeps DTensor's
+    vocab-parallel rule)."""
+    return F.embedding(tokens, params["table"])
 
 
 def unembed(params, x):
     """Logits against the (separate) output head table: (..., d) ->
     (..., vocab)."""
-    return torch.matmul(x, params["table"].t())
+    return torch.matmul(unseq(x), params["table"].t())
 
 
 # -- Loss ---------------------------------------------------------------------

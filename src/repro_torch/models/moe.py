@@ -25,6 +25,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.packed import DegradedLayer
 from repro_torch.kernels import ops
+from repro_torch.kernels.bsr_matmul import local_layout, placed_layout
+from repro_torch.models import layers as L
 from repro_torch.models import module as M
 
 
@@ -69,7 +71,7 @@ def _dispatch_tensors(logits, top_k, capacity):
     return disp, combine, aux
 
 
-def _expert_linear(p, x, mask=None, act="none"):
+def _expert_linear(p, x, mask=None, act="none", dist=None):
     """Per-expert projection: x (G, E, C, din) @ w (E, din, dout) ->
     (G, E, C, dout).  A packed expert stack (``p["packed"]``) runs the BCS
     kernel once over all experts, ``act`` fused into its epilogue;
@@ -80,6 +82,15 @@ def _expert_linear(p, x, mask=None, act="none"):
     if isinstance(packed, DegradedLayer):
         packed = None                # retired: masked-dense on w
     if packed is not None:
+        if dist is not None:
+            # a stack placed on the experts runs each rank's own; any
+            # other runs whole (every expert) on every rank
+            by_expert = placed_layout(packed) and \
+                local_layout(packed)[2] is not None
+            dims = (1,) if by_expert else ("b",)
+            return dist.local_map(
+                lambda xl: (_expert_linear(p, xl, mask, act),), dims,
+                dims)(x)[0]
         G, E, C, din = x.shape
         # (E, G*C, din), contiguous: the kernel needs 16-byte row pitches
         xe = x.permute(1, 0, 2, 3).reshape(E, G * C, din).contiguous()
@@ -88,17 +99,55 @@ def _expert_linear(p, x, mask=None, act="none"):
     w = p["w"]
     if mask is not None:
         w = w * mask.to(w.dtype)
+    if hasattr(x, "placements"):
+        return _expert_local(x, w, act)
     y = torch.einsum("gecd,edf->gecf", x, w)
     if act == "silu":
         y = F.silu(y)
     return y
 
 
-def moe(params, x, *, top_k, capacity_factor=1.25, group=1024, masks=None):
+def _expert_local(x, w, act):
+    """The dense expert einsum of a placed x (G, E, C, din) on each rank's
+    own experts: x keeps its group (dim 0) and expert (dim 1) splits and
+    is gathered over the rest, w is gathered whole and cut to the same
+    experts (a w placed on those experts already is: no gather); the
+    result is placed like x.  DTensor's einsum folds the sharded expert
+    dim into a batch dim it cannot reshape back."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = x.device_mesh
+    want = tuple(pl if pl.is_shard(0) or pl.is_shard(1) else Replicate()
+                 for pl in x.placements)
+    xl = x.redistribute(mesh, want).to_local()
+    split = tuple(Shard(0) if pl.is_shard(1) else Replicate() for pl in want)
+    if hasattr(w, "placements"):
+        wl = w.redistribute(mesh, split).to_local()
+    else:
+        coord, wl = mesh.get_coordinate(), w
+        for i, pl in enumerate(split):
+            if pl.is_shard():
+                wl = torch.chunk(wl, mesh.size(i), dim=0)[coord[i]]
+    y = torch.einsum("gecd,edf->gecf", xl, wl)
+    if act == "silu":
+        y = F.silu(y)
+    shape = tuple(x.shape[:-1]) + (w.shape[-1],)
+    return DTensor.from_local(y, mesh, want, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def moe(params, x, *, top_k, capacity_factor=1.25, group=1024, masks=None,
+        dist=None):
     """x (B, S, D) -> ((B, S, D), aux loss).  Tokens are regrouped into
-    groups of ``group`` to bound the dispatch tensor to (G, group, E, C)."""
+    groups of ``group`` to bound the dispatch tensor to (G, group, E, C).
+    Under a mesh the dispatch (top-k, cumsum, one-hot, capacity drop) runs
+    on the whole logits on every rank (``sharding.replicated``: DTensor
+    has no rule for it), and the dispatched (G, E, C, D) takes
+    ``shard_experts``."""
     m = masks or {}
     B, S, D = x.shape
+    if dist is not None:
+        x = L.unseq(x)              # token groups cut across the sequence
     E = params["router"]["w"].shape[-1]
     T = B * S
     Sg = min(group, T)
@@ -111,12 +160,43 @@ def moe(params, x, *, top_k, capacity_factor=1.25, group=1024, masks=None):
     # the group-size clamp stays OUTSIDE the floor of 4: a group of fewer
     # than 4 tokens gets no more slots than tokens
     C = min(Sg, max(4, int(Sg * top_k / E * capacity_factor)))
-    disp, combine, aux = _dispatch_tensors(logits, top_k, C)
+    if dist is None:
+        disp, combine, aux = _dispatch_tensors(logits, top_k, C)
+    else:
+        disp, combine, aux = dist.replicated(_dispatch_tensors)(
+            logits, top_k, C)
 
     dt = x.dtype
-    expert_in = torch.einsum("gsec,gsd->gecd", disp.to(dt), xt)
-    g = _expert_linear(params["gate"], expert_in, m.get("gate"), act="silu")
-    u = _expert_linear(params["up"], expert_in, m.get("up"))
-    expert_out = _expert_linear(params["down"], g * u, m.get("down"))
-    out = torch.einsum("gecd,gsec->gsd", expert_out, combine.to(dt))
+    if dist is None:
+        expert_in = _dispatch_in(disp.to(dt), xt)[0]
+    else:
+        expert_in = dist.local_map(_dispatch_in, ("b", "b"), ("b",))(
+            disp.to(dt), xt)[0]
+        expert_in = dist.shard_experts(expert_in)
+    g = _expert_linear(params["gate"], expert_in, m.get("gate"), act="silu",
+                       dist=dist)
+    u = _expert_linear(params["up"], expert_in, m.get("up"), dist=dist)
+    expert_out = _expert_linear(params["down"], g * u, m.get("down"),
+                                dist=dist)
+    if dist is None:
+        out = _combine(expert_out, combine.to(dt))[0]
+    elif dist.expert_sharded:
+        # each rank combines its own experts; the sum over experts is
+        # reduced over the model axis
+        out = dist.local_map(_combine, (1, 2), ("partial",))(
+            expert_out, combine.to(dt))[0]
+        out = dist._c(out, None, None, None)
+    else:
+        out = dist.local_map(_combine, ("b", "b"), ("b",))(
+            expert_out, combine.to(dt))[0]
     return out.reshape(B, S, D), aux
+
+
+def _dispatch_in(disp, xt):
+    """The tokens of each (expert, capacity slot): (G, E, C, D)."""
+    return torch.einsum("gsec,gsd->gecd", disp, xt),
+
+
+def _combine(expert_out, combine):
+    """Each token's gate-weighted sum of its experts' outputs."""
+    return torch.einsum("gecd,gsec->gsd", expert_out, combine),

@@ -140,7 +140,7 @@ def _split(zxbcdt, d_inner, N):
                        dim=-1)
 
 
-def ssm(params, x, *, masks=None, chunk=64):
+def ssm(params, x, *, masks=None, chunk=64, dist=None):
     """Full-sequence mamba2 mixer.  x (B, S, D) -> (B, S, D), and the
     decode state {h: (B, H, P, N) fp32, conv: (B, width - 1, conv_dim)}:
     conv holds the last pre-conv inputs (zero-padded in front when S <
@@ -161,7 +161,15 @@ def ssm(params, x, *, masks=None, chunk=64):
     Cm = Cm[:, :, None, :].expand(Bsz, S, H, N)
     dt = F.softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
-    y, h_last = _ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk)
+    if dist is None:
+        y, h_last = _ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk)
+    else:
+        # heads are independent through the scan: each rank scans its own
+        # (``Dist.local_map``; DTensor cannot run the chunk loop)
+        xh = dist.shard_heads(xh)
+        y, h_last = dist.local_map(
+            lambda *a: _ssd_scan(*a, chunk=chunk), (2, 2, 0, 2, 2),
+            (2, 1))(xh, dt, A, Bm, Cm)
     y = y + xh.float() * params["D"][:, None]
     y = y.reshape(Bsz, S, d_inner).to(x.dtype)
     y = L.rmsnorm(params["norm"], y * F.silu(z))
@@ -169,9 +177,10 @@ def ssm(params, x, *, masks=None, chunk=64):
     return out, {"h": h_last, "conv": conv_tail.contiguous()}
 
 
-def ssm_decode(params, x, state, *, masks=None):
+def ssm_decode(params, x, state, *, masks=None, dist=None):
     """One-token decode.  x (B, 1, D); state {h: (B, H, P, N) fp32,
-    conv: (B, width - 1, conv_dim)}.  Returns ((B, 1, D), new state)."""
+    conv: (B, width - 1, conv_dim)}.  Returns ((B, 1, D), new state).
+    ``dist`` is accepted and unused, as in the reference."""
     m = masks or {}
     Bsz = x.shape[0]
     d_inner, H, Pd, N = _dims(params)

@@ -21,8 +21,17 @@ scaled by tanh of its fp32 ``gate``, then its own FFN; leaves (G, ...)).
 ``forward_aux`` is the training forward: the logits and the MoE aux loss
 summed over the layers, each layer checkpointed (recomputed in the
 backward pass) when ``cfg.remat == "full"``.
+
+Every forward and decode step takes ``dist`` (``distributed.sharding.
+Dist``): the activations, residual stream and logits take the
+reference's placements on its mesh (``shard_activations``,
+``shard_residual``, ``shard_logits``), and the model runs under
+``dist.region()``, where the plain tensors it makes meet placed ones as
+replicated.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -85,13 +94,16 @@ def init_lm(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
     {ln1, attn, lnx, xattn, ln2, ffn} and "norm_e"; vlm "groups" {selfs
     (G, k - 1, ...), cross {ln1, xattn, gate, ln2, ffn} (G, ...)}.  The
     mixer's A_log, D and dt_bias and the cross gate (zero, as the
-    reference's) stay fp32."""
+    reference's) stay fp32.  ``device="meta"`` builds the shapes alone
+    (what the spec functions read), drawing nothing."""
     fam = cfg.family
     if fam not in FAMILIES:
         raise ValueError(fam)
     dev = M.resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     kw = dict(dtype=dtype, device=dev)
     # the layer stacks are drawn first, then the embedding and head
     if fam in DECODER_FAMILIES:
@@ -148,17 +160,28 @@ def decode_layers(params, cfg: ArchConfig) -> list:
     return layer_params(params)
 
 
-def _ffn(p, h, cfg: ArchConfig, group=None):
+def _region(dist):
+    """``dist.region()``, or nothing without a mesh."""
+    return contextlib.nullcontext() if dist is None else dist.region()
+
+
+def _residual(x, dist):
+    return x if dist is None else dist.shard_residual(x)
+
+
+def _ffn(p, h, cfg: ArchConfig, group=None, dist=None):
     """The layer's FFN on its normed input: SwiGLU, or the MoE experts in
     dispatch groups of ``group`` tokens (default ``cfg.moe_group``).
     Returns (out, aux): the MoE load-balance loss, None for SwiGLU."""
     if cfg.family == "moe":
         return moe(p["moe"], h, top_k=cfg.top_k,
-                   group=cfg.moe_group if group is None else group)
+                   group=cfg.moe_group if group is None else group,
+                   dist=dist)
     return L.ffn(p["ffn"], h), None
 
 
-def _layer_fwd(p, x, positions, cfg: ArchConfig, kind=None, memory=None):
+def _layer_fwd(p, x, positions, cfg: ArchConfig, kind=None, memory=None,
+               dist=None):
     """One layer of ``kind`` (default ``cfg.family``).  Returns (x, kv,
     ssm state, aux): the layer's attention cache from this one run (the
     roped self (k, v); xdec's (k, v, xk, xv) with the cross keys and
@@ -166,41 +189,45 @@ def _layer_fwd(p, x, positions, cfg: ArchConfig, kind=None, memory=None):
     its mixer's decode state (None but for ssm and hybrid) and its MoE
     aux loss (None outside the moe family).  The hybrid state is the
     mixer's on the layer's normed INPUT, the same input its output came
-    from."""
+    from.  Under ``dist`` the output takes ``shard_residual``."""
     kind = kind or cfg.family
     h = L.rmsnorm(p["ln1"], x)
     kv = st = None
+    sh = dict(dist=dist, shard=cfg.attn_shard)
     if kind == "ssm":
-        sm, st = S.ssm(p["ssm"], h)
-        return x + sm, kv, st, None
+        sm, st = S.ssm(p["ssm"], h, dist=dist)
+        return _residual(x + sm, dist), kv, st, None
     if kind == "cross":
         xa, kv = A.mha(p["xattn"], h, positions, cfg.n_heads,
-                       cfg.n_kv_heads, cfg.hd, memory=memory)
+                       cfg.n_kv_heads, cfg.hd, memory=memory, **sh)
         x = x + torch.tanh(p["gate"]).to(x.dtype) * xa
-        return x + L.ffn(p["ffn"], L.rmsnorm(p["ln2"], x)), kv, None, None
+        x = x + L.ffn(p["ffn"], L.rmsnorm(p["ln2"], x))
+        return _residual(x, dist), kv, None, None
     att, kv = A.mha(p["attn"], h, positions, cfg.n_heads, cfg.n_kv_heads,
                     cfg.hd, window=cfg.sliding_window,
-                    rope_theta=cfg.rope_theta, kv_chunk=cfg.kv_chunk)
+                    rope_theta=cfg.rope_theta, kv_chunk=cfg.kv_chunk, **sh)
     if kind == "hybrid":
-        sm, st = S.ssm(p["ssm"], h)
+        sm, st = S.ssm(p["ssm"], h, dist=dist)
         att = (att + sm) * 0.5
     x = x + att
     if kind == "xdec":
         xa, xkv = A.mha(p["xattn"], L.rmsnorm(p["lnx"], x), positions,
-                        cfg.n_heads, cfg.n_kv_heads, cfg.hd, memory=memory)
+                        cfg.n_heads, cfg.n_kv_heads, cfg.hd, memory=memory,
+                        **sh)
         x = x + xa
         kv = kv + xkv
-    f, aux = _ffn(p, L.rmsnorm(p["ln2"], x), cfg)
-    return x + f, kv, st, aux
+    f, aux = _ffn(p, L.rmsnorm(p["ln2"], x), cfg, dist=dist)
+    return _residual(x + f, dist), kv, st, aux
 
 
-def _enc_layer(p, h, positions, cfg: ArchConfig):
+def _enc_layer(p, h, positions, cfg: ArchConfig, dist=None):
     """One bidirectional encoder layer (no causal mask; the reference's
     default rope theta and KV chunk)."""
     att, _ = A.mha(p["attn"], L.rmsnorm(p["ln1"], h), positions,
-                   cfg.n_heads, cfg.n_kv_heads, cfg.hd, causal=False)
+                   cfg.n_heads, cfg.n_kv_heads, cfg.hd, causal=False,
+                   dist=dist, shard=cfg.attn_shard)
     h = h + att
-    return h + L.ffn(p["ffn"], L.rmsnorm(p["ln2"], h))
+    return _residual(h + L.ffn(p["ffn"], L.rmsnorm(p["ln2"], h)), dist)
 
 
 def _run(remat, fn, *args):
@@ -209,59 +236,74 @@ def _run(remat, fn, *args):
     return fn(*args)
 
 
-def encode(params, cfg: ArchConfig, frontend, dtype, remat=False):
+def encode(params, cfg: ArchConfig, frontend, dtype, remat=False,
+           dist=None):
     """encdec's memory: the encoder over the frontend embeddings (B, T, D)
     cast to ``dtype``, then ``norm_e``."""
     h = frontend.to(dtype)
     pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
     for lp in layer_params(params, "enc"):
-        h = _run(remat, _enc_layer, lp, h, pos, cfg)
+        h = _run(remat, _enc_layer, lp, h, pos, cfg, dist)
     return L.rmsnorm(params["norm_e"], h)
 
 
 def forward_aux(params, cfg: ArchConfig, tokens, positions=None,
-                frontend=None):
+                frontend=None, dist=None):
     """tokens (B, S) -> (logits (B, S, vocab), aux): the reference's
     ``forward``, with the MoE load-balance loss summed over the layers
     (fp32; 0 outside the moe family).  ``frontend`` (B, T, D) is encdec's
     audio-frame and vlm's image-patch embedding stand-in.  With
     ``cfg.remat == "full"`` and autograd recording, each layer runs under
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): only
-    its input is kept, and the backward pass runs it again."""
+    its input is kept, and the backward pass runs it again.  Under
+    ``dist`` the logits (and the aux loss) come back placed."""
     fam = cfg.family
     if fam not in FAMILIES:
         raise ValueError(fam)
+    with _region(dist):
+        return _forward_aux(params, cfg, tokens, positions, frontend, dist)
+
+
+def _forward_aux(params, cfg, tokens, positions, frontend, dist):
+    fam = cfg.family
     _, Sq = tokens.shape
     if positions is None:
         positions = torch.arange(Sq, dtype=torch.int32, device=tokens.device)
     x = L.embed(params["embed"], tokens)
+    if dist is not None:
+        x = dist.shard_activations(x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     if fam in DECODER_FAMILIES:
         for lp in layer_params(params):
-            x, _, _, a = _run(remat, _layer_fwd, lp, x, positions, cfg)
+            x, _, _, a = _run(remat, _layer_fwd, lp, x, positions, cfg,
+                              None, None, dist)
             if a is not None:
                 aux = aux + a
     elif fam == "encdec":
-        memory = encode(params, cfg, frontend, x.dtype, remat)
+        memory = encode(params, cfg, frontend, x.dtype, remat, dist)
         for lp in layer_params(params, "dec"):
             x = _run(remat, _layer_fwd, lp, x, positions, cfg, "xdec",
-                     memory)[0]
+                     memory, dist)[0]
     else:
         memory = frontend.to(x.dtype)
         for g in layer_params(params, "groups"):
             for lp in layer_params(g, "selfs"):
                 x = _run(remat, _layer_fwd, lp, x, positions, cfg,
-                         "dense")[0]
+                         "dense", None, dist)[0]
             x = _run(remat, _layer_fwd, g["cross"], x, positions, cfg,
-                     "cross", memory)[0]
+                     "cross", memory, dist)[0]
     x = L.rmsnorm(params["norm_f"], x)
-    return L.unembed(params["head"], x), aux
+    logits = L.unembed(params["head"], x)
+    if dist is not None:
+        logits = dist.shard_logits(logits)
+    return logits, aux
 
 
-def forward(params, cfg: ArchConfig, tokens, positions=None, frontend=None):
-    """tokens (B, S) -> logits (B, S, vocab)."""
-    return forward_aux(params, cfg, tokens, positions, frontend)[0]
+def forward(params, cfg: ArchConfig, tokens, positions=None, frontend=None,
+            dist=None):
+    """tokens (B, S) -> logits (B, S, vocab); placed under ``dist``."""
+    return forward_aux(params, cfg, tokens, positions, frontend, dist)[0]
 
 
 def init_cache(params, cfg: ArchConfig, batch, seq, dtype=torch.bfloat16):
@@ -309,11 +351,20 @@ def init_cache(params, cfg: ArchConfig, batch, seq, dtype=torch.bfloat16):
 
 
 def _decode(params, cfg: ArchConfig, token, cache, layers, attn,
-            moe_group=None):
+            moe_group=None, dist=None):
     """The decode step's layer loop.  ``attn(lp, hn, kv_cache)`` is the
     self-attention of one layer on its normed input and that layer's KV
-    views; every cache write is in place."""
+    views; every cache write is in place (the caches stay whole on every
+    rank under a mesh)."""
+    with _region(dist):
+        return _decode_layers(params, cfg, token, cache, layers, attn,
+                              moe_group, dist)
+
+
+def _decode_layers(params, cfg, token, cache, layers, attn, moe_group, dist):
     x = L.embed(params["embed"], token)
+    if dist is not None:
+        x = dist.shard_activations(x)
     if layers is None:
         layers = decode_layers(params, cfg)
     fam = cfg.family
@@ -343,9 +394,11 @@ def _decode(params, cfg: ArchConfig, token, cache, layers, attn,
             hn = L.rmsnorm(lp["ln1"], x)
             if fam in ("ssm", "hybrid"):
                 sm, st = S.ssm_decode(lp["ssm"], hn,
-                                      M.take_layer(cache["ssm"], i))
+                                      M.take_layer(cache["ssm"], i),
+                                      dist=dist)
                 for k, v in st.items():
-                    cache["ssm"][k][i] = v
+                    cache["ssm"][k][i] = v if dist is None else \
+                        dist.gather(v)
             if fam == "ssm":
                 x = x + sm
                 continue
@@ -354,12 +407,17 @@ def _decode(params, cfg: ArchConfig, token, cache, layers, attn,
             if fam == "hybrid":
                 att = (att + sm) * 0.5
             x = x + att
-            x = x + _ffn(lp, L.rmsnorm(lp["ln2"], x), cfg, moe_group)[0]
+            x = x + _ffn(lp, L.rmsnorm(lp["ln2"], x), cfg, moe_group,
+                         dist)[0]
     x = L.rmsnorm(params["norm_f"], x)
-    return L.unembed(params["head"], x), cache
+    logits = L.unembed(params["head"], x)
+    if dist is not None:
+        logits = dist.shard_logits(logits)
+    return logits, cache
 
 
-def decode_step(params, cfg: ArchConfig, token, cache, pos, layers=None):
+def decode_step(params, cfg: ArchConfig, token, cache, pos, layers=None,
+                dist=None):
     """token (B, 1) int; pos (B, 1) int current position; returns
     (logits (B, 1, V), cache) — the cache is updated in place.  ``layers``
     is ``decode_layers(params, cfg)`` when the caller already has it.
@@ -370,12 +428,12 @@ def decode_step(params, cfg: ArchConfig, token, cache, pos, layers=None):
     def attn(lp, hn, c):
         return A.mha_decode(lp["attn"], hn, c, pos, cfg.n_heads,
                             cfg.n_kv_heads, cfg.hd, window=window,
-                            rope_theta=cfg.rope_theta)[0]
-    return _decode(params, cfg, token, cache, layers, attn)
+                            rope_theta=cfg.rope_theta, dist=dist)[0]
+    return _decode(params, cfg, token, cache, layers, attn, dist=dist)
 
 
 def decode_step_ragged(params, cfg: ArchConfig, token, cache, pos, cap,
-                       layers=None):
+                       layers=None, dist=None):
     """Continuous-batching decode step: ONE forward over every slot of the
     ``serve.kvcache`` slot cache.
 
@@ -400,8 +458,9 @@ def decode_step_ragged(params, cfg: ArchConfig, token, cache, pos, cap,
         return A.mha_decode_ragged(lp["attn"], hn, c, pos, cap, cfg.n_heads,
                                    cfg.n_kv_heads, cfg.hd,
                                    window=cfg.sliding_window,
-                                   rope_theta=cfg.rope_theta)[0]
-    return _decode(params, cfg, token, cache, layers, attn, moe_group=1)
+                                   rope_theta=cfg.rope_theta, dist=dist)[0]
+    return _decode(params, cfg, token, cache, layers, attn, moe_group=1,
+                   dist=dist)
 
 
 def sample(logits, temperature=0.0, generator=None):
@@ -415,17 +474,21 @@ def sample(logits, temperature=0.0, generator=None):
 
 
 def decode_loop(params, cfg: ArchConfig, tok, cache, start_pos, n_new,
-                temperature=0.0, generator=None):
+                temperature=0.0, generator=None, dist=None):
     """Generate ``n_new`` tokens: ``n_new`` decode steps, each feeding back
     its ``sample`` (greedy at temperature 0, else drawn by
     ``generator``).  tok (B, 1) is the first token to emit and start_pos
     (B, 1) its position.  Returns (tokens (B, n_new), cache); tok itself
-    is the first output token, as in the reference."""
+    is the first output token, as in the reference.  Under ``dist`` each
+    step's logits are gathered whole before the sample, so every rank
+    feeds back the same tokens."""
     toks = []
     layers = decode_layers(params, cfg)
     for i in range(n_new):
         toks.append(tok)
         logits, cache = decode_step(params, cfg, tok, cache, start_pos + i,
-                                    layers)
+                                    layers, dist)
+        if dist is not None:
+            logits = dist.gather(logits)
         tok = sample(logits[:, -1, :], temperature, generator).to(tok.dtype)
     return torch.cat(toks, dim=1), cache

@@ -50,7 +50,8 @@ def clip_by_global_norm(grads, max_norm=1.0):
 
 def adamw_init(params):
     def z(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        # zeros_like: a placed param's moments take its placement
+        return torch.zeros_like(p, dtype=torch.float32)
     dev = _flat(params)[0].device
     return {"m": M.tree_map(z, params), "v": M.tree_map(z, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}

@@ -42,6 +42,7 @@ from repro_torch.core import quant as QUANT
 from repro_torch.core import reweighted as RW
 from repro_torch.core import validate as V
 from repro_torch.core.packed import DegradedLayer, PackedLayout
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
 from repro_torch.models import module as M
 
@@ -507,7 +508,10 @@ def degrade_invalid_layers(exec_params, report=None):
                 out[k] = v
                 continue
             try:
-                out[k] = V.validate_layout(v, path=sub)
+                # a layout placed on a mesh is checked gathered whole, and
+                # kept placed
+                checked = V.validate_layout(SH.gather_layout(v), path=sub)
+                out[k] = v if SH.is_placed(v.nnz) else checked
             except V.LayoutError as e:
                 if "w" not in node:
                     raise     # no dense fallback weight: repack or fail

@@ -5,7 +5,13 @@ per-token oracle), and the continuous-batching ``ServingEngine`` (the
 decoder-only families), which decodes every live request through ONE
 batched step a token, so each packed kernel launch reads the weights once
 for the whole batch.  Works with dense, masked, and
-``compile_model``-packed params alike."""
+``compile_model``-packed params alike.
+
+Each entry point takes ``dist`` (``distributed.sharding.Dist``): it places
+its inputs by the batch spec (sharded over the data axes when the batch
+divides, else replicated), runs the model on the mesh, and returns plain
+whole tensors, as a JAX global array reads.  Params are placed by the
+caller (``sharding.shard_packed_tree`` for the packed layouts)."""
 from __future__ import annotations
 
 import numpy as np
@@ -33,7 +39,17 @@ def _window_kv(k, v, S_len, cfg):
     return k[:, S_len - cap:], v[:, S_len - cap:], pos
 
 
-def prefill(params, cfg: ArchConfig, tokens, frontend=None):
+def _whole(tree, dist):
+    """Every placed tensor of ``tree`` gathered whole (nothing without a
+    mesh)."""
+    if dist is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _whole(v, dist) for k, v in tree.items()}
+    return dist.gather(tree)
+
+
+def prefill(params, cfg: ArchConfig, tokens, frontend=None, dist=None):
     """tokens (B, S) -> (last-token logits (B, 1, V), cache).  The KV
     cache (dense, moe, hybrid) is exactly as long as the prompt, cut to
     the attention window (a ring stacked on the layer dim like
@@ -50,24 +66,37 @@ def prefill(params, cfg: ArchConfig, tokens, frontend=None):
     layer's normed input.  The reference (``repro.serve.engine.prefill``)
     runs the mixer a second time on the layer's OUTPUT ("recompute state
     cheaply"), so its decode continues from a state no ``forward`` ever
-    had; the port does not copy that, and saves the second run."""
+    had; the port does not copy that, and saves the second run.
+
+    Under ``dist`` the logits and every cache leaf come back whole."""
+    if dist is None:
+        return _prefill(params, cfg, tokens, frontend, None)
+    with dist.region():
+        logits, cache = _prefill(params, cfg, dist.place_batch(tokens),
+                                 dist.place_batch(frontend), dist)
+        return dist.gather(logits), _whole(cache, dist)
+
+
+def _prefill(params, cfg, tokens, frontend, dist):
     _, Sq = tokens.shape
     positions = torch.arange(Sq, dtype=torch.int32, device=tokens.device)
     x = L.embed(params["embed"], tokens)
+    if dist is not None:
+        x = dist.shard_activations(x)
     fam = cfg.family
     kvs, xkvs, states = [], [], []
     if fam in T.DECODER_FAMILIES:
         for lp in T.layer_params(params):
-            x, kv, st, _ = T._layer_fwd(lp, x, positions, cfg)
+            x, kv, st, _ = T._layer_fwd(lp, x, positions, cfg, dist=dist)
             if kv is not None:
                 kvs.append(_window_kv(*kv, Sq, cfg))
             if st is not None:
                 states.append(st)
     elif fam == "encdec":
-        memory = T.encode(params, cfg, frontend, x.dtype)
+        memory = T.encode(params, cfg, frontend, x.dtype, dist=dist)
         for lp in T.layer_params(params, "dec"):
             x, (k, v, xk, xv), _, _ = T._layer_fwd(lp, x, positions, cfg,
-                                                   "xdec", memory)
+                                                   "xdec", memory, dist)
             kvs.append((k, v, positions))
             xkvs.append((xk, xv))
     elif fam == "vlm":
@@ -75,10 +104,10 @@ def prefill(params, cfg: ArchConfig, tokens, frontend=None):
         for g in T.layer_params(params, "groups"):
             for lp in T.layer_params(g, "selfs"):
                 x, (k, v), _, _ = T._layer_fwd(lp, x, positions, cfg,
-                                               "dense")
+                                               "dense", dist=dist)
                 kvs.append((k, v, positions))
             x, xkv, _, _ = T._layer_fwd(g["cross"], x, positions, cfg,
-                                        "cross", memory)
+                                        "cross", memory, dist)
             xkvs.append(xkv)
     else:
         raise ValueError(fam)
@@ -95,7 +124,10 @@ def prefill(params, cfg: ArchConfig, tokens, frontend=None):
         cache["ssm"] = {name: torch.stack([st[name] for st in states])
                         for name in states[0]}
     x = L.rmsnorm(params["norm_f"], x[:, -1:, :])
-    return L.unembed(params["head"], x), cache
+    logits = L.unembed(params["head"], x)
+    if dist is not None:
+        logits = dist.shard_logits(logits)
+    return logits, cache
 
 
 def _inputs(tokens, frontend, device):
@@ -107,7 +139,7 @@ def _inputs(tokens, frontend, device):
 
 
 def generate(params, cfg: ArchConfig, tokens, n_new, device="cuda",
-             frontend=None, temperature=0.0, generator=None):
+             frontend=None, temperature=0.0, generator=None, dist=None):
     """Prefill, then ``n_new`` decode steps.  Returns (B, n_new) int32
     tokens; the first is the prefill's argmax at any temperature.  At
     temperature 0 every later token is the argmax (greedy); above it,
@@ -116,27 +148,28 @@ def generate(params, cfg: ArchConfig, tokens, n_new, device="cuda",
     reference's default key is ``PRNGKey(0)``: the draws are torch's, not
     JAX's).  ``frontend`` (B, T, D) is encdec's and vlm's embedding
     stand-in.  Decoding past the prompt overwrites the ring slot of the
-    oldest position, as the reference does."""
+    oldest position, as the reference does.  Under ``dist`` the prompt is
+    placed by the batch spec and the model runs on the mesh."""
     dev, tokens, frontend = _inputs(tokens, frontend, device)
     B, Sq = tokens.shape
     if temperature > 0 and generator is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(0)
-    logits, cache = prefill(params, cfg, tokens, frontend)
+    logits, cache = prefill(params, cfg, tokens, frontend, dist)
     tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
     start = torch.full((B, 1), Sq, dtype=torch.int32, device=dev)
     toks, _ = T.decode_loop(params, cfg, tok, cache, start, n_new,
-                            temperature, generator)
+                            temperature, generator, dist)
     return toks
 
 
 def generate_python(params, cfg: ArchConfig, tokens, n_new, device="cuda",
-                    frontend=None):
+                    frontend=None, dist=None):
     """Greedy generation one token at a time, each step's token read back
     to the host: the per-token oracle of ``generate`` and the engine."""
     dev, tokens, frontend = _inputs(tokens, frontend, device)
     B, Sq = tokens.shape
-    logits, cache = prefill(params, cfg, tokens, frontend)
+    logits, cache = prefill(params, cfg, tokens, frontend, dist)
     layers = T.decode_layers(params, cfg)
     out = []
     for i in range(n_new):
@@ -145,7 +178,9 @@ def generate_python(params, cfg: ArchConfig, tokens, n_new, device="cuda",
         pos = torch.full((B, 1), Sq + i, dtype=torch.int32, device=dev)
         logits, cache = T.decode_step(
             params, cfg, torch.as_tensor(tok[:, None], device=dev), cache,
-            pos, layers)
+            pos, layers, dist)
+        if dist is not None:
+            logits = dist.gather(logits)
     return torch.as_tensor(np.stack(out, axis=1), device=dev)
 
 
@@ -181,13 +216,21 @@ class ServingEngine:
     admission, and a slot whose logits came back non-finite is
     quarantined (evicted without emitting its token); the other slots are
     untouched (slots share weights, never activations).
+
+    ``dist`` runs the engine on a mesh: the caller places the params
+    (``sharding.shard_packed_tree``), validation checks each placed layout
+    gathered whole, admissions run ``prefill(dist=)``, and the step places
+    the slots' operands by the batch spec and gathers the logits whole;
+    the cache stays whole on every rank.  The step is captured as on one
+    card: a capture records the kernels, so a replay runs none of
+    DTensor's host work.
     """
 
     FAMILIES = T.DECODER_FAMILIES
 
     def __init__(self, params, cfg: ArchConfig, *, n_slots=8, seq_cap=256,
                  max_queue=None, validate=True, report=None,
-                 device="cuda"):
+                 device="cuda", dist=None):
         if cfg.family not in self.FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not served (supported: "
@@ -205,7 +248,7 @@ class ServingEngine:
         if validate:
             params, self.report, degraded = SC.degrade_invalid_layers(
                 params, report=report)
-        self.params, self.cfg = params, cfg
+        self.params, self.cfg, self.dist = params, cfg, dist
         self.n_slots, self.seq_cap = n_slots, seq_cap
         self.cache = KV.init_slots(params, cfg, n_slots, seq_cap,
                                    dtype=params["embed"]["table"].dtype)
@@ -233,11 +276,22 @@ class ServingEngine:
 
     def _forward(self):
         """decode_step_ragged + argmax + finite probe over every slot:
-        (logits (B, 1, V), (2, B) int32 of next tokens and probe)."""
-        ops = self._ops_dev
-        logits, _ = T.decode_step_ragged(
-            self.params, self.cfg, ops[0][:, None], self.cache,
-            ops[1][:, None], ops[2], self._layers)
+        (logits (B, 1, V), (2, B) int32 of next tokens and probe).  Under
+        a mesh the slots' operands are placed by the batch spec and the
+        logits gathered whole."""
+        ops, d = self._ops_dev, self.dist
+        tok, pos, cap = ops[0][:, None], ops[1][:, None], ops[2]
+        if d is None:
+            logits, _ = T.decode_step_ragged(
+                self.params, self.cfg, tok, self.cache, pos, cap,
+                self._layers)
+        else:
+            with d.region():
+                logits, _ = T.decode_step_ragged(
+                    self.params, self.cfg, d.place_batch(tok), self.cache,
+                    d.place_batch(pos), d.place_batch(cap), self._layers,
+                    d)
+                logits = d.gather(logits)
         last = logits[:, -1, :]
         out = torch.stack([torch.argmax(last, dim=-1).to(torch.int32),
                            torch.isfinite(last.float()).all(-1).to(
@@ -313,7 +367,8 @@ class ServingEngine:
             slot, req = pair
             toks = torch.tensor([req.prompt], dtype=torch.int32,
                                 device=self.device)
-            logits, rc = prefill(self.params, self.cfg, toks)
+            logits, rc = prefill(self.params, self.cfg, toks,
+                                 dist=self.dist)
             t0 = int(torch.argmax(logits[0, -1]))
             req.tokens.append(t0)
             self.stats["admitted"] += 1

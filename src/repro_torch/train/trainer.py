@@ -7,6 +7,11 @@ forward pass, so the gradients of pruned weights are exactly zero; the
 products stay ``torch.matmul`` under autograd (the reference leaves them
 to XLA).  The BCS kernel is the serving path: it runs once
 ``serve.compile.compile_model`` packs the trained, masked params.
+
+With ``dist`` (``distributed.sharding.Dist``) the step runs on its mesh:
+the params (and the optimizer state, which follows them) are placed by
+the caller (``sharding.param_shardings``, "tp" or "fsdp" specs), the
+batch by the batch spec, and the loss and grad norm come back whole.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import reweighted as RW
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import module as M
 from repro_torch.models import transformer as T
@@ -27,10 +33,12 @@ def apply_masks(params, masks):
     if masks is None:
         return params
     return M.tree_map(
-        lambda p, m: p if m.ndim == 0 else p * m.to(p.dtype), params, masks)
+        lambda p, m: p if m.ndim == 0 else
+        p * L.replicated_like(m.to(p.dtype), p), params, masks)
 
 
-def make_loss_fn(cfg: ArchConfig, aux_weight=0.01, reweighted=None):
+def make_loss_fn(cfg: ArchConfig, aux_weight=0.01, reweighted=None,
+                 dist=None):
     """``loss_fn(params, batch, masks=None, alphas=None) -> (total, ce)``:
     total = ce + aux_weight * aux, plus ``reweighted.lam`` times the
     penalty on the UNMASKED params when ``reweighted`` (a
@@ -39,12 +47,22 @@ def make_loss_fn(cfg: ArchConfig, aux_weight=0.01, reweighted=None):
     def loss_fn(params, batch, masks=None, alphas=None):
         logits, aux = T.forward_aux(apply_masks(params, masks), cfg,
                                     batch["tokens"],
-                                    frontend=batch.get("frontend"))
-        ce = L.cross_entropy(logits, batch["labels"])
+                                    frontend=batch.get("frontend"),
+                                    dist=dist)
+        if dist is None:
+            ce = L.cross_entropy(logits, batch["labels"])
+        else:
+            # the gold-logit gather has no DTensor rule: the loss runs on
+            # whole logits (``Dist.replicated``)
+            ce = dist.replicated(L.cross_entropy)(logits, batch["labels"])
         total = ce + aux_weight * aux
         if reweighted is not None and alphas is not None:
-            total = total + reweighted.lam * RW.penalty(params, alphas,
-                                                        reweighted)
+            # the group norms run on the gathered params, and their sum
+            # joins the placed loss as a replicated value (differentiably)
+            whole = params if dist is None else SH.full_tree(params)
+            pen = L.replicated_like(RW.penalty(whole, alphas, reweighted),
+                                    total)
+            total = total + reweighted.lam * pen
         return total, ce
 
     return loss_fn
@@ -69,8 +87,11 @@ def value_and_grad(loss_fn):
     return f
 
 
-def make_train_step(cfg: ArchConfig, lr=3e-4, reweighted=None, grad_accum=1):
-    """(opt_init, train_step) for ``cfg.optimizer``.
+def make_train_step(cfg: ArchConfig, lr=3e-4, reweighted=None, grad_accum=1,
+                    dist=None, compress_cross_pod=False):
+    """(opt_init, train_step) for ``cfg.optimizer``.  ``dist`` runs it on
+    a mesh; ``compress_cross_pod`` is accepted and unused, as in the
+    reference (``sharding.compressed_allreduce`` is the hook).
 
     ``train_step(params, opt_state, batch, masks=None, alphas=None) ->
     (params, opt_state, {"loss": ce, "grad_norm"})``: the grads (averaged
@@ -78,9 +99,19 @@ def make_train_step(cfg: ArchConfig, lr=3e-4, reweighted=None, grad_accum=1):
     when > 1) clipped to global norm 1, then one optimizer step at the
     cosine schedule's lr for the state's step count."""
     opt_init, opt_update = make_optimizer(cfg.optimizer)
-    grad_fn = value_and_grad(make_loss_fn(cfg, reweighted=reweighted))
+    grad_fn = value_and_grad(make_loss_fn(cfg, reweighted=reweighted,
+                                          dist=dist))
 
     def train_step(params, opt_state, batch, masks=None, alphas=None):
+        if dist is None:
+            return step(params, opt_state, batch, masks, alphas)
+        with dist.region():
+            batch = {k: dist.place_batch(v) for k, v in batch.items()}
+            params, opt_state, m = step(params, opt_state, batch, masks,
+                                        alphas)
+        return params, opt_state, {k: dist.gather(v) for k, v in m.items()}
+
+    def step(params, opt_state, batch, masks, alphas):
         if grad_accum > 1:
             n = batch["tokens"].shape[0] // grad_accum
             grads, ce = None, 0.0

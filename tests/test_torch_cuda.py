@@ -50,11 +50,16 @@ def _layout(dev, K_, N_, block, dtype, reorder, seed=0, gran=None):
                     scale_granularity=gran or "block"), w * mask.to(dtype)
 
 
-def _kernel_vs_plain(dev, M, K_, N_, block, dtype, gran=None):
+def _kernel_vs_plain(dev, M, K_, N_, block, dtype, gran=None, seed=None):
     lay, _ = _layout(dev, K_, N_, block, dtype, reorder=True, gran=gran)
     unre, _ = _layout(dev, K_, N_, block, dtype, reorder=False, gran=gran)
-    x = torch.randn(M, K_, device=dev).to(dtype)
-    b = torch.randn(N_, device=dev).to(dtype)
+    if seed is None:
+        x = torch.randn(M, K_, device=dev).to(dtype)
+        b = torch.randn(N_, device=dev).to(dtype)
+    else:       # drawn on the host from a seeded generator: reproducible
+        gen = torch.Generator().manual_seed(seed)
+        x = torch.randn(M, K_, generator=gen).to(dev, dtype)
+        b = torch.randn(N_, generator=gen).to(dev, dtype)
     for act in ("none", "silu", "relu"):
         before = K.LAUNCHES["bsr_matmul"]
         y = K.bsr_matmul_packed(x, lay, bias=b, act=act)
@@ -247,12 +252,111 @@ def test_train_steps_on_card_match_cpu(cuda, monkeypatch):
     assert runs["cuda"] == pytest.approx(runs["cpu"], abs=1e-4)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M", [4, 128])
-def test_kernel_at_the_trained_block_and_yi9b_width(cuda, M, dtype):
+def test_kernel_at_the_trained_block_and_yi9b_width(cuda, M, dtype, seed):
     """(8, 16) blocks (the train CLI's snapped block, kernel 1's FMA path
-    in bf16) at yi-9b's gate / up shape (4096, 11008)."""
-    _kernel_vs_plain(cuda, M, 4096, 11008, (8, 16), dtype)
+    in bf16) at yi-9b's gate / up shape (4096, 11008); x and the bias
+    from a seeded generator, several seeds, so a failure reproduces."""
+    _kernel_vs_plain(cuda, M, 4096, 11008, (8, 16), dtype, seed=seed)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_kernel1_is_deterministic_at_the_trained_block(cuda, seed):
+    """Kernel 1 launched twice on the same input at the flaky case's
+    shape ((8, 16), fp32, yi-9b's gate, M = 128) gives the same bits:
+    whether its chunked column reduction is deterministic run to run."""
+    lay, _ = _layout(cuda, 4096, 11008, (8, 16), torch.float32,
+                     reorder=True)
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(128, 4096, generator=gen).to(cuda)
+    b = torch.randn(11008, generator=gen).to(cuda)
+    first = K.bsr_matmul_packed(x, lay, bias=b, act="silu")
+    for _ in range(3):
+        again = K.bsr_matmul_packed(x, lay, bias=b, act="silu")
+        torch.cuda.synchronize()
+        assert torch.equal(first, again), \
+            int((first != again).sum())
+
+
+MESH_CHECK = """
+import json, sys, torch
+from repro_torch.distributed import sharding as SH
+from repro_torch.kernels import bsr_matmul as K, ops
+from repro_torch.launch import mesh as MESH
+from repro_torch.serve.compile import _pack_stacked
+import numpy as np
+mesh = MESH.make_local_mesh()
+rng = np.random.RandomState(0)
+out = {"mesh": [list(mesh.mesh_dim_names), list(mesh.shape)],
+       "backend": torch.distributed.get_backend()}
+for dtype in (torch.float32, torch.bfloat16):
+    K_, N_, bk = 4096, 512, 16
+    live = rng.rand(K_ // bk, N_ // bk) < 0.4
+    mask = torch.from_numpy(np.kron(live, np.ones((bk, bk), bool))).cuda()
+    w = torch.from_numpy(rng.randn(K_, N_).astype(np.float32)).cuda()
+    w = w.to(dtype)
+    x = torch.from_numpy(rng.randn(7, K_).astype(np.float32)).cuda()
+    x = x.to(dtype)
+    sharded = ops.pack(w, mask, (bk, bk), n_shards=4)
+    placed = SH.place_layout(sharded, mesh)
+    K.reset_launches()
+    want = ops.sparse_linear(x, sharded, act="silu")
+    before = dict(K.LAUNCHES)
+    got = SH.full(ops.sparse_linear(SH.place(x, mesh, ()), placed,
+                                    act="silu"))
+    torch.cuda.synchronize()
+    lin = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
+           if K.LAUNCHES[k] != before[k]}
+    E = 8
+    we = torch.from_numpy(rng.randn(E, 256, 512).astype(np.float32))
+    me = torch.from_numpy(np.kron(rng.rand(E, 16, 32) < 0.5,
+                                  np.ones((16, 16), bool)))
+    stack, _ = _pack_stacked(we.to(dtype).cuda(), me.cuda(), (16, 16))
+    xe = torch.from_numpy(rng.randn(E, 5, 256).astype(np.float32)).cuda()
+    xe = xe.to(dtype)
+    want_e = ops.sparse_expert_linear(xe, stack)
+    before = dict(K.LAUNCHES)
+    got_e = SH.full(ops.sparse_expert_linear(
+        SH.place(xe, mesh, ("model",)),
+        SH.place_layout(stack, mesh, SH.expert_layout_specs(stack))))
+    torch.cuda.synchronize()
+    exp = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
+           if K.LAUNCHES[k] != before[k]}
+    out[str(dtype)] = {"linear_equal": bool(torch.equal(got, want)),
+                       "linear_launches": lin,
+                       "expert_equal": bool(torch.equal(got_e, want_e)),
+                       "expert_launches": exp}
+MESH.close_local_mesh()
+print(json.dumps(out))
+"""
+
+
+def test_one_rank_mesh_launches_equal_the_unmeshed_ones(cuda):
+    """On the one-rank NCCL mesh (``make_local_mesh()``, in a subprocess:
+    no group starts in the test process), a column-sharded layout placed
+    by ``place_layout`` and an expert stack placed by
+    ``expert_layout_specs`` give the un-meshed launches' bits, one
+    launch each, and start and end their group."""
+    import json
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    run = subprocess.run([sys.executable, "-c", MESH_CHECK], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    out = json.loads(run.stdout.strip().splitlines()[-1])
+    assert out["mesh"] == [["data", "model"], [1, 1]]
+    assert out["backend"] == "nccl"
+    for dtype in ("torch.float32", "torch.bfloat16"):
+        r = out[dtype]
+        assert r["linear_equal"] and r["expert_equal"], r
+        assert r["linear_launches"] == {"bsr_matmul_sharded": 1}, r
+        assert r["expert_launches"] == {"bsr_matmul": 1}, r
 
 
 @pytest.mark.parametrize("arch,per_layer", [("mamba2-1.3b", 2),

@@ -48,7 +48,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
               "repro_torch.distributed.checkpoint",
               "repro_torch.core.fusion", "repro_torch.core.autotune",
               "repro_torch.configs.seamless_m4t_large_v2",
-              "repro_torch.configs.llama_3p2_vision_90b"):
+              "repro_torch.configs.llama_3p2_vision_90b",
+              "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
+              "repro_torch.testing.dist_ranks"):
         assert m in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"

@@ -1,9 +1,9 @@
 """Tensor-parallel layouts of the port (``n_shards``, ``CompileSpec.tp``,
 the shard wrappers of ``kernels.bsr_matmul``) against the reference's, on
 the CPU: the green cases of the reference's ``tests/test_sharding.py``
-(its mesh placement and tensor-parallel engine need several devices and
-stay with the multi-device rest of ROADMAP queue 1 item 9), each run on
-the same numpy inputs in both packages, S in {2, 4}.
+(its mesh placement and tensor-parallel engine need several devices:
+the port's run across gloo ranks in ``tests/test_torch_dist_exec.py``),
+each run on the same numpy inputs in both packages, S in {2, 4}.
 
 - layouts (block and tap, float and int8) equal the reference's leaf for
   leaf: integer leaves equal, values bit-equal;
