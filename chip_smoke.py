@@ -223,6 +223,26 @@
    kernels line (``launches_by_path``: "yi-9b tp=4 generate", "yi-9b
    tp=4 engine", the VGG forwards); the numbers go under
    ``"tensor_parallel"`` in ``build/chip_smoke.json``.
+14. The dry run (``[dryrun]`` lines, last): the production cells of
+   ``launch/dryrun.py`` (DRYRUN_CELLS: yi-9b train_4k / prefill_32k /
+   decode_32k on the (16, 16) mesh and decode_32k on (2, 16, 16),
+   long_500k's SKIP, mixtral-8x7b decode_32k, mamba2-1.3b long_500k),
+   each a ``python -m repro_torch.launch.dryrun`` process of its own,
+   all started together (a fake group of 256 / 512 ranks cannot share a
+   process with a NCCL group): each record OK (or the reference's SKIP),
+   its per-device FLOPs, bytes, collective bytes by op and by the site
+   that asked for them, peak memory and trace seconds printed, then
+   ``launch.roofline_report``'s table priced for the H100's datasheet.
+   Then (not meanwhile: each of those processes opens a CUDA context,
+   which fails while a one-card cell holds the card), on a one-rank mesh
+   (``make_local_mesh``), CARD_CELLS at sizes one card holds (yi-9b at
+   full width with 2 of 48 layers: decode_32k at B = 128 over a 32768
+   cache, prefill_32k at B = 1 of 32, train_4k at B = 8 of 256;
+   mamba2-1.3b at full width and depth, long_500k) run under fake
+   tensors and for real: the fake FLOP count must equal the real run's
+   ``FlopCounterMode`` count exactly and the warm step time must be at
+   least the roofline's compute term; measured / memory term and the
+   dry run's peak against ``max_memory_allocated`` are printed.
 
 No phase is caught: any failure exits non-zero.  The last two lines are
 the kernels JSON and ``{"ok": true, "device": {...}}``.  Full detail goes
@@ -5569,6 +5589,187 @@ def xfam_entry(out, launches):
     return entry
 
 
+# -- the dry run and the roofline (launch/dryrun.py, core/roofline.py) --------
+
+# the production cells: each `python -m repro_torch.launch.dryrun` call its
+# own process (a "fake" group of 256 / 512 ranks cannot share a process
+# with the one-rank NCCL group of the mesh phase), all started together
+DRYRUN_CELLS = (("yi-9b", "train_4k", "single"),
+                ("yi-9b", "prefill_32k", "single"),
+                ("yi-9b", "decode_32k", "both"),
+                ("yi-9b", "long_500k", "single"),
+                ("mixtral-8x7b", "decode_32k", "single"),
+                ("mamba2-1.3b", "long_500k", "single"))
+DRYRUN_TIMEOUT_S = 600
+# the one-card cells, (arch, shape, layers, batch): None keeps the
+# published depth / the shape's batch.  yi-9b at full width with 2 of 48
+# layers; prefill_32k's B cut to 1 of 32, train_4k's to 8 of 256;
+# decode_32k at its own B = 128 over a 32768 cache (~17 GB of bf16 KV at
+# 2 layers); mamba2-1.3b at full width and depth
+CARD_CELLS = (("yi-9b", "decode_32k", 2, None),
+              ("yi-9b", "prefill_32k", 2, 1),
+              ("yi-9b", "train_4k", 2, 8),
+              ("mamba2-1.3b", "long_500k", None, None))
+CARD_ITERS = 3
+
+
+def dryrun_start(out_dir):
+    """Start every production cell's dry run (fake tensors on the card's
+    device type, a fake group of 256 or 512 ranks): [(cell, Popen)]."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--out", str(out_dir),
+               "--device", DEV]
+        procs.append(((arch, shape, mesh), subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def dryrun_wait(procs, out_dir):
+    """Wait for every production cell (the caller kills what is left if
+    this raises); each must exit 0 and leave its records: OK, or the
+    reference's SKIP where the config does not support the shape.  Prints
+    each record's per-device numbers and its largest collective sites."""
+    from repro_torch import configs
+    for cell, p in procs:
+        log, _ = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+        assert p.returncode == 0, (cell, log[-3000:])
+    recs = {}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        ok, why = configs.cell_is_supported(configs.get(arch), shape)
+        for m in (("single", "multi") if mesh == "both" else (mesh,)):
+            rec = json.loads((out_dir / f"{arch}__{shape}__{m}.json")
+                             .read_text())
+            recs[f"{arch} x {shape} x {m}"] = rec
+            if not ok:
+                assert rec["status"] == why and why.startswith("SKIP"), rec
+                print(f"[dryrun] {arch} x {shape} x {m}: {why}")
+                continue
+            assert rec["status"] == "OK", rec
+            c = rec["collectives"]
+            print(f"[dryrun] {arch} x {shape} x {m} ({rec['n_devices']} "
+                  f"ranks): per device {rec['cost']['flops']:.6g} FLOP, "
+                  f"{rec['cost']['bytes accessed']:.6g} B (unfused), "
+                  f"collectives {c['total']:.6g} B "
+                  + json.dumps({k: c[k] for k in c
+                                if k not in ("total", "counts")})
+                  + f" counts {json.dumps(c['counts'])}, peak "
+                  f"{rec['memory']['peak_bytes'] / 2**30:.3f} GiB "
+                  f"(arguments {rec['memory']['argument_bytes'] / 2**30:.3f}"
+                  f" GiB), traced in {rec['trace_s']} s")
+            sites = list(rec["collective_sites"].items())[:4]
+            print(f"[dryrun]   collective bytes by site: " + ", ".join(
+                f"{k} {v:.6g}" for k, v in sites))
+    return recs
+
+
+def card_cell(arch, shape, layers, batch, mesh, gen):
+    """One cell on the one-rank mesh, under fake tensors and for real:
+    (dict of the numbers, dry-run costs)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch.core import roofline as RL
+    from repro_torch.launch import dryrun as DR
+    cfg = configs.get(arch)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    fn, args, specs = DR.build_step(cfg, shape, mesh, batch=batch)
+    fake = DR.trace(fn, args, specs, mesh, DEV)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    placed = DR.materialize(args, specs, mesh, DEV, gen)
+    out = fn(*placed)                    # warm-up (and DTensor's caches)
+    del out
+    sync()
+    with FlopCounterMode(display=False) as fc:
+        out = fn(*placed)
+    del out
+    sync()
+    real_flops = fc.get_total_flops()
+    ms = []
+    for _ in range(CARD_ITERS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn(*placed)
+        b.record()
+        sync()
+        del out
+        ms.append(a.elapsed_time(b))
+    peak = torch.cuda.max_memory_allocated() - base
+    del placed
+    torch.cuda.empty_cache()
+    t = RL.H100
+    compute_ms = fake["flops"] / t.peak_flops * 1e3
+    memory_ms = fake["bytes"] / t.hbm_bw * 1e3
+    warm = statistics.median(ms)
+    row = {"arch": arch, "shape": shape, "layers": cfg.n_layers,
+           "batch": batch or configs.SHAPES[shape]["batch"],
+           "fake_flops": fake["flops"], "real_flops": real_flops,
+           "bytes": fake["bytes"], "warm_ms": warm, "ms": ms,
+           "compute_ms": compute_ms, "memory_ms": memory_ms,
+           "measured_over_memory": warm / memory_ms,
+           "dryrun_peak_bytes": fake["memory"]["peak_bytes"],
+           "max_memory_allocated": peak, "trace_s": fake["trace_s"]}
+    print(f"[dryrun] card {arch} x {shape} ({cfg.n_layers} layers, B "
+          f"{row['batch']}): FLOP fake {fake['flops']} real {real_flops}; "
+          f"warm {warm:.3f} ms (of {', '.join(f'{x:.3f}' for x in ms)}) vs "
+          f"compute term {compute_ms:.4f} ms, memory term {memory_ms:.4f} "
+          f"ms (measured / memory {warm / memory_ms:.3f}); peak dry run "
+          f"{fake['memory']['peak_bytes'] / 2**30:.3f} GiB vs "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB; traced in "
+          f"{fake['trace_s']:.1f} s")
+    assert fake["flops"] == real_flops, (arch, shape, fake["flops"],
+                                         real_flops)
+    assert warm >= compute_ms, (arch, shape, warm, compute_ms)
+    return row
+
+
+def dryrun_phase():
+    """The dry run on the card's machine: the production cells in their
+    own processes (fake groups) and the roofline priced for the H100,
+    then the one-card cells on a one-rank mesh, fake against real.  Not
+    at once: each production process opens a CUDA context (a fake
+    tensor on "cuda" does), which fails for memory while a one-card
+    cell holds most of the card."""
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import roofline_report
+    out_dir = ROOT / "build" / "chip_smoke_dryrun"
+    for f in out_dir.glob("*.json") if out_dir.exists() else ():
+        f.unlink()
+    t0 = time.perf_counter()
+    procs = dryrun_start(out_dir)
+    try:
+        recs = dryrun_wait(procs, out_dir)
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    prod_s = time.perf_counter() - t0
+    report = roofline_report.main(["--dir", str(out_dir)])
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    rows = []
+    mesh = MESH.make_local_mesh(device=DEV)
+    try:
+        for arch, shape, layers, batch in CARD_CELLS:
+            rows.append(card_cell(arch, shape, layers, batch, mesh, gen))
+    finally:
+        MESH.close_local_mesh()
+    card_s = time.perf_counter() - t0 - prod_s
+    print(f"[dryrun] production cells {prod_s:.1f} s (in parallel), "
+          f"one-card cells {card_s:.1f} s")
+    return {"card": rows, "records": recs, "roofline": report,
+            "card_s": card_s, "production_s": prod_s}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=8,
@@ -5705,6 +5906,9 @@ def main(argv=None):
     flush = torch.empty(64 << 20, dtype=torch.float32, device=DEV)
     xfam_out, xfam_counts = xfam_phase(mods, flush)
     del flush
+    torch.cuda.empty_cache()
+    stamp("dry run and roofline")
+    dryrun_out = dryrun_phase()
     stamp("done")
 
     decode, prefill = layer_sum(rows, 4), layer_sum(rows, 128)
@@ -5857,7 +6061,7 @@ def main(argv=None):
          "latency_model": map_model, "train": train_out,
          "robustness": robust, "tensor_parallel": tp_out,
          "mesh": mesh_out,
-         "encdec_vlm": xfam_out,
+         "encdec_vlm": xfam_out, "dryrun": dryrun_out,
          "phase_start_s": RUN["phase_s"]},
         indent=1, default=str))
     print(f"card: {card}")

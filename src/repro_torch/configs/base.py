@@ -44,6 +44,12 @@ class ArchConfig:
     # training
     optimizer: str = "adamw"    # "adamw" | "adafactor" (>= 70B)
     remat: str = "full"         # "none" | "full" (checkpoint every layer)
+    supports_long: bool = False  # sub-quadratic 500k decode legal
+    unroll_layers: bool = False  # the reference's python-loop layer stacks
+    #   for its cost probes (XLA counts a scan body once); the port always
+    #   loops over its layers in Python (``models.transformer``), so the
+    #   flag changes nothing here: ``launch.dryrun._probe_cfgs`` sets it as
+    #   the reference's does
 
     @property
     def hd(self):
@@ -54,6 +60,12 @@ class ArchConfig:
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
 
+
+ARCH_IDS = [
+    "seamless_m4t_large_v2", "yi_9b", "granite_8b", "minitron_8b",
+    "phi3_medium_14b", "mamba2_1p3b", "mixtral_8x7b", "kimi_k2_1t_a32b",
+    "hymba_1p5b", "llama_3p2_vision_90b",
+]
 
 # canonical external ids -> module names
 ALIASES = {
@@ -77,3 +89,12 @@ def get(name: str, smoke: bool = False) -> ArchConfig:
                        f"(ported: {sorted(ALIASES)})")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+SHAPES = {
+    # shape id: (seq_len, global_batch, step kind)
+    "train_4k":    dict(seq=4096,   batch=256, kind="train"),
+    "prefill_32k": dict(seq=32768,  batch=32,  kind="prefill"),
+    "decode_32k":  dict(seq=32768,  batch=128, kind="decode"),
+    "long_500k":   dict(seq=524288, batch=1,   kind="decode"),
+}

@@ -11,7 +11,7 @@ CONFIG = ArchConfig(
     n_layers=32, d_model=1600, n_heads=25, n_kv_heads=5,
     d_ff=5504, vocab=32001, head_dim=64,
     ssm_state=16, ssm_headdim=100, ssm_expand=2,
-    sliding_window=1024, attn_shard="seq",
+    sliding_window=1024, attn_shard="seq", supports_long=True,
 )
 
 SMOKE = CONFIG.replace(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,

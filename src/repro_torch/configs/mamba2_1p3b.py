@@ -10,6 +10,7 @@ CONFIG = ArchConfig(
     name="mamba2-1.3b", family="ssm",
     n_layers=48, d_model=2048, n_heads=0, n_kv_heads=0,
     d_ff=0, vocab=50280, ssm_state=128, ssm_headdim=64, ssm_expand=2,
+    supports_long=True,
 )
 
 SMOKE = CONFIG.replace(n_layers=2, d_model=64, vocab=256, ssm_state=16,

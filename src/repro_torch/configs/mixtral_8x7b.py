@@ -7,7 +7,7 @@ CONFIG = ArchConfig(
     n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8,
     d_ff=14336, vocab=32000, head_dim=128,
     n_experts=8, top_k=2, sliding_window=4096,
-    rope_theta=1e6,
+    rope_theta=1e6, supports_long=True,
 )
 
 SMOKE = CONFIG.replace(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,

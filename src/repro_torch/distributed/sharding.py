@@ -47,11 +47,38 @@ def is_placed(t) -> bool:
     return isinstance(t, DTensor)
 
 
+def split_dims(x, dim) -> list:
+    """The mesh dims that split ``dim`` of a placed ``x`` ([] for a plain
+    one)."""
+    return [i for i, pl in enumerate(getattr(x, "placements", ()))
+            if pl.is_shard(dim)]
+
+
+def split_ways(x, dim) -> int:
+    """Into how many chunks ``dim`` of ``x`` is split (1 if whole)."""
+    ways = 1
+    for i in split_dims(x, dim):
+        ways *= x.device_mesh.size(i)
+    return ways
+
+
+def unsplit(x, dim):
+    """A placed ``x`` with ``dim`` gathered whole (a ``Replicate`` on each
+    mesh dim that split it); anything else as it is."""
+    cut = split_dims(x, dim)
+    if not cut:
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [
+        Replicate() if i in cut else pl for i, pl in enumerate(x.placements)])
+
+
 def place(t, mesh, spec):
     """The global tensor ``t``, which every rank holds whole, as a
     ``DTensor`` of ``spec`` on ``mesh``: each rank keeps its own chunk
-    (``torch.chunk`` order, mesh dims left to right), so nothing is
-    communicated.  A replicated placement wraps ``t`` itself (no copy)."""
+    (``torch.chunk`` order, mesh dims left to right, copied out of
+    ``t``), so nothing is communicated.  A replicated placement wraps
+    ``t`` itself (no copy)."""
     from torch.distributed.tensor import DTensor, Shard
     placements = P(*spec).placements(mesh)
     coord = mesh.get_coordinate()
@@ -65,7 +92,9 @@ def place(t, mesh, spec):
             start = min(coord[mdim] * size, n)
             local = local.narrow(pl.dim, start, min(size, n - start))
     if local is not t:
-        local = local.contiguous()
+        # a copy even where the chunk is a contiguous view (a dim-0
+        # split): the rank keeps its chunk alone, not the whole storage
+        local = local.clone(memory_format=torch.contiguous_format)
     return DTensor.from_local(local, mesh, placements, run_check=False,
                               shape=t.shape, stride=t.stride())
 
@@ -117,6 +146,65 @@ def replicated(fn):
             return o
         return back(out)
     return run
+
+
+def _local_piece(t, value, dim):
+    """(t's local shard, the whole ``value`` cut to that shard on every
+    split dim but ``dim``, the shard's offset along ``dim``): ``place``'s
+    split, chunks of ceil(n / k), the last ones short."""
+    from torch.distributed.tensor import Shard
+    mesh, coord = t.device_mesh, t.device_mesh.get_coordinate()
+    sizes, offset = list(t.shape), 0
+    for mdim, pl in enumerate(t.placements):
+        if not isinstance(pl, Shard):
+            continue
+        n = sizes[pl.dim]
+        size = -(-n // mesh.size(mdim))
+        start = min(coord[mdim] * size, n)
+        sizes[pl.dim] = min(size, n - start)
+        if pl.dim == dim:
+            offset += start
+        else:
+            value = value.narrow(pl.dim, start, sizes[pl.dim])
+    return t.to_local(), value, offset
+
+
+def index_copy(t, dim, index, value):
+    """``t.index_copy_(dim, index, value)`` (value cast to t's dtype) for
+    a whole ``t`` or a placed one.  A placed ``t`` is written on each
+    rank's own shard: the whole value is cut to the shard on every other
+    split dim, and an index on a split ``dim`` lands on the one rank
+    whose chunk holds it (the others write back what they hold), with no
+    collective and no host read.  DTensor's own ``index_copy_`` on a
+    split ``dim`` relabels the shard replicated instead."""
+    value = full(value).to(t.dtype)
+    if not is_placed(t):
+        return t.index_copy_(dim, index, value)
+    local, value, offset = _local_piece(t, value, dim)
+    li = index - offset
+    inside = (li >= 0) & (li < local.shape[dim])
+    li = li.clamp(0, max(local.shape[dim] - 1, 0))
+    shape = [1] * value.dim()
+    shape[dim] = -1
+    old = local.index_select(dim, li)
+    local.index_copy_(dim, li, torch.where(inside.reshape(shape), value,
+                                           old))
+    return t
+
+
+def set_index(t, i: int, value):
+    """``t[i] = value`` for a whole ``t`` or a placed one whose dim 0 is
+    not split (a layer of a stacked cache): each rank writes its own
+    shard, as ``index_copy``."""
+    value = full(value)
+    if not is_placed(t):
+        t[i] = value
+        return t
+    if any(pl.is_shard(0) for pl in t.placements):
+        raise ValueError("set_index writes along an unsplit dim 0")
+    local, value, _ = _local_piece(t, value[None], 0)
+    local[i] = value[0]
+    return t
 
 
 @dataclass(frozen=True)

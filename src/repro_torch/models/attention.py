@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
@@ -58,8 +59,13 @@ def attn_init(d_model, n_heads, n_kv, head_dim, generator, n=None,
 
 
 def _grouped(q, n_kv):
-    """(B,S,H,hd) -> (B,S,KV,G,hd): head h reads KV head h // G."""
+    """(B,S,H,hd) -> (B,S,KV,G,hd): head h reads KV head h // G.  A
+    placed q whose head split cannot carry over to the KV dim (over
+    several mesh dims, or not along whole KV heads) is gathered on the
+    head dim first."""
     B, S, H, hd = q.shape
+    if len(SH.split_dims(q, 2)) > 1 or n_kv % SH.split_ways(q, 2):
+        q = SH.unsplit(q, 2)
     return q.reshape(B, S, n_kv, H // n_kv, hd)
 
 
@@ -228,15 +234,16 @@ def mha(params, x, positions, n_heads, n_kv, head_dim, *, causal=True,
     return _proj(params, "wo", out, m), (k, v)
 
 
-def cross_decode(params, x, xk, xv, n_heads, n_kv, head_dim):
+def cross_decode(params, x, xk, xv, n_heads, n_kv, head_dim, dist=None):
     """One-token cross-attention over a prefill's compact cross cache
     ``xk``/``xv`` (B, T, KV, hd): only wq and wo run; the query sits after
-    every key (position 2**30), so nothing is masked."""
+    every key (position 2**30), so nothing is masked.  Under ``dist``
+    each rank attends with its own KV heads (``_attend_step``)."""
     B = x.shape[0]
-    q = L.linear(params["wq"], x).reshape(B, 1, n_heads, head_dim)
+    q = _heads(L.linear(params["wq"], x), B, 1, n_heads, head_dim)
     q_pos = torch.full((1,), 1 << 30, dtype=torch.int32, device=x.device)
     k_pos = torch.arange(xk.shape[1], dtype=torch.int32, device=x.device)
-    o = attend_cached(_grouped(q, n_kv), xk, xv, q_pos, k_pos)
+    o = _attend_step(_grouped(q, n_kv), xk, xv, q_pos, k_pos, 0, dist)
     return L.linear(params["wo"], o.reshape(B, 1, n_heads * head_dim))
 
 
@@ -258,9 +265,10 @@ def mha_decode(params, x, cache, pos, n_heads, n_kv, head_dim, *,
     S = cache["k"].shape[1]
     k, v, wpos = _whole(k, dist), _whole(v, dist), _whole(pos, dist)
     slot = torch.remainder(wpos[0, :1], S).long()            # (1,)
-    cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
-    cache["pos"].index_copy_(0, slot, wpos[0, :1].to(cache["pos"].dtype))
+    # a cache placed on the mesh is written shard by shard
+    SH.index_copy(cache["k"], 1, slot, k)
+    SH.index_copy(cache["v"], 1, slot, v)
+    SH.index_copy(cache["pos"], 0, slot, wpos[0, :1])
 
     kc, vc = _cache_views(cache, dist)
     out = _attend_step(_grouped(q, n_kv), kc, vc, pos[0, 0:1], cache["pos"],

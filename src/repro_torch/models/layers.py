@@ -78,13 +78,37 @@ def unseq(x):
     of Megatron's sequence parallelism before a projection): DTensor's
     matmul folds (B, S) into one dim, which a sequence split cannot
     survive.  Anything else as it is."""
-    if x.dim() != 3 or not SH.is_placed(x):
-        return x
-    if not any(pl.is_shard(1) for pl in x.placements):
-        return x
-    from torch.distributed.tensor import Replicate
-    return x.redistribute(x.device_mesh, [
-        Replicate() if pl.is_shard(1) else pl for pl in x.placements])
+    return SH.unsplit(x, 1) if x.dim() == 3 else x
+
+
+class _GradAsValue(torch.autograd.Function):
+    """The identity, whose backward redistributes the gradient to the
+    value's own placements (a partial sum's taken as replicated)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        from torch.distributed.tensor import Replicate
+        ctx.mesh = y.device_mesh
+        ctx.placements = tuple(Replicate() if pl.is_partial() else pl
+                               for pl in y.placements)
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        if SH.is_placed(g) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g
+
+
+def grad_as_value(y):
+    """``y``, with its gradient brought to ``y``'s placements before the
+    op that made ``y`` sees it: a matmul's backward flattens (B, S) of
+    its gradient, which a sequence split there (the next layer's
+    ``shard_residual``) cannot survive.  A plain ``y`` as it is."""
+    if not SH.is_placed(y) or not torch.is_grad_enabled() or \
+            not y.requires_grad:
+        return y
+    return _GradAsValue.apply(y)
 
 
 def linear(params, x, mask=None, act="none"):
@@ -107,7 +131,7 @@ def linear(params, x, mask=None, act="none"):
     w = params["w"]
     if mask is not None:
         w = w * mask.to(w.dtype)
-    y = torch.matmul(unseq(x), w)
+    y = grad_as_value(torch.matmul(unseq(x), w))
     if "b" in params:
         y = y + params["b"]
     return _apply_act(y, act)
@@ -129,7 +153,7 @@ def embed(params, tokens):
 def unembed(params, x):
     """Logits against the (separate) output head table: (..., d) ->
     (..., vocab)."""
-    return torch.matmul(unseq(x), params["table"].t())
+    return grad_as_value(torch.matmul(unseq(x), params["table"].t()))
 
 
 # -- Loss ---------------------------------------------------------------------

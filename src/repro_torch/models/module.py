@@ -91,6 +91,19 @@ def take_layer(tree, i):
     return tree[i]
 
 
+def unstack_layers(tree, n):
+    """``[take_layer(tree, i) for i in range(n)]``, each tensor leaf cut by
+    one ``torch.unbind``: its backward is one stack of the layers'
+    gradients, where ``n`` separate slices would each give the whole
+    stack a zero gradient to add (O(n^2) bytes)."""
+    if isinstance(tree, dict):
+        per = {k: unstack_layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    if isinstance(tree, torch.Tensor):
+        return list(torch.unbind(tree, 0))
+    return [take_layer(tree, i) for i in range(n)]
+
+
 # -- Path-rule sharding --------------------------------------------------------
 
 class P(tuple):

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.packed import DegradedLayer
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
 from repro_torch.kernels.bsr_matmul import local_layout, placed_layout
 from repro_torch.models import layers as L
@@ -152,6 +153,8 @@ def moe(params, x, *, top_k, capacity_factor=1.25, group=1024, masks=None,
     T = B * S
     Sg = min(group, T)
     G = T // Sg
+    if dist is not None:
+        x = _whole_groups(x, G)
     xt = x.reshape(G, Sg, D)
     # routed in fp32, the router promoted as the reference's einsum of an
     # fp32 x with a (possibly bf16) router promotes it
@@ -189,7 +192,20 @@ def moe(params, x, *, top_k, capacity_factor=1.25, group=1024, masks=None,
     else:
         out = dist.local_map(_combine, ("b", "b"), ("b",))(
             expert_out, combine.to(dt))[0]
-    return out.reshape(B, S, D), aux
+    # the gradient comes back in the next layer's sequence split, which
+    # the (B, S) -> (G, Sg) view of the backward cannot carry where a
+    # rank's run of tokens is not whole groups
+    return L.grad_as_value(out.reshape(B, S, D)), aux
+
+
+def _whole_groups(x, G):
+    """A placed (B, S, D) x gathered on its batch dim when the (G, Sg)
+    regrouping cannot carry the batch split (G > 1 groups that the split
+    does not divide: a group would straddle two ranks); anything else as
+    it is."""
+    if G == 1 or G % SH.split_ways(x, 0) == 0:
+        return x
+    return SH.unsplit(x, 0)
 
 
 def _dispatch_in(disp, xt):

@@ -154,7 +154,15 @@ def ssm(params, x, *, masks=None, chunk=64, dist=None):
     conv_tail = xbc[:, max(S - (width - 1), 0):, :]
     if S < width - 1:
         conv_tail = F.pad(conv_tail, (0, 0, width - 1 - S, 0))
-    xbc = F.silu(L.causal_conv1d(params["conv"], xbc))
+    if dist is None:
+        xbc = L.causal_conv1d(params["conv"], xbc)
+    else:
+        # a depthwise conv: each rank convolves its own channels (the
+        # taps passed (C, width), so the split lands on the channel dim)
+        xbc = dist.local_map(
+            lambda x, wt: (L.causal_conv1d({"w": wt.t()}, x),), (2, 0),
+            (2,))(xbc, params["conv"]["w"].t())[0]
+    xbc = F.silu(xbc)
     xh, Bm, Cm = torch.split(xbc, [d_inner, N, N], dim=-1)
     xh = xh.reshape(Bsz, S, H, Pd)
     Bm = Bm[:, :, None, :].expand(Bsz, S, H, N)
@@ -177,10 +185,21 @@ def ssm(params, x, *, masks=None, chunk=64, dist=None):
     return out, {"h": h_last, "conv": conv_tail.contiguous()}
 
 
+def _state_step(h, dA, dt, xh, Bf, Cf, D):
+    """One decode step of the state: h (B, H, P, N), dA / dt (B, H), xh
+    (B, H, P), Bf / Cf (B, N) -> (y (B, H, P), new h)."""
+    # the reference's "bh,bhp,bn->bhpn": (dt x) first, then the outer
+    # product with B
+    h = h * dA[..., None, None] + (
+        (dt[..., None] * xh)[..., None] * Bf[:, None, None, :])
+    y = torch.matmul(h, Cf[:, None, :, None])[..., 0] + xh * D[:, None]
+    return y, h
+
+
 def ssm_decode(params, x, state, *, masks=None, dist=None):
     """One-token decode.  x (B, 1, D); state {h: (B, H, P, N) fp32,
     conv: (B, width - 1, conv_dim)}.  Returns ((B, 1, D), new state).
-    ``dist`` is accepted and unused, as in the reference."""
+    Under ``dist`` the state step runs on each rank's own heads."""
     m = masks or {}
     Bsz = x.shape[0]
     d_inner, H, Pd, N = _dims(params)
@@ -194,12 +213,15 @@ def ssm_decode(params, x, state, *, masks=None, dist=None):
     A = -torch.exp(params["A_log"])
     dA = torch.exp(dt * A)                                       # (B, H)
     Bf, Cf = Bm.float(), Cm.float()
-    # the reference's "bh,bhp,bn->bhpn": (dt x) first, then the outer
-    # product with B
-    h = state["h"] * dA[..., None, None] + (
-        (dt[..., None] * xh)[..., None] * Bf[:, None, None, :])
-    y = torch.matmul(h, Cf[:, None, :, None])[..., 0] \
-        + xh * params["D"][:, None]
+    if dist is None:
+        y, h = _state_step(state["h"], dA, dt, xh, Bf, Cf, params["D"])
+    else:
+        # heads are independent through the step: each rank updates its
+        # own (``Dist.local_map``; DTensor's matmul folds the batch and
+        # head dims, which a split of both cannot survive)
+        y, h = dist.local_map(_state_step, (1, 1, 1, 1, "b", "b", 0),
+                              (1, 1))(state["h"], dA, dt, xh, Bf, Cf,
+                                      params["D"])
     y = y.reshape(Bsz, d_inner).to(x.dtype)
     y = L.rmsnorm(params["norm"], y * F.silu(z))
     out = L.linear(params["out_proj"], y, m.get("out_proj"))

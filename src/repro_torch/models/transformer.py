@@ -37,6 +37,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import module as M
@@ -144,8 +145,7 @@ def layer_params(params, stack="layers") -> list:
     stack), tensors and packed layouts alike.  A decode loop slices once
     and reuses the list for every step (slicing is host work that would
     otherwise repeat per token)."""
-    return [M.take_layer(params[stack], i)
-            for i in range(n_layers(params, stack))]
+    return M.unstack_layers(params[stack], n_layers(params, stack))
 
 
 def decode_layers(params, cfg: ArchConfig) -> list:
@@ -354,8 +354,10 @@ def _decode(params, cfg: ArchConfig, token, cache, layers, attn,
             moe_group=None, dist=None):
     """The decode step's layer loop.  ``attn(lp, hn, kv_cache)`` is the
     self-attention of one layer on its normed input and that layer's KV
-    views; every cache write is in place (the caches stay whole on every
-    rank under a mesh)."""
+    views; every cache write is in place (a cache placed on the mesh,
+    the dry run's, is written shard by shard).  Under a mesh each layer's
+    output takes ``shard_residual``, the one placement the reference's
+    scan carries from layer to layer."""
     with _region(dist):
         return _decode_layers(params, cfg, token, cache, layers, attn,
                               moe_group, dist)
@@ -374,21 +376,25 @@ def _decode_layers(params, cfg, token, cache, layers, attn, moe_group, dist):
                          M.take_layer(cache["kv"], i))
             x = x + A.cross_decode(lp["xattn"], L.rmsnorm(lp["lnx"], x),
                                    cache["xk"][i], cache["xv"][i],
-                                   cfg.n_heads, cfg.n_kv_heads, cfg.hd)
-            x = x + L.ffn(lp["ffn"], L.rmsnorm(lp["ln2"], x))
+                                   cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                   dist=dist)
+            x = _residual(x + L.ffn(lp["ffn"], L.rmsnorm(lp["ln2"], x)),
+                          dist)
     elif fam == "vlm":
         i = 0
         for g, (selfs, cp) in enumerate(layers):
             for lp in selfs:
                 x = x + attn(lp, L.rmsnorm(lp["ln1"], x),
                              M.take_layer(cache["kv_self"], i))
-                x = x + L.ffn(lp["ffn"], L.rmsnorm(lp["ln2"], x))
+                x = _residual(x + L.ffn(lp["ffn"], L.rmsnorm(lp["ln2"], x)),
+                              dist)
                 i += 1
             xa = A.cross_decode(cp["xattn"], L.rmsnorm(cp["ln1"], x),
                                 cache["xk"][g], cache["xv"][g], cfg.n_heads,
-                                cfg.n_kv_heads, cfg.hd)
+                                cfg.n_kv_heads, cfg.hd, dist=dist)
             x = x + torch.tanh(cp["gate"]).to(x.dtype) * xa
-            x = x + L.ffn(cp["ffn"], L.rmsnorm(cp["ln2"], x))
+            x = _residual(x + L.ffn(cp["ffn"], L.rmsnorm(cp["ln2"], x)),
+                          dist)
     else:
         for i, lp in enumerate(layers):
             hn = L.rmsnorm(lp["ln1"], x)
@@ -397,18 +403,18 @@ def _decode_layers(params, cfg, token, cache, layers, attn, moe_group, dist):
                                       M.take_layer(cache["ssm"], i),
                                       dist=dist)
                 for k, v in st.items():
-                    cache["ssm"][k][i] = v if dist is None else \
-                        dist.gather(v)
+                    # a cache placed on the mesh is written shard by shard
+                    SH.set_index(cache["ssm"][k], i, v)
             if fam == "ssm":
-                x = x + sm
+                x = _residual(x + sm, dist)
                 continue
             # the layer's KV views into the stack
             att = attn(lp, hn, M.take_layer(cache["kv"], i))
             if fam == "hybrid":
                 att = (att + sm) * 0.5
             x = x + att
-            x = x + _ffn(lp, L.rmsnorm(lp["ln2"], x), cfg, moe_group,
-                         dist)[0]
+            x = _residual(x + _ffn(lp, L.rmsnorm(lp["ln2"], x), cfg,
+                                   moe_group, dist)[0], dist)
     x = L.rmsnorm(params["norm_f"], x)
     logits = L.unembed(params["head"], x)
     if dist is not None:

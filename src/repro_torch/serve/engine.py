@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import bsr_matmul as K
 from repro_torch.models import layers as L
 from repro_torch.models.module import resolve_device
@@ -47,6 +48,12 @@ def _whole(tree, dist):
     if isinstance(tree, dict):
         return {k: _whole(v, dist) for k, v in tree.items()}
     return dist.gather(tree)
+
+
+def _stack(layers):
+    """The layers' cache pieces stacked on a new layer dim, each placed
+    one gathered whole first (the same gather per layer at any depth)."""
+    return torch.stack([SH.full(t) for t in layers])
 
 
 def prefill(params, cfg: ArchConfig, tokens, frontend=None, dist=None):
@@ -115,13 +122,12 @@ def _prefill(params, cfg, tokens, frontend, dist):
     if kvs:
         k, v, pos = zip(*kvs)
         cache["kv_self" if fam == "vlm" else "kv"] = {
-            "k": torch.stack(k), "v": torch.stack(v),
-            "pos": torch.stack(pos)}
+            "k": _stack(k), "v": _stack(v), "pos": _stack(pos)}
     if xkvs:
         xk, xv = zip(*xkvs)
-        cache["xk"], cache["xv"] = torch.stack(xk), torch.stack(xv)
+        cache["xk"], cache["xv"] = _stack(xk), _stack(xv)
     if states:
-        cache["ssm"] = {name: torch.stack([st[name] for st in states])
+        cache["ssm"] = {name: _stack([st[name] for st in states])
                         for name in states[0]}
     x = L.rmsnorm(params["norm_f"], x[:, -1:, :])
     logits = L.unembed(params["head"], x)

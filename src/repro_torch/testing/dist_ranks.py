@@ -27,7 +27,10 @@ Checks, each at SMOKE width, fp32:
 * ``train_cli``: ``launch.train --model-parallel WORLD`` runs and saves;
 * ``checkpoint``: placed params saved at this degree (every rank its
   shard), restored placed (``shardings=``) equal;
-* ``comm_decode``: the collectives of one decode step, by op.
+* ``comm_decode``: the collectives of one decode step, by op;
+  ``dryrun_decode``: the dry run's counts of a decode step (fake tensors
+  on this mesh, ``launch.dryrun``) equal ``CommDebugMode``'s of the real
+  step, op for op.
 """
 from __future__ import annotations
 
@@ -336,6 +339,34 @@ class Checks:
         assert sum(counts.values()) > 0, counts
         return {"collectives": counts}
 
+    def dryrun_decode(self):
+        """The dry run's collective counts of one decode step (SMOKE
+        yi-9b, decode_32k's shape cut to B = 4), traced under fake
+        tensors on this group's mesh, against ``CommDebugMode``'s counts
+        of the same step run for real."""
+        from torch.distributed.tensor.debug import CommDebugMode
+
+        from repro_torch import configs
+        from repro_torch.distributed import sharding as SH
+        from repro_torch.launch import dryrun as DR
+        cfg = configs.get("yi-9b", smoke=True)
+        fn, args, specs = DR.build_step(cfg, "decode_32k", self.mesh,
+                                        batch=4)
+        fake = DR.trace(fn, args, specs, self.mesh, "cpu")
+        placed = DR.materialize(args, specs, self.mesh, "cpu",
+                                torch.Generator().manual_seed(0))
+        with CommDebugMode() as comm:
+            logits, _ = fn(*placed)
+        real = {k: 0 for k in DR._COLLECTIVES}
+        for op, n in comm.get_comm_counts().items():
+            coll = DR._collective(str(op))
+            if coll is not None:
+                real[coll] += n
+        assert real == fake["coll_counts"], (real, fake["coll_counts"])
+        assert sum(real.values()) > 0
+        assert bool(torch.isfinite(SH.full(logits)).all())
+        return {"collectives": real}
+
 
 def _leaves(tree):
     if isinstance(tree, dict):
@@ -362,6 +393,7 @@ def main(rank, world, store, inputs, out):
         c.run("packed_generate", c.packed_generate)
         c.run("engine", c.engine)
         c.run("comm_decode", c.comm_decode)
+        c.run("dryrun_decode", c.dryrun_decode)
         c.run("train_tp", lambda: c.train("tp"))
         c.run("train_fsdp", lambda: c.train("fsdp"))
         c.run("checkpoint", c.checkpoint)

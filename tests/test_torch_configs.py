@@ -44,11 +44,17 @@ def _shared_fields(port, ref):
             {n: getattr(ref, n) for n in names})
 
 
+def test_arch_config_fields_equal_reference():
+    """The port's ``ArchConfig`` carries exactly the reference's fields
+    (``supports_long`` and ``unroll_layers`` came with the dry run)."""
+    assert {f.name for f in dataclasses.fields(configs.ArchConfig)} == \
+        {f.name for f in dataclasses.fields(ref_configs.ArchConfig)}
+
+
 @pytest.mark.parametrize("arch", sorted(configs.ALIASES))
 def test_configs_match_reference(arch):
     """Every field the port's ``ArchConfig`` carries equals the
-    reference's, published and SMOKE (the sharding, optimizer and remat
-    fields are the reference's alone)."""
+    reference's, published and SMOKE."""
     for smoke in (False, True):
         got, want = _shared_fields(configs.get(arch, smoke=smoke),
                                    ref_configs.get(arch, smoke=smoke))

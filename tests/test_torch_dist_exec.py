@@ -16,7 +16,8 @@ expert stack over its local experts with no collective; yi-9b, mixtral
 and hymba SMOKE ``forward(dist=)`` within 1e-5 of the port unsharded and
 of the reference, greedy tokens equal; yi-9b compiled at tp = 4, placed
 by ``shard_packed_tree``, ``generate`` and ``ServingEngine(dist=)``
-tokens; a decode step's collectives; train steps in "tp" and "fsdp"
+tokens; a decode step's collectives, and the dry run's counts of one
+against them; train steps in "tp" and "fsdp"
 mode; ``launch.train --model-parallel``; checkpoints.
 """
 import json
@@ -45,7 +46,8 @@ ARCHS = ("yi-9b", "mixtral-8x7b", "hymba-1.5b")
 CHECKS = ("linear", "linear_int8", "tap", "expert",
           "forward_yi-9b", "forward_mixtral-8x7b", "forward_hymba-1.5b",
           "generate_yi-9b", "generate_mixtral-8x7b", "generate_hymba-1.5b",
-          "packed_generate", "engine", "comm_decode", "train_tp",
+          "packed_generate", "engine", "comm_decode", "dryrun_decode",
+          "train_tp",
           "train_fsdp", "checkpoint", "train_cli")
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
 
@@ -139,7 +141,8 @@ def test_ranks_agree(ranks):
     """Every rank reports the same tokens, losses and collective counts."""
     world, results, _ = ranks
     for check in ("generate_yi-9b", "packed_generate", "engine",
-                  "train_tp", "train_fsdp", "linear", "comm_decode"):
+                  "train_tp", "train_fsdp", "linear", "comm_decode",
+                  "dryrun_decode"):
         details = [json.dumps(r[check]["detail"], sort_keys=True)
                    for r in results]
         assert len(set(details)) == 1, (check, details)
