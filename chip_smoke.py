@@ -79,10 +79,10 @@
    hymba-1.5b ((16, 8) blocks on the mixers' in/out_proj, (16, 16) on
    hymba's attention and FFN; CHECK_M, bf16 and fp32, float and int8,
    reordered == unreordered bitwise), one layer of each timed at decode
-   (M = 4) and prefill (M = 128); then each model served at full width
-   and full depth (48 and 32 layers, bf16, seed 0, rate 0.6, 4 bins,
-   B = 4 x 32, 16 new tokens): 1632 and 4896 kernel-1 launches a
-   ``generate`` asserted, warm times and busy shares, every layer's mixer
+   (M = 4) and prefill (M = 128); then each model served at full width,
+   depth cut to SSM_LAYERS (12 of 48 and 8 of 32 layers; bf16, seed 0,
+   rate 0.6, 4 bins, B = 4 x 32, 16 new tokens): 408 and 1224 kernel-1
+   launches a ``generate`` asserted, warm times and busy shares, every layer's mixer
    packed vs masked-dense on one input (yi-9b's bounds), whole-model
    logits held to the bf16 noise floor (BF16_NOISE_FACTOR times the
    masked-dense bf16 model's distance to the fp32 one), a dropped bin
@@ -243,6 +243,31 @@
    ``FlopCounterMode`` count exactly and the warm step time must be at
    least the roofline's compute term; measured / memory term and the
    dry run's peak against ``max_memory_allocated`` are printed.
+
+15. The rest of the reference's surface (right after the mesh phase, on
+   the serve phase's masked yi-9b, ``surface_phase``): ``core.bcs``'s
+   BCS format on the card for each of layer 0's 7 projections
+   (``to_dense`` == the masked weight and ``pad_to_uniform_csc`` == its
+   host loop, bitwise; nnzb, density, hierarchical index bytes against
+   plain CSR's, ``load_imbalance``, L_max against the 4-bin layout's
+   per-bin L), and the same for the trained (8, 16) masks inside the
+   train phase (layers 0 and last); kernel 1's raw entry
+   (``kernels.bsr_matmul.bsr_matmul``) over ``pad_to_uniform_csc`` vs
+   plain at CHECK_M (bf16, fp32) and bitwise vs the reordered layout,
+   int8 a block and a column, ``out_dtype=float32``; its counted run (the
+   layer at decode, 7 launches) and its time at SURFACE_M beside the
+   reordered layout (the paper's Fig 4 claim on the card),
+   ``torch.matmul`` and the bound; kernel 2's raw entry at VGG_TINY c5
+   (pattern) vs plain and bitwise vs the packed entry, counted, timed;
+   the pack cache over two 8-layer ``compile_model`` calls (the byte
+   bound set to hold the first, printed; the second all hits on the same
+   layout objects, equal trees and greedy tokens, its ``generate``
+   counted: 952 launches; the digests' ms beside the packs'; the default
+   bounds restored and their evictions; a fault injected on a cached
+   layout caught while the cache's copy validates); ``generate`` and
+   ``generate_python`` at temperature 0.7 on generators seeded 0, the
+   same tokens.  Two rows join the kernels line: ``bsr_matmul_raw`` and
+   ``tap_gather_conv_raw``.
 
 No phase is caught: any failure exits non-zero.  The last two lines are
 the kernels JSON and ``{"ok": true, "device": {...}}``.  Full detail goes
@@ -2699,10 +2724,14 @@ def latency_model_check(mods, args, lm_rows, rules, vgg):
 # -- the SSM and hybrid families: kernel 1 on mamba2 and hymba ---------------
 
 SSM_ARCHS = ("mamba2-1.3b", "hymba-1.5b")
+# the served depth cuts (width is never cut): 12 of 48 and 8 of 32 layers,
+# which keep the script in its time limit
+SSM_LAYERS = {"mamba2-1.3b": 12, "hymba-1.5b": 8}
 SSM_BLOCK = (16, 8)      # the serving spec's block on ssm in/out_proj
-# bf16 whole-model logits of mamba2 / hymba at full depth, against the
-# fp32 masked-dense model: the masked-dense bf16 model itself drifts 0.13
-# / 0.094 (mamba2, 48 layers) and 0.050 / 0.050 (hymba, 32 layers) of
+# bf16 whole-model logits of mamba2 / hymba against the fp32
+# masked-dense model: at full depth the masked-dense bf16 model itself
+# drifts 0.13 / 0.094 (mamba2, 48 layers) and 0.050 / 0.050 (hymba, 32
+# layers) of
 # max / mean |logit| through the roundings of its depth, beyond yi-9b's
 # 5 % / 2 %, and the packed bf16 model 0.118 / 0.094 and 0.052 / 0.050
 # (H100, PERF.md); a dropped bin moves it 1.3 of max |logit|
@@ -2888,26 +2917,28 @@ def decode_forward_gap(mods, params, cfg, tokens, fault=None):
 
 
 def ssm_serve_phase(mods, arch):
-    """``arch`` (mamba2-1.3b or hymba-1.5b) at full width and depth
-    through the port's entry points: bf16, seed 0, rate 0.6, 4 bins,
+    """``arch`` (mamba2-1.3b or hymba-1.5b) at full width, depth cut to
+    SSM_LAYERS, through the port's entry points: bf16, seed 0, rate 0.6, 4 bins,
     B = 4 x 32, 16 new tokens; kernel 1's launches over the ``generate``
     asserted; bf16 prefill logits vs masked-dense and a planted fault;
     then fp32 at 2 layers (TF32 off): logits and greedy tokens packed vs
     masked-dense, and ``decode_step`` after ``prefill`` vs ``forward``,
     each with a planted fault; compile seconds and peak memory."""
     T, C, E = mods["T"], mods["C"], mods["E"]
-    cfg = full = ssm_config(arch)
+    full = ssm_config(arch)
+    cfg = full.replace(n_layers=min(SSM_LAYERS[arch], full.n_layers))
     projs = ssm_projections(cfg)
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    print(f"[ssm] {arch} at full width and depth ({cfg.n_layers} layers, "
+    print(f"[ssm] {arch} at full width, depth cut to {cfg.n_layers} of "
+          f"{full.n_layers} layers ("
           f"d_model {cfg.d_model}, d_inner {cfg.ssm_expand * cfg.d_model}, "
           f"SSD heads {cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim} x "
           f"{cfg.ssm_headdim}, state {cfg.ssm_state}"
           + (f", attention {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd} "
              f"window {cfg.sliding_window}, d_ff {cfg.d_ff}"
              if cfg.family == "hybrid" else "")
-          + f", vocab {cfg.vocab}); no cut")
+          + f", vocab {cfg.vocab})")
     pm, exec_p, report, init_s, compile_s, masks = build_served(
         mods, cfg, torch.bfloat16)
     del masks
@@ -3574,6 +3605,7 @@ def artifact_round_trip(mods, pm, masks, cfg):
         return key
 
     def compile_into(d):
+        ops.clear_pack_cache()           # each start a fresh process's
         sync()
         t0 = time.perf_counter()
         with mock.patch.object(ops, "pack", wraps=ops.pack) as packs, \
@@ -4248,6 +4280,7 @@ def tp_replica_restart(mods, full):
         del restored
 
         def start():
+            mods["ops"].clear_pack_cache()   # a restart: a fresh process
             sync()
             t0 = time.perf_counter()
             with mock.patch.object(BCS, "pack_csc_reordered",
@@ -4989,6 +5022,9 @@ def train_phase(mods, args):
               f"{dev_step['events']} device events")
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(f"[train] peak device memory {out['peak_gb']:.2f} GB")
+    # the BCS format of the trained masks, first and last layer
+    out["bcs"] = dict(trained_bcs(mods, res.params, res.masks,
+                                  (0, cfg.n_layers - 1)))
 
     # compile and serve the trained masks
     exec_p, report, compile_s = compile_timed(mods, res.params, res.masks,
@@ -5185,6 +5221,7 @@ def trained_entry(out, launches):
 
 XFAM_ARCHS = ("seamless-m4t-large-v2", "llama-3.2-vision-90b")
 VLM_GROUPS = 2           # llama-vision's depth cut: 2 of 20 groups
+SEAMLESS_LAYERS = 8      # seamless's depth cut: 8 + 8 of 24 + 24 layers
 # the fp32 gates' depth: seamless 2 + 2 layers, llama-vision 1 group
 XFAM_FP32 = {"seamless-m4t-large-v2": dict(n_layers=2, n_enc_layers=2),
              "llama-3.2-vision-90b": dict(n_layers=5)}
@@ -5194,14 +5231,18 @@ XFAM_CHECK_M = (1, 4, 17, 128, 129)
 
 
 def xfam_config(arch):
-    """seamless-m4t-large-v2 at its published widths and depth;
-    llama-3.2-vision-90b at its published widths, depth cut to VLM_GROUPS
-    groups of ``cross_attn_interval`` layers (the rehearsal on the CPU
-    swaps in narrower configs)."""
+    """seamless-m4t-large-v2 at its published widths, depth cut to
+    SEAMLESS_LAYERS encoder and decoder layers; llama-3.2-vision-90b at
+    its published widths, depth cut to VLM_GROUPS groups of
+    ``cross_attn_interval`` layers (the rehearsal on the CPU swaps in
+    narrower configs).  The cuts keep the script in its time limit."""
     from repro_torch import configs
     cfg = configs.get(arch)
     if cfg.family == "vlm":
         cfg = cfg.replace(n_layers=VLM_GROUPS * cfg.cross_attn_interval)
+    else:
+        cfg = cfg.replace(n_layers=SEAMLESS_LAYERS,
+                          n_enc_layers=SEAMLESS_LAYERS)
     return cfg
 
 
@@ -5407,7 +5448,8 @@ def xfam_serve_phase(mods, arch):
           f"heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd}, d_ff "
           f"{cfg.d_ff}, vocab {cfg.vocab}, frontend {cfg.n_frontend_tokens}"
           f" tokens); "
-          + (f"{cfg.n_enc_layers} + {cfg.n_layers} layers, no cut"
+          + (f"depth cut to {cfg.n_enc_layers} + {cfg.n_layers} of "
+             f"{full.n_enc_layers} + {full.n_layers} layers"
              if cfg.family == "encdec" else
              f"depth cut to {cfg.n_layers} of {full.n_layers} layers "
              f"({VLM_GROUPS} groups of {cfg.cross_attn_interval - 1} self + "
@@ -5770,6 +5812,513 @@ def dryrun_phase():
             "card_s": card_s, "production_s": prod_s}
 
 
+# -- the reference's remaining surface: BCS, the raw entries, the cache ------
+
+SURFACE_M = (4, 128)     # the raw entry timed at decode and prefill
+SURFACE_INT8_M = (1, 4, 17, 128, 129)
+SURFACE_TEMPERATURE = 0.7
+
+
+def bcs_on_host(BCS, bcs):
+    """A ``core.bcs.BCS`` with every tensor on the host."""
+    return dataclasses.replace(
+        bcs, values=bcs.values.cpu(), col_idx=bcs.col_idx.cpu(),
+        row_ptr=bcs.row_ptr.cpu(), occurrence=bcs.occurrence.cpu(),
+        patterns=[q.cpu() for q in bcs.patterns])
+
+
+def bcs_stats(mods, w, mask, block, check=True):
+    """``core.bcs`` on the card for one weight: ``from_dense``, its
+    ``to_dense`` == the masked weight bitwise and ``pad_to_uniform_csc``
+    == ``pad_to_uniform_csc_loop`` on the host bitwise (``check``); the
+    format's numbers beside the 4-bin reordered layout's.  Returns (stats,
+    (values, k_idx) of the uniform layout, reordered layout)."""
+    BCS, ops = mods["BCS"], mods["ops"]
+    bcs = BCS.from_dense(w, mask, block)
+    vals, kidx, nnz = BCS.pad_to_uniform_csc(bcs)
+    lay = ops.pack(w, mask, block, reorder=True, n_bins=N_BINS,
+                   use_cache=False)
+    if check:
+        if not torch.equal(BCS.to_dense(bcs), w * mask.to(w.dtype)):
+            raise AssertionError("BCS.to_dense != the masked weight")
+        loop = BCS.pad_to_uniform_csc_loop(bcs_on_host(BCS, bcs))
+        if not all(torch.equal(a.cpu(), b) for a, b in zip((vals, kidx, nnz),
+                                                          loop)):
+            raise AssertionError("pad_to_uniform_csc != its loop reference")
+    Nb, L = kidx.shape
+    stats = {"K": w.shape[0], "N": w.shape[1], "block": tuple(block),
+             "nnzb": bcs.nnzb, "density": bcs.density,
+             "index_bytes": bcs.index_bytes(),
+             "csr_index_bytes": bcs.csr_index_bytes(),
+             "patterns": len(bcs.patterns),
+             "load_imbalance": BCS.load_imbalance(bcs),
+             "L_max": L, "bin_L": list(lay.bin_degrees),
+             "padded_blocks": Nb * L,
+             "binned_blocks": lay.executed_blocks}
+    return stats, (vals, kidx), lay
+
+
+def print_bcs(rows, title):
+    print(title)
+    print(f"  {'proj':8s} {'nnzb':>7s} {'density':>7s} {'idx B':>8s} "
+          f"{'csr B':>8s} {'pat':>5s} {'imbal':>6s} {'L_max':>5s} "
+          f"{'bins L':>18s} {'padded':>8s} {'binned':>8s}")
+    for name, r in rows:
+        print(f"  {name:8s} {r['nnzb']:7d} {r['density']:7.4f} "
+              f"{r['index_bytes']:8d} {r['csr_index_bytes']:8d} "
+              f"{r['patterns']:5d} {r['load_imbalance']:6.3f} "
+              f"{r['L_max']:5d} {str(r['bin_L']):>18s} "
+              f"{r['padded_blocks']:8d} {r['binned_blocks']:8d}")
+
+
+def trained_bcs(mods, params, masks, layers):
+    """``bcs_stats`` (no loop check) of the trained (8, 16) masks of
+    ``layers``, each of the 7 projections: skewed masks are what the
+    degree binning is for."""
+    rows = []
+    for i in layers:
+        for name, _, _, _ in PROJECTIONS:
+            g = "attn" if name.startswith("w") else "ffn"
+            m = masks["layers"][g][name]["w"]
+            if m.ndim == 0:                  # served dense: not pruned
+                continue
+            w, m = params["layers"][g][name]["w"][i], m[i]
+            rows.append((f"{i}/{name}", bcs_stats(mods, w, m, (8, 16),
+                                                  check=False)[0]))
+    print_bcs(rows, f"[train] BCS of the trained (8, 16) masks, layers "
+                    f"{list(layers)} (idx B = hierarchical index bytes, "
+                    f"csr B = plain CSR's; imbal = load_imbalance over "
+                    f"block rows; padded = Nb x L_max, binned = the "
+                    f"{N_BINS}-bin layout's executed blocks):")
+    return rows
+
+
+def values_as(lay, dtype):
+    """A float layout with its values in ``dtype`` (the same slots)."""
+    return dataclasses.replace(lay, values=tuple(v.to(dtype)
+                                                 for v in lay.values))
+
+
+def raw_kernel1(mods, pm, masks, gen, flush):
+    """Kernel 1's raw entry over one yi-9b layer (layer 0 of the served
+    masked params): the BCS format of each projection on the card, the
+    raw entry vs plain at CHECK_M (bf16, fp32) and bitwise vs the 4-bin
+    reordered layout, int8 under both scale shapes, ``out_dtype=float32``;
+    the counted run (the layer's 7 projections through the raw entry at
+    decode), then the raw entry and the reordered layout timed at
+    SURFACE_M beside ``torch.matmul`` and the bound."""
+    K, ref, QUANT = mods["K"], mods["ref"], mods["QUANT"]
+    from repro_torch.core.packed import PackedLayout
+    stats, cases, rows = [], {}, []
+    checks, max_err, max_err8 = 0, 0.0, 0.0
+    for name, Kd, Nd, act in PROJECTIONS:
+        g = "attn" if name.startswith("w") else "ffn"
+        w = pm["layers"][g][name]["w"][0]
+        m = masks["layers"][g][name]["w"][0]
+        st, (vals, kidx), lay = bcs_stats(mods, w, m, BLOCK)
+        stats.append((name, st))
+        cases[name] = (vals, kidx, lay, w * m.to(w.dtype), act)
+        b = (torch.randn(Nd, generator=gen, device=DEV) * 0.1)
+        for dtype in (torch.bfloat16, torch.float32):
+            v, ly = vals.to(dtype), (lay if dtype == torch.bfloat16 else
+                                     values_as(lay, dtype))
+            bd = b.to(dtype)
+            for M in CHECK_M:
+                x = torch.randn(M, Kd, generator=gen, device=DEV).to(dtype)
+                y = K.bsr_matmul(x, v, kidx, bd, act=act)
+                want = ref.bsr_matmul_ref(x.float(), v.float(), kidx,
+                                          bd.float(), act)
+                packed = K.bsr_matmul_packed(x, ly, bd, act)
+                sync()
+                what = f"{name} M={M} {dtype} act={act}"
+                max_err = max(max_err, check_close(
+                    y, want, dtype, f"raw kernel 1 vs plain at {what}"))
+                if not torch.equal(y, packed):
+                    d = (y.float() - packed.float()).abs().max().item()
+                    raise AssertionError(f"raw kernel 1 != the reordered "
+                                         f"layout bitwise at {what} (max "
+                                         f"|diff| {d:.3e})")
+                checks += 1
+        # int8, a scale per block and per column; fp32 out of a bf16 x
+        one = PackedLayout(values=(vals,), k_idx=(kidx,),
+                           nnz=torch.full((vals.shape[0],), vals.shape[1],
+                                          dtype=torch.int32, device=DEV),
+                           block=BLOCK, shape=(Kd, Nd))
+        for gran in ("block", "out"):
+            q = QUANT.quantize_layout(one, value_dtype="int8",
+                                      scale_granularity=gran)
+            for M in SURFACE_INT8_M:
+                x = torch.randn(M, Kd, generator=gen, device=DEV).to(
+                    torch.bfloat16)
+                y = K.bsr_matmul(x, q.values[0], kidx, scales=q.scales[0],
+                                 act=act)
+                want = ref.bsr_matmul_ref(x.float(), q.values[0], kidx,
+                                          act=act, scales=q.scales[0])
+                sync()
+                max_err8 = max(max_err8, check_close(
+                    y, want, torch.bfloat16,
+                    f"raw kernel 1 int8 ({gran}) vs plain at {name} M={M}"))
+                checks += 1
+        for M in SURFACE_M:
+            x = torch.randn(M, Kd, generator=gen, device=DEV).to(
+                torch.bfloat16)
+            y = K.bsr_matmul(x, vals, kidx, act=act,
+                             out_dtype=torch.float32)
+            want = ref.bsr_matmul_ref(x.float(), vals.float(), kidx, act=act)
+            sync()
+            if y.dtype != torch.float32:
+                raise AssertionError("out_dtype=float32 gave " + str(y.dtype))
+            max_err = max(max_err, check_close(
+                y, want, torch.float32,
+                f"raw kernel 1 out_dtype=float32 vs plain at {name} M={M}"))
+            checks += 1
+    print_bcs(stats, f"BCS on the card, yi-9b layer 0 ({BLOCK} blocks, rate "
+                     f"{PRUNE_RATE}; to_dense == masked weight and "
+                     f"pad_to_uniform_csc == its host loop, bitwise; idx B "
+                     f"= hierarchical index bytes, csr B = plain CSR's; "
+                     f"imbal = load_imbalance over block rows; padded = Nb "
+                     f"x L_max, binned = the {N_BINS}-bin layout's "
+                     f"executed blocks):")
+    print(f"raw kernel 1 (bsr_matmul over pad_to_uniform_csc): {checks} "
+          f"cases, M in {CHECK_M} bf16 + fp32 (bitwise == the {N_BINS}-bin "
+          f"reordered layout), int8 a block / a column at "
+          f"{SURFACE_INT8_M}, out_dtype=float32 at {SURFACE_M}; max abs "
+          f"err {max_err:.3e} (int8 {max_err8:.3e})")
+
+    # the counted run: the layer's projections at decode, raw entry only
+    xs = {name: torch.randn(4, Kd, generator=gen, device=DEV).to(
+        torch.bfloat16) for name, Kd, _, _ in PROJECTIONS}
+    K.reset_launches()
+    outs = [K.bsr_matmul(xs[name], cases[name][0], cases[name][1],
+                         act=cases[name][4]) for name, *_ in PROJECTIONS]
+    sync()
+    launches = K.LAUNCHES["bsr_matmul_raw"]
+    if launches != len(PROJECTIONS) or not all(
+            torch.isfinite(o).all() for o in outs):
+        raise AssertionError(f"raw kernel 1: {launches} launches for "
+                             f"{len(PROJECTIONS)} projections")
+    print(f"raw kernel 1, counted: one yi-9b layer at decode, "
+          f"{launches} launches (one a projection)")
+
+    for name, Kd, Nd, act in PROJECTIONS:
+        vals, kidx, lay, dense, _ = cases[name]
+        nnzb = int(lay.nnz.sum())
+        for M in SURFACE_M:
+            x = torch.randn(M, Kd, generator=gen, device=DEV).to(
+                torch.bfloat16)
+            nbytes = kernel1_bytes(lay) + M * (Kd + Nd) * 2
+            flops = 2 * M * nnzb * math.prod(BLOCK)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / BF16_PEAK_FLOPS * 1e3
+            rows.append({
+                "proj": name, "M": M, "K": Kd, "N": Nd,
+                "L_max": vals.shape[1], "bin_L": list(lay.bin_degrees),
+                "ms": time_ms(lambda: K.bsr_matmul(x, vals, kidx, act=act),
+                              30, flush),
+                "reordered_ms": time_ms(
+                    lambda: K.bsr_matmul_packed(x, lay, None, act), 30,
+                    flush),
+                "plain_ms": time_ms(lambda: ref.bsr_matmul_ref(
+                    x, vals, kidx, act=act), 3, flush),
+                "library_ms": time_ms(lambda: torch.matmul(x, dense), 30,
+                                      flush),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes_ms": t_bytes, "ops_ms": t_ops})
+    print("raw kernel 1 timings (bf16, L2 flushed, median ms by CUDA-graph "
+          "replay): the uniform layout padded to L_max against the "
+          f"{N_BINS}-bin reordered layout of the same weights (Fig 4):")
+    print(f"  {'proj':8s} {'M':>4s} {'L_max':>5s} {'bins L':>18s} "
+          f"{'raw':>9s} {'binned':>9s} {'bound':>9s} {'plain':>9s} "
+          f"{'matmul':>9s}")
+    for r in rows:
+        print(f"  {r['proj']:8s} {r['M']:4d} {r['L_max']:5d} "
+              f"{str(r['bin_L']):>18s} {r['ms']:9.4f} "
+              f"{r['reordered_ms']:9.4f} {r['bound_ms']:9.4f} "
+              f"{r['plain_ms']:9.4f} {r['library_ms']:9.4f}")
+    sums = {}
+    for M in SURFACE_M:
+        sel = [r for r in rows if r["M"] == M]
+        t = {k: sum(r[k] for r in sel)
+             for k in ("ms", "reordered_ms", "plain_ms", "library_ms",
+                       "bytes_ms", "ops_ms")}
+        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        t["bound_by"] = ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                         else "operations")
+        sums[M] = t
+        print(f"  one yi-9b layer at M = {M}: raw {t['ms']:.4f} ms, binned "
+              f"{t['reordered_ms']:.4f}, torch.matmul "
+              f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} "
+              f"({t['bound_by']}), plain {t['plain_ms']:.3f}")
+    return {"bcs": dict(stats), "checks": checks, "max_abs_err": max_err,
+            "max_abs_err_int8": max_err8, "rows": rows,
+            "decode": sums[SURFACE_M[0]], "prefill": sums[SURFACE_M[1]],
+            "launches": launches}
+
+
+def raw_kernel2(mods, gen, flush):
+    """Kernel 2's raw entry at VGG_TINY c5 under the pattern mapping (a
+    1x1 conv: the alive band of the B = CONV_B input): vs plain and
+    bitwise vs ``tap_gather_conv_packed`` over the reordered layout, the
+    counted run, timed beside the packed entry, ``F.conv2d`` and the
+    bound."""
+    RW, CN, ops, ref, K = (mods["RW"], mods["CN"], mods["ops"], mods["ref"],
+                           mods["K"])
+    import torch.nn.functional as F
+    from repro_torch.train.trainer import apply_masks
+    params = CN.convnet_init(CN.VGG_TINY, seed=0, device=DEV)
+    spec = conv_mappings(RW)[1][1]
+    masks = conv_masks(RW, "pattern", params, spec)
+    pm = apply_masks(params, masks)
+    _, kh, kw, stride, shape = next(c for c in layer_inputs(
+        CN.VGG_TINY, CONV_HW, CONV_B) if c[0] == "c5")
+    wm, mask = pm["c5"]["w"], masks["c5"]["w"]
+    one = ops.pack_taps(wm, mask, reorder=False, use_cache=False)
+    lay = ops.pack_taps(wm, mask, reorder=True, use_cache=False)
+    x = torch.randn(shape, generator=gen, device=DEV)
+    band = ops.im2col(x, kh, kw, stride).reshape(-1, lay.shape[0])
+    if lay.n_alive < band.shape[1]:
+        band = band.index_select(1, lay.alive.long())
+    band = band.contiguous()
+    P = wm.shape[0]
+    b = torch.randn(P, generator=gen, device=DEV) * 0.1
+    vals, tidx = one.values[0], one.t_idx[0]
+    y = K.tap_gather_conv(band, vals, tidx, b, act="relu")
+    want = ref.tap_gather_ref(band, vals, tidx, b, "relu")
+    packed = K.tap_gather_conv_packed(band, lay, b, "relu")
+    sync()
+    err = check_close(y, want, torch.float32, "raw kernel 2 vs plain at c5")
+    if not torch.equal(y, packed):
+        raise AssertionError("raw kernel 2 != tap_gather_conv_packed over "
+                             "the reordered layout, bitwise")
+    K.reset_launches()
+    y = K.tap_gather_conv(band, vals, tidx, b, act="relu")
+    sync()
+    launches = K.LAUNCHES["tap_gather_conv_raw"]
+    if launches != 1 or not torch.isfinite(y).all():
+        raise AssertionError(f"raw kernel 2: {launches} launches")
+    M, R = band.shape
+    live = int(one.nnz.sum()) * one.group
+    flops = 2 * M * live
+    nbytes = band.numel() * 4 + layout_bytes(one) + M * P * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_PEAK_FLOPS * 1e3
+    dense = (wm * mask).float()
+    xn = x.permute(0, 3, 1, 2).contiguous()
+    row = {"layer": "vgg/c5/pattern", "M": M, "R": R, "N": P,
+           "L": vals.shape[1], "bin_L": list(lay.bin_degrees),
+           "max_abs_err": err, "launches": launches,
+           "ms": time_ms(lambda: K.tap_gather_conv(band, vals, tidx, b,
+                                                   act="relu"), 20, flush),
+           "packed_ms": time_ms(lambda: K.tap_gather_conv_packed(
+               band, lay, b, "relu"), 20, flush),
+           "plain_ms": time_ms(lambda: ref.tap_gather_ref(
+               band, vals, tidx, b, "relu"), 3, flush),
+           "library_ms": time_ms(lambda: torch.relu(F.conv2d(
+               xn, dense, b, stride=stride)), 20, flush),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print(f"raw kernel 2 (tap_gather_conv, one bin) at VGG_TINY c5 pattern "
+          f"(M {M}, R {R}, P {P}, L {row['L']} vs bins {row['bin_L']}): "
+          f"vs plain max abs err {err:.3e}, == tap_gather_conv_packed "
+          f"bitwise; counted {launches} launch; {row['ms']:.4f} ms (packed "
+          f"{row['packed_ms']:.4f}, F.conv2d {row['library_ms']:.4f}, "
+          f"bound {row['bound_ms']:.4f} ({row['bound_by']}), plain "
+          f"{row['plain_ms']:.3f}; fp32, bias + relu, L2 flushed)")
+    return row
+
+
+def cache_compiles(mods, pm, masks, cfg):
+    """The pack cache on the card over two ``compile_model`` calls of the
+    served 8-layer yi-9b: the byte bound set to hold the first's packs
+    (printed), the second all hits with the same layout objects and
+    equal trees; greedy tokens of both equal, the second ``generate``
+    counted (the main path: 952 launches); the digest's and the packs'
+    ms of the first; the default bounds restored and the evictions they
+    cause; a fault injected on a cached layout leaves the cache's copy
+    valid.  Returns (out, exec params of the second compile, launches,
+    prompts)."""
+    ops, C, E, K, V, F_, BCS, MODULE = (
+        mods["ops"], mods["C"], mods["E"], mods["K"], mods["V"], mods["F"],
+        mods["BCS"], mods["M"])
+    from repro_torch.launch.serve import SPARSE_SPEC
+    spans = {"digest": [], "pack": []}
+
+    def timed(kind, fn):
+        def run(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            spans[kind].append(time.perf_counter() - t0)
+            return out
+        return run
+    defaults = ops.configure_pack_cache()
+    ops.clear_pack_cache()
+    ops.configure_pack_cache(max_bytes=1 << 40)
+    s0 = ops.pack_cache_stats()
+    with mock.patch.object(ops, "_digest", timed("digest", ops._digest)), \
+            mock.patch.object(BCS, "pack_csc_reordered",
+                              timed("pack", BCS.pack_csc_reordered)):
+        first, _, first_s = compile_timed(mods, pm, masks, SPARSE_SPEC)
+    s1 = ops.pack_cache_stats()
+    held = s1["bytes"]
+    ops.configure_pack_cache(max_bytes=held)
+    entries = list(ops._PACK_CACHE.values())
+    second, _, second_s = compile_timed(mods, pm, masks, SPARSE_SPEC)
+    s2 = ops.pack_cache_stats()
+    n = cfg.n_layers * len(PROJECTIONS)
+    got = {"first": {k: s1[k] - s0[k] for k in ("hits", "misses")},
+           "second": {k: s2[k] - s1[k] for k in ("hits", "misses")}}
+    now = list(ops._PACK_CACHE.values())
+    same = len(now) == len(entries) and all(
+        a is b for a, b in zip(now, entries))
+    la, lb = MODULE.tree_leaves(first), MODULE.tree_leaves(second)
+    trees_equal = len(la) == len(lb) and all(
+        torch.equal(a, b) for a, b in zip(la, lb))
+    print(f"pack cache: byte bound set to hold one {cfg.n_layers}-layer "
+          f"yi-9b compile, {held} bytes ({held / 2**30:.3f} GiB) in "
+          f"{s1['entries']} entries; first compile {got['first']} in "
+          f"{first_s:.2f}s, second {got['second']} in {second_s:.2f}s; "
+          f"same layout objects {same}, trees equal {trees_equal}")
+    if (got["first"] != {"hits": 0, "misses": n}
+            or got["second"] != {"hits": n, "misses": 0} or not same
+            or not trees_equal):
+        raise AssertionError(f"pack cache: expected {n} misses then {n} "
+                             f"hits on the same layouts, got {got}")
+    dig, pk = sum(spans["digest"]) * 1e3, sum(spans["pack"]) * 1e3
+    print(f"pack cache key on the card: {len(spans['digest'])} digests "
+          f"{dig:.2f} ms in all against {len(spans['pack'])} packs "
+          f"(pack_csc_reordered) {pk:.2f} ms, first compile (each timed "
+          f"alone, synchronised)")
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab, size=(B, S))
+    with torch.no_grad():
+        t1 = E.generate(first, cfg, prompts, N_NEW, device=DEV)
+        K.reset_launches()
+        t2 = E.generate(second, cfg, prompts, N_NEW, device=DEV)
+        sync()
+    launches = K.LAUNCHES["bsr_matmul"]
+    want = cfg.n_layers * len(PROJECTIONS) * (1 + N_NEW)
+    print(f"greedy tokens of the two compiles equal: {torch.equal(t1, t2)}; "
+          f"the second's generate counted: {launches} bsr_matmul launches "
+          f"(expected {want})")
+    if not torch.equal(t1, t2) or launches != want:
+        raise AssertionError("the cached compile serves other tokens or "
+                             "another launch count")
+    del first
+    # a fault injected on a cached layout corrupts a copy only
+    g0 = pm["layers"]["attn"]["wq"]["w"][0]
+    m0 = masks["layers"]["attn"]["wq"]["w"][0]
+    hit = ops.pack(g0, m0, BLOCK, reorder=True, n_bins=N_BINS)
+    bad, rec = F_.bitflip_packed_leaf({"l": {"packed": hit}}, seed=0)
+    try:
+        V.validate_layout(bad["l"]["packed"])
+        caught = False
+    except V.LayoutError:
+        caught = True
+    again = ops.pack(g0, m0, BLOCK, reorder=True, n_bins=N_BINS)
+    clean = again is hit and V.validate_layout(again) is again
+    print(f"fault injected on a cached layout ({rec.kind}: {rec.detail}): "
+          f"caught by validate {caught}; the next hit is the cached "
+          f"object and validates: {clean}")
+    if not (caught and clean):
+        raise AssertionError("a fault injected on a cached layout reached "
+                             "the cache")
+    ev0 = ops.pack_cache_stats()["evictions"]
+    after = ops.configure_pack_cache(max_entries=defaults["max_entries"],
+                                     max_bytes=defaults["max_bytes"])
+    print(f"default bounds restored ({after['max_entries']} entries, "
+          f"{after['max_bytes']} bytes): {after['evictions'] - ev0} "
+          f"evictions, {after['entries']} entries / {after['bytes']} bytes "
+          f"held")
+    out = {"held_bytes": held, "entries": s1["entries"], **got,
+           "same_objects": same, "first_compile_s": first_s,
+           "second_compile_s": second_s, "digest_ms": dig, "pack_ms": pk,
+           "digests": len(spans["digest"]), "packs": len(spans["pack"]),
+           "generate_launches": launches,
+           "default_evictions": after["evictions"] - ev0,
+           "fault_caught": caught}
+    return out, second, launches, prompts
+
+
+def sampling_oracle(mods, exec_p, cfg, prompts):
+    """``generate`` and ``generate_python`` at SURFACE_TEMPERATURE on two
+    generators seeded 0: the same tokens, draw for draw."""
+    E = mods["E"]
+    g1 = torch.Generator(device=DEV)
+    g1.manual_seed(0)
+    g2 = torch.Generator(device=DEV)
+    g2.manual_seed(0)
+    with torch.no_grad():
+        a = E.generate(exec_p, cfg, prompts, N_NEW, device=DEV,
+                       temperature=SURFACE_TEMPERATURE, generator=g1)
+        b = E.generate_python(exec_p, cfg, prompts, N_NEW, device=DEV,
+                              temperature=SURFACE_TEMPERATURE, generator=g2)
+    same = torch.equal(a, b) and torch.equal(g1.get_state(), g2.get_state())
+    greedy = E.generate(exec_p, cfg, prompts, N_NEW, device=DEV)
+    print(f"sampling oracle: generate and generate_python at temperature "
+          f"{SURFACE_TEMPERATURE}, B {B}, {N_NEW} new tokens, generators "
+          f"seeded 0: identical tokens and generator states {same} "
+          f"(tokens differing from greedy: "
+          f"{int((a != greedy).sum())} of {a.numel()})")
+    if not same:
+        raise AssertionError("generate_python's samples differ from "
+                             "generate's")
+    return {"identical": same, "tokens": a.tolist()}
+
+
+def surface_phase(mods, pm, masks, cfg, flush):
+    """The reference's remaining surface on the card: ``core.bcs``'s
+    format, kernels 1's and 2's raw entries, the pack cache over two
+    compiles, the sampling oracle."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    k1 = raw_kernel1(mods, pm, masks, gen, flush)
+    k2 = raw_kernel2(mods, gen, flush)
+    cache, exec_p, launches, prompts = cache_compiles(mods, pm, masks, cfg)
+    oracle = sampling_oracle(mods, exec_p, cfg, prompts)
+    del exec_p
+    return {"kernel1_raw": k1, "kernel2_raw": k2, "pack_cache": cache,
+            "sampling_oracle": oracle}, launches
+
+
+def surface_entries(out):
+    """The JSON entries of the two raw entries."""
+    k1, k2 = out["kernel1_raw"], out["kernel2_raw"]
+    dec, pre = k1["decode"], k1["prefill"]
+    return [
+        {"name": "bsr_matmul_raw", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/bsr_matmul.cu",
+         "replaces": "src/repro/kernels/bsr_matmul.py:143",
+         "launches": k1["launches"],
+         "max_abs_err": max(k1["max_abs_err"], k1["max_abs_err_int8"]),
+         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+         "library_ms": dec["library_ms"],
+         "reordered_ms": dec["reordered_ms"],
+         "prefill": {k: pre[k] for k in ("ms", "reordered_ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")},
+         "measured_at": f"kernel 1's raw entry over pad_to_uniform_csc "
+                        f"(one bin padded to L_max), sum over one yi-9b "
+                        f"layer's 7 projections at decode M="
+                        f"{SURFACE_M[0]} (prefill: M={SURFACE_M[1]}), "
+                        f"bf16, {BLOCK} blocks, rate {PRUNE_RATE}; "
+                        f"reordered = the {N_BINS}-bin layout of the same "
+                        f"weights; launches: the layer at decode, counted"},
+        {"name": "tap_gather_conv_raw", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/tap_gather.cu",
+         "replaces": "src/repro/kernels/bsr_matmul.py:314",
+         "launches": k2["launches"], "max_abs_err": k2["max_abs_err"],
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": k2["library_ms"], "packed_ms": k2["packed_ms"],
+         "measured_at": f"kernel 2's raw entry at VGG_TINY c5 (pattern, "
+                        f"one bin), B={CONV_B} {CONV_HW}x{CONV_HW}, fp32, "
+                        f"bias + relu; library = F.conv2d + relu on the "
+                        f"masked dense weight, TF32 off"}]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=8,
@@ -5798,13 +6347,15 @@ def main(argv=None):
         from repro_torch.core import validate as V
         from repro_torch.serve import artifacts as ART
         from repro_torch.testing import faults as F
+        from repro_torch.core import quant as QUANT
+        from repro_torch.models import module as MODULE
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 2
     mods = dict(RW=RW, ops=ops, ref=ref, K=K, T=T, C=C, E=E, CN=CN,
                 BCS=BCS, MOE=MOE, L=L, SSM=SSM, MR=MR, KV=KV, V=V, ART=ART,
-                F=F)
+                F=F, QUANT=QUANT, M=MODULE)
     # the oracles (masked-dense matmul and F.conv2d) run in full fp32: a
     # float32 conv goes through cuDNN in TF32 unless told otherwise
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5850,6 +6401,10 @@ def main(argv=None):
                                          serve_tokens=e2e["tokens"])
     for k, v in mesh_launches.items():
         tp_launches[k].update(v)
+    torch.cuda.empty_cache()
+    stamp("surface: BCS, the raw entries, the pack cache, the sampling "
+          "oracle")
+    surface_out, surface_launches = surface_phase(mods, *served[:3], flush)
     del served
     torch.cuda.empty_cache()
     # the paper's pipeline: train, prune and fine-tune yi-9b, then serve it
@@ -5930,6 +6485,7 @@ def main(argv=None):
                      + sum(engine_launches.values())
                      + robust_launches["yi-9b degraded engine"]
                      + robust_launches["yi-9b warm-start generate"]
+                     + surface_launches
                      + sum(n["bsr_matmul"] for n in xfam_counts.values())),
         "launches_by_path": {
             "yi-9b generate": launches["bsr_matmul"],
@@ -5943,6 +6499,7 @@ def main(argv=None):
                 "yi-9b degraded engine"],
             "yi-9b warm-start generate": robust_launches[
                 "yi-9b warm-start generate"],
+            "yi-9b generate after a cached compile": surface_launches,
             **{f"{a} generate": n["bsr_matmul"]
                for a, n in xfam_counts.items()}},
         "max_abs_err": max(max_err, moe_err, ssm_checks[1], map_err,
@@ -6044,6 +6601,7 @@ def main(argv=None):
                 "VGG_TINY forwards (served, mapped)": e["launches"] - n,
                 "VGG_TINY punched forward, one layer retired": n}
     entries += tp_entries(tp_out, tp_launches)
+    entries += surface_entries(surface_out)
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -6060,7 +6618,7 @@ def main(argv=None):
          "mapped_shapes": map_rows, "mapped_vgg": map_vgg,
          "latency_model": map_model, "train": train_out,
          "robustness": robust, "tensor_parallel": tp_out,
-         "mesh": mesh_out,
+         "mesh": mesh_out, "surface": surface_out,
          "encdec_vlm": xfam_out, "dryrun": dryrun_out,
          "phase_start_s": RUN["phase_s"]},
         indent=1, default=str))

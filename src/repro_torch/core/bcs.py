@@ -1,5 +1,8 @@
-"""Blocked Compressed Storage (BCS, paper §4.3 Fig 4): packing a block-pruned
-weight into the kernel's uniform-padded CSC layout, with the Fig 4 row
+"""Blocked Compressed Storage (BCS, paper §4.3 Fig 4): the ``BCS`` format
+itself (CSR of blocks with hierarchical column-index compression, its
+uniform-padded row and column layouts and the ``load_imbalance`` metric
+that row reordering evens out); packing a block-pruned weight straight
+into the kernel's uniform-padded CSC layout, with the Fig 4 row
 reordering for load balance; the im2col lowering of conv weights
 (``conv_lower``, ``conv_tap_table``) and the tap lowering of
 pattern/connectivity-pruned convs into a ``TapLayout`` (``pattern_lower``).
@@ -11,14 +14,237 @@ emit the sharded layout.
 The unit the executor skips is a whole (bk, bn) weight block.  Packing runs
 as tensor ops on the weight's own device, so full-width layers pack on the
 card in milliseconds; only the per-column degree list crosses to the host
-(it sets the padded bin degrees, which are shapes).
+(it sets the padded bin degrees, which are shapes).  The ``*_loop``
+versions are the plain per-row references the vectorized ones are held to.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from repro_torch.core.packed import PackedLayout, TapLayout
+
+
+@dataclass
+class BCS:
+    """A masked (K, N) weight as CSR of (bk, bn) blocks (paper Fig 4).
+    Tensors on the weight's device; int32 indices."""
+    shape: tuple              # dense (K, N)
+    block: tuple              # (bk, bn)
+    values: torch.Tensor      # (nnzb, bk, bn) surviving blocks, row-major
+    col_idx: torch.Tensor     # (nnzb,) int32 block column of each block
+    row_ptr: torch.Tensor     # (Kb + 1,) int32 CSR pointers over block rows
+    # hierarchical column compression: the distinct per-row column lists
+    # (int64 tensors, first-occurrence order) and each row's pattern id
+    patterns: list
+    occurrence: torch.Tensor  # (Kb,) int32
+
+    @property
+    def nnzb(self) -> int:
+        return self.col_idx.numel()
+
+    @property
+    def density(self) -> float:
+        Kb = self.shape[0] // self.block[0]
+        Nb = self.shape[1] // self.block[1]
+        return self.nnzb / (Kb * Nb)
+
+    def index_bytes(self) -> int:
+        """Metadata bytes under hierarchical compression (patterns,
+        occurrence, row pointers)."""
+        pat = sum(p.numel() for p in self.patterns)
+        return 4 * (pat + self.occurrence.numel() + self.row_ptr.numel())
+
+    def csr_index_bytes(self) -> int:
+        """Metadata bytes of plain CSR (column indices, row pointers)."""
+        return 4 * (self.col_idx.numel() + self.row_ptr.numel())
+
+
+def _blockify(w, mask, block):
+    """((Kb, Nb, bk, bn) block view of the masked weight, (Kb, Nb) bool
+    liveness): a block is live iff any mask entry in it is nonzero."""
+    K, N = w.shape
+    bk, bn = block
+    if K % bk or N % bn:
+        raise ValueError(f"block {tuple(block)} does not divide "
+                         f"{tuple(w.shape)}")
+    Kb, Nb = K // bk, N // bn
+    wm = w * mask.to(w.dtype)
+    return (wm.reshape(Kb, bk, Nb, bn).permute(0, 2, 1, 3),
+            _alive_t(mask, Kb, bk, Nb, bn).t())
+
+
+def _row_ptr(counts):
+    """(Kb + 1,) int32 CSR pointers of per-row counts."""
+    out = torch.zeros(counts.numel() + 1, dtype=torch.int32,
+                      device=counts.device)
+    out[1:] = torch.cumsum(counts, 0)
+    return out
+
+
+def from_dense(w, mask, block) -> BCS:
+    """Pack ``w * mask`` (K, N) into BCS on the weight's device.  A block
+    is stored iff any weight in it survives; stored blocks keep their
+    interior zeros.  The per-row liveness patterns are deduplicated in
+    first-occurrence order (``torch.unique`` sorts them, so its ids are
+    renumbered by each pattern's first row)."""
+    wblk, alive = _blockify(w, mask, block)
+    Kb = alive.shape[0]
+    rows, cols = torch.nonzero(alive, as_tuple=True)   # row-major = CSR
+    uniq, inv = torch.unique(alive.to(torch.uint8), dim=0,
+                             return_inverse=True)
+    first = torch.full((uniq.shape[0],), Kb, dtype=torch.int64,
+                       device=alive.device)
+    first.scatter_reduce_(0, inv, torch.arange(Kb, device=alive.device),
+                          "amin")
+    order = torch.argsort(first)                       # by first row
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.numel(), device=order.device)
+    pat = uniq[order].bool()
+    patterns = list(torch.split(torch.nonzero(pat, as_tuple=True)[1],
+                                pat.sum(dim=1).tolist()))
+    return BCS(shape=tuple(w.shape), block=tuple(block),
+               values=wblk[rows, cols], col_idx=cols.to(torch.int32),
+               row_ptr=_row_ptr(alive.sum(dim=1)), patterns=patterns,
+               occurrence=rank[inv].to(torch.int32))
+
+
+def from_dense_loop(w, mask, block) -> BCS:
+    """Plain per-row reference of ``from_dense``: a loop over block rows on
+    the host, a dict of column lists for the patterns."""
+    wblk, alive = _blockify(w, mask, block)
+    dev = w.device
+    col_idx, row_ptr, rows = [], [0], []
+    patterns, lookup, occurrence = [], {}, []
+    for i, live in enumerate(alive.cpu().tolist()):
+        cols = [j for j, a in enumerate(live) if a]
+        col_idx += cols
+        rows += [i] * len(cols)
+        row_ptr.append(len(col_idx))
+        key = tuple(cols)
+        if key not in lookup:
+            lookup[key] = len(patterns)
+            patterns.append(torch.tensor(cols, dtype=torch.int64,
+                                         device=dev))
+        occurrence.append(lookup[key])
+    r = torch.tensor(rows, dtype=torch.int64, device=dev)
+    c = torch.tensor(col_idx, dtype=torch.int64, device=dev)
+    return BCS(shape=tuple(w.shape), block=tuple(block), values=wblk[r, c],
+               col_idx=c.to(torch.int32),
+               row_ptr=torch.tensor(row_ptr, dtype=torch.int32, device=dev),
+               patterns=patterns,
+               occurrence=torch.tensor(occurrence, dtype=torch.int32,
+                                       device=dev))
+
+
+def _row_of(bcs):
+    """(nnzb,) int64 block row of each stored block."""
+    Kb = bcs.row_ptr.numel() - 1
+    return torch.repeat_interleave(
+        torch.arange(Kb, device=bcs.row_ptr.device),
+        torch.diff(bcs.row_ptr).long())
+
+
+def to_dense(bcs: BCS) -> torch.Tensor:
+    """The dense (K, N) weight a BCS stores (zeros where no block is)."""
+    K, N = bcs.shape
+    bk, bn = bcs.block
+    out = torch.zeros((K // bk, N // bn, bk, bn), dtype=bcs.values.dtype,
+                      device=bcs.values.device)
+    out[_row_of(bcs), bcs.col_idx.long()] = bcs.values
+    return out.permute(0, 2, 1, 3).reshape(K, N)
+
+
+def pad_to_uniform(bcs: BCS):
+    """Uniform per-ROW layout: every block row gets ``Lmax`` slots, padding
+    slots zero blocks at column 0.  Returns (values (Kb, Lmax, bk, bn),
+    col_idx (Kb, Lmax) int32, nnz (Kb,) int32)."""
+    bk, bn = bcs.block
+    Kb = bcs.row_ptr.numel() - 1
+    nnz = torch.diff(bcs.row_ptr)
+    Lmax = max(1, int(nnz.max()) if Kb else 1)
+    dev = bcs.values.device
+    vals = torch.zeros((Kb, Lmax, bk, bn), dtype=bcs.values.dtype,
+                       device=dev)
+    cols = torch.zeros((Kb, Lmax), dtype=torch.int32, device=dev)
+    rows = _row_of(bcs)
+    slot = (torch.arange(bcs.nnzb, device=dev)
+            - bcs.row_ptr[:-1].long()[rows])
+    vals[rows, slot] = bcs.values
+    cols[rows, slot] = bcs.col_idx
+    return vals, cols, nnz.to(torch.int32)
+
+
+def pad_to_uniform_csc(bcs: BCS):
+    """Uniform per-COLUMN layout, what kernel 1's raw entry
+    (``kernels.bsr_matmul.bsr_matmul``) takes: for each block column j its
+    live K-blocks in ascending order, zero-padded to the max column degree
+    ``Lmax``.  Returns (values (Nb, Lmax, bk, bn), k_idx (Nb, Lmax) int32,
+    nnz (Nb,) int32); padding slots read K-block 0 with zero values.
+    Vectorized: a stable sort of ``col_idx`` groups the blocks by column
+    in row order, and one scatter places every block at its slot."""
+    K, N = bcs.shape
+    bk, bn = bcs.block
+    Nb = N // bn
+    dev = bcs.values.device
+    col = bcs.col_idx.long()
+    order = torch.argsort(col, stable=True)
+    cnt = torch.bincount(col, minlength=Nb)
+    Lmax = max(1, int(cnt.max()) if Nb else 1)
+    col_ptr = torch.cumsum(cnt, 0) - cnt                  # first slot
+    slot = torch.empty_like(order)
+    slot[order] = torch.arange(bcs.nnzb, device=dev) - col_ptr[col[order]]
+    dest = col * Lmax + slot
+    vals = torch.zeros((Nb * Lmax, bk, bn), dtype=bcs.values.dtype,
+                       device=dev)
+    kidx = torch.zeros(Nb * Lmax, dtype=torch.int32, device=dev)
+    vals[dest] = bcs.values
+    kidx[dest] = _row_of(bcs).to(torch.int32)
+    return (vals.reshape(Nb, Lmax, bk, bn), kidx.reshape(Nb, Lmax),
+            cnt.to(torch.int32))
+
+
+def pad_to_uniform_csc_loop(bcs: BCS):
+    """Plain reference of ``pad_to_uniform_csc``: the column lists built by
+    a loop over block rows on the host, then one gather of the blocks."""
+    K, N = bcs.shape
+    bk, bn = bcs.block
+    Nb = N // bn
+    dev = bcs.values.device
+    row_ptr, col_idx = bcs.row_ptr.tolist(), bcs.col_idx.tolist()
+    cols = [[] for _ in range(Nb)]
+    for i in range(len(row_ptr) - 1):
+        for t in range(row_ptr[i], row_ptr[i + 1]):
+            cols[col_idx[t]].append((i, t))
+    nnz = [len(c) for c in cols]
+    Lmax = max([1] + nnz)
+    vals = torch.zeros((Nb, Lmax, bk, bn), dtype=bcs.values.dtype,
+                       device=dev)
+    kidx = torch.zeros((Nb, Lmax), dtype=torch.int32, device=dev)
+    js, ls, ts, ks = [], [], [], []
+    for j in range(Nb):
+        for slot, (i, t) in enumerate(cols[j]):
+            js.append(j)
+            ls.append(slot)
+            ts.append(t)
+            ks.append(i)
+    if ts:
+        j, s = (torch.tensor(a, device=dev) for a in (js, ls))
+        vals[j, s] = bcs.values[torch.tensor(ts, device=dev)]
+        kidx[j, s] = torch.tensor(ks, dtype=torch.int32, device=dev)
+    return vals, kidx, torch.tensor(nnz, dtype=torch.int32, device=dev)
+
+
+def load_imbalance(bcs: BCS) -> float:
+    """max / mean surviving blocks per block row: what the degree binning
+    of ``pack_csc_reordered`` evens out (1.0 when no block survives)."""
+    nnz = torch.diff(bcs.row_ptr).double()
+    mean = float(nnz.mean()) if nnz.numel() else 0.0
+    if mean == 0:
+        return 1.0
+    return float(nnz.max()) / max(mean, 1e-9)
 
 
 def _alive_t(mask, Kb, bk, Nb, bn):

@@ -28,6 +28,12 @@ expert stack (a layout whose leaves carry a leading expert axis E, x
 dimension (the reference vmaps its kernel over experts,
 ``repro/kernels/ops.py:437``).
 
+``bsr_matmul`` and ``tap_gather_conv`` are the reference's raw entries
+of kernels 1 and 2 (one uniform bin of raw tensors, as
+``core.bcs.pad_to_uniform_csc`` gives them); on the card each runs its
+kernel over the tensors as a one-bin layout, counted under its own
+``LAUNCHES`` key.  Every kernel 1 and 2 wrapper takes ``out_dtype``.
+
 Kernels 2-4 replace the reference's ``tap_gather_conv`` (:314),
 ``_conv_implicit_bin`` (:483) and ``_tap_implicit_bin`` (:613); each writes
 its outputs at their original columns like kernel 1, in one launch per
@@ -71,13 +77,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import bcs as BCS
-from repro_torch.core.packed import TapLayout
+from repro_torch.core.packed import PackedLayout, TapLayout
 from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import _build, ref
 
 LAUNCHES = {"bsr_matmul": 0, "tap_gather_conv": 0, "bsr_conv2d_implicit": 0,
             "bsr_conv2d_materialized": 0, "tap_gather_conv_implicit": 0,
-            "bsr_matmul_sharded": 0, "tap_gather_conv_sharded": 0}
+            "bsr_matmul_sharded": 0, "tap_gather_conv_sharded": 0,
+            "bsr_matmul_raw": 0, "tap_gather_conv_raw": 0}
 
 _ACTS = {"none": 0, "silu": 1, "relu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -88,9 +95,9 @@ _QUANT = {None: 0, "block": 1, "out": 2}
 # C entry point -> (library, pointer args, int args); every entry ends
 # with the stream pointer
 _ENTRIES = {
-    "bsr_matmul_launch": ("bsr_matmul", 7, 13),
+    "bsr_matmul_launch": ("bsr_matmul", 7, 14),
     "bsr_conv_launch": ("bsr_matmul", 8, 8),
-    "tap_conv_launch": ("tap_gather", 6, 5),
+    "tap_conv_launch": ("tap_gather", 6, 6),
 }
 _fns: dict = {}
 
@@ -774,13 +781,73 @@ def _counters(device, n):
     return c
 
 
-def bsr_matmul_packed(x, layout, bias=None, act="none"):
+# per (device, n, fill): the int32 tensors a raw entry's one-bin layout
+# needs (its identity column map, its degree list), made once so that a
+# raw call allocates nothing (and so captures into a CUDA graph whole)
+_RAW_INDEX: dict = {}
+
+
+def _raw_index(device, n, fill=None):
+    """arange(n) (``fill`` None) or n copies of ``fill``, int32, on
+    ``device``; cached."""
+    key = (device, n, fill)
+    t = _RAW_INDEX.get(key)
+    if t is None:
+        t = (torch.arange(n, dtype=torch.int32, device=device) if fill is None
+             else torch.full((n,), fill, dtype=torch.int32, device=device))
+        _RAW_INDEX[key] = t
+    return t
+
+
+def bsr_matmul(x, values, k_idx, bias=None, scales=None, *, act="none",
+               out_dtype=None):
+    """x (M, K) @ one uniform CSC layout (``core.bcs.pad_to_uniform_csc``)
+    -> (M, Nb * bn): the reference's raw entry of kernel 1
+    (``repro/kernels/bsr_matmul.py:143``).  ``values`` (Nb, L, bk, bn),
+    ``k_idx`` (Nb, L) int32; every one of the L slots of a column is
+    walked, padding slots (zero values) too, since the layout carries no
+    degree list.  int8 values take fp32 ``scales``, (Nb, L) a block or
+    (Nb,) a block column.  ``out_dtype`` as ``bsr_matmul_packed``'s.  On
+    the card one launch of kernel 1 over the layout as one bin (counted
+    under ``LAUNCHES["bsr_matmul_raw"]``); its sums equal those of a
+    binned layout of the same weight wherever the two take the same
+    chunks.  CPU tensors run ``kernels.ref.bsr_matmul_ref``.  The plan
+    picks the M tile (the reference's ``bm`` has no counterpart)."""
+    if values.dim() != 4 or tuple(k_idx.shape) != tuple(values.shape[:2]):
+        raise ValueError(f"bsr_matmul: values {tuple(values.shape)} and "
+                         f"k_idx {tuple(k_idx.shape)} are not (Nb, L, bk, "
+                         f"bn) and (Nb, L)")
+    Nb, L, bk, bn = values.shape
+    if x.dim() != 2 or x.shape[1] % bk:
+        raise ValueError(f"bsr_matmul: x {tuple(x.shape)} is not (M, K) "
+                         f"with bk={bk} | K")
+    if scales is not None and tuple(scales.shape) not in ((Nb, L), (Nb,)):
+        raise ValueError(f"bsr_matmul: scales {tuple(scales.shape)} are "
+                         f"neither ({Nb}, {L}) nor ({Nb},)")
+    if x.device.type == "cpu":
+        return ref.bsr_matmul_ref(x, values, k_idx, bias, act, out_dtype,
+                                  scales)
+    if x.device.type != "cuda":
+        raise ValueError(f"bsr_matmul: unsupported device {x.device}")
+    cols = _raw_index(values.device, Nb)
+    layout = PackedLayout(values=(values,), k_idx=(k_idx,),
+                          nnz=_raw_index(values.device, Nb, L), perm=cols,
+                          inv_perm=cols, block=(bk, bn),
+                          shape=(x.shape[1], Nb * bn),
+                          scales=None if scales is None else (scales,))
+    return _bsr_launch(x, layout, bias, act, "bsr_matmul_raw", out_dtype)
+
+
+def bsr_matmul_packed(x, layout, bias=None, act="none", out_dtype=None):
     """x (M, K) @ PackedLayout W (K, N) -> (M, N): one launch over every
     degree bin, each column written at its original position, so the
     result is in original column order without a gather.  An output's
     sum order depends on its column's slot list and the shapes only, so
     reordered and unreordered layouts give bit-identical results.  x needs
     unit column stride and a 16-byte aligned base and row pitch.
+    ``out_dtype`` (default x's; float32 or bfloat16) is the type the
+    epilogue's fp32 value is stored as: float32 under a bf16 x keeps the
+    fp32 sums.
 
     An expert stack (every leaf with a leading expert axis E, as
     ``serve.compile`` packs MoE experts) takes x (E, M, K) -> (E, M, N),
@@ -790,7 +857,7 @@ def bsr_matmul_packed(x, layout, bias=None, act="none"):
     A tensor-parallel layout (``layout.n_shards`` > 0) goes to
     ``bsr_matmul_sharded``."""
     if layout.n_shards:
-        return bsr_matmul_sharded(x, layout, bias, act)
+        return bsr_matmul_sharded(x, layout, bias, act, out_dtype)
     if placed_layout(layout):
         # replicated, or an expert stack split over the model axis: x is
         # this rank's (its local experts'), and so is the result
@@ -804,18 +871,29 @@ def bsr_matmul_packed(x, layout, bias=None, act="none"):
                          f"K={layout.shape[0]}")
     if x.device.type == "cpu":
         if lead:
-            return ref.bsr_matmul_experts_ref(x, layout, bias, act)
-        return ref.bsr_matmul_packed_ref(x, layout, bias, act)
+            return ref.bsr_matmul_experts_ref(x, layout, bias, act,
+                                              out_dtype)
+        return ref.bsr_matmul_packed_ref(x, layout, bias, act, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"bsr_matmul: unsupported device {x.device}")
-    return _bsr_launch(x, layout, bias, act, "bsr_matmul")
+    return _bsr_launch(x, layout, bias, act, "bsr_matmul", out_dtype)
 
 
-def _bsr_launch(x, layout, bias, act, key):
+def _out_dtype(x, out_dtype):
+    """The output dtype of a launch: x's by default, float32 or bfloat16."""
+    odt = x.dtype if out_dtype is None else out_dtype
+    if odt not in _DTYPES:
+        raise TypeError(f"out_dtype {odt} not supported (float32, "
+                        f"bfloat16)")
+    return odt
+
+
+def _bsr_launch(x, layout, bias, act, key, out_dtype=None):
     """One launch of kernel 1 on the card over every bin (and expert) of
     an unsharded ``layout``, counted under ``LAUNCHES[key]``."""
     if act not in _ACTS:
         raise ValueError(f"bsr_matmul: unknown activation {act!r}")
+    odt = _out_dtype(x, out_dtype)
     lead = _expert_dims(layout)
     E = lead[0] if lead else 1
     M, K = x.shape[-2:]
@@ -837,7 +915,7 @@ def _bsr_launch(x, layout, bias, act, key):
     plan = bsr_plan(M, K, N, x.dtype, *layout.block, E,
                     1 if gran else es)
     bins = _bsr_bins(layout, plan, x.device)
-    out = torch.empty(lead + (M, N), dtype=x.dtype, device=x.device)
+    out = torch.empty(lead + (M, N), dtype=odt, device=x.device)
     if M == 0:
         return out
     ws = (torch.empty(E * bins.ws_floats, dtype=torch.float32,
@@ -851,10 +929,11 @@ def _bsr_launch(x, layout, bias, act, key):
                     _DTYPES[x.dtype], _QUANT[gran], E, ldx_e,
                     out.stride(0) if lead else 0,
                     N if lead and bias is not None else 0, bins.tiles,
-                    bins.ws_floats, _stream(x))
+                    bins.ws_floats, _DTYPES[odt], _stream(x))
     _raise_on(err, "bsr_matmul", f"E={E}, M={M}, K={K}, N={N}, block="
-                                 f"{layout.block}, dtype={x.dtype}, values="
-                                 f"{layout.value_dtype}, plan={plan.args()}")
+                                 f"{layout.block}, dtype={x.dtype}, out="
+                                 f"{odt}, values={layout.value_dtype}, plan="
+                                 f"{plan.args()}")
     LAUNCHES[key] += 1
     return out
 
@@ -896,7 +975,8 @@ def local_layout(layout):
     return _cached(layout, ("local",), build)
 
 
-def _placed_launch(x, layout, bias, act, launch, parts, name):
+def _placed_launch(x, layout, bias, act, launch, parts, name,
+                   out_dtype=None):
     """A column-sharded layout placed on a mesh, x (M, K) whole on every
     rank: ONE launch of the kernel per rank over its local shards
     (folded), then ONE all-gather over the model axis of each rank's
@@ -909,11 +989,11 @@ def _placed_launch(x, layout, bias, act, launch, parts, name):
     bias = SH.full(bias)
     tp = 1 if mdim is None else mesh.size(mdim)
     if x.device.type == "cpu":
-        y = parts(x, loc, bias, act)                   # (S_loc, M, N / S)
+        y = parts(x, loc, bias, act, out_dtype)        # (S_loc, M, N / S)
     elif x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     else:
-        out = launch(x, loc.folded, bias, act, name)   # (M, N)
+        out = launch(x, loc.folded, bias, act, name, out_dtype)   # (M, N)
         if tp == 1:
             return out
         width = loc.group if isinstance(loc, TapLayout) else loc.block[1]
@@ -929,7 +1009,8 @@ def _placed_launch(x, layout, bias, act, launch, parts, name):
     return loc.merge_shards(y)
 
 
-def _sharded_launch(x, layout, bias, act, launch, plain, name, parts=None):
+def _sharded_launch(x, layout, bias, act, launch, plain, name, parts=None,
+                    out_dtype=None):
     """The shard launcher of both wrappers: ``plain`` (per shard, per bin,
     then ``merge_shards``) for CPU tensors; on the card ``launch`` of the
     layout with its shard axis folded into its bins (``layout.folded``):
@@ -938,7 +1019,8 @@ def _sharded_launch(x, layout, bias, act, launch, plain, name, parts=None):
     A layout placed on a mesh runs ``_placed_launch``.  A stacked layout
     must be sliced first; an expert stack is never column-sharded."""
     if placed_layout(layout):
-        return _placed_launch(x, layout, bias, act, launch, parts, name)
+        return _placed_launch(x, layout, bias, act, launch, parts, name,
+                              out_dtype)
     if layout.nnz.ndim != 2:
         raise ValueError(f"{name}: the layout carries stack dims "
                          f"{tuple(layout.nnz.shape[:-2])} beside its shard "
@@ -946,13 +1028,13 @@ def _sharded_launch(x, layout, bias, act, launch, plain, name, parts=None):
     if x.dim() != 2:
         raise ValueError(f"{name}: x {tuple(x.shape)} is not (M, K)")
     if x.device.type == "cpu":
-        return plain(x, layout, bias, act)
+        return plain(x, layout, bias, act, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    return launch(x, layout.folded, bias, act, name)
+    return launch(x, layout.folded, bias, act, name, out_dtype)
 
 
-def bsr_matmul_sharded(x, layout, bias=None, act="none"):
+def bsr_matmul_sharded(x, layout, bias=None, act="none", out_dtype=None):
     """x (M, K) @ a tensor-parallel PackedLayout (K, N) -> (M, N), original
     column order (the reference's ``bsr_matmul_sharded`` :268): kernel 1
     over every (shard, bin) in one launch, each shard's degree-balanced
@@ -964,7 +1046,7 @@ def bsr_matmul_sharded(x, layout, bias=None, act="none"):
                          f"layout K={layout.shape[0]}")
     return _sharded_launch(x, layout, bias, act, _bsr_launch,
                            ref.bsr_matmul_sharded_ref, "bsr_matmul_sharded",
-                           ref.bsr_matmul_shard_parts)
+                           ref.bsr_matmul_shard_parts, out_dtype)
 
 
 @functools.lru_cache(maxsize=64)
@@ -1141,7 +1223,7 @@ def bsr_conv2d_patches(x, layout, bias=None, act="none"):
                      "bsr_conv2d_materialized")
 
 
-def _tap_conv(x, layout, plan, band, bias, act, name):
+def _tap_conv(x, layout, plan, band, bias, act, name, out_dtype=None):
     """One launch of kernel 4 over every bin of ``layout``: x is the
     (B, H, W, C) image ``plan`` tiles, whose channels are the layout's
     ``k_full`` rows, or (``band``) the 1 x M image of the alive band;
@@ -1150,15 +1232,16 @@ def _tap_conv(x, layout, plan, band, bias, act, name):
     if sum(layout.bin_sizes) * layout.group != P:
         raise ValueError(f"{name}: the bins cover {sum(layout.bin_sizes)} "
                          f"of {layout.n_groups} filter groups")
+    odt = _out_dtype(x, out_dtype)
     slots, meta = _tap_tables(layout, plan, band)
-    out = torch.empty((plan.B * plan.Ho * plan.Wo, P), dtype=x.dtype,
+    out = torch.empty((plan.B * plan.Ho * plan.Wo, P), dtype=odt,
                       device=x.device)
     err = _kernel("tap_conv_launch")(
         x.data_ptr(), slots.data_ptr(), meta.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         ctypes.addressof(plan.c_args), out.stride(0), _ACTS[act],
         _DTYPES[x.dtype], _QUANT[layout.scale_granularity], plan.smem_bytes,
-        _stream(x))
+        _DTYPES[odt], _stream(x))
     _raise_on(err, name, f"x {tuple(x.shape)}, tile {plan.tr}x{plan.tw}, "
                          f"R={plan.R}, smem {plan.smem_bytes}, "
                          f"dtype={x.dtype}, values {layout.value_dtype}")
@@ -1166,28 +1249,68 @@ def _tap_conv(x, layout, plan, band, bias, act, name):
     return out
 
 
-def tap_gather_conv_packed(x, layout, bias=None, act="none"):
+def tap_gather_conv(x, values, t_idx, bias=None, scales=None, *, act="none",
+                    out_dtype=None):
+    """x (M, R) alive im2col band @ one bin of filter-group tap lists ->
+    (M, G * group): the reference's raw entry of kernel 2
+    (``repro/kernels/bsr_matmul.py:314``).  ``values`` (G, L, group),
+    ``t_idx`` (G, L) int32 band rows in [0, R); int8 values take fp32
+    ``scales``, (G, L) a slot or (G, 1, group) a filter.  ``out_dtype``
+    as ``bsr_matmul_packed``'s.  On the card one launch of kernel 2
+    (kernel 4 over the band, as ``tap_gather_conv_packed`` runs it),
+    counted under ``LAUNCHES["tap_gather_conv_raw"]``; its slot table is
+    built on every call (the packed entry keeps it with the layout).  CPU
+    tensors run ``kernels.ref.tap_gather_ref``."""
+    if values.dim() != 3 or tuple(t_idx.shape) != tuple(values.shape[:2]):
+        raise ValueError(f"tap_gather_conv: values {tuple(values.shape)} "
+                         f"and t_idx {tuple(t_idx.shape)} are not (G, L, "
+                         f"group) and (G, L)")
+    G, L, gp = values.shape
+    if x.dim() != 2:
+        raise ValueError(f"tap_gather_conv: x {tuple(x.shape)} is not "
+                         f"(M, R)")
+    if scales is not None and tuple(scales.shape) not in ((G, L),
+                                                          (G, 1, gp)):
+        raise ValueError(f"tap_gather_conv: scales {tuple(scales.shape)} "
+                         f"are neither ({G}, {L}) nor ({G}, 1, {gp})")
+    if x.device.type == "cpu":
+        return ref.tap_gather_ref(x, values, t_idx, bias, act, scales,
+                                  out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"tap_gather_conv: unsupported device {x.device}")
+    R = x.shape[1]
+    cols = _raw_index(values.device, G)
+    layout = TapLayout(values=(values,), t_idx=(t_idx,),
+                       nnz=_raw_index(values.device, G, L),
+                       alive=_raw_index(values.device, R), perm=cols,
+                       inv_perm=cols, group=gp, shape=(R, G * gp),
+                       scales=None if scales is None else (scales,))
+    return _tap_band(x, layout, bias, act, "tap_gather_conv_raw", out_dtype)
+
+
+def tap_gather_conv_packed(x, layout, bias=None, act="none",
+                           out_dtype=None):
     """x (M, R) alive im2col band @ TapLayout -> (M, P), original filter
     order: kernel 4 over the band read as a 1 x M image of R channels
     (slot t_idx = channel), one launch over all degree bins, each filter
     group contracting only its own surviving taps in slot order, written
     at its original columns.  Bit-identical across bin counts and to the
     implicit mode.  A band with unit column stride but a wider row pitch
-    is copied contiguous first.  A tensor-parallel layout goes to
-    ``tap_gather_conv_sharded``."""
+    is copied contiguous first.  ``out_dtype`` as ``bsr_matmul_packed``'s.
+    A tensor-parallel layout goes to ``tap_gather_conv_sharded``."""
     if x.shape[-1] != layout.n_alive:
         raise ValueError(f"tap_gather_conv: x has {x.shape[-1]} band "
                          f"columns, the layout {layout.n_alive} alive rows")
     if layout.n_shards:
-        return tap_gather_conv_sharded(x, layout, bias, act)
+        return tap_gather_conv_sharded(x, layout, bias, act, out_dtype)
     if x.device.type == "cpu":
-        return ref.tap_gather_packed_ref(x, layout, bias, act)
+        return ref.tap_gather_packed_ref(x, layout, bias, act, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"tap_gather_conv: unsupported device {x.device}")
-    return _tap_band(x, layout, bias, act, "tap_gather_conv")
+    return _tap_band(x, layout, bias, act, "tap_gather_conv", out_dtype)
 
 
-def _tap_band(x, layout, bias, act, name):
+def _tap_band(x, layout, bias, act, name, out_dtype=None):
     """One launch of kernel 2 (kernel 4 over the band) on the card."""
     if x.stride(1) != 1:
         raise ValueError(f"{name}: x needs unit column stride")
@@ -1196,10 +1319,11 @@ def _tap_band(x, layout, bias, act, name):
     M, R = x.shape
     P = layout.shape[1]
     plan = conv_plan("tap", (1, 1, M, R), 1, 1, 1, "VALID", P, P)
-    return _tap_conv(x, layout, plan, True, bias, act, name)
+    return _tap_conv(x, layout, plan, True, bias, act, name, out_dtype)
 
 
-def tap_gather_conv_sharded(x, layout, bias=None, act="none"):
+def tap_gather_conv_sharded(x, layout, bias=None, act="none",
+                            out_dtype=None):
     """x (M, R) alive band @ a tensor-parallel TapLayout -> (M, P),
     original filter order (the reference's ``tap_gather_conv_sharded``
     :412): the band is global (``layout.alive`` is every shard's), each
@@ -1212,7 +1336,7 @@ def tap_gather_conv_sharded(x, layout, bias=None, act="none"):
     return _sharded_launch(x, layout, bias, act, _tap_band,
                            ref.tap_gather_sharded_ref,
                            "tap_gather_conv_sharded",
-                           ref.tap_gather_shard_parts)
+                           ref.tap_gather_shard_parts, out_dtype)
 
 
 def tap_gather_conv_implicit(x, layout, *, kh, kw, stride=1, padding="SAME",

@@ -53,8 +53,10 @@
 //   * fp32 (the gate excludes TF32) and the small bf16 blocks ((4, 4),
 //     (8, 16)) take the same pipeline with fp32 FMAs on CUDA cores, each
 //     lane owning NW / 2 outputs of its warp's 16 x NW tile;
-//   * the epilogue (bias, silu / relu, one rounding) runs once per output
-//     from an fp32 tile in shared memory; each column writes straight to
+//   * the epilogue (bias, silu / relu, one rounding to the output type:
+//     x's, or fp32 under a bf16 x when the caller asks, out_dtype) runs
+//     once per output from an fp32 tile in shared memory; each column
+//     writes straight to
 //     its ORIGINAL columns (cols = layout.perm), so no gather follows;
 //   * experts (MoE): blockIdx.y = e.  The per-bin leaves of an expert
 //     stack are contiguous (E, nb, L, bk, bn) / (E, nb, L) / (E, nb), so a
@@ -212,6 +214,16 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
   }
 }
 
+// one output element, fp32 or bf16 whatever x's type (an fp32 out of a
+// bf16 x keeps the epilogue's fp32 value)
+__device__ __forceinline__ void store_out(void* out, int out_dtype, size_t i,
+                                          float y) {
+  if (out_dtype == 0)
+    static_cast<float*>(out)[i] = y;
+  else
+    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(y);
+}
+
 __device__ __forceinline__ float epilogue(float y, int act) {
   if (act == 1) return y / (1.f + expf(-y));
   // relu as a compare, so a NaN passes through as torch.relu passes it
@@ -259,6 +271,7 @@ struct BsrArgs {
   BsrShape p;
   int ldx, ldo, act, n_bins;
   int quant;                             // 0 float, 1 int8 "block", 2 "out"
+  int out_dtype;                         // out: 0 float32, 1 bfloat16
   // one expert's stride in x, out and bias (elements), its tile counters
   // and workspace floats; all 0 for an unstacked layout
   long long ldx_e, ldo_e, ldb_e, tiles_e, ws_e;
@@ -347,7 +360,7 @@ __device__ __forceinline__ void mma_bf16(float* d, const unsigned (&a)[4],
 template <typename T, typename V, bool MMA, int FM, int WM, int NWT>
 __global__ void __launch_bounds__(kBsrThreads, 4)
 bsr_matmul_kernel(const T* __restrict__ x, const T* __restrict__ bias,
-                  T* __restrict__ out, float* __restrict__ ws,
+                  void* __restrict__ out, float* __restrict__ ws,
                   int* __restrict__ counters,
                   const __grid_constant__ BsrArgs a) {
   constexpr bool kQ = sizeof(V) == 1;
@@ -375,7 +388,7 @@ bsr_matmul_kernel(const T* __restrict__ x, const T* __restrict__ bias,
   // chunk c
   const int ex = blockIdx.y;
   x += ex * a.ldx_e;
-  out += ex * a.ldo_e;
+  const size_t o0 = (size_t)ex * a.ldo_e;  // expert ex's first output
   if (bias != nullptr) bias += ex * a.ldb_e;
   int b = 0;
   while (b + 1 < a.n_bins && (long long)blockIdx.x >= a.bins[b + 1].item0)
@@ -573,8 +586,8 @@ bsr_matmul_kernel(const T* __restrict__ x, const T* __restrict__ bias,
   auto finish = [&](int e, float y) {
     const int row = e >> lognw, cc = e & (NW - 1);
     if (bias != nullptr) y += to_f32(bias[oc0 + cc]);
-    out[(size_t)(m0 + row) * a.ldo + oc0 + cc] =
-        from_f32<T>(epilogue(y, a.act));
+    store_out(out, a.out_dtype, o0 + (size_t)(m0 + row) * a.ldo + oc0 + cc,
+              epilogue(y, a.act));
   };
   auto chunk_sum = [&](int e) {          // the WK sub-chunks, in order
     float y = red[e];
@@ -621,8 +634,8 @@ cudaError_t bsr_launch_cfg(const void* x, const void* bias, void* out,
   }
   bsr_matmul_kernel<T, V, MMA, FM, WM, NWT>
       <<<dim3(items, n_exp), kBsrThreads, a.p.smem, stream>>>(
-          static_cast<const T*>(x), static_cast<const T*>(bias),
-          static_cast<T*>(out), ws, counters, a);
+          static_cast<const T*>(x), static_cast<const T*>(bias), out, ws,
+          counters, a);
   return cudaGetLastError();
 }
 
@@ -1086,7 +1099,8 @@ cudaError_t launch_conv(const void* x, const void* vals, const float* scl,
 // (host memory, one expert's); items: blocks of the launch per expert.
 // ws: the fp32 workspace of the chunked columns (None when no column is
 // cut); counters: one int32 per tile, all 0 on entry and again on exit.
-// dtype: 0 float32, 1 bfloat16 (x, bias and out share it).  quant: 0
+// dtype: 0 float32, 1 bfloat16 (x and bias share it); out_dtype the
+// same codes for out (any of the two under either x).  quant: 0
 // values of x's dtype; 1 int8 values with a scale per stored block (the
 // bin's scales (nb, L) fp32), 2 with a scale per block column ((nb,)).
 // n_exp experts (1 for an unstacked layout; the bins' leaves then carry a
@@ -1100,14 +1114,14 @@ extern "C" int bsr_matmul_launch(const void* x, const void* bias, void* out,
                                  int ldx, int ldo, int act, int dtype,
                                  int quant, int n_exp, int ldx_e, int ldo_e,
                                  int ldb_e, int tiles_e, int ws_e,
-                                 void* stream) {
+                                 int out_dtype, void* stream) {
   BsrArgs a;
   memset(&a, 0, sizeof(a));
   memcpy(&a.p, shape, sizeof(a.p));
   if (quant < 0 || quant > 2 || bad_shape(a.p, n_bins, items, dtype, quant) ||
       act < 0 || act > 2 || (dtype != 0 && dtype != 1) || n_exp < 1 ||
       n_exp > 65535 || ldx_e < 0 || ldo_e < 0 || ldb_e < 0 || tiles_e < 0 ||
-      ws_e < 0)
+      ws_e < 0 || (out_dtype != 0 && out_dtype != 1))
     return (int)cudaErrorInvalidValue;
   memcpy(a.bins, bins, sizeof(BinDesc) * n_bins);
   a.ldx = ldx;
@@ -1115,6 +1129,7 @@ extern "C" int bsr_matmul_launch(const void* x, const void* bias, void* out,
   a.act = act;
   a.n_bins = n_bins;
   a.quant = quant;
+  a.out_dtype = out_dtype;
   a.ldx_e = ldx_e;
   a.ldo_e = ldo_e;
   a.ldb_e = ldb_e;

@@ -51,7 +51,8 @@
 // padding slots come last with zero values and add exact zeros.  So the
 // implicit and the materialized mode, and reordered and unreordered
 // layouts (any bin count), give bit-identical outputs.  Bias and
-// activation apply to the fp32 sum, then one rounding to the output type.
+// activation apply to the fp32 sum, then one rounding to the output type
+// (x's, or either of fp32 and bf16 as the caller asks: out_dtype).
 //
 // ptxas -v (CUDA 12.8, -O3, sm_90a): kernel 4 in fp32 96 registers at
 // R = 8, 63 at R = 4, 56 at R = 2 and 1 (bf16 61-96), no spills, under
@@ -186,7 +187,8 @@ template <typename T, bool Q, int R>
 __global__ void __launch_bounds__(kConvThreads, 2)
 tap_conv_kernel(const T* __restrict__ x, const int2* __restrict__ slots,
                 const int4* __restrict__ meta, const T* __restrict__ bias,
-                T* __restrict__ out, int ldo, int act, ConvTile g) {
+                void* __restrict__ out, int ldo, int out_dtype, int act,
+                ConvTile g) {
   extern __shared__ float4 smem4[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int2* sbuf = reinterpret_cast<int2*>(smem4) + warp * kSlotBuf;
@@ -270,16 +272,24 @@ tap_conv_kernel(const T* __restrict__ x, const int2* __restrict__ slots,
     const int r = p / g.tw, c = p - r * g.tw;
     const int ho = ho0 + r, wo = wo0 + c;
     if (ho >= g.Ho || wo >= g.Wo) continue;
-    T* dst = out + ((size_t)(b * g.Ho + ho) * g.Wo + wo) * ldo;
+    const size_t row = ((size_t)(b * g.Ho + ho) * g.Wo + wo) * ldo;
     const float* src = os + p * g.out_ld;
-    for (int oc = lane; oc < g.N; oc += 32) dst[oc] = from_f32<T>(src[oc]);
+    if (out_dtype == 0) {
+      float* dst = static_cast<float*>(out) + row;
+      for (int oc = lane; oc < g.N; oc += 32) dst[oc] = src[oc];
+    } else {
+      __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(out) + row;
+      for (int oc = lane; oc < g.N; oc += 32)
+        dst[oc] = from_f32<__nv_bfloat16>(src[oc]);
+    }
   }
 }
 
 template <typename T, bool Q, int R>
 cudaError_t launch_conv_r(const void* x, const int2* slots, const int4* meta,
-                          const void* bias, void* out, int ldo, int act,
-                          const ConvTile& g, int smem, cudaStream_t stream) {
+                          const void* bias, void* out, int ldo, int odt,
+                          int act, const ConvTile& g, int smem,
+                          cudaStream_t stream) {
   static bool attr_set = false;          // once per instantiation
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -291,27 +301,28 @@ cudaError_t launch_conv_r(const void* x, const int2* slots, const int4* meta,
   const int grid = g.B * g.tiles_h * g.tiles_w;
   tap_conv_kernel<T, Q, R><<<grid, kConvThreads, smem, stream>>>(
       static_cast<const T*>(x), slots, meta, static_cast<const T*>(bias),
-      static_cast<T*>(out), ldo, act, g);
+      out, ldo, odt, act, g);
   return cudaGetLastError();
 }
 
 template <typename T, bool Q>
 cudaError_t launch_conv(const void* x, const int2* slots, const int4* meta,
-                        const void* bias, void* out, int ldo, int act,
-                        const ConvTile& g, int smem, cudaStream_t stream) {
+                        const void* bias, void* out, int ldo, int odt,
+                        int act, const ConvTile& g, int smem,
+                        cudaStream_t stream) {
   switch (g.R) {
     case 1:
-      return launch_conv_r<T, Q, 1>(x, slots, meta, bias, out, ldo, act, g,
-                                    smem, stream);
+      return launch_conv_r<T, Q, 1>(x, slots, meta, bias, out, ldo, odt,
+                                    act, g, smem, stream);
     case 2:
-      return launch_conv_r<T, Q, 2>(x, slots, meta, bias, out, ldo, act, g,
-                                    smem, stream);
+      return launch_conv_r<T, Q, 2>(x, slots, meta, bias, out, ldo, odt,
+                                    act, g, smem, stream);
     case 4:
-      return launch_conv_r<T, Q, 4>(x, slots, meta, bias, out, ldo, act, g,
-                                    smem, stream);
+      return launch_conv_r<T, Q, 4>(x, slots, meta, bias, out, ldo, odt,
+                                    act, g, smem, stream);
     case 8:
-      return launch_conv_r<T, Q, 8>(x, slots, meta, bias, out, ldo, act, g,
-                                    smem, stream);
+      return launch_conv_r<T, Q, 8>(x, slots, meta, bias, out, ldo, odt,
+                                    act, g, smem, stream);
     default:
       return cudaErrorInvalidConfiguration;
   }
@@ -319,14 +330,14 @@ cudaError_t launch_conv(const void* x, const int2* slots, const int4* meta,
 
 template <typename T>
 cudaError_t launch_conv_q(const void* x, const int2* slots, const int4* meta,
-                          const void* bias, void* out, int ldo, int act,
-                          int quant, const ConvTile& g, int smem,
+                          const void* bias, void* out, int ldo, int odt,
+                          int act, int quant, const ConvTile& g, int smem,
                           cudaStream_t stream) {
   if (quant)
-    return launch_conv<T, true>(x, slots, meta, bias, out, ldo, act, g, smem,
-                                stream);
-  return launch_conv<T, false>(x, slots, meta, bias, out, ldo, act, g, smem,
-                               stream);
+    return launch_conv<T, true>(x, slots, meta, bias, out, ldo, odt, act, g,
+                                smem, stream);
+  return launch_conv<T, false>(x, slots, meta, bias, out, ldo, odt, act, g,
+                               smem, stream);
 }
 
 }  // namespace
@@ -341,27 +352,31 @@ cudaError_t launch_conv_q(const void* x, const int2* slots, const int4* meta,
 // -- meta (n_cols, 4) int32 (first slot, slots, original output column,
 // 0), bias None or (N,) in original order, out (B*Ho*Wo, N) rows in (b,
 // ho, wo) order with row stride ldo.  geom: the ConvTile ints (host
-// memory).
+// memory).  dtype: x's and bias's, out_dtype out's (0 float32, 1
+// bfloat16; either under either x).
 extern "C" int tap_conv_launch(const void* x, const void* slots,
                                const void* meta, const void* bias, void* out,
                                const void* geom, int ldo, int act, int dtype,
-                               int quant, int smem, void* stream) {
+                               int quant, int smem, int out_dtype,
+                               void* stream) {
   ConvTile g;
   memcpy(&g, geom, sizeof(g));
   if (g.B * g.Ho * g.Wo <= 0) return 0;
   if (g.C <= 0 || act < 0 || act > 2 || g.n_cols != g.N ||
       g.x_floats % 4 != 0 || smem > kConvSmemMax || g.warps_pos <= 0 ||
       kConvWarps % g.warps_pos != 0 || quant < 0 || quant > 2 ||
-      (quant && g.x_floats > (1 << kWordBits)))
+      (quant && g.x_floats > (1 << kWordBits)) ||
+      (out_dtype != 0 && out_dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int2* sl = static_cast<const int2*>(slots);
   const int4* mt = static_cast<const int4*>(meta);
   if (dtype == 0)
-    return (int)launch_conv_q<float>(x, sl, mt, bias, out, ldo, act, quant,
-                                     g, smem, s);
+    return (int)launch_conv_q<float>(x, sl, mt, bias, out, ldo, out_dtype,
+                                     act, quant, g, smem, s);
   if (dtype == 1)
-    return (int)launch_conv_q<__nv_bfloat16>(x, sl, mt, bias, out, ldo, act,
-                                             quant, g, smem, s);
+    return (int)launch_conv_q<__nv_bfloat16>(x, sl, mt, bias, out, ldo,
+                                             out_dtype, act, quant, g, smem,
+                                             s);
   return (int)cudaErrorInvalidValue;
 }

@@ -17,6 +17,15 @@ or int8 with fp32 scales (``core.quant``), unsharded or tensor parallel
 the card.  A sharded conv layout runs materialized (im2col, then kernel 1
 or 2), as the reference's does; an expert stack is never column-sharded.
 
+``pack`` and ``pack_taps`` memoize their layouts in a content-keyed LRU
+cache (the reference's, ``repro/kernels/ops.py:92-178``): the key is a
+digest of every byte of the weight and the mask, computed on their own
+device (``_digest``), and of every knob that changes the layout, the
+device included; a hit hands back the same frozen layout object.  Bounds
+(``configure_pack_cache``, ``REPRO_PACK_CACHE_MAX{,_BYTES}``, 256 entries
+and 256 MiB by default), one log line per eviction, lifetime counters in
+``pack_cache_stats``.
+
 On a mesh (``distributed.sharding``) x may be a placed ``DTensor`` and the
 layout placed too: ``sparse_linear`` gathers x's features to every rank of
 the layout's model axis (its batch rows stay where they are), runs the
@@ -27,6 +36,9 @@ like x; ``sparse_expert_linear`` runs each rank's local experts.
 from __future__ import annotations
 
 import dataclasses
+import logging
+import os
+from collections import OrderedDict
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -43,6 +55,7 @@ from repro_torch.kernels.bsr_matmul import (bsr_conv2d_implicit,
                                             placed_layout,
                                             tap_gather_conv_implicit,
                                             tap_gather_conv_packed)
+from repro_torch.models import module as M
 
 # Auto-selection of the implicit conv mode.  The reference picks it only
 # for a patch tensor of at least 1 MiB and an image that fits one TPU core's
@@ -59,9 +72,184 @@ from repro_torch.kernels.bsr_matmul import (bsr_conv2d_implicit,
 # as a 1 x M image.
 
 
+_log = logging.getLogger("repro_torch.kernels.ops")
+
+_PACK_CACHE: OrderedDict = OrderedDict()
+# entry cap and byte bound (every tensor leaf of the held layouts), evicted
+# LRU, as the reference's; configurable by ``configure_pack_cache`` or the
+# REPRO_PACK_CACHE_MAX{,_BYTES} environment variables
+_PACK_CACHE_MAX = int(os.environ.get("REPRO_PACK_CACHE_MAX", "256"))
+_PACK_CACHE_MAX_BYTES = int(
+    os.environ.get("REPRO_PACK_CACHE_MAX_BYTES", str(256 << 20)))
+_PACK_CACHE_BYTES = 0
+_PACK_CACHE_STATS = {"hits": 0, "misses": 0, "evictions": 0}
+
+
+def configure_pack_cache(max_entries=None, max_bytes=None) -> dict:
+    """Set the pack cache's bounds (None keeps one), evicting down to them
+    at once.  Returns the bounds merged with ``pack_cache_stats()``."""
+    global _PACK_CACHE_MAX, _PACK_CACHE_MAX_BYTES
+    if max_entries is not None:
+        _PACK_CACHE_MAX = max(1, int(max_entries))
+    if max_bytes is not None:
+        _PACK_CACHE_MAX_BYTES = max(1, int(max_bytes))
+    _evict_to_bounds()
+    return {"max_entries": _PACK_CACHE_MAX,
+            "max_bytes": _PACK_CACHE_MAX_BYTES, **pack_cache_stats()}
+
+
+def pack_cache_stats() -> dict:
+    """Occupancy (entries, bytes) and the lifetime hit, miss and eviction
+    counters."""
+    return {"entries": len(_PACK_CACHE), "bytes": _PACK_CACHE_BYTES,
+            **_PACK_CACHE_STATS}
+
+
+def clear_pack_cache():
+    """Drop every held layout (the counters keep counting)."""
+    global _PACK_CACHE_BYTES
+    _PACK_CACHE.clear()
+    _PACK_CACHE_BYTES = 0
+
+
+def _evict_to_bounds():
+    """Evict least recently used entries past the bounds (the newest one
+    always stays), one log line each."""
+    global _PACK_CACHE_BYTES
+    while (len(_PACK_CACHE) > _PACK_CACHE_MAX
+           or _PACK_CACHE_BYTES > _PACK_CACHE_MAX_BYTES) \
+            and len(_PACK_CACHE) > 1:
+        key, evicted = _PACK_CACHE.popitem(last=False)
+        eb = M.tree_bytes(evicted)
+        _PACK_CACHE_BYTES -= eb
+        _PACK_CACHE_STATS["evictions"] += 1
+        _log.info(
+            "pack cache evict %s... (%.1f KiB) -> %d entr%s / %.1f MiB "
+            "held (caps: %d entries / %.0f MiB)", key[:12], eb / 1024,
+            len(_PACK_CACHE), "y" if len(_PACK_CACHE) == 1 else "ies",
+            _PACK_CACHE_BYTES / 2**20, _PACK_CACHE_MAX,
+            _PACK_CACHE_MAX_BYTES / 2**20)
+
+
+def _cache_put(key, out):
+    global _PACK_CACHE_BYTES
+    _PACK_CACHE[key] = out
+    _PACK_CACHE_BYTES += M.tree_bytes(out)
+    _PACK_CACHE_STATS["misses"] += 1
+    _evict_to_bounds()
+
+
+def _cache_get(key):
+    out = _PACK_CACHE.get(key)
+    if out is not None:
+        _PACK_CACHE.move_to_end(key)
+        _PACK_CACHE_STATS["hits"] += 1
+    return out
+
+
+# the digest's rows of 32-bit words (see ``_lanes``)
+_DIGEST_ROW = 4096
+_DIGEST_CHUNK = 1024             # rows a pass (bounds the int64 temporaries)
+_GAMMA = 0x9E3779B97F4A7C15
+_DIGEST_KEYS: dict = {}
+
+
+def _s64(v):
+    """A 64-bit constant as the signed int64 torch holds."""
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def _splitmix64(seed, n, device):
+    """(n,) int64: outputs 1..n of splitmix64 from ``seed`` (int64 ops wrap
+    modulo 2**64; logical shifts masked out of arithmetic ones)."""
+    z = (torch.arange(1, n + 1, dtype=torch.int64, device=device)
+         * _s64(_GAMMA) + _s64(seed))
+    z = (z ^ ((z >> 30) & ((1 << 34) - 1))) * _s64(0xBF58476D1CE4E5B9)
+    z = (z ^ ((z >> 27) & ((1 << 37) - 1))) * _s64(0x94D049BB133111EB)
+    return z ^ ((z >> 31) & ((1 << 33) - 1))
+
+
+def _digest_keys(device, rows):
+    """(word keys (2, _DIGEST_ROW), row keys (rows, 2, 2), final keys
+    (2,)) of both lanes on ``device``, made once a device and grown (by
+    doubling) as longer tensors come: key r never depends on the count."""
+    keys = _DIGEST_KEYS.get(device)
+    if keys is None or keys[1].shape[0] < rows:
+        cap = max(rows, 1 << 10, 0 if keys is None else
+                  2 * keys[1].shape[0])
+        word = torch.stack([_splitmix64(seed, _DIGEST_ROW, device)
+                            for seed in (1, 2)])
+        row = torch.stack([_splitmix64(seed, 2 * cap, device)
+                           for seed in (3, 4)], dim=1).reshape(cap, 2, 2)
+        final = torch.stack([_splitmix64(seed, 1, device)[0]
+                             for seed in (5, 6)])
+        keys = _DIGEST_KEYS[device] = (word, row, final)
+    return keys[0], keys[1][:rows], keys[2]
+
+
+def _lanes(t):
+    """(2,) int64 on ``t``'s device: the two lanes' digests (top 32 bits)
+    of every byte of ``t``, read once, in passes of ``_DIGEST_CHUNK`` rows
+    of ``_DIGEST_ROW`` 32-bit words; a last partial row is zero-padded
+    (the byte length is in the key).
+
+    Each lane is two-level multilinear hashing with 64-bit keys, each
+    level keeping the top 32 bits of its sum modulo 2**64 (Lemire and
+    Kaser's MULTILINEAR): level 1 hashes each row with the word keys and
+    an additive key of its own, level 2 the row hashes with row keys and
+    an additive key.  Collision bound: for two different byte strings of
+    one length a level collides with probability at most 2**-32 over
+    random keys, so a lane at most 2**-31 and the two independent lanes
+    at most 2**-62.  The keys are fixed splitmix64 streams standing in
+    for random ones: the bound holds for contents not built against
+    them."""
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    if b.data_ptr() % 4:
+        b = b.clone()                          # an unaligned storage
+    row = 4 * _DIGEST_ROW
+    full = b.numel() // row * row
+    parts = list(b[:full].view(torch.int32).view(-1, _DIGEST_ROW).split(
+        _DIGEST_CHUNK))
+    if full < b.numel():
+        tail = torch.cat([b[full:], b.new_zeros(row - (b.numel() - full))])
+        parts.append(tail.view(torch.int32).view(1, _DIGEST_ROW))
+    rows = sum(x.shape[0] for x in parts)
+    keys, row_keys, final = _digest_keys(b.device, rows)
+    level1, r0 = [], 0
+    for x in parts:
+        s = (x.to(torch.int64)[:, None, :] * keys).sum(dim=-1)   # (r, 2)
+        level1.append(s + row_keys[r0:r0 + x.shape[0], :, 0])
+        r0 += x.shape[0]
+    g = torch.cat(level1) >> 32                                  # (rows, 2)
+    return ((g * row_keys[:, :, 1]).sum(dim=0) + final) >> 32
+
+
+def _digest(w, mask, block, reorder, n_bins, kind="bcs", conv=None,
+            quant=None, n_shards=0) -> str:
+    """The cache key of a pack: the reference's knobs (kind, shape, dtype,
+    block, reorder, n_bins, conv, quant, n_shards), the device and the
+    mask's shape and dtype, and the digest of every byte of ``w`` and
+    ``mask`` computed on their device (``_lanes``); only the four 32-bit
+    lane values cross to the host."""
+    mask = torch.as_tensor(mask, device=w.device)
+    lanes = torch.cat([_lanes(w), _lanes(mask)]).tolist()
+    knobs = (kind, tuple(w.shape), str(w.dtype), tuple(block),
+             bool(reorder), int(n_bins), conv, quant, int(n_shards),
+             str(w.device), tuple(mask.shape), str(mask.dtype))
+    return "".join(f"{v & 0xFFFFFFFF:08x}" for v in lanes) + repr(knobs)
+
+
+def _quant_spec(value_dtype, scale_granularity):
+    """(value_dtype, scale_granularity) as the key holds it: None for a
+    float pack."""
+    if value_dtype is None:
+        return None
+    return (str(value_dtype), str(scale_granularity))
+
+
 def pack(w, mask, block=(128, 128), *, reorder=False, n_bins=4, conv=None,
          value_dtype=None, scale_granularity="block",
-         n_shards=0) -> PackedLayout:
+         n_shards=0, use_cache=True) -> PackedLayout:
     """Pack a pruned (K, N) weight into the kernel layout on its device.
     With ``reorder`` the block columns are degree-sorted and split into
     ``n_bins`` bins (``core.bcs.pack_csc_reordered``); without it the layout
@@ -72,40 +260,64 @@ def pack(w, mask, block=(128, 128), *, reorder=False, n_bins=4, conv=None,
     ``ops.pack`` does: the float pack first, then ``core.quant``.
     ``n_shards`` > 0 packs the tensor-parallel layout (degree-balanced
     column shards, ``core.bcs.shard_columns``), which implies the
-    degree-sorted producer whatever ``reorder`` says."""
-    if reorder or n_shards:
+    degree-sorted producer whatever ``reorder`` says.  ``use_cache``
+    looks the pack up in (and adds it to) the pack cache; a quantized
+    pack caches its float layout first, then itself under its own
+    key."""
+    key = (_digest(w, mask, block, reorder, n_bins, conv=conv,
+                   quant=_quant_spec(value_dtype, scale_granularity),
+                   n_shards=n_shards) if use_cache else None)
+    if key is not None and (hit := _cache_get(key)) is not None:
+        return hit
+    if value_dtype is not None:
+        out = QUANT.quantize_layout(
+            pack(w, mask, block, reorder=reorder, n_bins=n_bins, conv=conv,
+                 n_shards=n_shards, use_cache=use_cache),
+            value_dtype=value_dtype, scale_granularity=scale_granularity)
+    elif reorder or n_shards:
         out = BCS.pack_csc_reordered(w, mask, block, n_bins=n_bins,
                                      n_shards=n_shards)
     else:
         values, k_idx, nnz, _ = BCS.pack_csc(w, mask, block)
         out = PackedLayout(values=(values,), k_idx=(k_idx,), nnz=nnz,
                            block=tuple(block), shape=tuple(w.shape))
-    if conv is not None:
+    if conv is not None and out.conv_taps is None:
         kh, kw, cin = conv
         out = dataclasses.replace(
             out, conv_taps=BCS.conv_tap_table(kh, kw, cin, block[0]))
-    if value_dtype is not None:
-        out = QUANT.quantize_layout(out, value_dtype=value_dtype,
-                                    scale_granularity=scale_granularity)
+    if key is not None:
+        _cache_put(key, out)
     return out
 
 
 def pack_taps(w, mask, *, group=1, reorder=True, n_bins=8,
               value_dtype=None, scale_granularity="block",
-              n_shards=0) -> TapLayout:
+              n_shards=0, use_cache=True) -> TapLayout:
     """Pack a pattern/connectivity-pruned (P, Q, Kh, Kw) conv weight into
     the tap-gather layout (``core.bcs.pattern_lower``), degree-sorted into
     ``n_bins`` bins when ``reorder`` is set.  ``value_dtype="int8"``
     quantizes the tap values (``core.quant``); "out" (a scale per filter)
     suits group = 1 layouts, where a per-slot scale costs 4 bytes per
     stored value.  ``n_shards`` > 0 packs the tensor-parallel layout
-    (degree-balanced filter-group shards; implies ``reorder``)."""
-    out = BCS.pattern_lower(w, mask, group=group, n_bins=n_bins,
-                            reorder=reorder or bool(n_shards),
-                            n_shards=n_shards)
+    (degree-balanced filter-group shards; implies ``reorder``).
+    ``use_cache`` as ``pack``'s (the layout kind is in the key, so a tap
+    and a block layout of the same weights never collide)."""
+    key = (_digest(w, mask, (1, int(group)), reorder, n_bins, kind="taps",
+                   quant=_quant_spec(value_dtype, scale_granularity),
+                   n_shards=n_shards) if use_cache else None)
+    if key is not None and (hit := _cache_get(key)) is not None:
+        return hit
     if value_dtype is not None:
-        out = QUANT.quantize_layout(out, value_dtype=value_dtype,
-                                    scale_granularity=scale_granularity)
+        out = QUANT.quantize_layout(
+            pack_taps(w, mask, group=group, reorder=reorder, n_bins=n_bins,
+                      n_shards=n_shards, use_cache=use_cache),
+            value_dtype=value_dtype, scale_granularity=scale_granularity)
+    else:
+        out = BCS.pattern_lower(w, mask, group=group, n_bins=n_bins,
+                                reorder=reorder or bool(n_shards),
+                                n_shards=n_shards)
+    if key is not None:
+        _cache_put(key, out)
     return out
 
 

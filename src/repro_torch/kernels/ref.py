@@ -85,14 +85,16 @@ def bsr_matmul_ref(x, values, k_idx, bias=None, act="none", out_dtype=None,
     return y.to(out_dtype or x.dtype)
 
 
-def bsr_matmul_packed_ref(x, layout, bias=None, act="none"):
-    """x (M, K) @ PackedLayout W -> (M, N) in original column order.  The
-    epilogue runs once over the whole output, so every element sits at the
-    same place whatever the binning, and reordered and unreordered layouts
-    give bit-identical outputs (vectorized CPU math otherwise treats the
-    ragged tail of each bin differently)."""
+def bsr_matmul_packed_ref(x, layout, bias=None, act="none",
+                          out_dtype=None):
+    """x (M, K) @ PackedLayout W -> (M, N) in original column order, one
+    rounding to ``out_dtype`` (default x.dtype).  The epilogue runs once
+    over the whole output, so every element sits at the same place
+    whatever the binning, and reordered and unreordered layouts give
+    bit-identical outputs (vectorized CPU math otherwise treats the ragged
+    tail of each bin differently)."""
     return _bsr_packed(_x_blocks(x, layout.block[0]), x.shape[0], layout,
-                       bias, act).to(x.dtype)
+                       bias, act).to(out_dtype or x.dtype)
 
 
 def _bsr_packed(x_blocks, M, layout, bias, act):
@@ -127,7 +129,8 @@ def _shard_epilogue(y, layout, bias, act, dtype):
     return _epilogue(y, None if b is None else b[:, None, :], act).to(dtype)
 
 
-def bsr_matmul_shard_parts(x, layout, bias=None, act="none"):
+def bsr_matmul_shard_parts(x, layout, bias=None, act="none",
+                           out_dtype=None):
     """x (M, K) @ each shard of a tensor-parallel PackedLayout -> (S, M,
     N / S), each shard's columns in its layout order, epilogue applied:
     what one rank of a mesh computes over its local shards before the
@@ -135,23 +138,25 @@ def bsr_matmul_shard_parts(x, layout, bias=None, act="none"):
     xb, M = _x_blocks(x, layout.block[0]), x.shape[0]
     return _shard_epilogue(_shard_bins(
         layout, lambda v, k, sc: _bsr_sums(xb, v, k, M, sc)), layout, bias,
-        act, x.dtype)
+        act, out_dtype or x.dtype)
 
 
-def bsr_matmul_sharded_ref(x, layout, bias=None, act="none"):
+def bsr_matmul_sharded_ref(x, layout, bias=None, act="none", out_dtype=None):
     """x (M, K) @ a tensor-parallel PackedLayout -> (M, N) in original
     column order: per shard and bin, the epilogue, then
     ``merge_shards``."""
-    return layout.merge_shards(bsr_matmul_shard_parts(x, layout, bias, act))
+    return layout.merge_shards(bsr_matmul_shard_parts(x, layout, bias, act,
+                                                      out_dtype))
 
 
-def bsr_matmul_experts_ref(x, layout, bias=None, act="none"):
+def bsr_matmul_experts_ref(x, layout, bias=None, act="none", out_dtype=None):
     """x (E, M, K) @ an expert stack (``PackedLayout`` leaves with a
     leading E axis) -> (E, M, N): expert e's product with its own layout
     slice, expert by expert; bias None or (E, N)."""
     return torch.stack([
         bsr_matmul_packed_ref(x[e], layout.layer(e),
-                              None if bias is None else bias[e], act)
+                              None if bias is None else bias[e], act,
+                              out_dtype)
         for e in range(x.shape[0])])
 
 
@@ -216,25 +221,26 @@ def _tap_packed(x_taps, M, layout, slot_tables, bias, act):
     return _epilogue(acc, bias, act)
 
 
-def tap_gather_ref(x, values, t_idx, bias=None, act="none", scales=None):
+def tap_gather_ref(x, values, t_idx, bias=None, act="none", scales=None,
+                   out_dtype=None):
     """x (M, R) alive band through one tap bin -> (M, G * group) in layout
     order; bias (G * group,) in layout order; int8 values dequantized by
-    ``scales``."""
+    ``scales``; one rounding to ``out_dtype`` (default x.dtype)."""
     xf = x.float()
     y = _tap_sums(lambda t: xf[:, t.long()], values, t_idx, x.shape[0],
                   scales)
-    return _epilogue(y, bias, act).to(x.dtype)
+    return _epilogue(y, bias, act).to(out_dtype or x.dtype)
 
 
-def tap_gather_packed_ref(x, layout, bias=None, act="none"):
+def tap_gather_packed_ref(x, layout, bias=None, act="none", out_dtype=None):
     """x (M, R) alive band @ TapLayout -> (M, P) in original filter
     order."""
     xf = x.float()
     return _tap_packed(lambda t: xf[:, t.long()], x.shape[0], layout,
-                       layout.t_idx, bias, act).to(x.dtype)
+                       layout.t_idx, bias, act).to(out_dtype or x.dtype)
 
 
-def tap_gather_shard_parts(x, layout, bias=None, act="none"):
+def tap_gather_shard_parts(x, layout, bias=None, act="none", out_dtype=None):
     """x (M, R) alive band @ each shard of a tensor-parallel TapLayout ->
     (S, M, P / S), each shard's filters in its layout order, epilogue
     applied (``bsr_matmul_shard_parts``'s sibling)."""
@@ -242,14 +248,15 @@ def tap_gather_shard_parts(x, layout, bias=None, act="none"):
     return _shard_epilogue(_shard_bins(
         layout, lambda v, t, sc: _tap_sums(lambda i: xf[:, i.long()], v, t,
                                            M, sc)), layout, bias, act,
-        x.dtype)
+        out_dtype or x.dtype)
 
 
-def tap_gather_sharded_ref(x, layout, bias=None, act="none"):
+def tap_gather_sharded_ref(x, layout, bias=None, act="none", out_dtype=None):
     """x (M, R) alive band @ a tensor-parallel TapLayout -> (M, P) in
     original filter order: per shard and bin over the global band, the
     epilogue, then ``merge_shards``."""
-    return layout.merge_shards(tap_gather_shard_parts(x, layout, bias, act))
+    return layout.merge_shards(tap_gather_shard_parts(x, layout, bias, act,
+                                                      out_dtype))
 
 
 def tap_gather_implicit_ref(xp, layout, kw, geom, bias=None, act="none"):

@@ -10,7 +10,8 @@ With ``--batch-size`` / ``--arrival-rate`` the continuous-batching engine
 replaces the one-shot ``generate``: ``--requests`` prompts of three
 lengths arrive at ``--arrival-rate`` a step (default: all at step 0) and
 stream through ``serve.engine.ServingEngine``, with a log line every
-``--log-every`` steps (occupancy, admitted / evicted / queued, tokens):
+``--log-every`` steps (occupancy, admitted / evicted / queued, tokens,
+the pack cache's hits / misses / evictions):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --sparse \\
       --layers 8 --batch-size 8 --arrival-rate 1 --requests 16
@@ -43,6 +44,7 @@ import torch
 from repro_torch import configs
 from repro_torch.core import reweighted as RW
 from repro_torch.data.pipeline import synthetic_batch
+from repro_torch.kernels.ops import pack_cache_stats
 from repro_torch.models import transformer as T
 from repro_torch.serve.compile import (CompileSpec, compile_model,
                                        compiled_summary)
@@ -169,11 +171,12 @@ def _run_engine(params, cfg, args, mode):
     while eng.sched.has_work():
         eng.step()
         if eng.stats["steps"] % args.log_every == 0:
-            s = eng.stats
+            s, pc = eng.stats, pack_cache_stats()
             print(f"step {s['steps']:>4}: occupancy "
                   f"{eng.mean_occupancy():.2f} admitted {s['admitted']} "
                   f"evicted {s['evicted']} queued {eng.sched.queued()} "
-                  f"tokens {s['tokens']}")
+                  f"tokens {s['tokens']} | pack cache hits {pc['hits']} "
+                  f"misses {pc['misses']} evictions {pc['evictions']}")
     _sync(args.device)
     dt = time.perf_counter() - t0
     s = eng.stats

@@ -12,6 +12,7 @@ on a named ``DeviceMesh``.
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 
 import torch
@@ -55,6 +56,62 @@ def embed_init(shape, generator, dtype=torch.bfloat16, device="cpu"):
     t = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=device)
     return (t * 0.02).to(dtype)
+
+
+def zeros_init(shape, generator=None, dtype=torch.bfloat16, device="cpu"):
+    """Zeros (``generator`` unused: the init signature)."""
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def ones_init(shape, generator=None, dtype=torch.bfloat16, device="cpu"):
+    """Ones (``generator`` unused: the init signature)."""
+    return torch.ones(shape, dtype=dtype, device=device)
+
+
+def tree_leaves(tree):
+    """The tensor leaves of a tree of dicts, lists and tuples, a
+    ``PackedLayout`` or ``TapLayout`` contributing its tensor fields in
+    field order (the reference's pytree children) and a ``DegradedLayer``
+    none; dict keys in sorted order, as ``jax.tree_util.tree_leaves``
+    walks them."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [x for f in dataclasses.fields(tree)
+                for x in tree_leaves(getattr(tree, f.name))]
+    return []
+
+
+def count_params(params) -> int:
+    """Elements over every tensor leaf (packed layouts' leaves too)."""
+    return sum(x.numel() for x in tree_leaves(params))
+
+
+def tree_bytes(params) -> int:
+    """Bytes over every tensor leaf (packed layouts' leaves too)."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(params))
+
+
+def cast_tree(params, dtype):
+    """``params`` with every floating-point tensor leaf cast to ``dtype``
+    (a packed layout's values and scales too; integer leaves kept)."""
+    def cast(t):
+        if isinstance(t, torch.Tensor):
+            return t.to(dtype) if t.is_floating_point() else t
+        if isinstance(t, dict):
+            return {k: cast(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(cast(v) for v in t)
+        if dataclasses.is_dataclass(t) and not isinstance(t, type):
+            return dataclasses.replace(t, **{
+                f.name: cast(getattr(t, f.name))
+                for f in dataclasses.fields(t) if f.init})
+        return t
+    return cast(params)
 
 
 def path_str(path) -> str:

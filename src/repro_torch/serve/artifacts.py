@@ -42,6 +42,7 @@ import logging
 import os
 import pathlib
 import shutil
+import warnings
 
 import numpy as np
 import torch
@@ -50,7 +51,7 @@ from repro_torch.core.packed import PackedLayout, TapLayout, dtype_name
 from repro_torch.core.validate import LayoutError, validate_layout
 from repro_torch.distributed.checkpoint import file_checksum
 from repro_torch.models.module import resolve_device
-from repro_torch.serve.compile import CompileReport, CompileSpec
+from repro_torch.serve.compile import CompileReport, resolve_spec
 
 log = logging.getLogger("repro_torch.serve.artifacts")
 
@@ -133,12 +134,16 @@ def _hash_tree(h, tree, tag):
         h.update(a.reshape(-1).view(np.uint8))
 
 
-def model_digest(params, masks, mapping, *, spec=None) -> str:
+def model_digest(params, masks, mapping, *, spec=None, **legacy) -> str:
     """Content digest of what determines the compile result: the weights,
     the masks, the scheme mapping and the ``CompileSpec`` digest fields
     (``keep_dense`` / ``implicit`` only change serving, so they stay out).
-    Equal to the reference's ``model_digest`` on the same inputs."""
-    spec = spec if spec is not None else CompileSpec()
+    Equal to the reference's ``model_digest`` on the same inputs.  The
+    historical keywords resolve as in ``compile_model`` (without its
+    DeprecationWarning), so both spellings of one compile digest alike."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        spec = resolve_spec(spec, **legacy)
     h = hashlib.blake2b(digest_size=16)
     h.update(repr(("repro-artifact", FORMAT_VERSION,
                    [(pat, repr(choice)) for pat, choice in mapping],

@@ -34,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+import warnings
 
 import torch
 
@@ -314,8 +315,42 @@ def _tap_stats(tap, w):
     }
 
 
+# the historical compile_model keywords, a deprecated spelling of a
+# CompileSpec (the same defaults)
+_LEGACY_SPEC_KWARGS = ("block_override", "keep_dense", "min_saving",
+                       "reorder", "n_bins", "exclude", "implicit",
+                       "value_dtype", "scale_granularity")
+
+
+def resolve_spec(spec=None, **legacy) -> CompileSpec:
+    """The one ``CompileSpec`` of a ``spec``-or-keywords compile call:
+    ``spec`` as it is, or one built from the historical keywords (with a
+    DeprecationWarning; None-valued keywords count as not given).  A
+    TypeError for an unknown keyword, for ``spec`` mixed with keywords,
+    and for a ``spec`` that is not a ``CompileSpec``."""
+    legacy = {k: v for k, v in legacy.items() if v is not None}
+    bad = set(legacy) - set(_LEGACY_SPEC_KWARGS)
+    if bad:
+        raise TypeError(f"unknown compile_model argument(s): {sorted(bad)}")
+    if spec is not None:
+        if legacy:
+            raise TypeError(
+                f"pass spec= OR legacy keywords, not both (got spec and "
+                f"{sorted(legacy)})")
+        if not isinstance(spec, CompileSpec):
+            raise TypeError(f"spec must be a CompileSpec, got "
+                            f"{type(spec).__name__}")
+        return spec
+    if legacy:
+        warnings.warn(
+            "compile_model(keep_dense=..., reorder=..., ...) keywords are "
+            "deprecated; pass spec=CompileSpec(...) instead",
+            DeprecationWarning, stacklevel=3)
+    return CompileSpec(**legacy)
+
+
 def compile_model(params, masks=None, mapping=(), spec=None, device="cuda",
-                  artifact_dir=None):
+                  artifact_dir=None, **legacy):
     """Pack every block-pruned linear or conv layer of ``params`` for
     sparse execution on ``device``.  Returns (exec_params, CompileReport).
 
@@ -326,7 +361,10 @@ def compile_model(params, masks=None, mapping=(), spec=None, device="cuda",
     mapping : [(path_regex, SchemeChoice)] — only paths mapped to a
               packable scheme are packed (FC block schemes, block_punched
               convs, pattern convs).
-    spec    : ``CompileSpec``.
+    spec    : ``CompileSpec``.  The historical keywords (``keep_dense=``,
+              ``reorder=``, ``n_bins=``, ... : ``_LEGACY_SPEC_KWARGS``)
+              still build an equal spec, with a DeprecationWarning
+              (``resolve_spec``); mixing both is a TypeError.
     artifact_dir : the artifact store (``serve.artifacts``).  The model
               digest (weights, masks, mapping, the spec's digest fields)
               is looked up first: a match that passes its checksum and
@@ -334,7 +372,7 @@ def compile_model(params, masks=None, mapping=(), spec=None, device="cuda",
               packing.  Any failure logs its ``code`` and falls back to
               this fresh pack, which is then published for the next start.
     """
-    spec = spec if spec is not None else CompileSpec()
+    spec = resolve_spec(spec, **legacy)
     dev = M.resolve_device(device)
     artifact_key = None
     if artifact_dir is not None:

@@ -1,11 +1,11 @@
 """Serving: ``prefill`` (a forward pass that also emits the per-layer KV
 caches, SSM states and cross caches), ``generate`` (prefill, then the
-greedy or sampling decode loop), ``generate_python`` (its greedy
-per-token oracle), and the continuous-batching ``ServingEngine`` (the
-decoder-only families), which decodes every live request through ONE
-batched step a token, so each packed kernel launch reads the weights once
-for the whole batch.  Works with dense, masked, and
-``compile_model``-packed params alike.
+greedy or sampling decode loop), ``generate_python`` (its per-token
+oracle, greedy or sampling), and the continuous-batching
+``ServingEngine`` (the decoder-only families), which decodes every live
+request through ONE batched step a token, so each packed kernel launch
+reads the weights once for the whole batch.  Works with dense, masked,
+and ``compile_model``-packed params alike.
 
 Each entry point takes ``dist`` (``distributed.sharding.Dist``): it places
 its inputs by the batch spec (sharded over the data axes when the batch
@@ -170,16 +170,26 @@ def generate(params, cfg: ArchConfig, tokens, n_new, device="cuda",
 
 
 def generate_python(params, cfg: ArchConfig, tokens, n_new, device="cuda",
-                    frontend=None, dist=None):
-    """Greedy generation one token at a time, each step's token read back
-    to the host: the per-token oracle of ``generate`` and the engine."""
+                    frontend=None, dist=None, temperature=0.0,
+                    generator=None):
+    """Generation one token at a time, each step's token read back to the
+    host: the per-token oracle of ``generate`` and the engine.  The first
+    token is the prefill's argmax; at temperature 0 every later one is
+    the argmax, above it step i draws exactly as ``generate`` draws it
+    (``transformer.sample`` by ``generator``, None seeding one with 0),
+    so on equally seeded generators the two give the same tokens, draw
+    for draw.  (The reference's ``key=`` has no counterpart: torch cannot
+    draw JAX's PRNG.)"""
     dev, tokens, frontend = _inputs(tokens, frontend, device)
     B, Sq = tokens.shape
+    if temperature > 0 and generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
     logits, cache = prefill(params, cfg, tokens, frontend, dist)
     layers = T.decode_layers(params, cfg)
+    tok = np.argmax(logits[:, -1, :].float().cpu().numpy(), axis=-1)
     out = []
     for i in range(n_new):
-        tok = np.argmax(logits[:, -1, :].float().cpu().numpy(), axis=-1)
         out.append(tok.astype(np.int32))
         pos = torch.full((B, 1), Sq + i, dtype=torch.int32, device=dev)
         logits, cache = T.decode_step(
@@ -187,6 +197,11 @@ def generate_python(params, cfg: ArchConfig, tokens, n_new, device="cuda",
             pos, layers, dist)
         if dist is not None:
             logits = dist.gather(logits)
+        if temperature > 0:
+            tok = T.sample(logits[:, -1, :], temperature,
+                           generator)[:, 0].cpu().numpy()
+        else:
+            tok = np.argmax(logits[:, -1, :].float().cpu().numpy(), axis=-1)
     return torch.as_tensor(np.stack(out, axis=1), device=dev)
 
 

@@ -6,8 +6,8 @@ artifact_dir=)`` against the reference's.
 - a store written by the reference loads in the port, and one written by
   the port loads in the reference: integer leaves equal, values
   bit-equal, report rows equal;
-- every case of the reference's ``tests/test_artifacts.py`` (not its
-  pack-cache case: the port has no pack cache), each corruption applied
+- every case of the reference's ``tests/test_artifacts.py`` (its
+  pack-cache case is in ``test_torch_surface.py``), each corruption applied
   to a store of each package and giving the reference's error ``code``
   in both, the port's warm or repacked tree identical to its cold one.
 """

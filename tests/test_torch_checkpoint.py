@@ -41,6 +41,7 @@ from repro_torch.core import bcs as BCS  # noqa: E402
 from repro_torch.core import reweighted as RW  # noqa: E402
 from repro_torch.distributed import checkpoint as CKPT  # noqa: E402
 from repro_torch.distributed import elastic  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serve import compile as C  # noqa: E402
@@ -238,6 +239,10 @@ def _small_model():
 
 
 def _count_packs(monkeypatch):
+    """Count ``pack_csc_reordered`` calls from an emptied pack cache (a
+    pack of weights packed before would be a hit; the reference's tests
+    clear their cache the same way)."""
+    ops.clear_pack_cache()
     calls = []
     real = BCS.pack_csc_reordered
     monkeypatch.setattr(BCS, "pack_csc_reordered",

@@ -1032,3 +1032,91 @@ def test_data_draws_are_the_same_on_cpu_and_card(cuda):
         for k in a:
             assert b[k].device.type == "cuda"
             assert torch.equal(a[k], b[k].cpu())
+
+
+# -- the raw entries of kernels 1 and 2, the pack cache on the card -----------
+
+def _raw_uniform(dev, K_, N_, block, dtype, seed=0):
+    """A masked weight through ``core.bcs`` on the card: (values, k_idx)
+    of ``pad_to_uniform_csc``, the 4-bin reordered layout of the same
+    weight, the masked dense weight."""
+    from repro_torch.core import bcs as BCS
+    rng = np.random.RandomState(seed)
+    bk, bn = block
+    live = rng.rand(K_ // bk, N_ // bn) < 0.4
+    live[:, -1] = True
+    mask = torch.from_numpy(np.repeat(np.repeat(live, bk, 0), bn, 1)).to(dev)
+    w = torch.from_numpy(rng.randn(K_, N_).astype(np.float32)).to(dev, dtype)
+    vals, kidx, _ = BCS.pad_to_uniform_csc(BCS.from_dense(w, mask, block))
+    lay = ops.pack(w, mask, block, reorder=True, n_bins=4, use_cache=False)
+    return vals, kidx, lay
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 4, 8, 15, 16, 17, 128, 129])
+def test_raw_bsr_matmul_matches_plain_and_the_reordered_layout(cuda, M,
+                                                               dtype):
+    """One launch a call, within the kernel-vs-plain bound, and bitwise
+    the reordered layout's output (a column's slots are the same; the
+    padding slots add zeros)."""
+    vals, kidx, lay = _raw_uniform(cuda, 512, 768, (16, 16), dtype)
+    x = torch.randn(M, 512, device=cuda).to(dtype)
+    b = torch.randn(768, device=cuda).to(dtype)
+    for act in ("none", "silu"):
+        before = K.LAUNCHES["bsr_matmul_raw"]
+        y = K.bsr_matmul(x, vals, kidx, b, act=act)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["bsr_matmul_raw"] - before == 1
+        want = ref.bsr_matmul_ref(x.float(), vals, kidx, b.float(), act)
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        torch.testing.assert_close(y.float(), want, rtol=tol, atol=tol)
+        assert torch.equal(y, K.bsr_matmul_packed(x, lay, b, act))
+
+
+@pytest.mark.parametrize("gran", ["block", "out"])
+def test_raw_bsr_matmul_int8_and_fp32_out(cuda, gran):
+    from repro_torch.core import quant as Q
+    from repro_torch.core.packed import PackedLayout
+    vals, kidx, lay = _raw_uniform(cuda, 512, 768, (16, 16), torch.bfloat16)
+    q = Q.quantize_layout(PackedLayout(
+        values=(vals,), k_idx=(kidx,),
+        nnz=torch.full((vals.shape[0],), vals.shape[1], dtype=torch.int32,
+                       device=cuda), block=(16, 16), shape=(512, 768)),
+        value_dtype="int8", scale_granularity=gran)
+    x = torch.randn(9, 512, device=cuda).bfloat16()
+    y = K.bsr_matmul(x, q.values[0], q.k_idx[0], scales=q.scales[0],
+                     out_dtype=torch.float32)
+    assert y.dtype == torch.float32
+    want = ref.bsr_matmul_ref(x.float(), q.values[0], q.k_idx[0],
+                              scales=q.scales[0])
+    torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+
+
+def test_raw_tap_gather_conv_matches_plain(cuda):
+    rng = np.random.RandomState(3)
+    G, L, gp, R, M = 64, 9, 1, 200, 300
+    vals = torch.from_numpy(rng.randn(G, L, gp).astype(np.float32)).to(cuda)
+    tidx = torch.from_numpy(rng.randint(0, R, (G, L)).astype(np.int32)).to(
+        cuda)
+    x = torch.randn(M, R, device=cuda)
+    b = torch.randn(G * gp, device=cuda)
+    before = K.LAUNCHES["tap_gather_conv_raw"]
+    y = K.tap_gather_conv(x, vals, tidx, b, act="relu")
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["tap_gather_conv_raw"] - before == 1
+    torch.testing.assert_close(
+        y, ref.tap_gather_ref(x, vals, tidx, b, "relu"), rtol=1e-4,
+        atol=1e-4)
+
+
+def test_pack_cache_on_the_card(cuda):
+    """A hit hands back the same layout; a CPU pack of the same bytes is
+    another entry (the device is in the key)."""
+    rng = np.random.RandomState(5)
+    w = torch.from_numpy(rng.randn(256, 256).astype(np.float32))
+    mask = torch.from_numpy(rng.rand(256, 256) < 0.5)
+    a = ops.pack(w.to(cuda), mask.to(cuda), (16, 16), reorder=True)
+    assert ops.pack(w.to(cuda), mask.to(cuda), (16, 16), reorder=True) is a
+    c = ops.pack(w, mask, (16, 16), reorder=True)
+    assert c is not a and c.values[0].device.type == "cpu"
+    assert torch.equal(c.values[0], a.values[0].cpu())
