@@ -11,7 +11,12 @@ replaces the one-shot ``generate``: ``--requests`` prompts of three
 lengths arrive at ``--arrival-rate`` a step (default: all at step 0) and
 stream through ``serve.engine.ServingEngine``, with a log line every
 ``--log-every`` steps (occupancy, admitted / evicted / queued, tokens,
-the pack cache's hits / misses / evictions):
+the pack cache's hits / misses / evictions) and, under it, the medians of
+the engine's spans (``serve.trace``) that closed since the last line: an
+admission's prefill dispatch / first-token wait / slot write, a
+decode-only step's host time / graph time on the card and its replay's
+copy-in / launch / read-back, the harvest, and the queue wait; the set-up
+spans' seconds and card memory are printed once, before the first step:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --sparse \\
       --layers 8 --batch-size 8 --arrival-rate 1 --requests 16
@@ -48,6 +53,7 @@ from repro_torch.kernels.ops import pack_cache_stats
 from repro_torch.models import transformer as T
 from repro_torch.serve.compile import (CompileSpec, compile_model,
                                        compiled_summary)
+from repro_torch.serve import trace as TR
 from repro_torch.serve.engine import ServingEngine, generate
 from repro_torch.train.trainer import apply_masks
 
@@ -167,7 +173,8 @@ def _run_engine(params, cfg, args, mode):
                    arrival=int(i / rate) if rate else 0)
 
     _sync(args.device)
-    t0 = time.perf_counter()
+    print(_setup_line(TR.spans()[0]))
+    t0 = last = time.perf_counter()
     while eng.sched.has_work():
         eng.step()
         if eng.stats["steps"] % args.log_every == 0:
@@ -177,6 +184,9 @@ def _run_engine(params, cfg, args, mode):
                   f"evicted {s['evicted']} queued {eng.sched.queued()} "
                   f"tokens {s['tokens']} | pack cache hits {pc['hits']} "
                   f"misses {pc['misses']} evictions {pc['evictions']}")
+            print(_span_line([sp for sp in TR.spans()[0]
+                              if sp.t1 is not None and sp.t1 > last]))
+            last = time.perf_counter()
     _sync(args.device)
     dt = time.perf_counter() - t0
     s = eng.stats
@@ -186,6 +196,53 @@ def _run_engine(params, cfg, args, mode):
           f"{args.requests} requests, {s['tokens']} tokens in {dt:.2f}s "
           f"({s['tokens'] / dt:.1f} tok/s incl. prefills), mean occupancy "
           f"{eng.mean_occupancy():.2f}")
+
+
+def _setup_line(spans):
+    """The newest set-up spans: seconds, and card memory at the close."""
+    newest = {sp.name: sp for sp in spans if sp.t1 is not None}
+    parts = []
+    for name in ("compile_model", "engine.init", "engine.capture"):
+        sp = newest.get(name)
+        if sp is not None:
+            mem = sp.attrs.get("memory_allocated")
+            parts.append(f"{name} {sp.ms / 1e3:.2f}s" + (
+                "" if mem is None else f" {mem / 2**30:.2f} GiB"))
+    return "      set-up spans: " + (", ".join(parts) or "none recorded")
+
+
+def _span_line(spans):
+    """Medians in ms of the spans that closed since the last line."""
+    def med(xs):
+        return f"{float(np.median(xs)):.2f}" if xs else "-"
+
+    def named(name):
+        return [sp for sp in spans if sp.name == name]
+
+    def ms(name):
+        return med([sp.ms for sp in named(name)])
+
+    # decode-only steps with their replays; off the card no graph is
+    # timed, and the whole step is host time
+    replays = {sp.parent: sp for sp in named("engine.replay")}
+    steps = [(sp, replays[sp.index]) for sp in named("engine.step")
+             if sp.index in replays and not sp.attrs.get("admitted")]
+    timed = [(sp, r) for sp, r in steps
+             if r.attrs.get("graph_ms") is not None]
+    graph = [r.attrs["graph_ms"] for _, r in timed]
+    host = ([sp.ms - r.attrs["graph_ms"] for sp, r in timed] if timed
+            else [sp.ms for sp, _ in steps])
+
+    def attr(among, key):
+        return med([x.attrs[key] for x in among if key in x.attrs])
+    rs = [r for _, r in steps]
+    return (f"      spans (median ms): admit prefill {ms('admit.prefill')}"
+            f" / first token {ms('admit.first_token')} / slot write "
+            f"{ms('admit.slot_write')} | step host {med(host)} / graph "
+            f"{med(graph)} (copy-in {attr(rs, 'copy_in_ms')}, launch "
+            f"{attr(rs, 'launch_ms')}, read-back {attr(rs, 'read_back_ms')}"
+            f", harvest {attr([sp for sp, _ in steps], 'harvest_ms')}) | "
+            f"queue {ms('queue')}")
 
 
 if __name__ == "__main__":

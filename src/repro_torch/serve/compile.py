@@ -46,6 +46,7 @@ from repro_torch.core.packed import DegradedLayer, PackedLayout
 from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
 from repro_torch.models import module as M
+from repro_torch.serve import trace as TR
 
 # FC block schemes pack the weight as-is; block_punched (the paper's CONV
 # scheme) packs the im2col-lowered weight into whole dead BCS blocks;
@@ -371,9 +372,19 @@ def compile_model(params, masks=None, mapping=(), spec=None, device="cuda",
               layout validation is grafted onto ``params`` with no
               packing.  Any failure logs its ``code`` and falls back to
               this fresh pack, which is then published for the next start.
+
+    Recorded as the span ``compile_model`` (``serve.trace``), with the
+    card's ``memory_allocated`` at its close.
     """
     spec = resolve_spec(spec, **legacy)
     dev = M.resolve_device(device)
+    with TR.span("compile_model") as sp:
+        out = _compile_model(params, masks, mapping, spec, dev, artifact_dir)
+        TR.note_memory(sp, dev)
+    return out
+
+
+def _compile_model(params, masks, mapping, spec, dev, artifact_dir):
     artifact_key = None
     if artifact_dir is not None:
         from repro_torch.serve import artifacts as ART

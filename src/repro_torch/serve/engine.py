@@ -14,6 +14,8 @@ whole tensors, as a JAX global array reads.  Params are placed by the
 caller (``sharding.shard_packed_tree`` for the packed layouts)."""
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -25,6 +27,7 @@ from repro_torch.models.module import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.serve import compile as SC
 from repro_torch.serve import kvcache as KV
+from repro_torch.serve import trace as TR
 from repro_torch.serve.scheduler import (REASON_DEADLINE_EXPIRED,
                                          REASON_OVER_BUDGET,
                                          REASON_QUARANTINED, Request,
@@ -245,9 +248,24 @@ class ServingEngine:
     the cache stays whole on every rank.  The step is captured as on one
     card: a capture records the kernels, so a replay runs none of
     DTensor's host work.
+
+    Spans (``serve.trace``): ``engine.init`` (``engine.capture`` inside,
+    each with the card's ``memory_allocated`` at its close); per step
+    ``engine.step`` (``active`` slots, ``admitted`` requests,
+    ``harvest_ms``), inside it one ``engine.admit`` per admission
+    (``admit.prefill``, the host enqueuing the eager forward;
+    ``admit.first_token``, the host waiting for it; ``admit.slot_write``)
+    and ``engine.replay`` (``copy_in_ms``, ``launch_ms``, ``read_back_ms``
+    on the host; on the card, every ``GRAPH_TIMING_EVERY``-th replay,
+    ``graph_ms``: the card's time from before the graph's launch to its
+    last kernel, by a pair of CUDA events); and per request ``queue``,
+    from ``submit`` to its admission.  A decode step's host pieces are
+    attributes, not spans, and its graph is timed one replay in
+    ``GRAPH_TIMING_EVERY``, to keep what the recorder costs a step small.
     """
 
     FAMILIES = T.DECODER_FAMILIES
+    GRAPH_TIMING_EVERY = 16
 
     def __init__(self, params, cfg: ArchConfig, *, n_slots=8, seq_cap=256,
                  max_queue=None, validate=True, report=None,
@@ -257,6 +275,13 @@ class ServingEngine:
                 f"family {cfg.family!r} is not served (supported: "
                 f"{self.FAMILIES})")
         dev = resolve_device(device)
+        with TR.span("engine.init") as sp:
+            self._init(params, cfg, n_slots, seq_cap, max_queue, validate,
+                       report, dev, dist)
+            TR.note_memory(sp, self.device)
+
+    def _init(self, params, cfg, n_slots, seq_cap, max_queue, validate,
+              report, dev, dist):
         if params["embed"]["table"].device.type != dev.type:
             raise ValueError(f"the params live on "
                              f"{params['embed']['table'].device}, not {dev}")
@@ -288,10 +313,17 @@ class ServingEngine:
                       "admitted": 0, "finished": 0, "evicted": 0,
                       "rejected": 0, "quarantined": 0, "expired": 0,
                       "degraded_layers": len(degraded), "graph_captures": 0}
-        self._graph = None
+        self._graph = self._events = None
+        self._replays = 0
+        self._queue_spans: dict = {}
         self.logits = self._out = None
         if self.device.type == "cuda":
-            self._capture()
+            with TR.span("engine.capture") as sp:
+                self._capture()
+                TR.note_memory(sp, self.device)
+            # one reusable pair around each replay (``graph_ms``)
+            self._events = tuple(torch.cuda.Event(enable_timing=True)
+                                 for _ in range(2))
 
     # -- the step -------------------------------------------------------------
 
@@ -343,15 +375,36 @@ class ServingEngine:
     @torch.no_grad()
     def _run(self):
         """One decode step over every slot: (next tokens, probe) as host
-        arrays, ``logits`` holding the step's logits."""
-        self._ops_dev.copy_(torch.from_numpy(self._ops))
-        if self._graph is not None:
-            self._graph.replay()
-            for k, n in self._replay_launches.items():
-                K.LAUNCHES[k] += n
-        else:
-            self.logits, self._out = self._forward()
-        out = self._out.cpu().numpy()
+        arrays, ``logits`` holding the step's logits.
+
+        The copy-in, from pageable host memory, drains the stream, so the
+        first event marks the card ready to launch the graph; the
+        read-back syncs, so both events have completed when it returns."""
+        with TR.span("engine.replay") as sp:
+            t0 = time.perf_counter()
+            self._ops_dev.copy_(torch.from_numpy(self._ops))
+            t1 = time.perf_counter()
+            ev = (self._events if sp is not None and self._replays
+                  % self.GRAPH_TIMING_EVERY == 0 else None)
+            self._replays += 1
+            if self._graph is not None:
+                if ev:
+                    stream = torch.cuda.current_stream(self.device)
+                    ev[0].record(stream)
+                self._graph.replay()
+                if ev:
+                    ev[1].record(stream)
+                for k, n in self._replay_launches.items():
+                    K.LAUNCHES[k] += n
+            else:
+                self.logits, self._out = self._forward()
+            t2 = time.perf_counter()
+            out = self._out.cpu().numpy()
+            if sp is not None:
+                sp.attrs.update(
+                    copy_in_ms=(t1 - t0) * 1e3, launch_ms=(t2 - t1) * 1e3,
+                    read_back_ms=(time.perf_counter() - t2) * 1e3,
+                    graph_ms=ev[0].elapsed_time(ev[1]) if ev else None)
         return out[0], out[1]
 
     # -- request intake -------------------------------------------------------
@@ -378,7 +431,16 @@ class ServingEngine:
             self.stats["rejected"] += 1
         elif self.sched.submit(req, self.stats["steps"]) == "rejected":
             self.stats["rejected"] += 1
+        else:
+            sp = TR.begin("queue", rid=req.rid)
+            if sp is not None:
+                self._queue_spans[req.rid] = sp
         return req.rid
+
+    def _end_queue(self, rid):
+        sp = self._queue_spans.pop(rid, None)
+        if sp is not None:
+            sp.end()
 
     # -- engine loop ----------------------------------------------------------
 
@@ -386,21 +448,29 @@ class ServingEngine:
     def _admit(self):
         while (pair := self.sched.admit(self.stats["steps"])) is not None:
             slot, req = pair
-            toks = torch.tensor([req.prompt], dtype=torch.int32,
-                                device=self.device)
-            logits, rc = prefill(self.params, self.cfg, toks,
-                                 dist=self.dist)
+            self._end_queue(req.rid)
+            with TR.span("engine.admit", rid=req.rid,
+                         prompt_len=len(req.prompt)):
+                self._admit_one(slot, req)
+
+    def _admit_one(self, slot, req):
+        toks = torch.tensor([req.prompt], dtype=torch.int32,
+                            device=self.device)
+        with TR.span("admit.prefill"):
+            logits, rc = prefill(self.params, self.cfg, toks, dist=self.dist)
+        with TR.span("admit.first_token"):
             t0 = int(torch.argmax(logits[0, -1]))
-            req.tokens.append(t0)
-            self.stats["admitted"] += 1
-            self.stats["tokens"] += 1
-            if req.done():      # budget of 1 (or an instant stop token)
-                self._release(slot, req, "finished")
-                continue
+        req.tokens.append(t0)
+        self.stats["admitted"] += 1
+        self.stats["tokens"] += 1
+        if req.done():          # budget of 1 (or an instant stop token)
+            self._release(slot, req, "finished")
+            return
+        with TR.span("admit.slot_write"):
             self.cache = KV.write_prefill(self.cache, slot, rc)
-            self.cap[slot] = KV.slot_capacity(self.cfg, len(req.prompt))
-            self.pos[slot] = len(req.prompt)
-            self.tok[slot] = t0
+        self.cap[slot] = KV.slot_capacity(self.cfg, len(req.prompt))
+        self.pos[slot] = len(req.prompt)
+        self.tok[slot] = t0
 
     def _release(self, slot, req, status, reason=None):
         self.sched.release(req, status, reason)
@@ -418,8 +488,12 @@ class ServingEngine:
         refill the same step: expire overdue queue TTLs, re-submit due
         retry backoffs, evict running requests past ``deadline_steps``."""
         now = self.stats["steps"]
-        self.stats["expired"] += len(self.sched.expire(now))
-        self.stats["rejected"] += len(self.sched.poll_retries(now))
+        expired = self.sched.expire(now)
+        rejected = self.sched.poll_retries(now)
+        for req in expired + rejected:
+            self._end_queue(req.rid)
+        self.stats["expired"] += len(expired)
+        self.stats["rejected"] += len(rejected)
         for slot, req in self.sched.active():
             if (req.deadline_steps is not None
                     and req.admitted_at is not None
@@ -435,26 +509,34 @@ class ServingEngine:
         logits came back non-finite (its token is never appended).
         Returns the number of active slots stepped (0 = an idle tick while
         an open-loop queue waits for its arrivals)."""
-        self._sweep_faults()
-        self._admit()
-        active = self.sched.active()
-        self.stats["steps"] += 1
-        self.stats["occupancy_sum"] += len(active) / self.n_slots
-        if not active:
-            return 0
-        nxt, ok = self._run()
-        for slot, req in active:
-            if not ok[slot]:
-                self._release(slot, req, "quarantined",
-                              reason=REASON_QUARANTINED)
-                continue
-            t = int(nxt[slot])
-            req.tokens.append(t)
-            self.stats["tokens"] += 1
-            self.pos[slot] += 1
-            self.tok[slot] = t
-            if req.done():
-                self._release(slot, req, "finished")
+        with TR.span("engine.step") as sp:
+            self._sweep_faults()
+            admitted = self.stats["admitted"]
+            self._admit()
+            active = self.sched.active()
+            self.stats["steps"] += 1
+            self.stats["occupancy_sum"] += len(active) / self.n_slots
+            if sp is not None:
+                sp.attrs.update(active=len(active),
+                                admitted=self.stats["admitted"] - admitted)
+            if not active:
+                return 0
+            nxt, ok = self._run()
+            t0 = time.perf_counter()
+            for slot, req in active:
+                if not ok[slot]:
+                    self._release(slot, req, "quarantined",
+                                  reason=REASON_QUARANTINED)
+                    continue
+                t = int(nxt[slot])
+                req.tokens.append(t)
+                self.stats["tokens"] += 1
+                self.pos[slot] += 1
+                self.tok[slot] = t
+                if req.done():
+                    self._release(slot, req, "finished")
+            if sp is not None:
+                sp.attrs["harvest_ms"] = (time.perf_counter() - t0) * 1e3
         return len(active)
 
     def run(self, max_steps=100_000):
