@@ -3164,6 +3164,17 @@ def new_engine(mods, exec_p, cfg, **kw):
     return eng
 
 
+def warm_ups(eng):
+    """The uncaptured forwards an engine ran while it captured: on the card
+    the step's warm-up, and a dense engine's prefill warm-up at its
+    largest bucket (a capture records launches without running them, and
+    the engine counts a replay's launches where it runs); the CPU
+    rehearsal captures nothing and runs every step eagerly."""
+    if DEV != "cuda":
+        return 0
+    return 1 + bool(eng.stats["prefill_captures"])
+
+
 def engine_serve(mods, exec_p, cfg, prompts, rate=0, poison=(), **kw):
     """``prompts`` through a new engine, N_NEW tokens each, arriving at
     ``rate`` a step (0: all at step 0); the slots in ``poison`` get NaN
@@ -3353,10 +3364,7 @@ def engine_phase(mods, exec_p, cfg, arch, per_layer, dense_p=None,
                                                    prompts)
     counted = dict(K.LAUNCHES)
     n_adm = eng.stats["admitted"]
-    # on the card the uncaptured warm-up runs the step once more, and the
-    # capture records it without running it (the engine counts a replay's
-    # launches where it runs); the CPU rehearsal runs every step eagerly
-    warm = 1 if DEV == "cuda" else 0
+    warm = warm_ups(eng)
     want = per_step * (warm + runs) + n_adm * per_step
     step = statistics.median(step_ms)
     sat = {"wall_s": wall, "tokens": eng.stats["tokens"],
@@ -3809,7 +3817,7 @@ def robustness_phase(mods, pm, masks, cfg, full):
     K.reset_launches()
     eng, toks, wall, deg_ms, runs = engine_serve(mods, bad, cfg, prompts)
     counted = K.LAUNCHES["bsr_matmul"]
-    warm_up = 1 if DEV == "cuda" else 0
+    warm_up = warm_ups(eng)
     n_adm = eng.stats["admitted"]
     want = want_step * (warm_up + runs) + n_adm * want_step
     step_clean, step_deg = (statistics.median(clean_ms),
@@ -4154,7 +4162,7 @@ def tp_serve(mods, pm, masks, cfg, serve_tokens, unsharded_step_ms):
                                                   prompts_e)
     counted = dict(K.LAUNCHES)
     n_adm = eng.stats["admitted"]
-    warm_up = 1 if DEV == "cuda" else 0
+    warm_up = warm_ups(eng)
     want_e = cfg.n_layers * 7 * (warm_up + runs + n_adm)
     med = statistics.median(step_ms)
     print(f"[tensor_parallel] ServingEngine (validate=True, "
@@ -4582,9 +4590,9 @@ def mesh_serve(mods, pm, masks, cfg, serve_tokens, mesh, SH):
     counted = dict(K.LAUNCHES)
     per_step = eng._replay_launches.get("bsr_matmul_sharded")
     n_adm, captures = eng.stats["admitted"], eng.stats["graph_captures"]
+    warm_up = warm_ups(eng)          # a mesh's engine admits eagerly
     del eng
     _, toks_p, _, step_p, _ = engine_serve(mods, exec_p, cfg, prompts_e)
-    warm_up = 1 if DEV == "cuda" else 0      # the capture's warm-up step
     want_e = cfg.n_layers * 7 * (warm_up + runs + n_adm)
     eng_ms = (statistics.median(step_m), statistics.median(step_p))
     print(f"[mesh] ServingEngine(dist=): {captures} capture, sharded "

@@ -192,10 +192,12 @@ def _run_engine(params, cfg, args, mode):
     s = eng.stats
     print(f"{args.arch} [{mode}, {cfg.n_layers} layers, engine B={n_slots}"
           + (f", rate={rate}/step" if rate else ", saturated")
-          + f", {s['graph_captures']} graph capture(s)]: {s['finished']}/"
+          + f", {s['graph_captures']} graph capture(s), "
+          f"{s['prefill_captures']} prefill bucket(s)]: {s['finished']}/"
           f"{args.requests} requests, {s['tokens']} tokens in {dt:.2f}s "
           f"({s['tokens'] / dt:.1f} tok/s incl. prefills), mean occupancy "
-          f"{eng.mean_occupancy():.2f}")
+          f"{eng.mean_occupancy():.2f}, {s['prefill_replays']} prefill(s) "
+          f"replayed ({s['prefill_pad_tokens']} pad tokens)")
 
 
 def _setup_line(spans):

@@ -6,8 +6,9 @@ per slot of the continuous-batching engine).  All four projections
 ``serve.compile`` run on the BCS kernel transparently.  The attention math
 itself is plain PyTorch, as the reference leaves it to XLA.
 
-The decode steps neither synchronise with the host nor move host data to
-the card, so the engine can capture them in a CUDA graph.
+Neither the decode steps nor the prefill's attention synchronise with the
+host or move host data to the card (``NEG_INF`` goes to ``torch.where``
+as a Python scalar), so the engine can capture them in CUDA graphs.
 
 Given a ``dist`` (``distributed.sharding.Dist``), q, k and v take the
 reference's head or sequence placements (``shard_attn_q`` /
@@ -105,8 +106,7 @@ def attend(q, k, v, q_pos, k_pos, causal=True, window=0, kv_chunk=1024):
 
     if n_chunks == 1:
         s = torch.einsum("bqhe,bshe->bhqs", qf, k.float())
-        s = torch.where(_mask(q_pos, k_pos, causal, window), s,
-                        torch.tensor(NEG_INF, device=s.device))
+        s = torch.where(_mask(q_pos, k_pos, causal, window), s, NEG_INF)
         p = torch.softmax(s, dim=-1)
         out = torch.einsum("bhqs,bshe->bqhe", p, v.float())
         return out.to(q.dtype)
@@ -118,7 +118,7 @@ def attend(q, k, v, q_pos, k_pos, causal=True, window=0, kv_chunk=1024):
         sl = slice(c * kv_chunk, (c + 1) * kv_chunk)
         s = torch.einsum("bqhe,bshe->bhqs", qf, k[:, sl].float())
         s = torch.where(_mask(q_pos, k_pos[sl], causal, window), s,
-                        torch.tensor(NEG_INF, device=s.device))
+                        NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)

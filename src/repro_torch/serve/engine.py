@@ -14,6 +14,8 @@ whole tensors, as a JAX global array reads.  Params are placed by the
 caller (``sharding.shard_packed_tree`` for the packed layouts)."""
 from __future__ import annotations
 
+import bisect
+import functools
 import time
 
 import numpy as np
@@ -87,7 +89,12 @@ def prefill(params, cfg: ArchConfig, tokens, frontend=None, dist=None):
         return dist.gather(logits), _whole(cache, dist)
 
 
-def _prefill(params, cfg, tokens, frontend, dist):
+def _prefill(params, cfg, tokens, frontend, dist, layers=None, row=None):
+    """``prefill``'s body.  ``layers`` (the decoder's layer slices, made
+    fresh when None) and ``row`` ((1,) int, the last real token of a
+    right-padded prompt) are ``padded_prefill``'s: with ``row`` the
+    decoder keeps the k/v of every position and the logits are that
+    row's."""
     _, Sq = tokens.shape
     positions = torch.arange(Sq, dtype=torch.int32, device=tokens.device)
     x = L.embed(params["embed"], tokens)
@@ -96,10 +103,11 @@ def _prefill(params, cfg, tokens, frontend, dist):
     fam = cfg.family
     kvs, xkvs, states = [], [], []
     if fam in T.DECODER_FAMILIES:
-        for lp in T.layer_params(params):
+        for lp in T.layer_params(params) if layers is None else layers:
             x, kv, st, _ = T._layer_fwd(lp, x, positions, cfg, dist=dist)
             if kv is not None:
-                kvs.append(_window_kv(*kv, Sq, cfg))
+                kvs.append((*kv, positions) if row is not None
+                           else _window_kv(*kv, Sq, cfg))
             if st is not None:
                 states.append(st)
     elif fam == "encdec":
@@ -132,11 +140,55 @@ def _prefill(params, cfg, tokens, frontend, dist):
     if states:
         cache["ssm"] = {name: _stack([st[name] for st in states])
                         for name in states[0]}
-    x = L.rmsnorm(params["norm_f"], x[:, -1:, :])
-    logits = L.unembed(params["head"], x)
+    x = x[:, -1:, :] if row is None else x.index_select(1, row)
+    logits = L.unembed(params["head"], L.rmsnorm(params["norm_f"], x))
     if dist is not None:
         logits = dist.shard_logits(logits)
     return logits, cache
+
+
+def prefill_buckets(seq_cap):
+    """The prompt-length buckets of the engine's captured admission
+    prefill: the powers of two from 16 below ``seq_cap``, then
+    ``seq_cap``.  A prompt of S tokens replays the smallest bucket >= S."""
+    out, b = [], 16
+    while b < seq_cap:
+        out.append(b)
+        b *= 2
+    return tuple(out) + (seq_cap,)
+
+
+def replays_prefill(cfg: ArchConfig, device, dist=None) -> bool:
+    """Whether an engine admits through captured prefill graphs: on the
+    card, for the dense family, off a mesh.  Everywhere else the eager
+    ``prefill`` runs: moe's capacity rule would count the padding and
+    could drop real tokens, the ssm and hybrid scans would run past the
+    prompt and keep the wrong state, and the CPU has no graphs."""
+    return device.type == "cuda" and cfg.family == "dense" and dist is None
+
+
+def padded_prefill(params, cfg: ArchConfig, tokens, row, layers=None):
+    """The dense family's B = 1 prefill of a right-padded prompt, the
+    function the engine captures once per bucket: tokens (1, Sb) at
+    positions 0..Sb-1, ``row`` (1,) int the index of the prompt's last
+    token -> (that row's logits (1, 1, V), the cache of every position).
+    The causal mask keeps the padding away from every real query and
+    every other op works row by row, so the real positions and the row's
+    logits are what ``prefill`` of the prompt alone gives (``padded_cache``
+    cuts its ring).  Nothing here synchronises with the host or copies
+    host data."""
+    return _prefill(params, cfg, tokens, None, None, layers, row)
+
+
+def padded_cache(cache, S_len, cfg: ArchConfig):
+    """The cache ``prefill`` gives a prompt of ``S_len`` tokens, cut from
+    ``padded_prefill``'s: the ring [S_len - cap, S_len) with ``cap`` from
+    ``KV.slot_capacity``, so a sliding window still cuts the real prompt,
+    never the padding."""
+    ring = slice(S_len - KV.slot_capacity(cfg, S_len), S_len)
+    kv = cache["kv"]
+    return {"kv": {"k": kv["k"][:, :, ring], "v": kv["v"][:, :, ring],
+                   "pos": kv["pos"][:, ring]}}
 
 
 def _inputs(tokens, frontend, device):
@@ -249,12 +301,30 @@ class ServingEngine:
     card: a capture records the kernels, so a replay runs none of
     DTensor's host work.
 
-    Spans (``serve.trace``): ``engine.init`` (``engine.capture`` inside,
-    each with the card's ``memory_allocated`` at its close); per step
+    Admission on the card, dense family, no mesh (``replays_prefill``):
+    the B = 1 prefill is captured too, once per prompt-length bucket
+    (``prefill_buckets(seq_cap)``, those the prefill's KV chunking can
+    run), after the step and one eager warm-up at the largest bucket,
+    largest first, into one memory pool the bucket graphs share (a
+    replay's outputs are read before the next replay).  Each graph runs
+    ``padded_prefill`` over the engine's own layer slices and a static
+    (Sb + 1,) int32 input: the prompt right-padded with token 0, then the
+    index of its last token.  An admission copies that input in, replays
+    the graph, reads the first token (the graph's argmax of that row)
+    and writes ``padded_cache``'s ring into the slot.  A prompt longer
+    than the largest bucket, and every other engine, runs the eager
+    ``prefill``.  ``stats``: ``prefill_captures``, ``prefill_replays``,
+    ``prefill_pad_tokens`` (the padding the replays ran).
+
+    Spans (``serve.trace``): ``engine.init`` (``engine.capture`` and one
+    ``engine.capture_prefill`` a bucket, its ``bucket``, inside, each with
+    the card's ``memory_allocated`` at its close); per step
     ``engine.step`` (``active`` slots, ``admitted`` requests,
-    ``harvest_ms``), inside it one ``engine.admit`` per admission
-    (``admit.prefill``, the host enqueuing the eager forward;
-    ``admit.first_token``, the host waiting for it; ``admit.slot_write``)
+    ``harvest_ms``), inside it one ``engine.admit`` per admission (its
+    ``bucket``, None on the eager path; ``admit.prefill``, the host
+    enqueuing the eager forward, or copying a bucket's input in and
+    launching its graph; ``admit.first_token``, the host waiting for the
+    card; ``admit.slot_write``)
     and ``engine.replay`` (``copy_in_ms``, ``launch_ms``, ``read_back_ms``
     on the host; on the card, every ``GRAPH_TIMING_EVERY``-th replay,
     ``graph_ms``: the card's time from before the graph's launch to its
@@ -312,11 +382,22 @@ class ServingEngine:
         self.stats = {"steps": 0, "occupancy_sum": 0.0, "tokens": 0,
                       "admitted": 0, "finished": 0, "evicted": 0,
                       "rejected": 0, "quarantined": 0, "expired": 0,
-                      "degraded_layers": len(degraded), "graph_captures": 0}
+                      "degraded_layers": len(degraded), "graph_captures": 0,
+                      "prefill_captures": 0, "prefill_replays": 0,
+                      "prefill_pad_tokens": 0}
         self._graph = self._events = None
         self._replays = 0
         self._queue_spans: dict = {}
         self.logits = self._out = None
+        # the admission prefill's buckets (none: every admission eager);
+        # past kv_chunk the prefill's attention takes whole chunks only
+        self._buckets = ()
+        if replays_prefill(cfg, self.device, dist):
+            self._buckets = tuple(
+                b for b in prefill_buckets(seq_cap)
+                if b <= cfg.kv_chunk or b % cfg.kv_chunk == 0)
+        self._pf_in, self._pf_out, self._pf_graphs = {}, {}, {}
+        self._pf_launches: dict = {}
         if self.device.type == "cuda":
             with TR.span("engine.capture") as sp:
                 self._capture()
@@ -324,6 +405,8 @@ class ServingEngine:
             # one reusable pair around each replay (``graph_ms``)
             self._events = tuple(torch.cuda.Event(enable_timing=True)
                                  for _ in range(2))
+            if self._buckets:
+                self._capture_prefill()
 
     # -- the step -------------------------------------------------------------
 
@@ -351,26 +434,73 @@ class ServingEngine:
                                torch.int32)])
         return logits, out
 
-    @torch.no_grad()
-    def _capture(self):
+    def _warm_up(self, fn):
+        """``fn()`` once, uncaptured, on a side stream: what a capture needs
+        first (kernel 1's tables and grown tile counters, cuBLAS)."""
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            self._forward()            # warm-up: tables, tile counters
+            fn()
         torch.cuda.current_stream(self.device).wait_stream(side)
-        self._graph = torch.cuda.CUDAGraph()
+
+    @staticmethod
+    def _record(fn, pool=None):
+        """(a CUDA graph of ``fn``, its outputs, the launches it recorded):
+        a capture runs nothing, so its launches are taken back out of
+        ``LAUNCHES``, and each replay adds them."""
+        graph = torch.cuda.CUDAGraph()
         before = dict(K.LAUNCHES)
-        with torch.cuda.graph(self._graph):
-            self.logits, self._out = self._forward()
-        self._replay_launches = {k: n - before[k]
-                                 for k, n in K.LAUNCHES.items()
-                                 if n != before[k]}
+        with torch.cuda.graph(graph, pool=pool):
+            out = fn()
+        launches = {k: n - before[k] for k, n in K.LAUNCHES.items()
+                    if n != before[k]}
         K.LAUNCHES.update(before)
+        return graph, out, launches
+
+    @torch.no_grad()
+    def _capture(self):
+        self._warm_up(self._forward)
+        self._graph, (self.logits, self._out), self._replay_launches = \
+            self._record(self._forward)
         # the graph reads the cache by address: its tensors live as long
         # as the graph, whatever later rebinds ``self.cache``
         self._graph_inputs = [t for group in self.cache.values()
                               for t in group.values()]
         self.stats["graph_captures"] += 1
+
+    def _bucket_forward(self, b):
+        """``padded_prefill`` over bucket ``b``'s static input: (the first
+        token (a 0-dim int64 argmax), the cache of all b positions)."""
+        buf = self._pf_in[b]
+        logits, cache = padded_prefill(self.params, self.cfg, buf[None, :b],
+                                       buf[b:], self._layers)
+        return torch.argmax(logits[0, -1]), cache
+
+    @torch.no_grad()
+    def _capture_prefill(self):
+        """One graph per bucket, largest first, into one shared pool.  The
+        uncaptured warm-up at the largest bucket grows kernel 1's tile
+        counters to the most any bucket needs (a capture may not grow
+        them) and initialises cuBLAS; the static inputs are allocated
+        before it, outside the pool."""
+        self._pf_in = {b: torch.zeros(b + 1, dtype=torch.int32,
+                                      device=self.device)
+                       for b in self._buckets}
+        self._warm_up(functools.partial(self._bucket_forward,
+                                        self._buckets[-1]))
+        pool = torch.cuda.graph_pool_handle()
+        for b in reversed(self._buckets):
+            with TR.span("engine.capture_prefill", bucket=b) as sp:
+                (self._pf_graphs[b], self._pf_out[b],
+                 self._pf_launches[b]) = self._record(
+                    functools.partial(self._bucket_forward, b), pool)
+                self.stats["prefill_captures"] += 1
+                TR.note_memory(sp, self.device)
+
+    def _bucket(self, S_len):
+        """The bucket a prompt of ``S_len`` tokens replays, or None."""
+        i = bisect.bisect_left(self._buckets, S_len)
+        return self._buckets[i] if i < len(self._buckets) else None
 
     @torch.no_grad()
     def _run(self):
@@ -449,17 +579,36 @@ class ServingEngine:
         while (pair := self.sched.admit(self.stats["steps"])) is not None:
             slot, req = pair
             self._end_queue(req.rid)
+            b = self._bucket(len(req.prompt))
             with TR.span("engine.admit", rid=req.rid,
-                         prompt_len=len(req.prompt)):
-                self._admit_one(slot, req)
+                         prompt_len=len(req.prompt), bucket=b):
+                self._admit_one(slot, req, b)
 
-    def _admit_one(self, slot, req):
-        toks = torch.tensor([req.prompt], dtype=torch.int32,
-                            device=self.device)
-        with TR.span("admit.prefill"):
-            logits, rc = prefill(self.params, self.cfg, toks, dist=self.dist)
-        with TR.span("admit.first_token"):
-            t0 = int(torch.argmax(logits[0, -1]))
+    def _admit_one(self, slot, req, b):
+        S_len = len(req.prompt)
+        if b is None:
+            toks = torch.tensor([req.prompt], dtype=torch.int32,
+                                device=self.device)
+            with TR.span("admit.prefill"):
+                logits, rc = prefill(self.params, self.cfg, toks,
+                                     dist=self.dist)
+            with TR.span("admit.first_token"):
+                t0 = int(torch.argmax(logits[0, -1]))
+        else:
+            with TR.span("admit.prefill"):
+                host = np.zeros(b + 1, np.int32)
+                host[:S_len] = req.prompt
+                host[b] = S_len - 1
+                self._pf_in[b].copy_(torch.from_numpy(host))
+                self._pf_graphs[b].replay()
+                for k, n in self._pf_launches[b].items():
+                    K.LAUNCHES[k] += n
+            first, cache = self._pf_out[b]
+            with TR.span("admit.first_token"):
+                t0 = int(first)
+            rc = padded_cache(cache, S_len, self.cfg)
+            self.stats["prefill_replays"] += 1
+            self.stats["prefill_pad_tokens"] += b - S_len
         req.tokens.append(t0)
         self.stats["admitted"] += 1
         self.stats["tokens"] += 1

@@ -407,12 +407,16 @@ def test_engine_graph_replay_equals_eager_step(cuda, family):
     """One capture per engine; the first replayed step, after admissions
     into slots 0-2 of 4, equals the eager ``decode_step_ragged`` on a copy
     of the same cache, bitwise (logits, next tokens, the finite probe).
-    The capture leaves the kernel-1 count at the warm-up step's launches,
-    and the replay adds them once."""
+    The capture leaves the kernel-1 count at the warm-up step's launches
+    (and, on the dense engine, its prefill warm-up's at the largest
+    bucket), and the replay adds them once."""
     cfg, exec_p = _engine_model(family, cuda)
     before = K.LAUNCHES["bsr_matmul"]
     eng = engine.ServingEngine(exec_p, cfg, n_slots=4, seq_cap=32)
-    per_step = K.LAUNCHES["bsr_matmul"] - before
+    prefill_warm_up = (eng._pf_launches[eng._buckets[-1]]["bsr_matmul"]
+                       if eng._buckets else 0)
+    assert prefill_warm_up == (7 * cfg.n_layers if family == "dense" else 0)
+    per_step = K.LAUNCHES["bsr_matmul"] - before - prefill_warm_up
     assert eng.stats["graph_captures"] == 1 and per_step > 0
     assert eng._replay_launches == {"bsr_matmul": per_step}
     rng = np.random.RandomState(0)
@@ -454,6 +458,67 @@ def test_engine_tokens_on_card_equal_generate(cuda, family):
     for rid, p in zip(rids, prompts):
         want = engine.generate(exec_p, cfg, np.asarray([p]), 6)[0].tolist()
         assert eng.requests[rid].tokens == want
+
+
+# -- the engine's captured admission prefill ---------------------------------
+
+@pytest.mark.parametrize("b", [16, 64])
+def test_dense_prefill_never_syncs(cuda, b):
+    """``padded_prefill`` at a bucket, and the eager ``prefill``, run under
+    ``set_sync_debug_mode("error")``: no host sync and no copy of host
+    data (after one call that builds kernel 1 and its tables)."""
+    cfg, exec_p = _engine_model("dense", cuda)
+    toks = torch.randint(1, cfg.vocab, (1, b), dtype=torch.int32,
+                         device=cuda)
+    row = torch.full((1,), b - 3, dtype=torch.int32, device=cuda)
+    layers = T.layer_params(exec_p)
+    with torch.no_grad():
+        engine.padded_prefill(exec_p, cfg, toks, row, layers)
+        engine.prefill(exec_p, cfg, toks)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            engine.padded_prefill(exec_p, cfg, toks, row, layers)
+            engine.prefill(exec_p, cfg, toks)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_engine_replayed_admissions_equal_eager_and_generate(cuda,
+                                                             monkeypatch):
+    """fp32, TF32 off, prompts over three buckets (16, 32, 64): the
+    engine's replayed admissions give the tokens of the same engine
+    admitting eagerly and of a B = 1 ``generate`` of each request; every
+    admission replays (one capture a bucket) and counts kernel 1's 7
+    launches a layer once."""
+    from repro_torch.serve import trace as TR
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, exec_p = _engine_model("dense", cuda)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(1, cfg.vocab, size=n).tolist()
+               for n in (5, 16, 17, 33, 64, 40, 1)]
+    eng = engine.ServingEngine(exec_p, cfg, n_slots=2, seq_cap=64)
+    assert eng._buckets == (16, 32, 64)
+    assert eng.stats["prefill_captures"] == 3
+    eager = engine.ServingEngine(exec_p, cfg, n_slots=2, seq_cap=64)
+    eager._buckets = ()
+    TR.reset()
+    rids = [eng.submit(p, 6) for p in prompts]
+    eng.run()
+    admits = [sp for sp in TR.spans()[0] if sp.name == "engine.admit"]
+    eids = [eager.submit(p, 6) for p in prompts]
+    eager.run()
+    assert eng.stats["prefill_replays"] == eng.stats["admitted"] == 7
+    assert eager.stats["prefill_replays"] == 0
+    assert [sp.attrs["bucket"] for sp in admits] == [16, 16, 32, 64, 64,
+                                                      64, 16]
+    assert [sp.launches for sp in admits] == [7 * cfg.n_layers] * 7
+    for rid, eid, p in zip(rids, eids, prompts):
+        want = engine.generate(exec_p, cfg, np.asarray([p]), 6)[0].tolist()
+        assert eng.requests[rid].tokens == want
+        assert eager.requests[eid].tokens == want
+    TR.reset()
 
 
 # -- kernel 1 over an MoE expert stack ---------------------------------------

@@ -278,7 +278,9 @@ def _chaos_run(make, F_, params, cfg, prompts):
     eng.run()
     toks = {r: list(eng.requests[r].tokens) for r in rids}
     status = {r: eng.requests[r].status for r in rids}
-    stats = {k: v for k, v in eng.stats.items() if k != "graph_captures"}
+    stats = {k: v for k, v in eng.stats.items()
+             if k not in ("graph_captures", "prefill_captures",
+                          "prefill_replays", "prefill_pad_tokens")}
     return list(eng.sched.events), toks, status, stats
 
 

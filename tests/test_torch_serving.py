@@ -16,7 +16,12 @@ SMOKE size, fp32 (weights crossed from the reference's ``init_lm``):
   ssm (the reference's hybrid prefill takes its state from the layer
   output, ROADMAP queue 3); the packed path, a sliding window, slot
   reuse, eviction, stop tokens, quarantine, occupancy, fixed step shapes;
-- a replay's launch counts and the CLI's engine path.
+- a replay's launch counts and the CLI's engine path;
+- the captured admission prefill: its buckets, ``padded_prefill`` against
+  ``prefill`` (the real ring and the last real row), which engines take
+  it (the card's dense engine off a mesh) and which admit eagerly (the
+  CPU, moe, ssm, hybrid, a one-rank mesh), and the replayed admissions
+  with the card's CUDA calls stubbed.
 
 On the CPU the engine steps eagerly (no CUDA graph:
 ``stats["graph_captures"] == 0``); ``tests/test_torch_cuda.py`` holds the
@@ -61,6 +66,9 @@ ROOT = Path(__file__).resolve().parents[1]
 ARCH = {"dense": "yi-9b", "moe": "mixtral-8x7b", "ssm": "mamba2-1.3b",
         "hybrid": "hymba-1.5b"}
 FAMILIES = tuple(ARCH)
+# the port's counters of its CUDA graphs, which the reference engine lacks
+PORT_STATS = ("graph_captures", "prefill_captures", "prefill_replays",
+              "prefill_pad_tokens")
 
 
 @functools.lru_cache(maxsize=None)
@@ -424,7 +432,7 @@ def test_engine_tokens_equal_reference_engine(family):
     reng.run()
     assert toks == [reng.requests[r].tokens for r in rids]
     assert eng.sched.events == reng.sched.events
-    assert {k: v for k, v in eng.stats.items() if k != "graph_captures"} \
+    assert {k: v for k, v in eng.stats.items() if k not in PORT_STATS} \
         == reng.stats
 
 
@@ -623,7 +631,8 @@ def test_replays_count_the_launches_their_capture_recorded(monkeypatch):
     for name, fake in (("Stream", Stream), ("current_stream", Stream),
                        ("stream", lambda s: contextlib.nullcontext()),
                        ("CUDAGraph", Graph),
-                       ("graph", lambda g: contextlib.nullcontext())):
+                       ("graph", lambda g, pool=None:
+                        contextlib.nullcontext())):
         monkeypatch.setattr(torch.cuda, name, fake)
     monkeypatch.setitem(K.LAUNCHES, "bsr_matmul", 0)
     eng = engine.ServingEngine(pparams, pcfg, n_slots=2, seq_cap=32,
@@ -653,6 +662,218 @@ def test_grown_tile_counters_keep_the_tensor_a_graph_holds(monkeypatch):
     grown = K._counters(dev, (1 << 16) + 1)
     assert grown.numel() == 1 << 17 and not grown.any()
     assert K._RETIRED == [first]
+
+
+# -- the captured admission prefill -----------------------------------------
+
+@pytest.mark.parametrize("seq_cap,want", [
+    (32, (16, 32)),
+    (1024, (16, 32, 64, 128, 256, 512, 1024)),
+    (1000, (16, 32, 64, 128, 256, 512, 1000)),
+    (8, (8,))])
+def test_prefill_buckets(seq_cap, want):
+    assert engine.prefill_buckets(seq_cap) == want
+
+
+@pytest.mark.parametrize("S_len,window", [(1, 0), (5, 0), (16, 0), (17, 0),
+                                          (32, 0), (17, 8), (32, 8)])
+def test_padded_prefill_equals_prefill(S_len, window):
+    """The prompt right-padded with token 0 to its bucket (the smallest of
+    ``prefill_buckets(64)`` holding it): ``padded_cache``'s ring equals
+    ``prefill``'s cache within 1e-6 of its max |value| (positions
+    exactly), a sliding window shorter than the prompt cutting the real
+    prompt, and the last real row's logits give the same argmax."""
+    _, pcfg, _, pparams = _model("dense")
+    cfg = pcfg.replace(sliding_window=window)
+    b = next(x for x in engine.prefill_buckets(64) if x >= S_len)
+    prompt = _prompts(cfg.vocab, [S_len], seed=S_len)[0]
+    toks = torch.zeros((1, b), dtype=torch.int32)
+    toks[0, :S_len] = torch.tensor(prompt)
+    with torch.no_grad():
+        want_logits, want = engine.prefill(pparams, cfg, torch.tensor(
+            [prompt], dtype=torch.int32))
+        logits, cache = engine.padded_prefill(pparams, cfg, toks,
+                                              torch.tensor([S_len - 1]))
+    assert cache["kv"]["k"].shape == (cfg.n_layers, 1, b, cfg.n_kv_heads,
+                                      cfg.hd)
+    got = engine.padded_cache(cache, S_len, cfg)
+    cap = KV.slot_capacity(cfg, S_len)
+    assert cap == (min(window, S_len) if window else S_len)
+    assert torch.equal(got["kv"]["pos"], want["kv"]["pos"])
+    for name in ("k", "v"):
+        assert got["kv"][name].shape == want["kv"][name].shape
+        _close_rel(got["kv"][name], want["kv"][name], tol=1e-6)
+    assert logits.shape == want_logits.shape
+    assert int(logits.argmax()) == int(want_logits.argmax())
+
+
+@pytest.mark.parametrize("kv_chunk,seq_cap,want", [
+    (1024, 1024, (16, 32, 64, 128, 256, 512, 1024)),
+    (16, 40, (16, 32)),
+    (1024, 2000, (16, 32, 64, 128, 256, 512, 1024))])
+def test_engine_buckets_are_those_the_prefill_runs(monkeypatch, kv_chunk,
+                                                   seq_cap, want):
+    """Past ``kv_chunk`` the prefill's attention takes whole chunks only,
+    so a bucket that is not one is dropped (its prompts could not run
+    eagerly either)."""
+    _, pcfg, _, pparams = _model("dense")
+    monkeypatch.setattr(engine, "replays_prefill", lambda *a: True)
+    eng = engine.ServingEngine(pparams, pcfg.replace(kv_chunk=kv_chunk),
+                               n_slots=1, seq_cap=seq_cap, device="cpu")
+    assert eng._buckets == want
+
+
+@pytest.mark.parametrize("device,family,meshed,want", [
+    ("cuda", "dense", False, True),
+    ("cpu", "dense", False, False),
+    ("cuda", "moe", False, False),
+    ("cuda", "ssm", False, False),
+    ("cuda", "hybrid", False, False),
+    ("cuda", "dense", True, False)])
+def test_which_engines_replay_the_prefill(device, family, meshed, want):
+    """Only the card's dense engine off a mesh captures its prefill."""
+    _, pcfg, _, _ = _model(family)
+    dist = object() if meshed else None
+    assert engine.replays_prefill(pcfg, torch.device(device), dist) is want
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_cpu_engines_admit_eagerly(family):
+    """Off the card every family admits through the eager ``prefill``:
+    nothing captured, nothing replayed, the tokens ``generate``'s."""
+    _, pcfg, _, pparams = _model(family)
+    prompts = _prompts(pcfg.vocab, [5, 17, 9], seed=3)
+    eng, toks = _serve(pparams, pcfg, prompts, 4)
+    assert eng._buckets == ()
+    assert (eng.stats["prefill_captures"], eng.stats["prefill_replays"],
+            eng.stats["prefill_pad_tokens"]) == (0, 0, 0)
+    for p, t in zip(prompts, toks):
+        assert t == _oracle(pparams, pcfg, p, 4)
+
+
+ONE_RANK_ENGINE = """
+import json, torch
+from repro_torch import configs
+from repro_torch.core import reweighted as RW
+from repro_torch.distributed import sharding as SH
+from repro_torch.launch import mesh as MESH
+from repro_torch.launch.serve import SPARSE_SPEC
+from repro_torch.models import transformer as T
+from repro_torch.serve import compile as C, engine as E
+from repro_torch.train.trainer import apply_masks
+torch.set_num_threads(1)
+cfg = configs.get("yi-9b", smoke=True)
+p = T.init_lm(cfg, seed=0, dtype=torch.float32, device="cpu")
+masks = RW.magnitude_block_masks(p, SPARSE_SPEC, None, rate=0.5)
+exec_p, _ = C.compile_model(apply_masks(p, masks), masks, SPARSE_SPEC,
+                            spec=C.CompileSpec(keep_dense=False),
+                            device="cpu")
+mesh = MESH.make_local_mesh(1, device="cpu")
+placed = SH.shard_packed_tree(exec_p, mesh)
+d = SH.make_dist(mesh, cfg, 1)
+prompts = [[5, 7, 11, 13], [17, 19, 23], [29, 31, 37, 41, 43]]
+eng = E.ServingEngine(placed, cfg, n_slots=2, seq_cap=16, device="cpu",
+                      dist=d)
+rids = [eng.submit(q, 4) for q in prompts]
+eng.run()
+want = [E.generate(exec_p, cfg, torch.tensor([q]), 4,
+                   device="cpu")[0].tolist() for q in prompts]
+out = {"tokens_equal": [eng.requests[r].tokens for r in rids] == want,
+       "replays_on_card": E.replays_prefill(cfg, torch.device("cuda"), d),
+       "stats": [eng.stats[k] for k in ("prefill_captures",
+                                        "prefill_replays",
+                                        "prefill_pad_tokens")]}
+MESH.close_local_mesh()
+print(json.dumps(out))
+"""
+
+
+def test_one_rank_mesh_engine_admits_eagerly():
+    """A one-rank gloo mesh (in a subprocess: no group starts in the test
+    process): the engine under ``dist`` admits eagerly, and would on the
+    card too; its tokens are the un-meshed ``generate``'s."""
+    import json
+    import os
+    proc = subprocess.run(
+        [sys.executable, "-c", ONE_RANK_ENGINE], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"tokens_equal": True, "replays_on_card": False,
+                   "stats": [0, 0, 0]}
+
+
+def test_replayed_admissions_equal_generate(monkeypatch):
+    """The card's admission path with its CUDA calls stubbed on the CPU: a
+    stub capture runs the bucket's forward once and a stub replay runs it
+    again into the captured outputs.  Each bucket is captured once,
+    largest first; every admission replays its bucket, counts the
+    capture's launches once (the warm-up's stay counted, the captures'
+    are taken back out) and the padding it ran; the ``engine.admit``
+    span names the bucket; the tokens are ``generate``'s."""
+    from repro_torch.kernels import bsr_matmul as K
+    from repro_torch.serve import trace as TR
+    _, pcfg, _, pparams = _model("dense")
+    per = 7 * pcfg.n_layers                  # kernel 1's, on the card
+    held = []
+
+    class Graph:
+        def replay(self):
+            eng = held[0]
+            b = next(b for b, g in eng._pf_graphs.items() if g is self)
+            n = K.LAUNCHES["bsr_matmul"]
+            (first, cache), (new_first, new) = (eng._pf_out[b],
+                                                eng._bucket_forward(b))
+            first.copy_(new_first)
+            for name, t in cache["kv"].items():
+                t.copy_(new["kv"][name])
+            K.LAUNCHES["bsr_matmul"] = n     # a replay launches nothing
+
+    class Stream:
+        def __init__(self, *args):
+            pass
+
+        def wait_stream(self, other):
+            pass
+
+    def counted(*args, **kw):
+        K.LAUNCHES["bsr_matmul"] += per
+        return real(*args, **kw)
+    real = engine.padded_prefill
+    monkeypatch.setattr(engine, "padded_prefill", counted)
+    for name, fake in (("Stream", Stream), ("current_stream", Stream),
+                       ("stream", lambda s: contextlib.nullcontext()),
+                       ("CUDAGraph", Graph), ("graph_pool_handle", object),
+                       ("graph", lambda g, pool=None:
+                        contextlib.nullcontext())):
+        monkeypatch.setattr(torch.cuda, name, fake)
+    monkeypatch.setitem(K.LAUNCHES, "bsr_matmul", 0)
+    TR.reset()
+    eng = engine.ServingEngine(pparams, pcfg, n_slots=2, seq_cap=32,
+                               device="cpu")
+    held.append(eng)
+    eng._buckets = engine.prefill_buckets(32)
+    eng._capture_prefill()
+    assert K.LAUNCHES["bsr_matmul"] == per          # the warm-up alone
+    assert eng.stats["prefill_captures"] == 2
+    assert eng._pf_launches == {16: {"bsr_matmul": per},
+                                32: {"bsr_matmul": per}}
+    spans, _ = TR.spans()
+    assert [sp.attrs["bucket"] for sp in spans
+            if sp.name == "engine.capture_prefill"] == [32, 16]
+    prompts = _prompts(pcfg.vocab, [5, 16, 17, 30], seed=4)
+    rids = [eng.submit(p, 5) for p in prompts]
+    eng.run()
+    for rid, p in zip(rids, prompts):
+        assert eng.requests[rid].tokens == _oracle(pparams, pcfg, p, 5)
+    assert eng.stats["prefill_replays"] == eng.stats["admitted"] == 4
+    assert eng.stats["prefill_pad_tokens"] == 11 + 0 + 15 + 2
+    assert K.LAUNCHES["bsr_matmul"] == per + 4 * per
+    admits = [sp for sp in TR.spans()[0] if sp.name == "engine.admit"]
+    assert [sp.attrs["bucket"] for sp in admits] == [16, 16, 32, 32]
+    assert [sp.launches for sp in admits] == [per] * 4
+    TR.reset()
 
 
 # -- the CLI -----------------------------------------------------------------
