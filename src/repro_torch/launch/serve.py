@@ -16,7 +16,10 @@ the engine's spans (``serve.trace``) that closed since the last line: an
 admission's prefill dispatch / first-token wait / slot write, a
 decode-only step's host time / graph time on the card and its replay's
 copy-in / launch / read-back, the harvest, and the queue wait; the set-up
-spans' seconds and card memory are printed once, before the first step:
+spans' seconds and card memory are printed once, before the first step.
+The closing line gives the engine's totals, among them the moe family's
+routed (token, expert) pairs at admission and those its capacity rule
+dropped:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --sparse \\
       --layers 8 --batch-size 8 --arrival-rate 1 --requests 16
@@ -197,7 +200,8 @@ def _run_engine(params, cfg, args, mode):
           f"{args.requests} requests, {s['tokens']} tokens in {dt:.2f}s "
           f"({s['tokens'] / dt:.1f} tok/s incl. prefills), mean occupancy "
           f"{eng.mean_occupancy():.2f}, {s['prefill_replays']} prefill(s) "
-          f"replayed ({s['prefill_pad_tokens']} pad tokens)")
+          f"replayed ({s['prefill_pad_tokens']} pad tokens), moe pairs "
+          f"{s['moe_pairs']} dropped {s['moe_dropped']}")
 
 
 def _setup_line(spans):

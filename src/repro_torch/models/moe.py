@@ -17,8 +17,15 @@ every degree bin.  silu fuses into the gate projection's epilogue as in
 
 The router stays dense and fp32 (never packed: the paper's "don't prune
 tiny, sensitive layers" rule, §5.2.4).
+
+Outside a CUDA-graph capture the routing and dispatch (router, top-k,
+capacity, dispatch einsum) are a ``serve.trace`` span ``moe.dispatch``,
+and inside a ``trace.tally`` block (an engine's eager admission) each
+dispatch off a mesh adds its routed pairs and the pairs it keeps.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +36,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.bsr_matmul import local_layout, placed_layout
 from repro_torch.models import layers as L
 from repro_torch.models import module as M
+from repro_torch.serve import trace as TR
 
 
 def moe_init(d_model, d_ff, n_experts, generator, n=None,
@@ -155,27 +163,35 @@ def moe(params, x, *, top_k, capacity_factor=1.25, group=1024, masks=None,
     G = T // Sg
     if dist is not None:
         x = _whole_groups(x, G)
-    xt = x.reshape(G, Sg, D)
-    # routed in fp32, the router promoted as the reference's einsum of an
-    # fp32 x with a (possibly bf16) router promotes it
-    logits = torch.einsum("gsd,de->gse", xt.float(),
-                          params["router"]["w"].float())
-    # the group-size clamp stays OUTSIDE the floor of 4: a group of fewer
-    # than 4 tokens gets no more slots than tokens
-    C = min(Sg, max(4, int(Sg * top_k / E * capacity_factor)))
-    if dist is None:
-        disp, combine, aux = _dispatch_tensors(logits, top_k, C)
-    else:
-        disp, combine, aux = dist.replicated(_dispatch_tensors)(
-            logits, top_k, C)
+    # a span inside a CUDA-graph capture would time the capture: the
+    # captured decode step records none
+    eager = not (x.is_cuda and torch.cuda.is_current_stream_capturing())
+    with TR.span("moe.dispatch") if eager else contextlib.nullcontext():
+        xt = x.reshape(G, Sg, D)
+        # routed in fp32, the router promoted as the reference's einsum of
+        # an fp32 x with a (possibly bf16) router promotes it
+        logits = torch.einsum("gsd,de->gse", xt.float(),
+                              params["router"]["w"].float())
+        # the group-size clamp stays OUTSIDE the floor of 4: a group of
+        # fewer than 4 tokens gets no more slots than tokens
+        C = min(Sg, max(4, int(Sg * top_k / E * capacity_factor)))
+        if dist is None:
+            disp, combine, aux = _dispatch_tensors(logits, top_k, C)
+        else:
+            disp, combine, aux = dist.replicated(_dispatch_tensors)(
+                logits, top_k, C)
 
-    dt = x.dtype
-    if dist is None:
-        expert_in = _dispatch_in(disp.to(dt), xt)[0]
-    else:
-        expert_in = dist.local_map(_dispatch_in, ("b", "b"), ("b",))(
-            disp.to(dt), xt)[0]
-        expert_in = dist.shard_experts(expert_in)
+        dt = x.dtype
+        if dist is None:
+            expert_in = _dispatch_in(disp.to(dt), xt)[0]
+            tally = TR.open_tally()
+            if tally is not None:
+                # a kept pair has one slot of its expert set in ``disp``
+                tally.add(G * Sg * top_k, torch.count_nonzero(disp))
+        else:
+            expert_in = dist.local_map(_dispatch_in, ("b", "b"), ("b",))(
+                disp.to(dt), xt)[0]
+            expert_in = dist.shard_experts(expert_in)
     g = _expert_linear(params["gate"], expert_in, m.get("gate"), act="silu",
                        dist=dist)
     u = _expert_linear(params["up"], expert_in, m.get("up"), dist=dist)

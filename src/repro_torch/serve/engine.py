@@ -15,6 +15,7 @@ caller (``sharding.shard_packed_tree`` for the packed layouts)."""
 from __future__ import annotations
 
 import bisect
+import contextlib
 import functools
 import time
 
@@ -316,12 +317,22 @@ class ServingEngine:
     ``prefill``.  ``stats``: ``prefill_captures``, ``prefill_replays``,
     ``prefill_pad_tokens`` (the padding the replays ran).
 
+    The moe family's eager admission, off a mesh and while the recorder
+    is on, counts its prefill's expert dispatch (``serve.trace.tally``):
+    the routed (token, expert) pairs and those the capacity rule dropped,
+    read in the copy that reads the first token, summed in ``stats``
+    ``moe_pairs`` and ``moe_dropped`` and put on its ``engine.admit``
+    span.  The decode step routes its tokens one by one, which never
+    drops, and counts nothing.
+
     Spans (``serve.trace``): ``engine.init`` (``engine.capture`` and one
     ``engine.capture_prefill`` a bucket, its ``bucket``, inside, each with
     the card's ``memory_allocated`` at its close); per step
     ``engine.step`` (``active`` slots, ``admitted`` requests,
     ``harvest_ms``), inside it one ``engine.admit`` per admission (its
-    ``bucket``, None on the eager path; ``admit.prefill``, the host
+    ``bucket``, None on the eager path; on the moe family's eager path
+    ``moe_pairs`` and ``moe_dropped``, and one ``moe.dispatch`` a layer
+    inside its prefill; ``admit.prefill``, the host
     enqueuing the eager forward, or copying a bucket's input in and
     launching its graph; ``admit.first_token``, the host waiting for the
     card; ``admit.slot_write``)
@@ -384,7 +395,8 @@ class ServingEngine:
                       "rejected": 0, "quarantined": 0, "expired": 0,
                       "degraded_layers": len(degraded), "graph_captures": 0,
                       "prefill_captures": 0, "prefill_replays": 0,
-                      "prefill_pad_tokens": 0}
+                      "prefill_pad_tokens": 0, "moe_pairs": 0,
+                      "moe_dropped": 0}
         self._graph = self._events = None
         self._replays = 0
         self._queue_spans: dict = {}
@@ -581,19 +593,33 @@ class ServingEngine:
             self._end_queue(req.rid)
             b = self._bucket(len(req.prompt))
             with TR.span("engine.admit", rid=req.rid,
-                         prompt_len=len(req.prompt), bucket=b):
-                self._admit_one(slot, req, b)
+                         prompt_len=len(req.prompt), bucket=b) as sp:
+                self._admit_one(slot, req, b, sp)
 
-    def _admit_one(self, slot, req, b):
+    def _admit_one(self, slot, req, b, sp):
         S_len = len(req.prompt)
         if b is None:
             toks = torch.tensor([req.prompt], dtype=torch.int32,
                                 device=self.device)
-            with TR.span("admit.prefill"):
-                logits, rc = prefill(self.params, self.cfg, toks,
-                                     dist=self.dist)
+            counts = self.cfg.family == "moe" and self.dist is None
+            with (TR.tally(self.device) if counts
+                  else contextlib.nullcontext()) as tally:
+                with TR.span("admit.prefill"):
+                    logits, rc = prefill(self.params, self.cfg, toks,
+                                         dist=self.dist)
             with TR.span("admit.first_token"):
-                t0 = int(torch.argmax(logits[0, -1]))
+                first = torch.argmax(logits[0, -1])
+                if tally is None:
+                    t0 = int(first)
+                else:       # the first token and the count in one copy
+                    t0, kept = torch.stack([first, tally.kept]).tolist()
+            if tally is not None:
+                moe = {"moe_pairs": tally.pairs,
+                       "moe_dropped": tally.pairs - kept}
+                for k, n in moe.items():
+                    self.stats[k] += n
+                if sp is not None:
+                    sp.attrs.update(moe)
         else:
             with TR.span("admit.prefill"):
                 host = np.zeros(b + 1, np.int32)

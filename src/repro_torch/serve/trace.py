@@ -18,8 +18,14 @@ open has ``t1`` None.  A closed span is held as a flat tuple of plain
 values (its attributes' names and values as two more), which the garbage
 collector stops tracking: a ring of tracked objects would have each full
 collection walk all of it, which costs more than the span.
-Recording is on by default; ``enable(False)`` makes ``span`` and ``begin``
-no-ops.
+Recording is on by default; ``enable(False)`` makes ``span``, ``begin``
+and ``tally`` no-ops.
+
+``tally(device)`` opens a ``Tally`` of the MoE dispatches that run inside
+its block (the engine opens one around each eager admission's prefill):
+``models.moe`` adds the (token, expert) pairs it routes, counted on the
+host, and those its capacity rule keeps, counted on the device, so that
+the caller reads the count with a copy it makes anyway.
 
 While a ``torch.profiler`` is active, each span also opens a host range
 ``repro.<name>`` in the profiler's trace, on the clock of the device's
@@ -33,6 +39,7 @@ One thread drives the engine; the recorder takes no lock.
 from __future__ import annotations
 
 import collections
+import contextlib
 import time
 
 import torch
@@ -47,6 +54,7 @@ _ring: collections.deque = collections.deque(maxlen=CAPACITY)
 _count = 0          # spans ever opened; the next span's index
 _epoch = 0          # advanced by ``reset``
 _open: list = []    # the nested spans open now, innermost last
+_tally = None       # the ``Tally`` open now, if any
 
 
 class Span:
@@ -141,6 +149,42 @@ def begin(name, rid=None, **attrs):
     if not enabled:
         return None
     return Span(name, rid, attrs, False)
+
+
+class Tally:
+    """The MoE dispatches inside a ``tally`` block: ``pairs`` routed
+    (token, expert) pairs (a host int) and ``kept`` those within their
+    expert's capacity (a 0-dim int64 tensor on ``device``)."""
+
+    __slots__ = ("pairs", "kept")
+
+    def __init__(self, device):
+        self.pairs = 0
+        self.kept = torch.zeros((), dtype=torch.int64, device=device)
+
+    def add(self, pairs, kept):
+        self.pairs += pairs
+        self.kept.add_(kept)
+
+
+@contextlib.contextmanager
+def tally(device):
+    """A ``Tally`` the MoE dispatches inside the block add to (None, and
+    no tally, while recording is off)."""
+    global _tally
+    if not enabled:
+        yield None
+        return
+    _tally = t = Tally(device)
+    try:
+        yield t
+    finally:
+        _tally = None
+
+
+def open_tally():
+    """The ``Tally`` open now, or None."""
+    return _tally
 
 
 def note_memory(sp, device):

@@ -280,7 +280,8 @@ def _chaos_run(make, F_, params, cfg, prompts):
     status = {r: eng.requests[r].status for r in rids}
     stats = {k: v for k, v in eng.stats.items()
              if k not in ("graph_captures", "prefill_captures",
-                          "prefill_replays", "prefill_pad_tokens")}
+                          "prefill_replays", "prefill_pad_tokens",
+                          "moe_pairs", "moe_dropped")}
     return list(eng.sched.events), toks, status, stats
 
 

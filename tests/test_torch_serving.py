@@ -66,9 +66,10 @@ ROOT = Path(__file__).resolve().parents[1]
 ARCH = {"dense": "yi-9b", "moe": "mixtral-8x7b", "ssm": "mamba2-1.3b",
         "hybrid": "hymba-1.5b"}
 FAMILIES = tuple(ARCH)
-# the port's counters of its CUDA graphs, which the reference engine lacks
+# the port's counters of its CUDA graphs and of the moe admission's
+# dispatch, which the reference engine lacks
 PORT_STATS = ("graph_captures", "prefill_captures", "prefill_replays",
-              "prefill_pad_tokens")
+              "prefill_pad_tokens", "moe_pairs", "moe_dropped")
 
 
 @functools.lru_cache(maxsize=None)

@@ -5,11 +5,17 @@ widths: nesting and parent indices, request ids on ``queue`` and
 ``LAUNCHES``, one ``engine.admit`` per admission and one ``engine.step``
 per step, the ring's bound and its dropped count, recording switched off,
 every span in a ``torch.profiler`` trace as ``repro.<name>`` nested as
-recorded, and the serve CLI's span lines.  One test, marked ``cuda``,
-holds the captured step's ``graph_ms`` to its step on the card:
+recorded, the serve CLI's span lines, and the moe family's eager
+admission: its ``moe.dispatch`` spans and its counts of the routed and
+dropped (token, expert) pairs, against the capacity rule, nothing counted
+by a decode step, and no op added with the recorder off.  The tests
+marked ``cuda`` hold the captured step's ``graph_ms`` to its step, and
+the captured moe step to the same kernels with the recorder on and off,
+on the card:
 
   PYTHONPATH=src python -m pytest -q tests/test_torch_trace.py
 """
+import collections
 import functools
 
 import pytest
@@ -22,9 +28,11 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.core import reweighted as RW  # noqa: E402
 from repro_torch.kernels import bsr_matmul as K  # noqa: E402
 from repro_torch.launch import serve as CLI  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve import compile as C  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
+from repro_torch.serve import kvcache as KV  # noqa: E402
 from repro_torch.serve import trace as TR  # noqa: E402
 
 ENGINE_SPANS = {"engine.step", "engine.admit", "admit.prefill",
@@ -326,3 +334,177 @@ def test_profiled_card_run_names_every_span_on_the_host_only():
         if sp.parent is not None:
             (pa, pb), (a, b) = at[sp.parent], at[sp.index]
             assert pa <= a <= b <= pb, sp
+
+
+# -- the moe family's eager admission ----------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _moe_params(device="cpu"):
+    cfg = configs.get("mixtral-8x7b", smoke=True)
+    return cfg, T.init_lm(cfg, seed=0, dtype=torch.float32, device=device)
+
+
+MOE_PROMPT = tuple(np.random.RandomState(4).randint(1, 256, 32).tolist())
+
+
+def _dropped_by_the_rule(logits, top_k, capacity):
+    """(routed pairs, dropped pairs) of one dispatch, from its logits: a
+    pair is kept iff fewer than ``capacity`` earlier tokens of its group
+    picked its expert."""
+    idx = torch.topk(torch.softmax(logits.float(), -1), top_k, -1).indices
+    picked = torch.nn.functional.one_hot(idx, logits.shape[-1]).sum(2)
+    rank = torch.cumsum(picked, 1) - 1
+    keep = (picked > 0) & (rank < capacity)
+    return int(picked.sum()), int(picked.sum() - keep.sum())
+
+
+def test_moe_admission_counts_what_the_capacity_rule_dropped(monkeypatch):
+    """A request with a budget of 1 finishes at its admission, so only
+    the prefill dispatches: the counts on its ``engine.admit`` span and in
+    ``stats`` are the capacity rule's over the logits each layer routed,
+    and each layer's dispatch is one ``moe.dispatch`` span inside
+    ``admit.prefill``."""
+    cfg, params = _moe_params()
+    seen = []
+    real = MOE._dispatch_tensors
+
+    def spy(logits, top_k, capacity):
+        seen.append((logits.detach().clone(), top_k, capacity))
+        return real(logits, top_k, capacity)
+    monkeypatch.setattr(MOE, "_dispatch_tensors", spy)
+    eng = engine.ServingEngine(params, cfg, n_slots=1, seq_cap=64,
+                               device="cpu")
+    eng.submit(list(MOE_PROMPT), 1)
+    eng.run()
+    assert len(seen) == cfg.n_layers
+    pairs, dropped = map(sum, zip(*(_dropped_by_the_rule(*d)
+                                    for d in seen)))
+    assert pairs == len(MOE_PROMPT) * cfg.top_k * cfg.n_layers
+    assert dropped > 0
+    admit, = _closed("engine.admit")
+    assert (admit.attrs["moe_pairs"], admit.attrs["moe_dropped"]) == (
+        pairs, dropped)
+    assert (eng.stats["moe_pairs"], eng.stats["moe_dropped"]) == (
+        pairs, dropped)
+    prefill, = _closed("admit.prefill")
+    dispatch = _closed("moe.dispatch")
+    assert len(dispatch) == cfg.n_layers
+    assert all(sp.parent == prefill.index for sp in dispatch)
+
+
+def test_decode_steps_count_nothing():
+    """The decode step routes each token on its own (never dropped) and
+    counts nothing, in an admitting step as in a decode-only one."""
+    cfg, params = _moe_params()
+    eng = engine.ServingEngine(params, cfg, n_slots=1, seq_cap=64,
+                               device="cpu")
+    eng.submit(list(MOE_PROMPT), 6)
+    eng.step()                          # the admission and one decode
+    counts = (eng.stats["moe_pairs"], eng.stats["moe_dropped"])
+    assert counts[0] == len(MOE_PROMPT) * cfg.top_k * cfg.n_layers
+    eng.run()
+    assert eng.stats["steps"] > 2 and eng.stats["finished"] == 1
+    assert (eng.stats["moe_pairs"], eng.stats["moe_dropped"]) == counts
+    admits = _closed("engine.admit")
+    assert len(admits) == 1
+    for sp in _closed("engine.step")[1:]:
+        assert sp.attrs["admitted"] == 0 and "moe_pairs" not in sp.attrs
+    # the eager decode steps' dispatches are spans, outside any admission
+    by = {sp.index: sp for sp in _closed()}
+    in_steps = [sp for sp in _closed("moe.dispatch")
+                if by[by[sp.parent].parent].name == "engine.step"]
+    assert len(in_steps) == cfg.n_layers * (eng.stats["steps"])
+
+
+def _aten_ops(fn):
+    """The aten ops ``fn()`` dispatches, in order."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    names = []
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            names.append(str(func))
+            return func(*args, **(kwargs or {}))
+    with Count():
+        fn()
+    return names
+
+
+def test_recorder_off_admits_with_the_ops_it_had():
+    """With ``enable(False)`` an moe admission dispatches the ops of the
+    admission without counters (the prefill, the first token's argmax
+    read alone, the slot write); with the recorder on it adds the count's
+    ops and nothing else changes."""
+    cfg, params = _moe_params()
+
+    def admission(on):
+        TR.enable(on)
+        eng = engine.ServingEngine(params, cfg, n_slots=1, seq_cap=64,
+                                   device="cpu")
+        eng.submit(list(MOE_PROMPT), 4)
+        return _aten_ops(eng._admit)
+
+    def without_counters():
+        eng = engine.ServingEngine(params, cfg, n_slots=1, seq_cap=64,
+                                   device="cpu")
+
+        def admit():
+            toks = torch.tensor([list(MOE_PROMPT)], dtype=torch.int32)
+            logits, rc = engine.prefill(params, cfg, toks)
+            int(torch.argmax(logits[0, -1]))
+            eng.cache = KV.write_prefill(eng.cache, 0, rc)
+        return _aten_ops(admit)
+    off = admission(False)
+    assert off == without_counters()
+    on = admission(True)
+    added = collections.Counter(on) - collections.Counter(off)
+    # the first token is read in the copy that reads the count
+    assert set(collections.Counter(off) - collections.Counter(on)) <= {
+        "aten._local_scalar_dense.default"}
+    assert added["aten.count_nonzero.default"] == cfg.n_layers
+    assert added["aten.stack.default"] == 1
+
+
+@pytest.mark.cuda
+def test_captured_moe_step_same_with_the_recorder_on_and_off():
+    """The moe engine's captured decode step launches the same kernels,
+    kernel 1 as often, with the recorder on and off; only the eager
+    admission counts, and only with the recorder on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the captured step runs there")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train.trainer import apply_masks
+    cfg = configs.get("mixtral-8x7b", smoke=True)
+    p = T.init_lm(cfg, seed=0, dtype=torch.float32, device="cpu")
+    masks = RW.magnitude_block_masks(p, CLI.SPARSE_SPEC, None, rate=0.6)
+    exec_p, _ = C.compile_model(apply_masks(p, masks), masks,
+                                CLI.SPARSE_SPEC,
+                                spec=C.CompileSpec(keep_dense=False),
+                                device="cuda")
+    kernels, launches, counts = {}, {}, {}
+    for on in (True, False):
+        TR.reset()
+        TR.enable(on)
+        eng = engine.ServingEngine(exec_p, cfg, n_slots=4, seq_cap=64)
+        for n in (32, 17, 9):
+            eng.submit(list(MOE_PROMPT[:n]), 8)
+        eng.step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                eng._graph.replay()
+            torch.cuda.synchronize()
+        kernels[on] = collections.Counter(
+            e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
+        launches[on] = eng._replay_launches
+        counts[on] = (eng.stats["moe_pairs"], len(_closed("moe.dispatch")))
+    assert kernels[True] == kernels[False]
+    assert sum(kernels[True].values()) > 0
+    assert launches[True] == launches[False] == {
+        "bsr_matmul": 7 * cfg.n_layers}
+    # three eager admissions, one dispatch a layer each, plus the
+    # uncaptured warm-up step's
+    assert counts[True] == ((32 + 17 + 9) * cfg.top_k * cfg.n_layers,
+                            4 * cfg.n_layers)
+    assert counts[False] == (0, 0)
